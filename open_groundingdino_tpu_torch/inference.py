@@ -1,0 +1,200 @@
+"""Library inference API (the port of the JAX package's inference.py;
+reference groundingdino/util/inference.py:53-259).
+
+    im = load_model(cfg_path, checkpoint_path, vocab_path)   # device="cuda"
+    boxes, scores, phrases = predict(im, image, caption,
+                                     box_threshold=0.35, text_threshold=0.25)
+
+Images are resized shortest-edge 800 / max 1333 and padded to a static
+bucket; boxes come back as normalized cxcywh, like the reference's predict.
+The model runs on the device given to load_model (CUDA by default); nothing
+moves to the CPU unless the caller asks for it.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+from PIL import Image
+
+from .config import SLConfig
+from .data.tokenization import (
+    BertWordPieceTokenizer,
+    TokenizedBatch,
+    build_tokenizer,
+    generate_masks_with_special_tokens,
+)
+from .data.transforms import Bucketer, EvalTransform, Sample, normalize_image
+from .data.vl_utils import create_positive_map_from_span
+from .models.groundingdino import GroundingDINO, build_groundingdino
+from .utils.misc import clean_state_dict
+
+# keys of a reference checkpoint that are not parameters of the model: Swin's
+# recomputed index buffers, BERT's position-id buffer and its frozen, unused
+# pooler (the "ignored" section of the JAX package's
+# config/manifests/swint_keys.json)
+_IGNORED_SUFFIXES = (".relative_position_index", ".attn_mask")
+_IGNORED_PREFIXES = ("bert.pooler.", "bert.embeddings.position_ids")
+
+
+def _ignored(key: str) -> bool:
+    return key.endswith(_IGNORED_SUFFIXES) or key.startswith(_IGNORED_PREFIXES)
+
+
+def _box_head_source(key: str) -> str:
+    """The canonical key of a shared decoder box-head alias
+    (`bbox_embed.{i}.*` and `transformer.decoder.bbox_embed.{i}.*` are all
+    `bbox_embed.0.*`)."""
+    rest = key[len("transformer.decoder."):] if key.startswith("transformer.decoder.") else key
+    parts = rest.split(".")
+    if parts[0] == "bbox_embed" and len(parts) > 2:
+        return ".".join(["bbox_embed", "0"] + parts[2:])
+    return key
+
+
+def load_reference_state_dict(model: GroundingDINO, path: str) -> None:
+    """Load a reference-keyed .pth ({"model": state_dict} or a bare state
+    dict) into `model` with strict=True, after dropping the non-parameter
+    keys and filling absent box-head aliases from `bbox_embed.0`."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = clean_state_dict(ckpt.get("model", ckpt))
+    sd = {k: v for k, v in sd.items() if not _ignored(k)}
+    for key in model.state_dict():
+        if key not in sd and _box_head_source(key) in sd:
+            sd[key] = sd[_box_head_source(key)]
+    model.load_state_dict(sd, strict=True)
+
+
+@dataclass
+class InferenceModel:
+    model: GroundingDINO
+    tokenizer: BertWordPieceTokenizer
+    args: SLConfig
+    bucketer: Bucketer
+    max_text_len: int
+    device: torch.device
+
+
+def load_model(config_path: str, checkpoint_path: str, vocab_path: str,
+               device="cuda") -> InferenceModel:
+    """Build the model of `config_path` on `device` and load the
+    reference-keyed checkpoint; `vocab_path` is a bert-base-uncased
+    vocab.txt."""
+    if not checkpoint_path:
+        raise ValueError("checkpoint_path required for inference")
+    if not vocab_path:
+        raise ValueError("vocab_path to a bert-base-uncased vocab.txt is required")
+    args = SLConfig.fromfile(config_path)
+    device = torch.device(device)
+    model = build_groundingdino(args, device="meta").to_empty(device=device)
+    load_reference_state_dict(model, checkpoint_path)
+    return InferenceModel(
+        model=model.eval(),
+        tokenizer=build_tokenizer(vocab_path),
+        args=args,
+        bucketer=Bucketer(args.image_buckets),
+        max_text_len=int(args.max_text_len),
+        device=device,
+    )
+
+
+def preprocess_caption(caption: str) -> str:
+    c = caption.lower().strip()
+    return c if c.endswith(".") else c + "."
+
+
+def prepare_inputs(im: InferenceModel, image: Image.Image, caption: str,
+                   size: int = 800, max_size: int = 1333
+                   ) -> Tuple[Dict[str, torch.Tensor], TokenizedBatch]:
+    """Resize + normalize + bucket-pad the image, tokenize the (already
+    preprocessed) caption, and build the model's input tensors on the
+    model's device."""
+    sample = EvalTransform(size, max_size)(
+        Sample(image=image, boxes=np.zeros((0, 4), np.float32),
+               labels=np.zeros((0,), np.int64))
+    )
+    images, image_sizes = im.bucketer.pad_batch([normalize_image(sample.image)])
+    tok = im.tokenizer([caption], padding=im.max_text_len)
+    attn_mask, position_ids = generate_masks_with_special_tokens(
+        tok.input_ids, im.tokenizer.special_token_ids()
+    )
+    dev = im.device
+    inputs = {
+        "images": torch.from_numpy(images).to(dev),
+        "image_sizes": torch.from_numpy(image_sizes.astype(np.int64)).to(dev),
+        "input_ids": torch.from_numpy(tok.input_ids.astype(np.int64)).to(dev),
+        "text_token_mask": torch.from_numpy(tok.attention_mask.astype(bool)).to(dev),
+        "position_ids": torch.from_numpy(position_ids.astype(np.int64)).to(dev),
+        "text_self_attention_masks": torch.from_numpy(attn_mask).to(dev),
+    }
+    return inputs, tok
+
+
+def forward(im: InferenceModel, inputs: Dict[str, torch.Tensor]) -> Tuple[np.ndarray, np.ndarray]:
+    """(sigmoid token probabilities (Q, T), boxes cxcywh (Q, 4)) of image 0."""
+    with torch.inference_mode():
+        out = im.model(**inputs)
+        probs = out["pred_logits"][0].float().sigmoid().cpu().numpy()
+        boxes = out["pred_boxes"][0].float().cpu().numpy()
+    return probs, boxes
+
+
+def predict(
+    im: InferenceModel,
+    image: Image.Image,
+    caption: str,
+    box_threshold: float = 0.35,
+    text_threshold: float = 0.25,
+    size: int = 800,
+    max_size: int = 1333,
+) -> Tuple[np.ndarray, np.ndarray, List[str]]:
+    """Returns (boxes cxcywh normalized (N, 4), scores (N,), phrases)."""
+    caption = preprocess_caption(caption)
+    inputs, tok = prepare_inputs(im, image, caption, size, max_size)
+    logits, boxes = forward(im, inputs)
+
+    valid_tokens = tok.attention_mask[0].astype(bool)
+    logits = np.where(valid_tokens[None, :], logits, 0.0)
+    max_logits = logits.max(axis=1)
+    keep = max_logits > box_threshold
+    phrases = []
+    for row in logits[keep]:
+        ids = tok.input_ids[0][row > text_threshold]
+        # drop special tokens from the phrase (reference get_phrases_from_posmap)
+        ids = [i for i in ids.tolist()
+               if i not in (im.tokenizer.cls_token_id, im.tokenizer.sep_token_id)]
+        phrases.append(im.tokenizer.decode(ids))
+    return boxes[keep], max_logits[keep], phrases
+
+
+def predict_with_spans(
+    im: InferenceModel,
+    image: Image.Image,
+    caption: str,
+    token_spans,
+    box_threshold: float = 0.35,
+    size: int = 800,
+    max_size: int = 1333,
+) -> Tuple[np.ndarray, np.ndarray, List[str]]:
+    """Given-phrase mode (reference tools/inference_on_a_image.py:116-142):
+    `token_spans` lists, per phrase, (beg, end) char spans into the caption;
+    each query is scored per phrase by the mean probability over the
+    phrase's tokens."""
+    caption = preprocess_caption(caption)
+    inputs, tok = prepare_inputs(im, image, caption, size, max_size)
+    logits, boxes = forward(im, inputs)
+
+    pos_map = create_positive_map_from_span(tok, token_spans, im.max_text_len)
+    phrases_text = ["".join(caption[b:e] for b, e in spans) for spans in token_spans]
+    scores_per_phrase = logits @ pos_map.T  # (Q, n_phrases)
+    all_boxes, all_scores, all_phrases = [], [], []
+    for p in range(scores_per_phrase.shape[1]):
+        keep = scores_per_phrase[:, p] > box_threshold
+        all_boxes.append(boxes[keep])
+        all_scores.append(scores_per_phrase[keep, p])
+        all_phrases.extend([phrases_text[p]] * int(keep.sum()))
+    boxes_k = np.concatenate(all_boxes) if all_boxes else np.zeros((0, 4))
+    scores_k = np.concatenate(all_scores) if all_scores else np.zeros((0,))
+    return boxes_k, scores_k, all_phrases

@@ -1,0 +1,204 @@
+"""Shared transformer building blocks (the port of the JAX package's
+models/layers.py).
+
+A MultiHeadAttention with torch.nn.MultiheadAttention's packed-QKV parameter
+names, the GLIP-style bidirectional image<->text fusion attention (reference
+fuse_modules.py:99-295) whose core is K2 (ops/fusion.py), the text-enhancer
+layer (reference transformer_vanilla.py:72-123), the ReLU MLP head and the
+contrastive token classifier (reference GroundingDINO/utils.py:171-273).
+Inference only: drop_path and dropout are identity.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.fusion import fused_bi_attention
+from .position_encoding import get_sine_pos_embed
+
+MASK_NEG = -1e9
+
+
+class MultiHeadAttention(nn.Module):
+    """torch.nn.MultiheadAttention-compatible parameters (in_proj_weight,
+    in_proj_bias, out_proj).  q, k, v: (B, T, E).  attn_mask: bool (B, Tq, Tk)
+    or (Tq, Tk), True = NOT allowed; key_padding_mask: (B, Tk) bool,
+    True = pad."""
+
+    def __init__(self, embed_dim: int, num_heads: int):
+        super().__init__()
+        self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
+        self.in_proj_bias = nn.Parameter(torch.empty(3 * embed_dim))
+        self.out_proj = nn.Linear(embed_dim, embed_dim)
+
+    def init_weights_(self, g: torch.Generator) -> None:
+        bound = (6.0 / (4 * self.embed_dim)) ** 0.5  # xavier_uniform on (3E, E)
+        with torch.no_grad():
+            self.in_proj_weight.uniform_(-bound, bound, generator=g)
+            self.in_proj_bias.zero_()
+
+    def forward(self, q, k, v, attn_mask=None, key_padding_mask=None):
+        E, H = self.embed_dim, self.num_heads
+        D = E // H
+        B, Tq, _ = q.shape
+        Tk = k.shape[1]
+        w, b = self.in_proj_weight, self.in_proj_bias
+        qp = F.linear(q, w[:E], b[:E]).view(B, Tq, H, D)
+        kp = F.linear(k, w[E : 2 * E], b[E : 2 * E]).view(B, Tk, H, D)
+        vp = F.linear(v, w[2 * E :], b[2 * E :]).view(B, Tk, H, D)
+
+        logits = torch.einsum("bqhd,bkhd->bhqk", qp * D ** -0.5, kp)
+        if attn_mask is not None:
+            bias = attn_mask.to(logits.dtype) * MASK_NEG
+            logits = logits + (bias[None, None] if bias.dim() == 2 else bias[:, None])
+        if key_padding_mask is not None:
+            logits = logits.masked_fill(key_padding_mask[:, None, None, :], MASK_NEG)
+        probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs, vp).reshape(B, Tq, E)
+        return self.out_proj(out)
+
+
+class BiMultiHeadAttention(nn.Module):
+    """Bidirectional image<->text cross-attention from one logits matrix
+    (reference fuse_modules.py:99-248).  The core is `fused_bi_attention`:
+    K2 on CUDA tensors, the literal clamped formulation on CPU tensors."""
+
+    def __init__(self, v_dim: int, l_dim: int, embed_dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.scale = (embed_dim // num_heads) ** -0.5
+        self.v_proj = nn.Linear(v_dim, embed_dim)
+        self.l_proj = nn.Linear(l_dim, embed_dim)
+        self.values_v_proj = nn.Linear(v_dim, embed_dim)
+        self.values_l_proj = nn.Linear(l_dim, embed_dim)
+        self.out_v_proj = nn.Linear(embed_dim, v_dim)
+        self.out_l_proj = nn.Linear(embed_dim, l_dim)
+
+    def forward(self, v, l, attention_mask_v=None, attention_mask_l=None):
+        """v: (B, Nv, v_dim); l: (B, Nl, l_dim); masks (B, N) bool, True = pad."""
+        B, Nv, _ = v.shape
+        Nl = l.shape[1]
+        if attention_mask_v is None:
+            attention_mask_v = torch.zeros(B, Nv, dtype=torch.bool, device=v.device)
+        if attention_mask_l is None:
+            attention_mask_l = torch.zeros(B, Nl, dtype=torch.bool, device=l.device)
+        out_v, out_l = fused_bi_attention(
+            self.v_proj(v) * self.scale, self.l_proj(l),
+            self.values_v_proj(v), self.values_l_proj(l),
+            attention_mask_v, attention_mask_l, self.num_heads,
+        )
+        return self.out_v_proj(out_v), self.out_l_proj(out_l)
+
+
+class BiAttentionBlock(nn.Module):
+    """Pre-LN fusion block with layer-scale residuals (reference
+    fuse_modules.py:252-295); drop_path is identity at inference."""
+
+    def __init__(self, v_dim: int, l_dim: int, embed_dim: int, num_heads: int,
+                 init_values: float = 1e-4):
+        super().__init__()
+        self.init_values = init_values
+        self.layer_norm_v = nn.LayerNorm(v_dim, eps=1e-5)
+        self.layer_norm_l = nn.LayerNorm(l_dim, eps=1e-5)
+        self.attn = BiMultiHeadAttention(v_dim, l_dim, embed_dim, num_heads)
+        self.gamma_v = nn.Parameter(torch.empty(v_dim))
+        self.gamma_l = nn.Parameter(torch.empty(l_dim))
+
+    def init_weights_(self, g: torch.Generator) -> None:
+        with torch.no_grad():
+            self.gamma_v.fill_(self.init_values)
+            self.gamma_l.fill_(self.init_values)
+
+    def forward(self, v, l, attention_mask_v=None, attention_mask_l=None):
+        vn = self.layer_norm_v(v)
+        ln = self.layer_norm_l(l)
+        dv, dl = self.attn(vn, ln, attention_mask_v, attention_mask_l)
+        return vn + self.gamma_v * dv, ln + self.gamma_l * dl
+
+
+class TextEnhancerLayer(nn.Module):
+    """Post-norm encoder layer over text tokens with sine pos embeds from
+    position_ids and a block-diagonal attention mask (reference
+    transformer_vanilla.py:72-123 + transformer.py:571-577)."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int):
+        super().__init__()
+        self.d_model = d_model
+        self.self_attn = MultiHeadAttention(d_model, nhead)
+        self.linear1 = nn.Linear(d_model, dim_feedforward)
+        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+
+    def forward(self, text, text_self_attention_masks, position_ids):
+        """text (B, T, C); text_self_attention_masks (B, T, T) bool,
+        True = may attend; position_ids (B, T) int."""
+        pos = get_sine_pos_embed(
+            position_ids[..., None].float(), num_pos_feats=self.d_model,
+            exchange_xy=False,
+        ).to(text.dtype)
+        q = text + pos
+        attn_out = self.self_attn(q, q, text, attn_mask=~text_self_attention_masks)
+        x = self.norm1(text + attn_out)
+        h = self.linear2(F.relu(self.linear1(x)))
+        return self.norm2(x + h)
+
+
+class MLP(nn.Module):
+    """ReLU MLP head (reference GroundingDINO/utils.py:171-185)."""
+
+    def __init__(self, input_dim: int, hidden_dim: int, output_dim: int, num_layers: int):
+        super().__init__()
+        dims = [input_dim] + [hidden_dim] * (num_layers - 1) + [output_dim]
+        self.layers = nn.ModuleList(
+            nn.Linear(dims[i], dims[i + 1]) for i in range(num_layers)
+        )
+
+    def forward(self, x):
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            if i < len(self.layers) - 1:
+                x = F.relu(x)
+        return x
+
+
+def contrastive_embed(
+    queries: torch.Tensor,           # (B, Q, C)
+    encoded_text: torch.Tensor,      # (B, T, C)
+    text_token_mask: torch.Tensor,   # (B, T) bool, True = real token
+    max_text_len: int = 256,
+) -> torch.Tensor:
+    """Token-level contrastive logits, padded to max_text_len with -inf on
+    pad/overflow positions (reference GroundingDINO/utils.py:233-273)."""
+    res = torch.einsum("bqc,btc->bqt", queries, encoded_text)
+    res = res.masked_fill(~text_token_mask[:, None, :], float("-inf"))
+    T = res.shape[-1]
+    if T < max_text_len:
+        res = F.pad(res, (0, max_text_len - T), value=float("-inf"))
+    return res[..., :max_text_len]
+
+
+def default_init_(module: nn.Module, g: torch.Generator) -> None:
+    """Seeded init of every parameter of `module`, roughly the JAX package's
+    flax defaults: lecun-normal Linear/Conv kernels with zero biases,
+    unit/zero norms, N(0, 0.02) embeddings; then each submodule's own
+    `init_weights_(g)` where it defines one (the reference's special inits)."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Linear, nn.Conv2d)):
+                fan_in = m.weight[0].numel()
+                m.weight.normal_(0.0, fan_in ** -0.5, generator=g)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+            elif isinstance(m, nn.Embedding):
+                m.weight.normal_(0.0, 0.02, generator=g)
+    for m in module.modules():
+        init = getattr(m, "init_weights_", None)
+        if init is not None:
+            init(g)
+
