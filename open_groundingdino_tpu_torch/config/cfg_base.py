@@ -1,8 +1,7 @@
 # Base model hyper-parameters for the PyTorch port of GroundingDINO.
 # Values mirror the JAX package's config/cfg_base.py (itself the reference's
-# config/cfg_coco.py + tools/GroundingDINO_SwinT_OGC.py).  Only the keys the
-# port's serving path reads are kept; the training keys come with the
-# training slice.
+# config/cfg_coco.py + tools/GroundingDINO_SwinT_OGC.py): the keys of the
+# port's serving and training paths.
 
 modelname = "groundingdino"
 
@@ -32,7 +31,53 @@ text_encoder_type = "bert-base-uncased"
 use_text_enhancer = True
 use_fusion_layer = True
 use_text_cross_attention = True
+use_checkpoint = True            # checkpoint the fusion blocks
+use_transformer_ckpt = True      # checkpoint the deformable encoder layers
+text_dropout = 0.0
+fusion_dropout = 0.0
+fusion_droppath = 0.1
+sub_sentence_present = True
+
+# ---- losses / matching ---------------------------------------------------
 aux_loss = True
+set_cost_class = 1.0
+set_cost_bbox = 5.0
+set_cost_giou = 2.0
+cls_loss_coef = 2.0
+bbox_loss_coef = 5.0
+giou_loss_coef = 2.0
+interm_loss_coef = 1.0
+no_interm_box_loss = False
+focal_alpha = 0.25
+focal_gamma = 2.0
+matcher_type = "HungarianMatcher"
+num_select = 300
+nms_iou_threshold = -1
+
+# ---- optimisation -------------------------------------------------------------
+lr = 1e-4
+lr_backbone = 1e-5
+lr_backbone_names = ["backbone.0", "bert"]
+lr_linear_proj_mult = 0.1
+lr_linear_proj_names = ["ref_point_head", "sampling_offsets"]
+param_dict_type = "ddetr_in_mmdet"
+weight_decay = 1e-4
+epochs = 12
+lr_drop = 11
+save_checkpoint_interval = 1
+clip_max_norm = 0.1
+onecyclelr = False
+multi_step_lr = False
+lr_drop_list = [33, 45]
+freeze_keywords = None
+batch_size = 4
+
+# ---- data augmentation (reference datasets/transforms.py semantics) -------
+data_aug_scales = [480, 512, 544, 576, 608, 640, 672, 704, 736, 768, 800]
+data_aug_max_size = 1333
+data_aug_scales2_resize = [400, 500, 600]
+data_aug_scales2_crop = [384, 600]
+max_labels = 80  # ODVG pos+neg category sampling cap
 
 # ---- image sizes ------------------------------------------------------------
 # Static padded shapes: an image is resized shortest-edge 800 / max 1333 and
@@ -47,3 +92,10 @@ image_buckets = [
 ]
 eval_shortest_edge = 800
 eval_max_size = 1333
+max_gt_boxes = 128          # static per-image GT padding for the criterion
+compute_dtype = "float32"   # the port trains in f32 (bf16 is queued); the JAX
+                            # package's default is "bfloat16"
+u8_images = True            # ship uint8 pixels, normalize on the device
+use_ema = False             # reference cfg use_ema (util/utils.py ModelEma)
+ema_decay = 0.9997
+ema_epoch = 0

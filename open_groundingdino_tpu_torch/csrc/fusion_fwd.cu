@@ -37,6 +37,7 @@
 // variants are later work.
 #include <cuda_runtime.h>
 #include <cfloat>
+#include <cmath>
 #include <cstdint>
 
 namespace {
@@ -67,15 +68,18 @@ constexpr size_t smem_bytes() {
 
 // One block: kRows query rows of head h, keys [k_begin, k_end) of split s.
 // Qm/Km/Vm rows are E floats apart; the head's slice starts at h*D.
-// n_splits == 1: writes the normalized rows to out (B, Nq, E).
+// n_splits == 1: writes the normalized rows to out (B, Nq, E) and each row's
+// log-sum-exp over its live keys to lse (B, H, Nq) (+inf for a row with no
+// live key, so that exp(s - lse) is 0 in the backward).
 // n_splits > 1: writes the partial (acc, max, sum) of split s.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 attend_kernel(const float* __restrict__ Qm, const float* __restrict__ Km,
               const float* __restrict__ Vm, const uint8_t* __restrict__ key_pad,
               int Nq, int Nk, int E, int H, int n_splits, int chunk,
-              float* __restrict__ out, float* __restrict__ part_acc,
-              float* __restrict__ part_m, float* __restrict__ part_s) {
+              float* __restrict__ out, float* __restrict__ lse,
+              float* __restrict__ part_acc, float* __restrict__ part_m,
+              float* __restrict__ part_s) {
   constexpr int DJ = D / 32;
   extern __shared__ float smem[];
   float* sQ = smem;                            // [kRows][D]
@@ -191,6 +195,7 @@ attend_kernel(const float* __restrict__ Qm, const float* __restrict__ Km,
       float* orow = out + ((long long)b * Nq + r) * E + h * D;
 #pragma unroll
       for (int j = 0; j < DJ; ++j) orow[lane + 32 * j] = o[i][j] * inv;
+      if (lane == 0) lse[((long long)b * H + h) * Nq + r] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
     } else {
       const long long idx = (((long long)b * H + h) * n_splits + split) * Nq + r;
 #pragma unroll
@@ -203,11 +208,12 @@ attend_kernel(const float* __restrict__ Qm, const float* __restrict__ Km,
   }
 }
 
-// out[b, r, h*D + d] = sum_s e^(m_s - M) acc_s[d] / sum_s e^(m_s - M) l_s
+// out[b, r, h*D + d] = sum_s e^(m_s - M) acc_s[d] / sum_s e^(m_s - M) l_s;
+// lse[b, h, r] = M + log(sum_s e^(m_s - M) l_s), the column statistics K4 reads
 __global__ void combine_kernel(const float* __restrict__ part_acc,
                                const float* __restrict__ part_m,
                                const float* __restrict__ part_s,
-                               float* __restrict__ out,
+                               float* __restrict__ out, float* __restrict__ lse,
                                int Nq, int E, int H, int D, int n_splits) {
   const int r = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const long long base = (((long long)b * H + h) * n_splits) * Nq + r;
@@ -219,6 +225,7 @@ __global__ void combine_kernel(const float* __restrict__ part_acc,
     tot += expf(part_m[idx] - M) * part_s[idx];
   }
   const float inv = tot > 0.f ? 1.f / tot : 0.f;
+  if (threadIdx.x == 0) lse[((long long)b * H + h) * Nq + r] = tot > 0.f ? M + logf(tot) : INFINITY;
   for (int d = threadIdx.x; d < D; d += blockDim.x) {
     float acc = 0.f;
     for (int s = 0; s < n_splits; ++s) {
@@ -231,7 +238,7 @@ __global__ void combine_kernel(const float* __restrict__ part_acc,
 
 template <int D>
 cudaError_t attend(const float* Qm, const float* Km, const float* Vm, const uint8_t* key_pad,
-                   int B, int Nq, int Nk, int E, int H, int n_splits, float* out,
+                   int B, int Nq, int Nk, int E, int H, int n_splits, float* out, float* lse,
                    float* part_acc, float* part_m, float* part_s, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(attend_kernel<D>,
@@ -242,7 +249,7 @@ cudaError_t attend(const float* Qm, const float* Km, const float* Vm, const uint
   chunk = (chunk + kKeys - 1) / kKeys * kKeys;
   dim3 grid((Nq + kRows - 1) / kRows, H * n_splits, B);
   attend_kernel<D><<<grid, kThreads, smem, stream>>>(Qm, Km, Vm, key_pad, Nq, Nk, E, H,
-                                                     n_splits, chunk, out, part_acc,
+                                                     n_splits, chunk, out, lse, part_acc,
                                                      part_m, part_s);
   return cudaGetLastError();
 }
@@ -250,19 +257,19 @@ cudaError_t attend(const float* Qm, const float* Km, const float* Vm, const uint
 template <int D>
 int fusion_fwd(const float* q, const float* k, const float* val_v, const float* val_l,
                const uint8_t* pad_v, const uint8_t* pad_l, float* out_v, float* out_l,
-               float* part_acc, float* part_m, float* part_s,
+               float* lse_v, float* lse_l, float* part_acc, float* part_m, float* part_s,
                int B, int Nv, int Nl, int E, int H, int n_splits, cudaStream_t stream) {
-  // 1. image rows over text keys -> out_v
-  cudaError_t err = attend<D>(q, k, val_l, pad_l, B, Nv, Nl, E, H, 1, out_v,
+  // 1. image rows over text keys -> out_v, lse_v
+  cudaError_t err = attend<D>(q, k, val_l, pad_l, B, Nv, Nl, E, H, 1, out_v, lse_v,
                               nullptr, nullptr, nullptr, stream);
   if (err != cudaSuccess) return (int)err;
   // 2. text rows over image keys, image axis in n_splits chunks -> partials
-  err = attend<D>(k, q, val_v, pad_v, B, Nl, Nv, E, H, n_splits, nullptr,
+  err = attend<D>(k, q, val_v, pad_v, B, Nl, Nv, E, H, n_splits, nullptr, nullptr,
                   part_acc, part_m, part_s, stream);
   if (err != cudaSuccess) return (int)err;
-  // 3. merge the partials -> out_l
+  // 3. merge the partials -> out_l, lse_l
   combine_kernel<<<dim3(Nl, H, B), D < 256 ? D : 256, 0, stream>>>(
-      part_acc, part_m, part_s, out_l, Nl, E, H, D, n_splits);
+      part_acc, part_m, part_s, out_l, lse_l, Nl, E, H, D, n_splits);
   return (int)cudaGetLastError();
 }
 
@@ -272,18 +279,22 @@ extern "C" {
 
 // All float tensors f32 contiguous: q, val_v, out_v (B, Nv, E); k, val_l,
 // out_l (B, Nl, E); pad_v (B, Nv), pad_l (B, Nl) uint8 with 1 = padded.
+// Softmax statistics for the backward (K4, csrc/fusion_bwd.cu): lse_v (B, H, Nv),
+// each image row's log-sum-exp over the live text; lse_l (B, H, Nl), each text
+// column's log-sum-exp over the live image tokens (the JAX kernel's ml_max and sl).
 // Scratch: part_acc (B, H, n_splits, Nl, D), part_m / part_s (B, H, n_splits, Nl).
 // n_splits >= 2.  Head dim E / H must be 256, the only one the model has
 // (fusion E = 1024, H = 4).  Returns a cudaError_t (0 = launched).
 int fusion_fwd_f32(const void* q, const void* k, const void* val_v, const void* val_l,
                    const void* pad_v, const void* pad_l, void* out_v, void* out_l,
-                   void* part_acc, void* part_m, void* part_s,
+                   void* lse_v, void* lse_l, void* part_acc, void* part_m, void* part_s,
                    int B, int Nv, int Nl, int E, int H, int n_splits, void* stream) {
   if (H * 256 != E || n_splits < 2) return (int)cudaErrorInvalidValue;
   return fusion_fwd<256>((const float*)q, (const float*)k, (const float*)val_v,
                          (const float*)val_l, (const uint8_t*)pad_v, (const uint8_t*)pad_l,
-                         (float*)out_v, (float*)out_l, (float*)part_acc, (float*)part_m,
-                         (float*)part_s, B, Nv, Nl, E, H, n_splits, (cudaStream_t)stream);
+                         (float*)out_v, (float*)out_l, (float*)lse_v, (float*)lse_l,
+                         (float*)part_acc, (float*)part_m, (float*)part_s,
+                         B, Nv, Nl, E, H, n_splits, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -72,8 +72,11 @@ msda_fwd_kernel(const T* __restrict__ value, const float* __restrict__ locs,
       for (int p = 0; p < P; ++p) {
         const int s = l * P + p;
         const float a = wgt[s];
-        const float x = loc[2 * s] * Wl - 0.5f;
-        const float y = loc[2 * s + 1] * Hl - 0.5f;
+        // px rounded twice, as the plain version and the reference compute it:
+        // a contracted fma(x, W, -0.5) can land on the other side of an integer,
+        // where floor() picks other corners (and the derivative jumps)
+        const float x = __fmul_rn(loc[2 * s], (float)Wl) - 0.5f;
+        const float y = __fmul_rn(loc[2 * s + 1], (float)Hl) - 0.5f;
         const float xf = floorf(x), yf = floorf(y);
         const int x0 = (int)xf, y0 = (int)yf;
         const float fx = x - xf, fy = y - yf;

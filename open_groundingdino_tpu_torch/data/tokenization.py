@@ -292,3 +292,54 @@ def generate_masks_with_special_tokens(
                 pos[row, prev + 1 : col + 1] = np.arange(0, col - prev)
             prev = col
     return attn, pos
+
+
+def build_caption(cat_list: Sequence[str]) -> str:
+    """COCO/ODVG caption from category names (reference engine_multi.py:641)."""
+    return " . ".join(cat_list) + " ."
+
+
+def create_positive_map(
+    tokenized: TokenizedBatch,
+    batch_idx: int,
+    label_ids: Sequence[int],
+    cat_list: Sequence[str],
+    caption: str,
+    max_text_len: int = 256,
+) -> np.ndarray:
+    """(n_labels, max_text_len) float map: row i is 1 on the tokens spanning
+    cat_list[label_ids[i]] inside the caption.  Reproduces the reference's
+    substring search and char_to_token fallbacks (groundingdino.py:808-855)."""
+    pm = np.zeros((len(label_ids), max_text_len), np.float32)
+    for j, label in enumerate(label_ids):
+        name = cat_list[label]
+        start_ind = caption.find(name)
+        if start_ind < 0:
+            continue
+        end_ind = start_ind + len(name) - 1
+        beg_pos = tokenized.char_to_token(batch_idx, start_ind)
+        end_pos = tokenized.char_to_token(batch_idx, end_ind)
+        if end_pos is None:
+            end_pos = tokenized.char_to_token(batch_idx, end_ind - 1)
+            if end_pos is None and end_ind >= 2:
+                end_pos = tokenized.char_to_token(batch_idx, end_ind - 2)
+        if beg_pos is None or end_pos is None or beg_pos > end_pos:
+            continue
+        pm[j, beg_pos : min(end_pos + 1, max_text_len)] = 1.0
+    return pm
+
+
+def build_label_maps(
+    tokenized: TokenizedBatch,
+    cat_lists: Sequence[Sequence[str]],
+    captions: Sequence[str],
+    max_text_len: int = 256,
+) -> List[np.ndarray]:
+    """Per-sample (n_cats, max_text_len) positive maps (the criterion's
+    `label_map_list`, reference groundingdino.py:538-547)."""
+    return [
+        create_positive_map(
+            tokenized, b, list(range(len(cats))), cats, captions[b], max_text_len
+        )
+        for b, cats in enumerate(cat_lists)
+    ]

@@ -1,11 +1,14 @@
-"""Host-side eval transforms (numpy + PIL): the port's own copy of the eval
-half of the JAX package's data/transforms.py.
+"""Host-side image/box transforms (numpy + PIL): the port's own copy of the
+JAX package's data/transforms.py.
 
 Shortest-edge resize with max_size (PIL bilinear, the resampler torchvision
-uses), ImageNet normalization, and `Bucketer`, which pads an image up to a
-static bucket from a fixed lattice (the JAX package's replacement for the
+uses), horizontal flip, random size crop, ImageNet normalization, the final
+boxes-to-normalized-cxcywh conversion (reference transforms.py:251-267), the
+train and eval pipelines, and `Bucketer`, which pads an image up to a static
+bucket from a fixed lattice (the JAX package's replacement for the
 reference's NestedTensor dynamic padding, kept so both packages see the same
-padded inputs).
+padded inputs).  The train pipeline draws from a `random.Random` exactly as
+the JAX package's does, so one seed gives both packages the same samples.
 """
 from __future__ import annotations
 
@@ -64,9 +67,81 @@ def resize(sample: Sample, size: int, max_size: Optional[int] = None) -> Sample:
                   sample.caption, sample.cap_list)
 
 
+def hflip(sample: Sample) -> Sample:
+    img = sample.image.transpose(Image.FLIP_LEFT_RIGHT)
+    w = sample.image.size[0]
+    b = sample.boxes.copy()
+    b[:, [0, 2]] = w - sample.boxes[:, [2, 0]]
+    return Sample(img, b, sample.labels, sample.image_id, sample.orig_size,
+                  sample.caption, sample.cap_list)
+
+
+def crop(sample: Sample, region: Tuple[int, int, int, int]) -> Sample:
+    """region: (top, left, h, w).  Boxes clamped; empty boxes dropped
+    (reference transforms.py:16-63 semantics for boxes)."""
+    top, left, h, w = region
+    img = sample.image.crop((left, top, left + w, top + h))
+    b = sample.boxes - np.asarray([left, top, left, top], np.float32)
+    b = np.minimum(b.reshape(-1, 2, 2), np.asarray([w, h], np.float32))
+    b = np.clip(b, 0, None).reshape(-1, 4)
+    keep = (b[:, 2] > b[:, 0]) & (b[:, 3] > b[:, 1])
+    return Sample(img, b[keep], sample.labels[keep], sample.image_id,
+                  sample.orig_size, sample.caption, sample.cap_list)
+
+
+def random_size_crop(sample: Sample, min_size: int, max_size: int, rng) -> Sample:
+    w, h = sample.image.size
+    cw = rng.randint(min_size, min(w, max_size))
+    ch = rng.randint(min_size, min(h, max_size))
+    if cw >= w and ch >= h:
+        return sample
+    top = rng.randint(0, max(h - ch, 0)) if h > ch else 0
+    left = rng.randint(0, max(w - cw, 0)) if w > cw else 0
+    return crop(sample, (top, left, min(ch, h), min(cw, w)))
+
+
 def normalize_image(img: Image.Image) -> np.ndarray:
     arr = np.asarray(img.convert("RGB"), np.float32) / 255.0
     return (arr - IMAGENET_MEAN) / IMAGENET_STD
+
+
+def boxes_to_cxcywh_norm(boxes: np.ndarray, h: int, w: int) -> np.ndarray:
+    """xyxy absolute -> cxcywh normalized by the unpadded size (reference
+    transforms.py:251-267)."""
+    if len(boxes) == 0:
+        return boxes.reshape(0, 4)
+    cx = (boxes[:, 0] + boxes[:, 2]) / 2 / w
+    cy = (boxes[:, 1] + boxes[:, 3]) / 2 / h
+    bw = (boxes[:, 2] - boxes[:, 0]) / w
+    bh = (boxes[:, 3] - boxes[:, 1]) / h
+    return np.stack([cx, cy, bw, bh], -1).astype(np.float32)
+
+
+class TrainTransform:
+    """Reference make_coco_transforms 'train' pipeline
+    (datasets/odvg.py:277-341): hflip(0.5) then either a multi-scale resize
+    or resize -> crop -> resize, both capped at max_size.  `rng` is the
+    dataset's per-index random.Random."""
+
+    def __init__(self, scales: Sequence[int], max_size: int = 1333,
+                 scales2_resize: Sequence[int] = (400, 500, 600),
+                 scales2_crop: Tuple[int, int] = (384, 600)):
+        self.scales = list(scales)
+        self.max_size = max_size
+        self.scales2_resize = list(scales2_resize)
+        self.scales2_crop = tuple(scales2_crop)
+
+    def __call__(self, sample: Sample, rng) -> Sample:
+        r = rng
+        if r.random() < 0.5:
+            sample = hflip(sample)
+        if r.random() < 0.5:
+            sample = resize(sample, r.choice(self.scales), self.max_size)
+        else:
+            sample = resize(sample, r.choice(self.scales2_resize))
+            sample = random_size_crop(sample, *self.scales2_crop, rng=r)
+            sample = resize(sample, r.choice(self.scales), self.max_size)
+        return sample
 
 
 class EvalTransform:
@@ -76,7 +151,7 @@ class EvalTransform:
         self.size = size
         self.max_size = max_size
 
-    def __call__(self, sample: Sample) -> Sample:
+    def __call__(self, sample: Sample, rng=None) -> Sample:
         return resize(sample, self.size, self.max_size)
 
 

@@ -20,7 +20,7 @@ shared decoder box head is registered under every alias the reference has.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -41,7 +41,8 @@ class GroundingDINO(nn.Module):
                  max_text_len: int = 256, pe_temperature_h: float = 20.0,
                  pe_temperature_w: float = 20.0, use_text_enhancer: bool = True,
                  use_fusion_layer: bool = True, use_text_cross_attention: bool = True,
-                 aux_loss: bool = True):
+                 aux_loss: bool = True, fusion_droppath: float = 0.0,
+                 use_checkpoint: bool = False, use_transformer_ckpt: bool = False):
         super().__init__()
         self.swin_cfg = swin_cfg
         self.hidden_dim, self.num_feature_levels = hidden_dim, num_feature_levels
@@ -74,6 +75,8 @@ class GroundingDINO(nn.Module):
             enc_n_points=enc_n_points, dec_n_points=dec_n_points,
             use_text_enhancer=use_text_enhancer, use_fusion_layer=use_fusion_layer,
             use_text_cross_attention=use_text_cross_attention, max_text_len=max_text_len,
+            fusion_droppath=fusion_droppath, use_checkpoint=use_checkpoint,
+            use_transformer_ckpt=use_transformer_ckpt,
         )
         self.transformer.decoder.bbox_embed = self.bbox_embed
 
@@ -86,7 +89,9 @@ class GroundingDINO(nn.Module):
         return strides[: self.num_feature_levels]
 
     def forward(self, images, image_sizes, input_ids, text_token_mask, position_ids,
-                text_self_attention_masks) -> Dict:
+                text_self_attention_masks, generator: Optional[torch.Generator] = None) -> Dict:
+        """`generator` draws the fusion blocks' stochastic depth in training
+        mode (the JAX package's `rngs={"dropout": ...}`)."""
         bert_out = self.bert(input_ids, text_self_attention_masks, position_ids)
         text_dict = {
             "encoded_text": self.feat_map(bert_out),
@@ -113,7 +118,7 @@ class GroundingDINO(nn.Module):
             for m in masks
         ]
 
-        t_out = self.transformer(srcs, masks, poss, text_dict)
+        t_out = self.transformer(srcs, masks, poss, text_dict, generator)
 
         memory_text = t_out["memory_text"]
         outputs_class = [
@@ -155,6 +160,9 @@ def build_groundingdino(args, device="cuda") -> GroundingDINO:
     loaded or `init_weights_` runs."""
     if str(args.backbone).startswith("resnet"):
         raise ValueError("the ResNet backbone is not ported yet")
+    for key in ("dropout", "text_dropout", "fusion_dropout"):
+        if float(getattr(args, key, 0.0)) != 0.0:
+            raise ValueError(f"{key} > 0 is not ported (the port has no dropout)")
     swin_cfg = SwinConfig.from_name(args.backbone, tuple(args.return_interm_indices))
     bert_cfg = BertConfig(
         vocab_size=int(getattr(args, "bert_vocab_size", 30522)),
@@ -185,4 +193,7 @@ def build_groundingdino(args, device="cuda") -> GroundingDINO:
             use_fusion_layer=bool(args.use_fusion_layer),
             use_text_cross_attention=bool(args.use_text_cross_attention),
             aux_loss=bool(args.aux_loss),
+            fusion_droppath=float(getattr(args, "fusion_droppath", 0.0)),
+            use_checkpoint=bool(getattr(args, "use_checkpoint", False)),
+            use_transformer_ckpt=bool(getattr(args, "use_transformer_ckpt", False)),
         ).eval()

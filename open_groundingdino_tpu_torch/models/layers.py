@@ -6,9 +6,13 @@ names, the GLIP-style bidirectional image<->text fusion attention (reference
 fuse_modules.py:99-295) whose core is K2 (ops/fusion.py), the text-enhancer
 layer (reference transformer_vanilla.py:72-123), the ReLU MLP head and the
 contrastive token classifier (reference GroundingDINO/utils.py:171-273).
-Inference only: drop_path and dropout are identity.
+In training mode the fusion block applies stochastic depth (factors from
+`drop_path_scale`, drawn from an explicit torch.Generator); the configs'
+dropout rates are 0, and the port has no dropout.
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -92,14 +96,28 @@ class BiMultiHeadAttention(nn.Module):
         return self.out_v_proj(out_v), self.out_l_proj(out_l)
 
 
+def drop_path_scale(batch: int, rate: float, generator: torch.Generator,
+                    device) -> torch.Tensor:
+    """(batch,) per-sample stochastic-depth factors (the JAX package's
+    models/layers.py:203-212 drop_path, reference fuse_modules.py DropPath):
+    1/(1 - rate) with probability 1 - rate, else 0, drawn from `generator`
+    (on its own device) and moved to `device`."""
+    keep = 1.0 - rate
+    u = torch.rand(batch, generator=generator, device=generator.device)
+    return ((u < keep).float() / keep).to(device)
+
+
 class BiAttentionBlock(nn.Module):
-    """Pre-LN fusion block with layer-scale residuals (reference
-    fuse_modules.py:252-295); drop_path is identity at inference."""
+    """Pre-LN fusion block with layer-scale residuals and stochastic depth on
+    both residual branches (reference fuse_modules.py:252-295).  The
+    stochastic-depth factors arrive drawn (`drop_scales`, see
+    `draw_drop_scales`), so that a checkpointed replay applies the same ones;
+    None is the identity (inference, or rate 0)."""
 
     def __init__(self, v_dim: int, l_dim: int, embed_dim: int, num_heads: int,
-                 init_values: float = 1e-4):
+                 init_values: float = 1e-4, droppath: float = 0.0):
         super().__init__()
-        self.init_values = init_values
+        self.init_values, self.droppath = init_values, droppath
         self.layer_norm_v = nn.LayerNorm(v_dim, eps=1e-5)
         self.layer_norm_l = nn.LayerNorm(l_dim, eps=1e-5)
         self.attn = BiMultiHeadAttention(v_dim, l_dim, embed_dim, num_heads)
@@ -111,11 +129,27 @@ class BiAttentionBlock(nn.Module):
             self.gamma_v.fill_(self.init_values)
             self.gamma_l.fill_(self.init_values)
 
-    def forward(self, v, l, attention_mask_v=None, attention_mask_l=None):
+    def draw_drop_scales(self, batch: int, generator: Optional[torch.Generator],
+                         device) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        """The block's (image, text) stochastic-depth factors for one training
+        forward, two draws as the reference's two DropPath calls; None in
+        eval mode or at rate 0."""
+        if not self.training or self.droppath == 0.0:
+            return None
+        if generator is None:
+            raise ValueError("fusion droppath in training mode needs a torch.Generator")
+        return (drop_path_scale(batch, self.droppath, generator, device),
+                drop_path_scale(batch, self.droppath, generator, device))
+
+    def forward(self, v, l, attention_mask_v=None, attention_mask_l=None, drop_scales=None):
         vn = self.layer_norm_v(v)
         ln = self.layer_norm_l(l)
         dv, dl = self.attn(vn, ln, attention_mask_v, attention_mask_l)
-        return vn + self.gamma_v * dv, ln + self.gamma_l * dl
+        dv, dl = self.gamma_v * dv, self.gamma_l * dl
+        if drop_scales is not None:
+            dv = dv * drop_scales[0].view(-1, 1, 1).to(dv.dtype)
+            dl = dl * drop_scales[1].view(-1, 1, 1).to(dl.dtype)
+        return vn + dv, ln + dl
 
 
 class TextEnhancerLayer(nn.Module):

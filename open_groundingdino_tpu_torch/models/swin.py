@@ -77,10 +77,13 @@ def shift_attn_mask(Hp: int, Wp: int, ws: int, shift: int) -> np.ndarray:
 @functools.lru_cache(maxsize=64)
 def _device_constant(kind: str, device: str, *key: int) -> torch.Tensor:
     """The relative-position index or the shift mask as a tensor on `device`,
-    made once per static shape (a few buckets x stages)."""
-    if kind == "rel_index":
-        return torch.from_numpy(relative_position_index(*key).reshape(-1)).to(device)
-    return torch.from_numpy(shift_attn_mask(*key)).to(device)
+    made once per static shape (a few buckets x stages).  Made outside
+    inference mode whatever the caller's mode, so that a training forward
+    after a serving one may save it for backward."""
+    with torch.inference_mode(False):
+        if kind == "rel_index":
+            return torch.from_numpy(relative_position_index(*key).reshape(-1)).to(device)
+        return torch.from_numpy(shift_attn_mask(*key)).to(device)
 
 
 def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:

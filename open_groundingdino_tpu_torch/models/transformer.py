@@ -13,15 +13,25 @@ transformer.py:672-736, 811-936).
 The JAX package's TPU-only orderings (interleaved encoder queries with a
 128-pad, injective-take VJPs, the scanned encoder, the decoder sort-once)
 are exact reorderings and are not ported.
+
+Training: with `use_checkpoint` the fusion blocks, and with
+`use_transformer_ckpt` the deformable encoder layers, run under
+torch.utils.checkpoint (non-reentrant), as the JAX package's nn.remat wraps
+the same blocks (models/transformer.py:520-529).  The fusion blocks'
+stochastic-depth factors are drawn before the checkpointed call and passed
+in, so the replay in the backward applies the same ones.  Plain
+checkpointing replays the kernels (K1 in each encoder layer, K2 in each
+fusion block) where the JAX policy saves their outputs.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..utils.misc import inverse_sigmoid
 from .deformable import MSDeformAttn
@@ -176,14 +186,17 @@ class DeformableDecoderLayer(nn.Module):
 
 class TransformerEncoder(nn.Module):
     def __init__(self, d_model, nhead, num_layers, dim_feedforward, n_levels, n_points,
-                 use_fusion_layer, use_text_enhancer):
+                 use_fusion_layer, use_text_enhancer, fusion_droppath=0.0,
+                 use_checkpoint=False, use_transformer_ckpt=False):
         super().__init__()
+        self.use_checkpoint, self.use_transformer_ckpt = use_checkpoint, use_transformer_ckpt
         self.layers = nn.ModuleList(
             DeformableEncoderLayer(d_model, dim_feedforward, n_levels, nhead, n_points)
             for _ in range(num_layers)
         )
         self.fusion_layers = nn.ModuleList(
-            BiAttentionBlock(d_model, d_model, dim_feedforward // 2, nhead // 2)
+            BiAttentionBlock(d_model, d_model, dim_feedforward // 2, nhead // 2,
+                             droppath=fusion_droppath)
             for _ in range(num_layers if use_fusion_layer else 0)
         )
         self.text_layers = nn.ModuleList(
@@ -191,20 +204,31 @@ class TransformerEncoder(nn.Module):
             for _ in range(num_layers if use_text_enhancer else 0)
         )
 
-    def forward(self, src, pos, key_padding_mask, valid_ratios, spatial_shapes, text_dict):
+    def forward(self, src, pos, key_padding_mask, valid_ratios, spatial_shapes, text_dict,
+                generator: Optional[torch.Generator] = None):
         memory_text = text_dict["encoded_text"]
         text_pad = ~text_dict["text_token_mask"]
         reference_points = encoder_reference_points(spatial_shapes, valid_ratios)
+        remat = self.training and torch.is_grad_enabled()
         output = src
         for i, layer in enumerate(self.layers):
             if len(self.fusion_layers):
-                output, memory_text = self.fusion_layers[i](
-                    output, memory_text, key_padding_mask, text_pad)
+                fusion = self.fusion_layers[i]
+                scales = fusion.draw_drop_scales(src.shape[0], generator, src.device)
+                args = (output, memory_text, key_padding_mask, text_pad, scales)
+                if remat and self.use_checkpoint:
+                    output, memory_text = checkpoint(fusion, *args, use_reentrant=False)
+                else:
+                    output, memory_text = fusion(*args)
             if len(self.text_layers):
                 memory_text = self.text_layers[i](
                     memory_text, text_dict["text_self_attention_masks"],
                     text_dict["position_ids"])
-            output = layer(output, pos, reference_points, spatial_shapes, key_padding_mask)
+            args = (output, pos, reference_points, spatial_shapes, key_padding_mask)
+            if remat and self.use_transformer_ckpt:
+                output = checkpoint(layer, *args, use_reentrant=False)
+            else:
+                output = layer(*args)
         return output, memory_text
 
 
@@ -257,14 +281,16 @@ class Transformer(nn.Module):
     def __init__(self, d_model=256, nhead=8, num_queries=900, num_encoder_layers=6,
                  num_decoder_layers=6, dim_feedforward=2048, num_feature_levels=4,
                  enc_n_points=4, dec_n_points=4, use_text_enhancer=True,
-                 use_fusion_layer=True, use_text_cross_attention=True, max_text_len=256):
+                 use_fusion_layer=True, use_text_cross_attention=True, max_text_len=256,
+                 fusion_droppath=0.0, use_checkpoint=False, use_transformer_ckpt=False):
         super().__init__()
         self.d_model, self.num_queries, self.max_text_len = d_model, num_queries, max_text_len
         self.num_feature_levels = num_feature_levels
         self.level_embed = nn.Parameter(torch.empty(num_feature_levels, d_model))
         self.encoder = TransformerEncoder(
             d_model, nhead, num_encoder_layers, dim_feedforward, num_feature_levels,
-            enc_n_points, use_fusion_layer, use_text_enhancer)
+            enc_n_points, use_fusion_layer, use_text_enhancer, fusion_droppath,
+            use_checkpoint, use_transformer_ckpt)
         self.decoder = TransformerDecoder(
             d_model, nhead, num_decoder_layers, dim_feedforward, num_feature_levels,
             dec_n_points, use_text_cross_attention)
@@ -278,9 +304,11 @@ class Transformer(nn.Module):
             self.level_embed.normal_(0.0, 1.0, generator=g)
             self.tgt_embed.weight.normal_(0.0, 1.0, generator=g)
 
-    def forward(self, srcs, masks, pos_embeds, text_dict) -> Dict:
+    def forward(self, srcs, masks, pos_embeds, text_dict,
+                generator: Optional[torch.Generator] = None) -> Dict:
         """srcs / pos_embeds: per level (B, H, W, C); masks: per level
-        (B, H, W) bool, True = pad."""
+        (B, H, W) bool, True = pad.  `generator` draws the fusion blocks'
+        stochastic depth in training mode."""
         B = srcs[0].shape[0]
         C = self.d_model
         shapes = tuple((s.shape[1], s.shape[2]) for s in srcs)
@@ -293,7 +321,7 @@ class Transformer(nn.Module):
         valid_ratios = compute_valid_ratios(masks)
 
         memory, memory_text = self.encoder(
-            src_flat, pos_flat, mask_flat, valid_ratios, shapes, text_dict)
+            src_flat, pos_flat, mask_flat, valid_ratios, shapes, text_dict, generator)
 
         output_memory, output_proposals = gen_encoder_output_proposals(memory, mask_flat, shapes)
         output_memory = self.enc_output_norm(self.enc_output(output_memory))

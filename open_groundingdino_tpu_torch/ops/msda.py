@@ -1,5 +1,5 @@
-"""Multi-scale deformable attention core op: K1 (csrc/msda_fwd.cu) and its
-plain PyTorch version.
+"""Multi-scale deformable attention core op: K1 (csrc/msda_fwd.cu), its
+gradient K3 (csrc/msda_bwd.cu), and their plain PyTorch versions.
 
 Semantics (the JAX package's ops/msda.py::ms_deform_attn_xla): for every
 (batch, query, head), sample each level's value map at num_levels*num_points
@@ -14,9 +14,12 @@ Layouts (the JAX package's, at this public function):
 `spatial_shapes` and `level_start` are static sequences of ints:
 ((h, w), ...) per level and the offset of each level in L.
 
-`ms_deform_attn` launches the CUDA kernel for CUDA tensors and takes
-`ms_deform_attn_plain` for CPU tensors; nothing else reaches the plain
-version.  `ms_deform_attn.launches` counts kernel launches.
+`ms_deform_attn` takes `ms_deform_attn_plain` for CPU tensors (autograd
+differentiates it) and, for CUDA tensors, `MSDeformAttnFunction`: K1 forward,
+K3 backward.  `ms_deform_attn_bwd` is K3's wrapper and takes CUDA tensors
+only; `ms_deform_attn_bwd_plain` is its reference.  Nothing else reaches a
+plain version; `ms_deform_attn.launches` and `ms_deform_attn_bwd.launches`
+count the kernels' launches.
 """
 from __future__ import annotations
 
@@ -90,25 +93,30 @@ def ms_deform_attn_plain(
     return out.to(value.dtype).permute(0, 2, 1, 3).reshape(B, Q, H * D)
 
 
-_CTYPES = (
+def ms_deform_attn_bwd_plain(value, spatial_shapes, level_start, locs, attn, grad_out):
+    """(grad_value, grad_locs, grad_attn) of the plain version by autograd
+    (torch.gather's backward is the scatter-add)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (value, locs, attn)]
+        out = ms_deform_attn_plain(leaves[0], spatial_shapes, level_start, leaves[1], leaves[2])
+        return torch.autograd.grad(out, leaves, grad_out)
+
+
+_FWD_CTYPES = (
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+    + [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_void_p]
+)
+_BWD_CTYPES = (
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
     + [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_void_p]
 )
 
 
-def ms_deform_attn(
-    value: torch.Tensor,
-    spatial_shapes: Shapes,
-    level_start: Sequence[int],
-    locs: torch.Tensor,
-    attn: torch.Tensor,
-) -> torch.Tensor:
-    """K1 for CUDA tensors (f32 or bf16 value, f32 locs/attn, all contiguous),
-    the plain version for CPU tensors.  Returns (B, Q, H*D) in value's dtype."""
-    if value.device.type == "cpu":
-        return ms_deform_attn_plain(value, spatial_shapes, level_start, locs, attn)
+def _check_operands(value, spatial_shapes, level_start, locs, attn, what: str):
+    """Raise unless the operands are what the kernels take; returns
+    (B, L, H, D, Q, NL, P)."""
     if value.device.type != "cuda":
-        raise ValueError(f"ms_deform_attn: unsupported device {value.device}")
+        raise ValueError(f"{what}: unsupported device {value.device}")
     B, L, H, D = value.shape
     if locs.dim() != 6 or locs.shape[-1] != 2:
         raise ValueError(f"locs must be (B, Q, H, NL, P, 2), got {tuple(locs.shape)}")
@@ -122,8 +130,6 @@ def ms_deform_attn(
         raise ValueError("spatial_shapes / level_start must have one entry per level")
     if sum(h * w for h, w in spatial_shapes) != L:
         raise ValueError("sum of level sizes must equal value's L")
-    if value.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"value must be float32 or bfloat16, got {value.dtype}")
     if locs.dtype != torch.float32 or attn.dtype != torch.float32:
         raise TypeError("locs and attn must be float32")
     for name, t in (("value", value), ("locs", locs), ("attn", attn)):
@@ -131,17 +137,29 @@ def ms_deform_attn(
             raise ValueError(f"{name} is on {t.device}, value on {value.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    return B, L, H, D, Q, NL, P
 
+
+def _level_arrays(spatial_shapes, level_start):
+    NL = len(spatial_shapes)
+    hw = (ctypes.c_int * (2 * NL))(*[int(v) for hw_ in spatial_shapes for v in hw_])
+    starts = (ctypes.c_int * NL)(*[int(s) for s in level_start])
+    return hw, starts
+
+
+def _msda_fwd_cuda(value, spatial_shapes, level_start, locs, attn):
+    B, L, H, D, Q, NL, P = _check_operands(value, spatial_shapes, level_start, locs, attn,
+                                           "ms_deform_attn")
+    if value.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"value must be float32 or bfloat16, got {value.dtype}")
     out = torch.empty(B, Q, H * D, dtype=value.dtype, device=value.device)
     lib = build.load("msda_fwd")
     fn = lib.msda_fwd_f32 if value.dtype == torch.float32 else lib.msda_fwd_bf16
-    fn.argtypes = _CTYPES
+    fn.argtypes = _FWD_CTYPES
     fn.restype = ctypes.c_int
-    hw = (ctypes.c_int * (2 * NL))(*[int(v) for hw_ in spatial_shapes for v in hw_])
-    starts = (ctypes.c_int * NL)(*[int(s) for s in level_start])
     err = fn(
         value.data_ptr(), locs.data_ptr(), attn.data_ptr(), out.data_ptr(),
-        B, L, H, D, Q, NL, P, hw, starts,
+        B, L, H, D, Q, NL, P, *_level_arrays(spatial_shapes, level_start),
         torch.cuda.current_stream(value.device).cuda_stream,
     )
     build.check(err, "msda_fwd")
@@ -149,4 +167,69 @@ def ms_deform_attn(
     return out
 
 
+def ms_deform_attn_bwd(value, spatial_shapes, level_start, locs, attn, grad_out):
+    """K3 on CUDA tensors (all f32 and contiguous); raises for any other.
+    grad_out: (B, Q, H*D).  Returns (grad_value (B, L, H, D), grad_locs
+    (B, Q, H, NL, P, 2), grad_attn (B, Q, H, NL, P)), all f32."""
+    B, L, H, D, Q, NL, P = _check_operands(value, spatial_shapes, level_start, locs, attn,
+                                           "ms_deform_attn_bwd")
+    if value.dtype != torch.float32:
+        raise TypeError(f"the backward takes float32 values only, got {value.dtype}")
+    if (tuple(grad_out.shape) != (B, Q, H * D) or grad_out.dtype != torch.float32
+            or grad_out.device != value.device or not grad_out.is_contiguous()):
+        raise ValueError(f"grad_out must be contiguous float32 {(B, Q, H * D)} on {value.device}")
+    grad_value = torch.zeros_like(value)
+    grad_locs = torch.empty_like(locs)
+    grad_attn = torch.empty_like(attn)
+    fn = build.load("msda_bwd").msda_bwd_f32
+    fn.argtypes = _BWD_CTYPES
+    fn.restype = ctypes.c_int
+    err = fn(
+        value.data_ptr(), locs.data_ptr(), attn.data_ptr(), grad_out.data_ptr(),
+        grad_value.data_ptr(), grad_locs.data_ptr(), grad_attn.data_ptr(),
+        B, L, H, D, Q, NL, P, *_level_arrays(spatial_shapes, level_start),
+        torch.cuda.current_stream(value.device).cuda_stream,
+    )
+    build.check(err, "msda_bwd")
+    ms_deform_attn_bwd.launches += 1
+    return grad_value, grad_locs, grad_attn
+
+
+class MSDeformAttnFunction(torch.autograd.Function):
+    """K1 forward, K3 backward (the JAX package's custom_vjp around the banded
+    kernels, ops/msda_banded.py)."""
+
+    @staticmethod
+    def forward(ctx, value, locs, attn, spatial_shapes, level_start):
+        ctx.spatial_shapes, ctx.level_start = spatial_shapes, level_start
+        ctx.save_for_backward(value, locs, attn)
+        return _msda_fwd_cuda(value, spatial_shapes, level_start, locs, attn)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        value, locs, attn = ctx.saved_tensors
+        grads = ms_deform_attn_bwd(value, ctx.spatial_shapes, ctx.level_start, locs, attn,
+                                   grad_out.contiguous())
+        return (*grads, None, None)
+
+
+def ms_deform_attn(
+    value: torch.Tensor,
+    spatial_shapes: Shapes,
+    level_start: Sequence[int],
+    locs: torch.Tensor,
+    attn: torch.Tensor,
+) -> torch.Tensor:
+    """K1 (K3 for its gradient) for CUDA tensors (f32 or bf16 value, f32
+    locs/attn, all contiguous; the gradient takes f32 only), the plain
+    version for CPU tensors.  Returns (B, Q, H*D) in value's dtype."""
+    if value.device.type == "cpu":
+        return ms_deform_attn_plain(value, spatial_shapes, level_start, locs, attn)
+    if value.device.type != "cuda":
+        raise ValueError(f"ms_deform_attn: unsupported device {value.device}")
+    return MSDeformAttnFunction.apply(value, locs, attn, tuple(spatial_shapes),
+                                      tuple(level_start))
+
+
 ms_deform_attn.launches = 0
+ms_deform_attn_bwd.launches = 0

@@ -1,0 +1,182 @@
+"""AdamW with the reference's parameter groups, the overflow-safe global-norm
+clip and the learning-rate schedules (the port of the JAX package's
+parallel/optim.py; reference util/get_param_dicts.py 'ddetr_in_mmdet').
+
+Groups: backbone and text-encoder parameters at lr_backbone, the linear
+projections (ref_point_head, sampling_offsets) at lr * lr_linear_proj_mult,
+everything else at lr; uniform weight decay; parameters whose name holds a
+frozen keyword never change.  The arithmetic is optax's, in the JAX
+package's order: `optax.chain(safe_clip_by_global_norm, multi_transform(
+{group: adamw}))`, so the clip norm runs over every gradient, frozen ones
+included, and each group's AdamW is optax.adamw (b1 0.9, b2 0.999, eps 1e-8,
+decoupled weight decay scaled by the group's learning rate).
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Iterable, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+BACKBONE_KEYS = ("backbone", "bert")
+LINEAR_PROJ_KEYS = ("ref_point_head", "sampling_offsets")
+
+
+@torch.no_grad()
+def safe_global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Overflow-safe global L2 norm: rescale by the global max |x| before the
+    sum of squares (at a fresh random init single gradients can reach ~1e19,
+    whose f32 squares overflow)."""
+    tensors = [t.float() for t in tensors]
+    if not tensors:
+        return torch.zeros(())
+    gmax = torch.stack([t.abs().max() for t in tensors]).max().clamp(min=1e-30)
+    ssq = torch.stack([((t / gmax) ** 2).sum() for t in tensors]).sum()
+    return gmax * torch.sqrt(ssq)
+
+
+def clip_scale(norm: float, max_norm: float) -> float:
+    """min(1, max_norm / max(norm, 1e-30)): the JAX package's
+    safe_clip_by_global_norm (no 1e-6 in the denominator, unlike
+    torch.nn.utils.clip_grad_norm_)."""
+    return min(1.0, max_norm / max(norm, 1e-30))
+
+
+def label_for_name(name: str, backbone_keys: Sequence[str] = BACKBONE_KEYS,
+                   proj_keys: Sequence[str] = LINEAR_PROJ_KEYS) -> str:
+    """'backbone', 'linear_proj' or 'base' by substring of the parameter
+    name (the JAX package's _label_for_path)."""
+    if any(k in name for k in backbone_keys):
+        return "backbone"
+    if any(k in name for k in proj_keys):
+        return "linear_proj"
+    return "base"
+
+
+def label_params(named_params: Iterable[Tuple[str, torch.Tensor]],
+                 frozen_keys: Sequence[str] = ()) -> Dict[str, str]:
+    """{parameter name: group}; a name holding a frozen keyword is 'frozen'."""
+    return {n: ("frozen" if any(k in n for k in frozen_keys) else label_for_name(n))
+            for n, _ in named_params}
+
+
+class GroupedAdamW:
+    """AdamW over the parameter groups above.  `step(grads, norm)` clips by
+    the given global norm, then updates every non-frozen parameter in place;
+    its moments live in `m` and `v`, its update count in `count` (optax's
+    ScaleByAdamState.count; the schedule reads the count before the step)."""
+
+    def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
+                 lr: Callable[[int], float], base_lr: float, lr_backbone: float,
+                 lr_linear_proj_mult: float = 0.1, weight_decay: float = 1e-4,
+                 clip_max_norm: float = 0.1, frozen_keys: Sequence[str] = (),
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        named = list(named_params)
+        self.names = [n for n, _ in named]
+        self.params = [p for _, p in named]
+        self.labels = label_params(named, frozen_keys)
+        self.mults = {"base": 1.0, "backbone": lr_backbone / float(base_lr),
+                      "linear_proj": lr_linear_proj_mult}
+        self.lr, self.weight_decay, self.clip_max_norm = lr, weight_decay, clip_max_norm
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.groups: Dict[str, List[int]] = {g: [] for g in self.mults}
+        for i, n in enumerate(self.names):
+            if self.labels[n] != "frozen":
+                self.groups[self.labels[n]].append(i)
+        self.m = [torch.zeros_like(p) for p in self.params]
+        self.v = [torch.zeros_like(p) for p in self.params]
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor], norm: float) -> None:
+        scale = clip_scale(norm, self.clip_max_norm)
+        lr = float(self.lr(self.count))
+        self.count += 1
+        bc1 = 1.0 - self.b1 ** self.count
+        bc2 = 1.0 - self.b2 ** self.count
+        for group, idx in self.groups.items():
+            if not idx:
+                continue
+            g = torch._foreach_mul([grads[i] for i in idx], scale)
+            p = [self.params[i] for i in idx]
+            m = [self.m[i] for i in idx]
+            v = [self.v[i] for i in idx]
+            torch._foreach_mul_(m, self.b1)
+            torch._foreach_add_(m, g, alpha=1.0 - self.b1)
+            torch._foreach_mul_(v, self.b2)
+            torch._foreach_add_(v, torch._foreach_mul(g, g), alpha=1.0 - self.b2)
+            upd = torch._foreach_div(m, bc1)
+            den = torch._foreach_div(v, bc2)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, self.eps)
+            torch._foreach_div_(upd, den)
+            torch._foreach_add_(upd, p, alpha=self.weight_decay)
+            torch._foreach_add_(p, upd, alpha=-lr * self.mults[group])
+
+
+def make_optimizer(model: torch.nn.Module, lr, base_lr: float, lr_backbone: float,
+                   lr_linear_proj_mult: float = 0.1, weight_decay: float = 1e-4,
+                   clip_max_norm: float = 0.1, frozen_keys: Sequence[str] = ()) -> GroupedAdamW:
+    """`lr` is a float or a schedule (count -> lr); the backbone multiplier is
+    lr_backbone / base_lr, base_lr being the schedule's nominal peak
+    (reference get_param_dicts.py:34-53)."""
+    schedule = lr if callable(lr) else (lambda count, v=float(lr): v)
+    return GroupedAdamW(model.named_parameters(), schedule, base_lr, lr_backbone,
+                        lr_linear_proj_mult, weight_decay, clip_max_norm, frozen_keys)
+
+
+def cosine_onecycle_schedule(transition_steps: int, peak_value: float, pct_start: float = 0.3,
+                             div_factor: float = 25.0,
+                             final_div_factor: float = 1e4) -> Callable[[int], float]:
+    """optax.cosine_onecycle_schedule: piecewise cosine interpolation from
+    peak/div_factor up to peak at int(pct_start * transition_steps), down to
+    peak/(div_factor * final_div_factor) at transition_steps, constant after.
+    The interpolation runs in float32 in optax's order, so the values are
+    optax's to the last bits (the f32 cancellation near the ends included)."""
+    if transition_steps <= 0:
+        raise ValueError("a onecycle schedule needs transition_steps > 0")
+    bounds = [0, int(pct_start * transition_steps), int(transition_steps)]
+    values = np.cumprod([peak_value / div_factor, div_factor,
+                         1.0 / (div_factor * final_div_factor)])
+
+    def schedule(count: int) -> float:
+        if count >= bounds[-1]:
+            return float(np.float32(values[-1]))
+        for i in range(len(bounds) - 1):
+            if bounds[i] <= count < bounds[i + 1]:
+                pct = (count - bounds[i]) / (bounds[i + 1] - bounds[i])
+                cos = np.cos(np.float32(math.pi * pct), dtype=np.float32)
+                half = np.float32((values[i] - values[i + 1]) / 2.0)
+                return float(np.float32(values[i + 1]) + half * (cos + np.float32(1.0)))
+        return 0.0
+
+    return schedule
+
+
+def piecewise_constant_schedule(init_value: float,
+                                boundaries_and_scales: Dict[int, float]) -> Callable[[int], float]:
+    """optax.piecewise_constant_schedule: init_value times every scale whose
+    boundary the count has reached."""
+
+    def schedule(count: int) -> float:
+        v = init_value
+        for threshold, scale in sorted(boundaries_and_scales.items()):
+            if count >= threshold:
+                v *= scale
+        return v
+
+    return schedule
+
+
+def make_lr_schedule(args, steps_per_epoch: int) -> Callable[[int], float]:
+    """Reference main.py:334-339 as the JAX package builds it: OneCycle
+    (pct_start 0.2) / MultiStep / StepLR, in optimizer steps."""
+    base = float(args.lr)
+    total_steps = int(args.epochs) * steps_per_epoch
+    if getattr(args, "onecyclelr", False):
+        return cosine_onecycle_schedule(total_steps, base, pct_start=0.2)
+    if getattr(args, "multi_step_lr", False):
+        return piecewise_constant_schedule(
+            base, {int(e) * steps_per_epoch: 0.1 for e in args.lr_drop_list})
+    return piecewise_constant_schedule(base, {int(args.lr_drop) * steps_per_epoch: 0.1})

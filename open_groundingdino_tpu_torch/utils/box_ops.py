@@ -1,5 +1,6 @@
-"""Box format conversions (reference util/box_ops.py; the port's counterpart
-of the JAX package's utils/box_ops.py conversions)."""
+"""Box utilities (reference util/box_ops.py; the port's counterpart of the
+JAX package's utils/box_ops.py): cxcywh<->xyxy conversions, pairwise and
+elementwise IoU and generalized IoU, broadcast over leading dims."""
 from __future__ import annotations
 
 import torch
@@ -15,3 +16,53 @@ def box_xyxy_to_cxcywh(x: torch.Tensor) -> torch.Tensor:
     """(..., 4) corner -> center-size format."""
     x0, y0, x1, y1 = x.unbind(-1)
     return torch.stack([(x0 + x1) / 2, (y0 + y1) / 2, x1 - x0, y1 - y0], -1)
+
+
+def box_area(boxes: torch.Tensor) -> torch.Tensor:
+    """(..., 4) xyxy -> (...,) area."""
+    return (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
+
+
+def box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor):
+    """Pairwise IoU of (..., N, 4) and (..., M, 4) xyxy boxes -> (iou, union),
+    each (..., N, M)."""
+    area1, area2 = box_area(boxes1), box_area(boxes2)
+    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.minimum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area1[..., :, None] + area2[..., None, :] - inter
+    return inter / union, union
+
+
+def generalized_box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Pairwise GIoU (https://giou.stanford.edu/) of xyxy boxes -> (..., N, M).
+    No degeneracy asserts: invalid boxes give invalid values that the caller
+    masks, as the JAX package's does."""
+    iou, union = box_iou(boxes1, boxes2)
+    lt = torch.minimum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.maximum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0)
+    area = wh[..., 0] * wh[..., 1]
+    return iou - (area - union) / area
+
+
+def box_iou_elementwise(boxes1: torch.Tensor, boxes2: torch.Tensor):
+    """IoU of same-shaped (..., 4) xyxy boxes -> (iou, union), each (...)."""
+    area1, area2 = box_area(boxes1), box_area(boxes2)
+    lt = torch.maximum(boxes1[..., :2], boxes2[..., :2])
+    rb = torch.minimum(boxes1[..., 2:], boxes2[..., 2:])
+    wh = (rb - lt).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area1 + area2 - inter
+    return inter / union, union
+
+
+def generalized_box_iou_elementwise(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """GIoU of same-shaped (..., 4) xyxy boxes."""
+    iou, union = box_iou_elementwise(boxes1, boxes2)
+    lt = torch.minimum(boxes1[..., :2], boxes2[..., :2])
+    rb = torch.maximum(boxes1[..., 2:], boxes2[..., 2:])
+    wh = (rb - lt).clamp(min=0)
+    area = wh[..., 0] * wh[..., 1]
+    return iou - (area - union) / area
