@@ -41,7 +41,23 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                1e-2 and the gradient of each parameter that K3 or K4 feeds
                within 1e-2, relative; then the card's step with K3's
                grad_locs, and apart K4's gvl, negated must fail that check
-then the {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
+ 12. sweep   - the sweep MSDA kernels (the JAX package's msda_impl="pallas"
+               with MSDA_BANDED=0): K6 (and K7 on the decoder's sorted query
+               set), K9 and K10 against their plain versions on the operands
+               the model path gives them, at phase 8's encoder and decoder
+               shapes; then the sweep op against K1 and K3 on the same inputs
+ 13. sweep serve - load_model + predict through msda_kernel="sweep" (K6), and
+               again with msda_dec_fused=True (K7 in the decoder), on phase
+               5's requests; each one forward against phase 6's CPU forward,
+               flip-aware; a profiled request
+ 14. sweep train - main with --options msda_kernel=sweep: 2 B = 4 steps (K6,
+               K9) and a profiled one; then 1 step with msda_sweep_bwd=rowtap
+               (K10)
+ 15. sweep train parity - phase 11's step through the sweep against the
+               gather's step on the card: loss within 5e-3, each gradient the
+               MSDA kernels feed within 1e-2; with K9's gw negated it must fail
+then the {"kernels": [...]} line (K1-K4, then K6, K7, K9, K10) and, last,
+{"ok": true, "device": {...}}.
 
 Exits nonzero when no CUDA device is present.  Scratch files (checkpoint,
 vocab, the ODVG set, the training run's output) go to build/chip_smoke/ and
@@ -437,6 +453,166 @@ def check_fusion_bwd(device):
                 bound_by=bound_by)
 
 
+# ---------------------------------------------------------------- K6, K7, K9, K10 (sweep)
+# the sweep kernels against their plain versions: forward abs (f32, only the
+# order of each output's sums differs); backward relative to each gradient's
+# largest |reference| (grad_value by atomics in an order that changes from
+# run to run), tap gradients where the tap is live (w != 0: a dead tap's
+# gradient depends on the sweep's ranges and the chain rule multiplies it by
+# zero)
+SWEEP_TOL = 1e-4
+SWEEP_RTOL = 1e-4
+
+
+def sweep_operands(value, shapes, locs, attn, grad_out):
+    """The operands MSDASweepFunction hands the kernels on the model path:
+    row taps (row, px, w) and corner taps (idx, wc), in the kernels' query
+    order (sorted for Q != L) and padded to the query block, and the
+    upstream gradient likewise."""
+    from open_groundingdino_tpu_torch.ops import msda_sweep as sw
+
+    B, L, H, D = value.shape
+    Q = locs.shape[1]
+    locs_t, attn_t = sw.kernel_layout(locs, attn)
+    row, px, w = sw.rowtap_positions_and_weights(locs_t, attn_t, shapes)
+    idx, wc = sw.corner_indices_and_weights(locs_t, attn_t, shapes)
+    order = sw.query_order(row, px, L)
+    g_k = grad_out.view(B, Q, H, D).permute(0, 2, 1, 3).reshape(B * H, Q, D)
+    return {"row": sw.sort_and_pad(row, order), "px": sw.sort_and_pad(px, order),
+            "w": sw.sort_and_pad(w, order),
+            "idx": sw.sort_and_pad(idx, order), "wc": sw.sort_and_pad(wc, order),
+            "g": sw.sort_and_pad(g_k, order, 1)}
+
+
+def rel_errs(got, ref, masks=None) -> dict:
+    """max |got - ref| / max |ref| for each named pair, over mask[name]
+    where one is given."""
+    out = {}
+    for key in ref:
+        a, b = got[key], ref[key]
+        if masks and key in masks:
+            a, b = a[masks[key]], b[masks[key]]
+        out[key] = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+    return out
+
+
+def check_sweep(device) -> dict:
+    """K6 (and K7 on the decoder's sorted query set), K9 and K10 against their
+    plain versions at the encoder and decoder shapes of phase 8's B = 4
+    batch; then the sweep op as the model calls it against K1 and K3 on the
+    same inputs."""
+    import torch
+
+    from open_groundingdino_tpu_torch.ops import msda
+    from open_groundingdino_tpu_torch.ops import msda_sweep as sw
+
+    shapes = level_shapes(*BUCKET)
+    L = sum(h * w for h, w in shapes)
+    starts = msda.level_starts(shapes)
+    g = torch.Generator(device=device).manual_seed(SEED + 12)
+    B = len(BATCH_VALID)
+    rows = {}
+    for name, q, ref_dim in (("encoder", L, 2), ("decoder", 900, 4)):
+        value, locs, attn = msda_inputs(shapes, q, ref_dim, g, device, BATCH_VALID)
+        grad_out = torch.randn(B, q, HEADS * HEAD_DIM, generator=g, device=device)
+        ops = sweep_operands(value, shapes, locs, attn, grad_out)
+        row, px, w, idx, wc, g_k = (ops[k] for k in ("row", "px", "w", "idx", "wc", "g"))
+        fwd_bound = msda_bound_ms(value, shapes, locs, attn)
+        bwd_bound = msda_bwd_bound_ms(value, shapes, locs, attn)
+        out_p = sw.sweep_fwd_plain(value, row, px, w)
+        fwd_plain_ms = event_ms(lambda: sw.sweep_fwd_plain(value, row, px, w), 3)
+        fwds = [("K6", sw.sweep_fwd)] + ([("K7", sw.sweep_fwd_allq)] if q != L else [])
+        for kname, fn in fwds:
+            err = float((fn(value, shapes, row, px, w) - out_p).abs().max())
+            ms = event_ms(lambda: fn(value, shapes, row, px, w), 10)
+            rows[kname, name] = dict(Q=q, max_abs_err=err, ms=ms, plain_ms=fwd_plain_ms,
+                                     bound_ms=fwd_bound[0], bound_by=fwd_bound[1])
+            log(kname, f"{name}: B={B} Q={q} L={L}: max|kernel-plain| {err:.3e} (tolerance "
+                       f"{SWEEP_TOL}); kernel {ms:.4f} ms, plain {fwd_plain_ms:.3f} ms, bound "
+                       f"{fwd_bound[0]:.4f} ms ({fwd_bound[1]})")
+            if not err <= SWEEP_TOL:
+                raise AssertionError(f"{kname} {name}: max abs error {err} > {SWEEP_TOL}")
+        del out_p
+        live_c, live_r = wc != 0, w != 0
+        for kname, fn, plain, args, keys, masks in (
+                ("K9", sw.sweep_bwd_corner, sw.sweep_bwd_corner_plain, (idx, wc),
+                 ("grad_value", "gw"), {"gw": live_c}),
+                ("K10", sw.sweep_bwd_rowtap, sw.sweep_bwd_rowtap_plain, (row, px, w),
+                 ("grad_value", "gpx", "gw"), {"gpx": live_r, "gw": live_r})):
+            got = dict(zip(keys, fn(value, shapes, *args, g_k)))
+            ref = dict(zip(keys, plain(value, *args, g_k)))
+            errs = rel_errs(got, ref, masks)
+            del got, ref
+            ms = event_ms(lambda: fn(value, shapes, *args, g_k), 5)
+            plain_ms = event_ms(lambda: plain(value, *args, g_k), 2)
+            rows[kname, name] = dict(Q=q, max_abs_err=max(errs.values()), errs=errs, ms=ms,
+                                     plain_ms=plain_ms, bound_ms=bwd_bound[0],
+                                     bound_by=bwd_bound[1])
+            log(kname, f"{name}: B={B} Q={q}: max|kernel-plain| / max|plain| "
+                       f"{ {k: f'{v:.3e}' for k, v in errs.items()} } (tolerance {SWEEP_RTOL}, "
+                       f"tap gradients where w != 0); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+                       f"bound {bwd_bound[0]:.4f} ms ({bwd_bound[1]})")
+            if not max(errs.values()) <= SWEEP_RTOL:
+                raise AssertionError(f"{kname} {name}: {errs} > {SWEEP_RTOL}")
+        rows["vs K1/K3", name] = sweep_vs_gather(value, shapes, starts, locs, attn, grad_out)
+    return rows
+
+
+def lattice_samples(locs, shapes):
+    """(B, Q, H, NL, P) bool: sampling points with a coordinate exactly on
+    the pixel lattice (zero fraction of x * W - 0.5 or y * H - 0.5, rounded
+    as the expansions round it)."""
+    import torch
+
+    on = []
+    for lvl, (h, w) in enumerate(shapes):
+        x = locs[:, :, :, lvl, :, 0] * w - 0.5
+        y = locs[:, :, :, lvl, :, 1] * h - 0.5
+        on.append((x == torch.floor(x)) | (y == torch.floor(y)))
+    return torch.stack(on, 3)
+
+
+def sweep_vs_gather(value, shapes, starts, locs, attn, grad_out) -> dict:
+    """The sweep op as the model calls it (MSDASweepFunction: K6, or K7 for a
+    sorted query set under dec_fused; K9 or K10 backward) against K1 and K3
+    on the same inputs.  The two compute one function: the forward within
+    SWEEP_TOL, each gradient within SWEEP_RTOL of its largest |reference|
+    (f32 sums in another order; grad_value by atomics on both sides).
+    Location gradients are compared off the pixel lattice: at B = 4 some
+    tens of the 10M f32 sampling points have a coordinate with zero
+    fraction, where K3 takes the one-sided derivative through floor and the
+    sweep, as its TPU kernels do, another one (row taps: sign(0) = 0; a tap
+    whose bilinear weight is zero there is swept only with a live tap's
+    tile).  The count is reported."""
+    import torch
+
+    from open_groundingdino_tpu_torch.ops import msda
+    from open_groundingdino_tpu_torch.ops import msda_sweep as sw
+
+    keys = ("grad_value", "grad_locs", "grad_attn")
+    ref_out = msda.ms_deform_attn(value, shapes, starts, locs, attn)
+    ref = dict(zip(keys, msda.ms_deform_attn_bwd(value, shapes, starts, locs, attn, grad_out)))
+    lattice = lattice_samples(locs, shapes)
+    off = {"grad_locs": ~lattice[..., None].expand_as(locs)}
+    res = {}
+    for bwd, dec_fused in (("corner", False), ("rowtap", True)):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (value, locs, attn)]
+        out = sw.ms_deform_attn_sweep(leaves[0], shapes, starts, leaves[1], leaves[2], bwd=bwd,
+                                      dec_fused=dec_fused)
+        fwd_err = float((out.detach() - ref_out).abs().max())
+        errs = rel_errs(dict(zip(keys, torch.autograd.grad(out, leaves, grad_out))), ref, off)
+        res[bwd] = dict(fwd_max_abs_err=fwd_err, grad_errs=errs, lattice=int(lattice.sum()))
+        k7 = " + K7" if dec_fused and locs.shape[1] != value.shape[1] else ""
+        log("sweep", f"Q={locs.shape[1]} {bwd} backward{k7}: forward vs K1 {fwd_err:.3e} "
+                     f"(tolerance {SWEEP_TOL}); gradients vs K3, max|d| / max|K3| "
+                     f"{ {k: f'{v:.3e}' for k, v in errs.items()} } (tolerance {SWEEP_RTOL}; "
+                     f"locations off the lattice: {int(lattice.sum())} of {lattice.numel()} "
+                     f"samples on it)")
+        if not (fwd_err <= SWEEP_TOL and max(errs.values()) <= SWEEP_RTOL):
+            raise AssertionError(f"the sweep ({bwd}) disagrees with K1/K3: {res[bwd]}")
+    return res
+
+
 # ---------------------------------------------------------------- serving
 VOCAB_WORDS = ("a", "the", "cat", "dog", "person", "bicycle", "car", "traffic", "light",
                "on", "in", "bird", "chair", "table", "sofa", "tree")
@@ -496,27 +672,57 @@ def synthetic_image(h: int, w: int, seed: int):
     return Image.fromarray(base).resize((w, h), Image.BILINEAR)   # smooth blobs
 
 
-def serve(cfg: str, work: str, device: str):
-    """load_model + predict on a few requests; returns (model, per-request
-    seconds, launch counts of the run, the images, the model's files)."""
-    import numpy as np
-    import torch
-
-    from open_groundingdino_tpu_torch import inference
-    from open_groundingdino_tpu_torch.ops import fusion, msda
-
+def write_serving_files(cfg: str, work: str):
+    """The smoke's vocab and seeded checkpoint; returns (cfg, ckpt, vocab)."""
     vocab, ckpt = os.path.join(work, "vocab.txt"), os.path.join(work, "ckpt.pth")
     t0 = time.perf_counter()
     write_vocab(vocab)
     write_checkpoint(cfg, ckpt)
     log("serve", f"wrote vocab + checkpoint ({os.path.getsize(ckpt) / 2**20:.0f} MiB) "
                  f"in {time.perf_counter() - t0:.1f} s")
+    return cfg, ckpt, vocab
+
+
+def msda_config(cfg: str, work: str, name: str, **keys) -> str:
+    """A config file that takes `cfg` and sets the given MSDA keys."""
+    path = os.path.join(work, f"cfg_{name}.py")
+    with open(path, "w") as f:
+        f.write(f"_base_ = {cfg!r}\n" + "".join(f"{k} = {v!r}\n" for k, v in keys.items()))
+    return path
+
+
+def serving_launches(args, n_req: int) -> dict:
+    """The kernel launches of n_req forwards: one MSDA forward per encoder and
+    decoder layer (K1, or the sweep: K6, with K7 for the decoder under
+    msda_dec_fused), one K2 per encoder fusion layer, no backward."""
+    want = dict.fromkeys(kernel_counters(), 0)
+    enc, dec = args.enc_layers * n_req, args.dec_layers * n_req
+    want["fusion_fwd"] = enc
+    if str(args.msda_kernel) == "sweep":
+        fused = bool(args.msda_dec_fused)
+        want["sweep_fwd"] = enc + (0 if fused else dec)
+        want["sweep_fwd_allq"] = dec if fused else 0
+    else:
+        want["msda_fwd"] = enc + dec
+    return want
+
+
+def serve(files, device: str, tag: str = "serve"):
+    """load_model + predict on a few requests; returns (model, per-request
+    seconds, launch counts of the run, the images)."""
+    import numpy as np
+    import torch
+
+    from open_groundingdino_tpu_torch import inference
+
+    cfg, ckpt, vocab = files
     t0 = time.perf_counter()
     im = inference.load_model(cfg, ckpt, vocab, device=device)
-    log("serve", f"load_model on {device} in {time.perf_counter() - t0:.1f} s")
+    log(tag, f"load_model on {device} in {time.perf_counter() - t0:.1f} s")
     images = [synthetic_image(h, w, i) for i, (h, w) in enumerate(IMAGE_SIZES)]
 
-    for fn in kernel_counters().values():
+    counters = kernel_counters()
+    for fn in counters.values():
         fn.launches = 0
     inference.predict(im, images[0], CAPTIONS[0])           # warm-up
     torch.cuda.synchronize()
@@ -532,54 +738,63 @@ def serve(cfg: str, work: str, device: str):
                     and ((scores > 0.35) & (scores <= 1)).all()):
                 raise AssertionError(f"malformed predict output for image {i} {cap!r}")
     n_req = len(images) * len(CAPTIONS) + 1
-    counts = {"msda_fwd": msda.ms_deform_attn.launches,
-              "fusion_fwd": fusion.fused_bi_attention.launches}
-    log("serve", f"{n_req - 1} requests after 1 warm-up: latency ms "
-                 f"{[round(t * 1e3, 1) for t in lat]} "
-                 f"(median {1e3 * sorted(lat)[len(lat) // 2]:.1f}); "
-                 f"launches over {n_req} requests: {counts}")
-    # one K1 per encoder and decoder layer, one K2 per encoder fusion layer
-    a = im.args
-    want = {"msda_fwd": (a.enc_layers + a.dec_layers) * n_req, "fusion_fwd": a.enc_layers * n_req}
+    counts = {k: fn.launches for k, fn in counters.items()}
+    log(tag, f"{n_req - 1} requests after 1 warm-up: latency ms "
+             f"{[round(t * 1e3, 1) for t in lat]} "
+             f"(median {1e3 * sorted(lat)[len(lat) // 2]:.1f}); "
+             f"launches over {n_req} requests: { {k: v for k, v in counts.items() if v} }")
+    want = serving_launches(im.args, n_req)
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, expected {want}")
-    if msda.ms_deform_attn_bwd.launches or fusion.fused_bi_attention_bwd.launches:
-        raise AssertionError("serving launched a backward kernel")
-    return im, lat, counts, images, (cfg, ckpt, vocab)
+    return im, lat, counts, images
 
 
-def check_forward(im_gpu, files, image, caption):
-    """pred_logits / pred_boxes of one request on the card against the same
-    checkpoint on the CPU, flip-aware (__graft_entry__.py:376-393 bounds)."""
-    import numpy as np
+def forward_outputs(im, image, caption):
+    """(pred_logits, pred_boxes, image shape) of one request, on the host."""
     import torch
 
     from open_groundingdino_tpu_torch import inference
 
-    def run(im):
-        inputs, _ = inference.prepare_inputs(im, image, inference.preprocess_caption(caption))
-        with torch.inference_mode():
-            out = im.model(**inputs)
-        return (out["pred_logits"].float().cpu().numpy(), out["pred_boxes"].float().cpu().numpy(),
-                tuple(inputs["images"].shape))
+    inputs, _ = inference.prepare_inputs(im, image, inference.preprocess_caption(caption))
+    with torch.inference_mode():
+        out = im.model(**inputs)
+    return (out["pred_logits"].float().cpu().numpy(), out["pred_boxes"].float().cpu().numpy(),
+            tuple(inputs["images"].shape))
 
-    lg_g, bx_g, shape = run(im_gpu)
+
+def check_forward(im_gpu, files, image, caption, tag="forward"):
+    """pred_logits / pred_boxes of one request on the card against the same
+    checkpoint on the CPU, flip-aware (__graft_entry__.py:376-393 bounds);
+    returns the CPU's outputs."""
+    from open_groundingdino_tpu_torch import inference
+
     t0 = time.perf_counter()
-    lg_c, bx_c, _ = run(inference.load_model(*files, device="cpu"))
-    cpu_s = time.perf_counter() - t0
+    cpu = forward_outputs(inference.load_model(*files, device="cpu"), image, caption)
+    compare_forward(forward_outputs(im_gpu, image, caption), cpu, tag,
+                    f"CPU forward {time.perf_counter() - t0:.1f} s")
+    return cpu
+
+
+def compare_forward(card, cpu, tag, note=""):
+    """The card's (logits, boxes) against the CPU's: fewer than 10% of the
+    queries flipped, and on the rest |dlogit| < 5e-2, |dbox| < 5e-3."""
+    import numpy as np
+
+    lg_g, bx_g, shape = card
+    lg_c, bx_c, _ = cpu
     flip = np.max(np.abs(bx_g - bx_c), axis=-1) > 1e-2
     keep = ~flip
     fin = np.isfinite(lg_c) & keep[..., None]
     same_inf = bool(np.array_equal(np.isfinite(lg_g), np.isfinite(lg_c)))
     lg_err = float(np.max(np.abs(lg_g[fin] - lg_c[fin]))) if fin.any() else 0.0
     bx_err = float(np.max(np.abs(bx_g[keep] - bx_c[keep]))) if keep.any() else 0.0
-    log("forward", f"image {shape} pred_logits {lg_g.shape} pred_boxes {bx_g.shape}: "
-                   f"flipped {flip.mean():.1%}, bulk max|dlogit| {lg_err:.3e}, "
-                   f"bulk max|dbox| {bx_err:.3e} (CPU forward {cpu_s:.1f} s)")
+    log(tag, f"image {shape} pred_logits {lg_g.shape} pred_boxes {bx_g.shape}: "
+             f"flipped {flip.mean():.1%}, bulk max|dlogit| {lg_err:.3e}, "
+             f"bulk max|dbox| {bx_err:.3e}" + (f" ({note})" if note else ""))
     ok = (same_inf and np.isfinite(bx_g).all() and flip.mean() < 0.10
           and lg_err < 5e-2 and bx_err < 5e-3)
     if not ok:
-        raise AssertionError("card forward disagrees with the CPU forward")
+        raise AssertionError(f"{tag}: the card's forward disagrees with the CPU forward")
 
 
 # ---------------------------------------------------------------- training
@@ -605,6 +820,7 @@ PARITY_GRAD_RTOL = 1e-2    # per top-level module gradient norm
 PARITY_LEAF_RTOL = 1e-2
 KERNEL_FED = (".sampling_offsets.", ".attention_weights.", ".value_proj.", ".attn.v_proj.",
               ".attn.l_proj.", ".attn.values_v_proj.", ".attn.values_l_proj.")
+MSDA_FED = KERNEL_FED[:3]   # the deformable attentions' projections
 
 
 def write_odvg(work: str) -> str:
@@ -642,27 +858,50 @@ def write_odvg(work: str) -> str:
 
 def kernel_counters():
     from open_groundingdino_tpu_torch.ops import fusion, msda
+    from open_groundingdino_tpu_torch.ops import msda_sweep as sw
 
     return {"msda_fwd": msda.ms_deform_attn, "fusion_fwd": fusion.fused_bi_attention,
-            "msda_bwd": msda.ms_deform_attn_bwd, "fusion_bwd": fusion.fused_bi_attention_bwd}
+            "msda_bwd": msda.ms_deform_attn_bwd, "fusion_bwd": fusion.fused_bi_attention_bwd,
+            "sweep_fwd": sw.sweep_fwd, "sweep_fwd_allq": sw.sweep_fwd_allq,
+            "sweep_bwd_corner": sw.sweep_bwd_corner, "sweep_bwd_rowtap": sw.sweep_bwd_rowtap}
 
 
-def train(cfg: str, work: str, files, device: str) -> dict:
+def train_launches_per_step(msda_keys: dict) -> dict:
+    """TRAIN_LAUNCHES_PER_STEP with the MSDA kernels the config selects: the
+    sweep runs K6 where the gather runs K1 (the decoder's B = 4 query sets
+    too: msda_dec_fused is off), and K9 or K10 where it runs K3."""
+    want = dict.fromkeys(kernel_counters(), 0) | TRAIN_LAUNCHES_PER_STEP
+    if msda_keys.get("msda_kernel") == "sweep":
+        want["sweep_fwd"] = want.pop("msda_fwd")
+        bwd = "sweep_bwd_" + msda_keys.get("msda_sweep_bwd", "corner")
+        want[bwd] = want.pop("msda_bwd")
+        want["msda_fwd"] = want["msda_bwd"] = 0
+    return want
+
+
+def train(cfg: str, work: str, files, device: str, msda_keys=None, epochs: int = TRAIN_EPOCHS,
+          max_steps: int = None, tag: str = "train") -> dict:
     """The port's training entry (main.main) on the synthetic ODVG set at
-    the config's full width and depth: B = 4, f32, TRAIN_STEPS steps from the
-    smoke's seeded checkpoint (random biases); counts the kernels' launches
-    of the run."""
+    the config's full width and depth: B = 4, f32, two steps an epoch (at
+    most max_steps) from the smoke's seeded checkpoint (random biases), with
+    the MSDA config keys `msda_keys` given as --options; counts the kernels'
+    launches of the run."""
     import torch
 
     from open_groundingdino_tpu_torch import main as train_main
 
     manifest = write_odvg(work)
     _, ckpt, vocab = files
+    msda_keys = msda_keys or {}
+    out_dir = os.path.join(work, f"{tag}_out")
+    steps = 2 * epochs if max_steps is None else min(2 * epochs, max_steps)
     cli = train_main.get_args_parser().parse_args([
-        "-c", cfg, "--datasets", manifest, "--output_dir", os.path.join(work, "train_out"),
+        "-c", cfg, "--datasets", manifest, "--output_dir", out_dir,
         "--vocab", vocab, "--pretrain_model_path", ckpt, "--device", device,
         "--seed", str(SEED), "--num_workers", "2", "--print_freq", "1",
-        "--options", f"epochs={TRAIN_EPOCHS}", "batch_size=4", "compute_dtype=float32",
+        *(["--max_steps", str(max_steps)] if max_steps else []),
+        "--options", f"epochs={epochs}", "batch_size=4", "compute_dtype=float32",
+        *(f"{k}={v}" for k, v in msda_keys.items()),
     ])
     counters = kernel_counters()
     for fn in counters.values():
@@ -676,29 +915,30 @@ def train(cfg: str, work: str, files, device: str) -> dict:
     records = run["records"]
     losses = [r["loss"] for r in records]
     step_s = [r["step_seconds"] for r in records]
-    timed = sorted(step_s[1:])
+    timed = sorted(step_s[1:]) or step_s   # the first step warms up
     median_s = timed[len(timed) // 2]
     peak = torch.cuda.max_memory_allocated()
-    with open(os.path.join(work, "train_out", "log.txt")) as f:
+    with open(os.path.join(out_dir, "log.txt")) as f:
         epochs_logged = len(f.read().splitlines())
-    log("train", f"{len(records)} steps (B=4, f32, TF32 off) in {wall:.1f} s with set-up: "
+    log(tag, f"{len(records)} steps (B=4, f32, TF32 off{', ' if msda_keys else ''}"
+             f"{', '.join(f'{k}={v}' for k, v in msda_keys.items())}) in {wall:.1f} s with set-up: "
                  f"losses {[round(x, 4) for x in losses]}; step s "
                  f"{[round(x, 3) for x in step_s]} (median of the {len(timed)} timed: "
                  f"{median_s:.3f} s); max_memory_allocated {peak / 2**30:.2f} GiB; "
-                 f"log.txt lines {epochs_logged}; launches {counts} "
-                 f"(per step {({k: v / max(len(records), 1) for k, v in counts.items()})})")
-    if len(records) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
-        raise AssertionError(f"expected {TRAIN_STEPS} finite losses, got {losses}")
-    if epochs_logged != TRAIN_EPOCHS:
-        raise AssertionError(f"log.txt has {epochs_logged} lines, expected {TRAIN_EPOCHS}")
-    want = {k: v * TRAIN_STEPS for k, v in TRAIN_LAUNCHES_PER_STEP.items()}
+                 f"log.txt lines {epochs_logged}; launches { {k: v for k, v in counts.items() if v} } "
+                 f"(per step { {k: v / max(len(records), 1) for k, v in counts.items() if v} })")
+    if len(records) != steps or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"expected {steps} finite losses, got {losses}")
+    if epochs_logged != epochs:
+        raise AssertionError(f"log.txt has {epochs_logged} lines, expected {epochs}")
+    want = {k: v * steps for k, v in train_launches_per_step(msda_keys).items()}
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, expected {want}")
     return dict(run=run, counts=counts, losses=losses, step_seconds=step_s,
                 median_step_s=median_s, peak_bytes=peak, wall_s=wall)
 
 
-def profile_train_step(run, top: int = 8) -> dict:
+def profile_train_step(run, top: int = 8, tag: str = "train-profile") -> dict:
     """torch.profiler over one more training step: device time by kernel
     group against the step's wall time (profiler on)."""
     import torch
@@ -717,9 +957,14 @@ def profile_train_step(run, top: int = 8) -> dict:
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     kernels.sort(key=lambda k: -k[1])
     groups = {"K1 msda_fwd": 0.0, "K2 fusion_fwd": 0.0, "K3 msda_bwd": 0.0,
-              "K4 fusion_bwd": 0.0, "matmul": 0.0, "other": 0.0}
+              "K4 fusion_bwd": 0.0, "K6/K7 sweep_fwd": 0.0, "K9/K10 sweep_bwd": 0.0,
+              "matmul": 0.0, "other": 0.0}
     for key, ms, _ in kernels:
-        if "msda_fwd_kernel" in key:
+        if "sweep_fwd_kernel" in key:
+            groups["K6/K7 sweep_fwd"] += ms
+        elif "sweep_bwd_kernel" in key:
+            groups["K9/K10 sweep_bwd"] += ms
+        elif "msda_fwd_kernel" in key:
             groups["K1 msda_fwd"] += ms
         elif "attend_kernel" in key or "combine_kernel" in key:
             groups["K2 fusion_fwd"] += ms
@@ -732,7 +977,7 @@ def profile_train_step(run, top: int = 8) -> dict:
         else:
             groups["other"] += ms
     busy = sum(groups.values())
-    log("train-profile", f"one step {wall_ms:.1f} ms wall (profiler on), device busy "
+    log(tag, f"one step {wall_ms:.1f} ms wall (profiler on), device busy "
                          f"{busy:.1f} ms ({busy / wall_ms:.0%}); by group ms "
                          f"{ {k: round(v, 2) for k, v in groups.items()} }; top kernels "
                          f"{[(k[:48], round(ms, 2), n) for k, ms, n in kernels[:top]]}")
@@ -760,15 +1005,16 @@ def negated_output(fn, index: int):
     return planted
 
 
-def check_train_parity(cfg: str, files) -> dict:
-    """One training step on the card and the same step on the CPU (plain
-    versions of the kernels): the same seeded weights, the same batch (B = 1,
-    an 800x1216-bucket image), fusion droppath 0, the config's full depth.
-    Loss within PARITY_LOSS_RTOL, each top-level module's gradient norm
-    within PARITY_GRAD_RTOL, and the gradient of each parameter that K3 or
-    K4 feeds within PARITY_LEAF_RTOL.  Then the card's step again with K3's
-    grad_locs and, apart, K4's gvl negated: each planted fault must fail
-    the same comparison."""
+def parity_harness(cfg: str, files):
+    """The one-step comparisons' common ground: the same seeded weights, the
+    same batch (B = 1, an 800x1216-bucket image), fusion droppath 0, the
+    config's full depth.  Returns (step, gaps, within):
+      step(device, msda=None) - one training step of a fresh copy of the
+          weights (MSDeformAttn attributes `msda` set on every deformable
+          attention): loss, every parameter's gradient on the host, seconds;
+      gaps(run, ref, fed) - (loss rel, {module: gradient-norm rel}, {leaf
+          whose name holds one of `fed`: ||g_run - g_ref|| / ||g_ref||});
+      within(gaps) - all three inside the PARITY_* limits."""
     import copy
 
     import numpy as np
@@ -780,8 +1026,8 @@ def check_train_parity(cfg: str, files) -> dict:
     from open_groundingdino_tpu_torch.data.transforms import Sample
     from open_groundingdino_tpu_torch.inference import load_reference_state_dict
     from open_groundingdino_tpu_torch.models.criterion import build_criterion
+    from open_groundingdino_tpu_torch.models.deformable import MSDeformAttn
     from open_groundingdino_tpu_torch.models.groundingdino import build_groundingdino
-    from open_groundingdino_tpu_torch.ops import fusion, msda
     from open_groundingdino_tpu_torch.parallel.optim import make_optimizer
     from open_groundingdino_tpu_torch.parallel.train_state import TrainState, make_train_step
 
@@ -805,10 +1051,12 @@ def check_train_parity(cfg: str, files) -> dict:
     if tuple(batch["images"].shape[1:3]) != BUCKET:
         raise AssertionError(f"parity batch landed in {batch['images'].shape}, not {BUCKET}")
 
-    def step(device):
-        """One training step of a fresh copy of the weights: loss, every
-        parameter's gradient on the host, seconds."""
+    def step(device, msda=None):
         model = copy.deepcopy(base).to(device)
+        for m in model.modules():
+            if isinstance(m, MSDeformAttn):
+                for k, v in (msda or {}).items():
+                    setattr(m, k, v)
         opt = make_optimizer(model, lr=float(args.lr), base_lr=float(args.lr),
                              lr_backbone=float(args.lr_backbone),
                              lr_linear_proj_mult=float(args.lr_linear_proj_mult),
@@ -829,32 +1077,66 @@ def check_train_parity(cfg: str, files) -> dict:
             torch.cuda.synchronize()
         return dict(loss=metrics["loss"], grads=grads, seconds=time.perf_counter() - t0)
 
-    def gaps(card, cpu):
-        """(loss rel, {module: gradient-norm rel}, {kernel-fed leaf:
-        ||g_card - g_cpu|| / ||g_cpu||})."""
+    def gaps(run, ref, fed):
         sq = {}
-        for dev, run in (("card", card), ("cpu", cpu)):
-            for name, g in run["grads"].items():
+        for dev, r in (("run", run), ("ref", ref)):
+            for name, g in r["grads"].items():
                 key = (dev, module_of(name))
                 sq[key] = sq.get(key, 0.0) + float(g.double().pow(2).sum())
         modules = {m for _, m in sq}
-        norm_rel = {m: abs(sq["card", m] ** 0.5 - sq["cpu", m] ** 0.5)
-                    / max(sq["cpu", m] ** 0.5, 1e-30) for m in modules}
+        norm_rel = {m: abs(sq["run", m] ** 0.5 - sq["ref", m] ** 0.5)
+                    / max(sq["ref", m] ** 0.5, 1e-30) for m in modules}
         leaf_rel = {}
-        for name, g in cpu["grads"].items():
-            if any(k in name for k in KERNEL_FED):
-                ref = g.double()
-                leaf_rel[name] = float((card["grads"][name].double() - ref).norm()
-                                       / max(float(ref.norm()), 1e-30))
-        loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+        for name, g in ref["grads"].items():
+            if any(k in name for k in fed):
+                g = g.double()
+                leaf_rel[name] = float((run["grads"][name].double() - g).norm()
+                                       / max(float(g.norm()), 1e-30))
+        loss_rel = abs(run["loss"] - ref["loss"]) / abs(ref["loss"])
         return loss_rel, norm_rel, leaf_rel
 
-    def within(loss_rel, norm_rel, leaf_rel):
+    def within(gap):
+        loss_rel, norm_rel, leaf_rel = gap
         return (loss_rel < PARITY_LOSS_RTOL and all(v < PARITY_GRAD_RTOL for v in norm_rel.values())
                 and all(v < PARITY_LEAF_RTOL for v in leaf_rel.values()))
 
+    return step, gaps, within
+
+
+def planted_faults(step, gaps, within, ref, fed, faults, tag, **step_kw) -> dict:
+    """The card's step again with each planted kernel fault (label, module,
+    wrapper name, output index): each must fail the comparison with ref."""
+    planted = {}
+    for label, module, attr, index in faults:
+        kernel = getattr(module, attr)
+        setattr(module, attr, negated_output(kernel, index))
+        try:
+            run = step("cuda", **step_kw)
+        finally:
+            setattr(module, attr, kernel)
+        gap = gaps(run, ref, fed)
+        planted[label] = max(gap[2].values())
+        log(tag, f"planted fault, {label}: leaves ||dg||/||g|| max {planted[label]:.2e}, "
+                 f"module grad-norm rel max {max(gap[1].values()):.2e}")
+        if within(gap):
+            raise AssertionError(f"{tag} passes with a planted fault: {label}")
+    return planted
+
+
+def check_train_parity(harness) -> dict:
+    """One training step on the card and the same step on the CPU (plain
+    versions of the kernels).  Loss within PARITY_LOSS_RTOL, each top-level
+    module's gradient norm within PARITY_GRAD_RTOL, and the gradient of each
+    parameter that K3 or K4 feeds within PARITY_LEAF_RTOL.  Then the card's
+    step again with K3's grad_locs and, apart, K4's gvl negated: each planted
+    fault must fail the same comparison.  Returns the comparison and the
+    card's step."""
+    from open_groundingdino_tpu_torch.ops import fusion, msda
+
+    step, gaps, within = harness
     card, cpu = step("cuda"), step("cpu")
-    loss_rel, norm_rel, leaf_rel = gaps(card, cpu)
+    gap = gaps(card, cpu, KERNEL_FED)
+    loss_rel, norm_rel, leaf_rel = gap
     worst = sorted(leaf_rel.items(), key=lambda kv: -kv[1])[:3]
     log("train-parity", f"B=1 {BUCKET} bucket, config depth, droppath 0: loss card "
                         f"{card['loss']:.6f} CPU {cpu['loss']:.6f} (rel {loss_rel:.2e}, limit "
@@ -864,30 +1146,46 @@ def check_train_parity(cfg: str, files) -> dict:
                         f"||dg||/||g|| max {max(leaf_rel.values()):.2e} (limit "
                         f"{PARITY_LEAF_RTOL}), worst {[(n, f'{v:.2e}') for n, v in worst]}; "
                         f"step s card {card['seconds']:.1f}, CPU {cpu['seconds']:.1f}")
-    if len(card["grads"]) != len(cpu["grads"]) or not within(loss_rel, norm_rel, leaf_rel):
+    if len(card["grads"]) != len(cpu["grads"]) or not within(gap):
         raise AssertionError("the card's training step disagrees with the CPU's")
+    planted = planted_faults(step, gaps, within, cpu, KERNEL_FED,
+                             (("K3 grad_locs negated", msda, "ms_deform_attn_bwd", 1),
+                              ("K4 gvl negated", fusion, "fused_bi_attention_bwd", 3)),
+                             "train-parity")
+    return dict(loss_rel=loss_rel, norm_rel=norm_rel, leaf_rel_max=max(leaf_rel.values()),
+                planted=planted), card
 
-    planted = {}
-    for label, module, attr, index in (("K3 grad_locs negated", msda, "ms_deform_attn_bwd", 1),
-                                       ("K4 gvl negated", fusion, "fused_bi_attention_bwd", 3)):
-        kernel = getattr(module, attr)
-        setattr(module, attr, negated_output(kernel, index))
-        try:
-            run = step("cuda")
-        finally:
-            setattr(module, attr, kernel)
-        p_loss, p_norm, p_leaf = gaps(run, cpu)
-        planted[label] = max(p_leaf.values())
-        log("train-parity", f"planted fault, {label}: leaves ||dg||/||g|| max "
-                            f"{planted[label]:.2e}, module grad-norm rel max "
-                            f"{max(p_norm.values()):.2e}")
-        if within(p_loss, p_norm, p_leaf):
-            raise AssertionError(f"phase 11 passes with a planted fault: {label}")
+
+def check_sweep_train_parity(harness, gather_card) -> dict:
+    """One training step through the sweep (K6 forward, K9 backward) against
+    the gather's step on the card (phase 11's) from the same weights and
+    batch: loss within PARITY_LOSS_RTOL, module gradient norms within
+    PARITY_GRAD_RTOL, and each parameter that the MSDA kernels feed within
+    PARITY_LEAF_RTOL.  Then with K9's gw negated, which must fail."""
+    from open_groundingdino_tpu_torch.ops import msda_sweep as sw
+
+    step, gaps, within = harness
+    sweep = {"kernel": "sweep", "sweep_bwd": "corner"}
+    run = step("cuda", msda=sweep)
+    gap = gaps(run, gather_card, MSDA_FED)
+    loss_rel, norm_rel, leaf_rel = gap
+    worst = sorted(leaf_rel.items(), key=lambda kv: -kv[1])[:3]
+    log("sweep-train-parity", f"sweep step vs gather step on the card: loss {run['loss']:.6f} "
+                              f"vs {gather_card['loss']:.6f} (rel {loss_rel:.2e}); grad-norm rel "
+                              f"by module { {k: f'{v:.2e}' for k, v in norm_rel.items()} }; "
+                              f"{len(leaf_rel)} MSDA-fed leaves ||dg||/||g|| max "
+                              f"{max(leaf_rel.values()):.2e} (limit {PARITY_LEAF_RTOL}), worst "
+                              f"{[(n, f'{v:.2e}') for n, v in worst]}; step s {run['seconds']:.1f}")
+    if not within(gap):
+        raise AssertionError("the sweep's training step disagrees with the gather's")
+    planted = planted_faults(step, gaps, within, gather_card, MSDA_FED,
+                             (("K9 gw negated", sw, "sweep_bwd_corner", 1),),
+                             "sweep-train-parity", msda=sweep)
     return dict(loss_rel=loss_rel, norm_rel=norm_rel, leaf_rel_max=max(leaf_rel.values()),
                 planted=planted)
 
 
-def profile_request(im, image, caption, top: int = 8) -> dict:
+def profile_request(im, image, caption, top: int = 8, tag: str = "profile") -> dict:
     """torch.profiler over one warm request: device time by kernel, grouped
     as K1, K2, matrix products and the rest, against the request's wall
     time (profiler on)."""
@@ -907,9 +1205,12 @@ def profile_request(im, image, caption, top: int = 8) -> dict:
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     kernels.sort(key=lambda k: -k[1])
-    groups = {"K1 msda_fwd": 0.0, "K2 fusion_fwd": 0.0, "matmul": 0.0, "other": 0.0}
+    groups = {"K1 msda_fwd": 0.0, "K2 fusion_fwd": 0.0, "K6/K7 sweep_fwd": 0.0, "matmul": 0.0,
+              "other": 0.0}
     for key, ms, _ in kernels:
-        if "msda_fwd_kernel" in key:
+        if "sweep_fwd_kernel" in key:
+            groups["K6/K7 sweep_fwd"] += ms
+        elif "msda_fwd_kernel" in key:
             groups["K1 msda_fwd"] += ms
         elif "attend_kernel" in key or "combine_kernel" in key:
             groups["K2 fusion_fwd"] += ms
@@ -918,7 +1219,7 @@ def profile_request(im, image, caption, top: int = 8) -> dict:
         else:
             groups["other"] += ms
     busy = sum(groups.values())
-    log("profile", f"one request {wall_ms:.1f} ms wall (profiler on), device busy {busy:.1f} ms "
+    log(tag, f"one request {wall_ms:.1f} ms wall (profiler on), device busy {busy:.1f} ms "
                    f"({busy / wall_ms:.0%}); by group ms "
                    f"{ {k: round(v, 2) for k, v in groups.items()} }; top kernels "
                    f"{[(k[:48], round(ms, 2), n) for k, ms, n in kernels[:top]]}")
@@ -958,8 +1259,9 @@ def main() -> int:
     os.makedirs(work, exist_ok=True)
     try:
         cfg = os.path.join(REPO, "open_groundingdino_tpu_torch", "config", "cfg_coco.py")
-        im, lat, counts, images, files = serve(cfg, work, "cuda")      # 5
-        check_forward(im, files, images[0], CAPTIONS[0])               # 6
+        files = write_serving_files(cfg, work)
+        im, lat, counts, images = serve(files, "cuda")                 # 5
+        cpu_out = check_forward(im, files, images[0], CAPTIONS[0])     # 6
         profile_request(im, images[0], CAPTIONS[0])                    # 7
         del im
         k3 = check_msda_bwd("cuda")                                    # 8
@@ -968,7 +1270,31 @@ def main() -> int:
         write_checkpoint(cfg, train_files[1], random_biases=True)
         tr = train(cfg, work, train_files, "cuda")                     # 10
         profile_train_step(tr.pop("run"))
-        check_train_parity(cfg, train_files)                           # 11
+        harness = parity_harness(cfg, train_files)
+        _, gather_card = check_train_parity(harness)                   # 11
+
+        sweep = check_sweep("cuda")                                    # 12
+        serve_counts = {}
+        for tag, keys in (("sweep-serve", {"msda_kernel": "sweep"}),   # 13
+                          ("sweep-serve-fused", {"msda_kernel": "sweep", "msda_dec_fused": True})):
+            sweep_files = (msda_config(cfg, work, tag, **keys), *files[1:])
+            im, _, serve_counts[tag], _ = serve(sweep_files, "cuda", tag)
+            compare_forward(forward_outputs(im, images[0], CAPTIONS[0]), cpu_out,
+                            f"{tag}-forward", "against phase 6's CPU forward")
+            if tag == "sweep-serve":
+                profile_request(im, images[0], CAPTIONS[0], tag="sweep-profile")
+            del im
+        train_counts_sweep = {}
+        for tag, keys, kw in (                                          # 14
+                ("sweep-train", {"msda_kernel": "sweep"}, dict(epochs=1)),
+                ("sweep-train-rowtap", {"msda_kernel": "sweep", "msda_sweep_bwd": "rowtap"},
+                 dict(epochs=1, max_steps=1))):
+            run = train(cfg, work, train_files, "cuda", keys, tag=tag, **kw)
+            train_counts_sweep[tag] = run["counts"]
+            if tag == "sweep-train":
+                profile_train_step(run.pop("run"), tag="sweep-train-profile")
+            del run
+        check_sweep_train_parity(harness, gather_card)                 # 15
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1010,6 +1336,25 @@ def main() -> int:
          "launches_by_path": {"serve": 0, "train": train_counts["fusion_bwd"]},
          **single_row(k4)},
     ]
+    # the sweep kernels (phase 12 at phase 8's B = 4 shapes); launches: K6's
+    # and K7's from the sweep serving runs (phase 13), K9's and K10's from the
+    # sweep training runs (phase 14); every sweep run's counts under
+    # launches_by_path
+    by_path = {**serve_counts, **train_counts_sweep}
+    for kname, counter, launches_from, source, line in (
+            ("K6", "sweep_fwd", "sweep-serve", "msda_sweep_fwd.cu", "msda_pallas.py:484"),
+            ("K7", "sweep_fwd_allq", "sweep-serve-fused", "msda_sweep_fwd.cu",
+             "msda_pallas.py:634"),
+            ("K9", "sweep_bwd_corner", "sweep-train", "msda_sweep_bwd.cu", "msda_pallas.py:955"),
+            ("K10", "sweep_bwd_rowtap", "sweep-train-rowtap", "msda_sweep_bwd.cu",
+             "msda_pallas.py:1200")):
+        shapes = {n: sweep[kname, n] for n in ("encoder", "decoder") if (kname, n) in sweep}
+        row = mean_row(shapes) if len(shapes) == 2 else single_row(shapes["decoder"])
+        kernels.append({"name": counter, "route": "cuda", "source": src + source,
+                        "replaces": tpu + line, "launches": by_path[launches_from][counter],
+                        "launches_by_path": {k: v[counter] for k, v in by_path.items()}, **row})
+        if kernels[-1]["launches"] <= 0:
+            raise AssertionError(f"{kname} was not launched on its model path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -22,6 +22,16 @@ num_queries = 900
 num_feature_levels = 4
 enc_n_points = 4
 dec_n_points = 4
+# the deformable attentions' core op: "gather" (K1 forward, K3 backward; the
+# JAX package's default banded path) or "sweep" (the tile sweep: the JAX
+# package's msda_impl = "pallas" with MSDA_BANDED=0)
+msda_kernel = "gather"
+# the sweep's backward: "corner" (K9) or "rowtap" (K10), the JAX package's
+# MSDA_BWD_VARIANT
+msda_sweep_bwd = "corner"
+# the sweep's forward for decoder-style query sets: all query blocks of one
+# (b, h) in one kernel block (K7), the JAX package's MSDA_DEC_FUSED=1
+msda_dec_fused = False
 two_stage_type = "standard"
 dec_pred_bbox_embed_share = True
 

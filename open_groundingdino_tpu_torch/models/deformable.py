@@ -3,9 +3,17 @@ the JAX package's models/deformable.py; reference ms_deform_attn.py:137-363).
 
 Value projection with padding-mask zeroing, per-query sampling offsets and
 softmaxed attention weights, sampling locations from 2-d or 4-d reference
-points, the core op (K1, ops/msda.py), output projection.  Parameter names
-are the reference's; sampling_offsets starts at zero weight with the
-rotated-grid bias (reference ms_deform_attn.py:198-221).
+points, the core op, output projection.  Parameter names are the
+reference's; sampling_offsets starts at zero weight with the rotated-grid
+bias (reference ms_deform_attn.py:198-221).
+
+The core op is `kernel="gather"` (K1/K3, ops/msda.py; the JAX package's
+default banded path) or `kernel="sweep"` (K6/K7 forward, K9/K10 backward,
+ops/msda_sweep.py; the JAX package's `msda_impl="pallas"` with
+`MSDA_BANDED=0`, deformable.py:176-177).  The sweep takes the same
+projections and parameters: the JAX package's `_transposed_path` keeps the
+nn.Dense parameter tree (deformable.py:165-167), so one checkpoint serves
+both.
 """
 from __future__ import annotations
 
@@ -17,6 +25,9 @@ import torch
 from torch import nn
 
 from ..ops.msda import level_starts, ms_deform_attn
+from ..ops.msda_sweep import SWEEP_BWD, ms_deform_attn_sweep
+
+KERNELS = ("gather", "sweep")
 
 
 def sampling_offsets_bias(num_heads: int, num_levels: int, num_points: int) -> np.ndarray:
@@ -32,8 +43,14 @@ def sampling_offsets_bias(num_heads: int, num_levels: int, num_points: int) -> n
 
 class MSDeformAttn(nn.Module):
     def __init__(self, embed_dim: int = 256, num_heads: int = 8,
-                 num_levels: int = 4, num_points: int = 4):
+                 num_levels: int = 4, num_points: int = 4, kernel: str = "gather",
+                 sweep_bwd: str = "corner", dec_fused: bool = False):
         super().__init__()
+        if kernel not in KERNELS:
+            raise ValueError(f"msda kernel must be one of {KERNELS}, got {kernel!r}")
+        if sweep_bwd not in SWEEP_BWD:
+            raise ValueError(f"msda sweep backward must be one of {SWEEP_BWD}, got {sweep_bwd!r}")
+        self.kernel, self.sweep_bwd, self.dec_fused = kernel, sweep_bwd, bool(dec_fused)
         self.num_heads, self.num_levels, self.num_points = num_heads, num_levels, num_points
         self.value_proj = nn.Linear(embed_dim, embed_dim)
         self.sampling_offsets = nn.Linear(embed_dim, num_heads * num_levels * num_points * 2)
@@ -83,8 +100,10 @@ class MSDeformAttn(nn.Module):
         else:
             raise ValueError("reference_points last dim must be 2 or 4")
 
-        out = ms_deform_attn(
-            v.contiguous(), spatial_shapes, level_starts(spatial_shapes),
-            locs.contiguous(), attn.contiguous(),
-        )
+        args = (v.contiguous(), spatial_shapes, level_starts(spatial_shapes),
+                locs.contiguous(), attn.contiguous())
+        if self.kernel == "sweep":
+            out = ms_deform_attn_sweep(*args, bwd=self.sweep_bwd, dec_fused=self.dec_fused)
+        else:
+            out = ms_deform_attn(*args)
         return self.output_proj(out)

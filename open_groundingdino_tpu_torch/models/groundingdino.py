@@ -42,7 +42,10 @@ class GroundingDINO(nn.Module):
                  pe_temperature_w: float = 20.0, use_text_enhancer: bool = True,
                  use_fusion_layer: bool = True, use_text_cross_attention: bool = True,
                  aux_loss: bool = True, fusion_droppath: float = 0.0,
-                 use_checkpoint: bool = False, use_transformer_ckpt: bool = False):
+                 use_checkpoint: bool = False, use_transformer_ckpt: bool = False,
+                 msda: Optional[Dict] = None):
+        """`msda`: the deformable attentions' core-op keywords (MSDeformAttn's
+        kernel, sweep_bwd, dec_fused); None keeps the gather kernels."""
         super().__init__()
         self.swin_cfg = swin_cfg
         self.hidden_dim, self.num_feature_levels = hidden_dim, num_feature_levels
@@ -76,7 +79,7 @@ class GroundingDINO(nn.Module):
             use_text_enhancer=use_text_enhancer, use_fusion_layer=use_fusion_layer,
             use_text_cross_attention=use_text_cross_attention, max_text_len=max_text_len,
             fusion_droppath=fusion_droppath, use_checkpoint=use_checkpoint,
-            use_transformer_ckpt=use_transformer_ckpt,
+            use_transformer_ckpt=use_transformer_ckpt, msda=msda,
         )
         self.transformer.decoder.bbox_embed = self.bbox_embed
 
@@ -151,6 +154,14 @@ def init_weights_(model: nn.Module, seed: int) -> nn.Module:
     return model
 
 
+def msda_options(args) -> Dict:
+    """The config's MSDA core-op keys (cfg_base.py) as MSDeformAttn keywords;
+    MSDeformAttn raises on an unknown value."""
+    return {"kernel": str(getattr(args, "msda_kernel", "gather")),
+            "sweep_bwd": str(getattr(args, "msda_sweep_bwd", "corner")),
+            "dec_fused": bool(getattr(args, "msda_dec_fused", False))}
+
+
 @MODULE_BUILD_FUNCS.registe_with_name("groundingdino")
 def build_groundingdino(args, device="cuda") -> GroundingDINO:
     """Build from an SLConfig-style args namespace (reference
@@ -196,4 +207,5 @@ def build_groundingdino(args, device="cuda") -> GroundingDINO:
             fusion_droppath=float(getattr(args, "fusion_droppath", 0.0)),
             use_checkpoint=bool(getattr(args, "use_checkpoint", False)),
             use_transformer_ckpt=bool(getattr(args, "use_transformer_ckpt", False)),
+            msda=msda_options(args),
         ).eval()

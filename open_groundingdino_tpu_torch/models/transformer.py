@@ -3,10 +3,11 @@ JAX package's models/transformer.py, raster order only; reference
 models/GroundingDINO/transformer.py).
 
 Encoder layer = fusion (K2) -> text enhancer -> multi-scale deformable
-self-attention (K1) + FFN (reference transformer.py:550-598, 747-808).
+self-attention (K1, or the sweep K6) + FFN (reference transformer.py:550-598, 747-808).
 Two-stage selection takes the top num_queries encoder tokens by max text
 logit as anchor boxes (reference transformer.py:285-328).  Decoder layer =
-self-attention -> text cross-attention -> deformable cross-attention (K1) ->
+self-attention -> text cross-attention -> deformable cross-attention (K1, or
+the sweep K6/K7) ->
 FFN, with per-layer box refinement on detached reference points (reference
 transformer.py:672-736, 811-936).
 
@@ -137,9 +138,10 @@ def two_stage_select(output_memory, output_proposals, enc_delta, enc_logits, num
 
 
 class DeformableEncoderLayer(nn.Module):
-    def __init__(self, d_model: int, d_ffn: int, n_levels: int, n_heads: int, n_points: int):
+    def __init__(self, d_model: int, d_ffn: int, n_levels: int, n_heads: int, n_points: int,
+                 msda: Optional[Dict] = None):
         super().__init__()
-        self.self_attn = MSDeformAttn(d_model, n_heads, n_levels, n_points)
+        self.self_attn = MSDeformAttn(d_model, n_heads, n_levels, n_points, **(msda or {}))
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.linear1 = nn.Linear(d_model, d_ffn)
         self.linear2 = nn.Linear(d_ffn, d_model)
@@ -154,9 +156,9 @@ class DeformableEncoderLayer(nn.Module):
 
 class DeformableDecoderLayer(nn.Module):
     def __init__(self, d_model: int, d_ffn: int, n_levels: int, n_heads: int, n_points: int,
-                 use_text_cross_attention: bool = True):
+                 use_text_cross_attention: bool = True, msda: Optional[Dict] = None):
         super().__init__()
-        self.cross_attn = MSDeformAttn(d_model, n_heads, n_levels, n_points)
+        self.cross_attn = MSDeformAttn(d_model, n_heads, n_levels, n_points, **(msda or {}))
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         if use_text_cross_attention:
             self.ca_text = MultiHeadAttention(d_model, n_heads)
@@ -187,11 +189,11 @@ class DeformableDecoderLayer(nn.Module):
 class TransformerEncoder(nn.Module):
     def __init__(self, d_model, nhead, num_layers, dim_feedforward, n_levels, n_points,
                  use_fusion_layer, use_text_enhancer, fusion_droppath=0.0,
-                 use_checkpoint=False, use_transformer_ckpt=False):
+                 use_checkpoint=False, use_transformer_ckpt=False, msda=None):
         super().__init__()
         self.use_checkpoint, self.use_transformer_ckpt = use_checkpoint, use_transformer_ckpt
         self.layers = nn.ModuleList(
-            DeformableEncoderLayer(d_model, dim_feedforward, n_levels, nhead, n_points)
+            DeformableEncoderLayer(d_model, dim_feedforward, n_levels, nhead, n_points, msda)
             for _ in range(num_layers)
         )
         self.fusion_layers = nn.ModuleList(
@@ -237,11 +239,11 @@ class TransformerDecoder(nn.Module):
     head, registered by GroundingDINO (reference groundingdino.py:173-182)."""
 
     def __init__(self, d_model, nhead, num_layers, dim_feedforward, n_levels, n_points,
-                 use_text_cross_attention):
+                 use_text_cross_attention, msda=None):
         super().__init__()
         self.layers = nn.ModuleList(
             DeformableDecoderLayer(d_model, dim_feedforward, n_levels, nhead, n_points,
-                                   use_text_cross_attention)
+                                   use_text_cross_attention, msda)
             for _ in range(num_layers)
         )
         self.norm = nn.LayerNorm(d_model, eps=1e-5)
@@ -282,7 +284,10 @@ class Transformer(nn.Module):
                  num_decoder_layers=6, dim_feedforward=2048, num_feature_levels=4,
                  enc_n_points=4, dec_n_points=4, use_text_enhancer=True,
                  use_fusion_layer=True, use_text_cross_attention=True, max_text_len=256,
-                 fusion_droppath=0.0, use_checkpoint=False, use_transformer_ckpt=False):
+                 fusion_droppath=0.0, use_checkpoint=False, use_transformer_ckpt=False,
+                 msda: Optional[Dict] = None):
+        """`msda`: MSDeformAttn's core-op keywords (kernel, sweep_bwd,
+        dec_fused) for every deformable attention of the encoder and decoder."""
         super().__init__()
         self.d_model, self.num_queries, self.max_text_len = d_model, num_queries, max_text_len
         self.num_feature_levels = num_feature_levels
@@ -290,10 +295,10 @@ class Transformer(nn.Module):
         self.encoder = TransformerEncoder(
             d_model, nhead, num_encoder_layers, dim_feedforward, num_feature_levels,
             enc_n_points, use_fusion_layer, use_text_enhancer, fusion_droppath,
-            use_checkpoint, use_transformer_ckpt)
+            use_checkpoint, use_transformer_ckpt, msda)
         self.decoder = TransformerDecoder(
             d_model, nhead, num_decoder_layers, dim_feedforward, num_feature_levels,
-            dec_n_points, use_text_cross_attention)
+            dec_n_points, use_text_cross_attention, msda)
         self.tgt_embed = nn.Embedding(num_queries, d_model)
         self.enc_output = nn.Linear(d_model, d_model)
         self.enc_output_norm = nn.LayerNorm(d_model, eps=1e-5)

@@ -1,0 +1,468 @@
+"""Multi-scale deformable attention as a tile sweep: K6 and K7 (forward,
+csrc/msda_sweep_fwd.cu), K9 and K10 (backward, csrc/msda_sweep_bwd.cu), their
+plain PyTorch versions, and the autograd Function around them.
+
+The port of the JAX package's ops/msda_pallas.py::ms_deform_attn_pallas_t,
+the model path of `msda_impl="pallas"` with `MSDA_BANDED=0`.  The function is
+ms_deform_attn_xla's (ops/msda.py here), written as sparse-times-dense tile
+products: each sample point is expanded into taps on the flat value sequence,
+and for each query block and each value tile its taps touch, a weight matrix
+S (queries x tile positions) is built and S @ V accumulated.
+
+Expansions (kernel layout, raster value order):
+  row taps     row (int32), px, w (f32), (BH, NL*2*P, Q): each point's two
+               bilinear rows as the flat position of the row's first pixel,
+               a continuous position px within the row (weight
+               relu(1 - |px - x|) at pixel x) and the row's weight; edge
+               points collapse to their one valid corner at an integer px,
+               dead taps (w == 0) are clipped into their level
+               (rowtap_positions_and_weights)
+  corner taps  idx (int32), w  (BH, NL*P*4, Q) (corner_indices_and_weights)
+Rows and taps are grouped by level (2*P rows or 4*P taps a level).  The TPU
+kernels take a row tap as one f32 flat position, row + px; at the 800x1216
+bucket (L = 20197) that sum rounds by up to 2^-10 of a pixel, which moved
+the flagship forward's logits by up to 4.9e-2 against the gather path (H100
+smoke).  Split, px keeps its fraction to 2^-16 (rows are at most 152 wide
+there) and the sweep computes the gather's function.
+
+Kernel operands: value in the reference layout (B, L, H, D) f32, D = 32,
+taps (BH, R, Q_pad) with Q_pad a multiple of QBLOCK (padded queries have
+w == 0), upstream gradient and output (BH, Q_pad, D) f32, grad_value
+(B, L, H, D) f32.  Query sets with Q != L (the decoder) are sorted by their
+first row tap's position, so that a block's taps are local; the output and
+the per-tap gradients are un-sorted afterwards.  Each kernel block finds the
+range of positions its live taps touch, per level, itself.
+
+`ms_deform_attn_sweep` takes the plain version for CPU tensors (autograd
+differentiates it) and `MSDASweepFunction` for CUDA tensors.  The four
+kernel wrappers take CUDA tensors only and count their launches
+(`sweep_fwd.launches`, ...); nothing on the card reaches a plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
+
+import torch
+
+from . import build
+from .msda import level_starts
+
+Shapes = Sequence[Tuple[int, int]]
+
+QBLOCK = 128          # queries per kernel block
+HEAD_DIM = 32         # the kernels' channels per head
+MAX_POINTS = 4        # the kernels hold up to 4 points (16 corner taps) a level
+SWEEP_BWD = ("corner", "rowtap")
+
+
+# ---------------------------------------------------------------- expansions
+def _row_base(spatial_shapes: Shapes, lvl: int, yc: torch.Tensor) -> torch.Tensor:
+    """Flat position of (lvl, clip(yc), 0) in the raster value sequence."""
+    Hl, Wl = spatial_shapes[lvl]
+    start = sum(h * w for h, w in spatial_shapes[:lvl])
+    return start + yc.clamp(0, Hl - 1) * Wl
+
+
+def rowtap_positions_and_weights(locs_t: torch.Tensor, attn_t: torch.Tensor,
+                                 spatial_shapes: Shapes):
+    """Row-tap expansion (msda_pallas.py::_rowtap_positions_and_weights_t,
+    raster layout, with each position split into its row's flat start and
+    the position within the row).  locs_t (BH, NL, P, 2, Q), attn_t
+    (BH, NL, P, Q), f32 -> (row int32, px, w) (BH, NL*2*P, Q); px and w are
+    differentiable in both inputs."""
+    row_parts, px_parts, w_parts = [], [], []
+    for lvl, (Hl, Wl) in enumerate(spatial_shapes):
+        pxc = locs_t[:, lvl, :, 0, :] * Wl - 0.5          # (BH, P, Q)
+        pyc = locs_t[:, lvl, :, 1, :] * Hl - 0.5
+        a = attn_t[:, lvl]
+        x0 = torch.floor(pxc)
+        fx = pxc - x0
+        y0 = torch.floor(pyc)
+        fy = pyc - y0
+        x0i, y0i = x0.long(), y0.long()
+        v0 = (x0i >= 0) & (x0i <= Wl - 1)
+        v1 = (x0i + 1 >= 0) & (x0i + 1 <= Wl - 1)
+        interior = v0 & v1
+        # an edge point keeps its one valid corner, at an integer position
+        edge_px = torch.where(v0, x0, x0 + 1.0)
+        edge_wx = torch.where(v0, 1.0 - fx, torch.where(v1, fx, torch.zeros_like(fx)))
+        px_x = torch.where(interior, pxc, edge_px)
+        wx = torch.where(interior, torch.ones_like(fx), edge_wx)
+        # dead taps stay inside their level, so they never widen a sweep
+        px_x = px_x.clamp(0.0, float(max(Wl - 1, 0)))
+        for yc, wy in ((y0i, 1.0 - fy), (y0i + 1, fy)):
+            yv = (yc >= 0) & (yc <= Hl - 1)
+            w_row = torch.where(yv, wy * wx * a, torch.zeros_like(a))
+            row_parts.append(_row_base(spatial_shapes, lvl, yc))
+            px_parts.append(px_x)
+            w_parts.append(w_row)
+    BH, Q = locs_t.shape[0], locs_t.shape[-1]
+    stack = lambda parts: torch.stack(parts, 1).reshape(BH, -1, Q)
+    return stack(row_parts).to(torch.int32), stack(px_parts), stack(w_parts)
+
+
+def corner_indices_and_weights(locs_t: torch.Tensor, attn_t: torch.Tensor,
+                               spatial_shapes: Shapes):
+    """Corner expansion (msda_pallas.py::_corner_indices_and_weights_t, raster
+    layout): locs_t (BH, NL, P, 2, Q), attn_t (BH, NL, P, Q) -> idx int32 and
+    w f32, (BH, NL*P*4, Q); w is differentiable in both inputs."""
+    idx_parts, w_parts = [], []
+    for lvl, (Hl, Wl) in enumerate(spatial_shapes):
+        px = locs_t[:, lvl, :, 0, :] * Wl - 0.5
+        py = locs_t[:, lvl, :, 1, :] * Hl - 0.5
+        a = attn_t[:, lvl]
+        x0 = torch.floor(px)
+        y0 = torch.floor(py)
+        fx, fy = px - x0, py - y0
+        x0i, y0i = x0.long(), y0.long()
+        cw = ((1 - fx) * (1 - fy), fx * (1 - fy), (1 - fx) * fy, fx * fy)
+        xs = (x0i, x0i + 1, x0i, x0i + 1)
+        ys = (y0i, y0i, y0i + 1, y0i + 1)
+        idx_c, w_c = [], []
+        for c in range(4):
+            valid = (xs[c] >= 0) & (xs[c] <= Wl - 1) & (ys[c] >= 0) & (ys[c] <= Hl - 1)
+            w_c.append(torch.where(valid, cw[c] * a, torch.zeros_like(a)))
+            idx_c.append(_row_base(spatial_shapes, lvl, ys[c]) + xs[c].clamp(0, Wl - 1))
+        idx_parts.append(torch.stack(idx_c, 2))            # (BH, P, 4, Q)
+        w_parts.append(torch.stack(w_c, 2))
+    BH, Q = locs_t.shape[0], locs_t.shape[-1]
+    idx = torch.stack(idx_parts, 1).reshape(BH, -1, Q).to(torch.int32)
+    return idx, torch.stack(w_parts, 1).reshape(BH, -1, Q)
+
+
+# ---------------------------------------------------------------- plain versions
+def _value_bh(value: torch.Tensor) -> torch.Tensor:
+    """(B, L, H, D) -> (B*H, L, D) f32."""
+    B, L, H, D = value.shape
+    return value.float().permute(0, 2, 1, 3).reshape(B * H, L, D)
+
+
+def _gather_rows(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """v (BH, L, D), idx (BH, Q) -> (BH, Q, D)."""
+    return torch.gather(v, 1, idx[..., None].expand(-1, -1, v.shape[-1]))
+
+
+def _rowtap_corners(row: torch.Tensor, px: torch.Tensor, L: int):
+    """The two positions a row tap touches and its relu(1 - |px - x|) there,
+    computed as the dense formulation does: 1 - (px - x) at x = floor(px),
+    1 - ((x + 1) - px) at the next pixel (0 where px is an integer)."""
+    p0 = torch.floor(px)
+    r0 = 1.0 - (px - p0)
+    r1 = 1.0 - ((p0 + 1.0) - px)
+    i0 = (row.long() + p0.long()).clamp(0, L - 1)
+    i1 = (i0 + 1).clamp(0, L - 1)
+    return i0, i1, r0, r1
+
+
+def sweep_fwd_plain(value, row, px, w):
+    """K6's and K7's function: out[bh, q] = sum_r w[r, q] * sum_x
+    relu(1 - |px[r, q] - x|) * V[bh, row[r, q] + x].  value (B, L, H, D);
+    row, px, w (BH, R, Q) -> (BH, Q, D) f32.  Each row touches two
+    positions, gathered; rows are summed in order, as the kernels build S."""
+    v = _value_bh(value)
+    L = v.shape[1]
+    i0, i1, r0, r1 = _rowtap_corners(row, px, L)
+    out = torch.zeros(px.shape[0], px.shape[2], v.shape[2], dtype=torch.float32,
+                      device=v.device)
+    for r in range(px.shape[1]):
+        out = out + (_gather_rows(v, i0[:, r]) * (r0[:, r] * w[:, r])[..., None]
+                     + _gather_rows(v, i1[:, r]) * (r1[:, r] * w[:, r])[..., None])
+    return out
+
+
+def _scatter_rows(shape, idx, rows):
+    """grad_value (B, L, H, D) from per-tap rows: rows (BH, T, Q, D) added at
+    positions idx (BH, T, Q) of their (b, h) value map."""
+    B, L, H, D = shape
+    BH = B * H
+    flat = (torch.arange(BH, device=idx.device)[:, None, None] * L + idx.long()).reshape(-1)
+    gv = torch.zeros(BH * L, D, dtype=torch.float32, device=rows.device)
+    gv.index_add_(0, flat, rows.reshape(-1, D))
+    return gv.view(B, H, L, D).permute(0, 2, 1, 3).contiguous()
+
+
+def sweep_bwd_rowtap_plain(value, row, px, w, g):
+    """K10's function: with P[x, q] = V[row + x] . g[q],
+      gw[r, q]  = sum_x relu(1 - |px - x|) * P[x, q]
+      gpx[r, q] = sum_x -sign(px - x) [|px - x| < 1] * P[x, q]  (without the
+                  row weight: the caller multiplies by w)
+      grad_value[row + x] = sum_{r, q} relu(1 - |px - x|) * w * g[q].
+    value (B, L, H, D); row, px, w (BH, R, Q); g (BH, Q, D) -> (grad_value
+    (B, L, H, D), gpx, gw (BH, R, Q)), all f32."""
+    v = _value_bh(value)
+    L = v.shape[1]
+    i0, i1, r0, r1 = _rowtap_corners(row, px, L)
+    R = px.shape[1]
+    g = g.float()
+    P0 = torch.stack([(_gather_rows(v, i0[:, r]) * g).sum(-1) for r in range(R)], 1)
+    P1 = torch.stack([(_gather_rows(v, i1[:, r]) * g).sum(-1) for r in range(R)], 1)
+    gw = r0 * P0 + r1 * P1
+    gpx = torch.where(px > torch.floor(px), P1 - P0, torch.zeros_like(P0))
+    rows = torch.cat([(r0 * w)[..., None] * g[:, None], (r1 * w)[..., None] * g[:, None]], 1)
+    gv = _scatter_rows(value.shape, torch.cat([i0, i1], 1), rows)
+    return gv, gpx, gw
+
+
+def sweep_bwd_corner_plain(value, idx, w, g):
+    """K9's function: gw[t, q] = V[idx[t, q]] . g[q] and grad_value[s] =
+    sum_{t, q: idx == s} w[t, q] * g[q].  value (B, L, H, D); idx, w
+    (BH, T, Q); g (BH, Q, D) -> (grad_value (B, L, H, D), gw (BH, T, Q)), f32."""
+    v = _value_bh(value)
+    g = g.float()
+    idx = idx.long()
+    gw = torch.stack([(_gather_rows(v, idx[:, t]) * g).sum(-1) for t in range(idx.shape[1])], 1)
+    gv = _scatter_rows(value.shape, idx, w[..., None] * g[:, None])
+    return gv, gw
+
+
+# ---------------------------------------------------------------- kernel wrappers
+_FWD_CTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_BWD_CTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def _check(value, taps, w, what, g=None, row=None):
+    """Raise unless the operands are what the sweep kernels take; returns
+    (B, L, H, R, Q_pad)."""
+    for name, t in (("value", value), ("taps", taps), ("w", w), ("g", g), ("row", row)):
+        if t is None:
+            continue
+        if t.device.type != "cuda":
+            raise ValueError(f"{what}: unsupported device {t.device} for {name}")
+        if t.device != value.device:
+            raise ValueError(f"{what}: {name} is on {t.device}, value on {value.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    if value.dim() != 4 or value.shape[-1] != HEAD_DIM or value.dtype != torch.float32:
+        raise ValueError(f"{what}: value must be float32 (B, L, H, {HEAD_DIM}), got "
+                         f"{value.dtype} {tuple(value.shape)}")
+    B, L, H, _ = value.shape
+    BH, R, Q_pad = taps.shape
+    if BH != B * H or tuple(w.shape) != (BH, R, Q_pad) or w.dtype != torch.float32:
+        raise ValueError(f"{what}: taps {tuple(taps.shape)} / w {w.dtype} {tuple(w.shape)} "
+                         f"do not fit value {tuple(value.shape)}")
+    if Q_pad % QBLOCK:
+        raise ValueError(f"{what}: the query axis ({Q_pad}) must be a multiple of {QBLOCK}")
+    if g is not None and (tuple(g.shape) != (BH, Q_pad, HEAD_DIM) or g.dtype != torch.float32):
+        raise ValueError(f"{what}: g must be float32 {(BH, Q_pad, HEAD_DIM)}")
+    if row is not None and (row.shape != taps.shape or row.dtype != torch.int32
+                            or taps.dtype != torch.float32):
+        raise ValueError(f"{what}: row taps are int32 rows and float32 positions of one shape")
+    return B, L, H, R, Q_pad
+
+
+def _levels(spatial_shapes, R: int, per_point: int):
+    NL = len(spatial_shapes)
+    if R % (NL * per_point) or R // (NL * per_point) > MAX_POINTS:
+        raise ValueError(f"{R} taps do not make {NL} levels of at most {MAX_POINTS} points")
+    return NL, R // NL
+
+
+def _launch_fwd(symbol, value, spatial_shapes, row, px, w):
+    B, L, H, R, Q_pad = _check(value, px, w, symbol, row=row)
+    NL, per_level = _levels(spatial_shapes, R, 2)
+    out = torch.empty(B * H, Q_pad, HEAD_DIM, dtype=torch.float32, device=value.device)
+    fn = getattr(build.load("msda_sweep_fwd"), symbol)
+    fn.argtypes = _FWD_CTYPES
+    fn.restype = ctypes.c_int
+    err = fn(value.data_ptr(), row.data_ptr(), px.data_ptr(), w.data_ptr(), out.data_ptr(),
+             B, L, H, Q_pad, NL, per_level,
+             torch.cuda.current_stream(value.device).cuda_stream)
+    build.check(err, symbol)
+    return out
+
+
+def sweep_fwd(value, spatial_shapes, row, px, w):
+    """K6 on CUDA tensors: one kernel block per (b*h, 128-query block).
+    Returns (BH, Q_pad, D) f32."""
+    out = _launch_fwd("msda_sweep_fwd_f32", value, spatial_shapes, row, px, w)
+    sweep_fwd.launches += 1
+    return out
+
+
+def sweep_fwd_allq(value, spatial_shapes, row, px, w):
+    """K7 on CUDA tensors: every query block of one (b, h) in one kernel
+    block, each value tile staged once for all of them.  Same function and
+    operands as K6."""
+    out = _launch_fwd("msda_sweep_fwd_allq_f32", value, spatial_shapes, row, px, w)
+    sweep_fwd_allq.launches += 1
+    return out
+
+
+def _launch_bwd(symbol, value, spatial_shapes, taps, w, g, per_point, row=None):
+    B, L, H, R, Q_pad = _check(value, taps, w, symbol, g, row)
+    with_gpx = row is not None
+    NL, per_level = _levels(spatial_shapes, R, per_point)
+    gv = torch.zeros_like(value)
+    gw = torch.empty_like(w)
+    gpx = torch.empty_like(w) if with_gpx else None
+    fn = getattr(build.load("msda_sweep_bwd"), symbol)
+    fn.argtypes = _BWD_CTYPES
+    fn.restype = ctypes.c_int
+    err = fn(value.data_ptr(), row.data_ptr() if with_gpx else None, taps.data_ptr(),
+             w.data_ptr(), g.data_ptr(), gv.data_ptr(),
+             gw.data_ptr(), gpx.data_ptr() if with_gpx else None,
+             B, L, H, Q_pad, NL, per_level,
+             torch.cuda.current_stream(value.device).cuda_stream)
+    build.check(err, symbol)
+    return gv, gpx, gw
+
+
+def sweep_bwd_corner(value, spatial_shapes, idx, w, g):
+    """K9 on CUDA tensors: idx int32 and w (BH, NL*P*4, Q_pad), g
+    (BH, Q_pad, D) -> (grad_value (B, L, H, D), gw).  gw is computed for every
+    tap whose position lies in a tile its block sweeps; a dead tap (w == 0)
+    elsewhere gets 0 (the chain rule multiplies it by zero)."""
+    if idx.dtype != torch.int32:
+        raise ValueError("sweep_bwd_corner: idx must be int32")
+    gv, _, gw = _launch_bwd("msda_sweep_bwd_corner_f32", value, spatial_shapes, idx, w, g, 4)
+    sweep_bwd_corner.launches += 1
+    return gv, gw
+
+
+def sweep_bwd_rowtap(value, spatial_shapes, row, px, w, g):
+    """K10 on CUDA tensors: row, px, w (BH, NL*2*P, Q_pad), g (BH, Q_pad, D)
+    -> (grad_value (B, L, H, D), gpx, gw); gpx without the row weight.  Dead
+    taps as for K9."""
+    out = _launch_bwd("msda_sweep_bwd_rowtap_f32", value, spatial_shapes, px, w, g, 2, row)
+    sweep_bwd_rowtap.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------- the op
+def kernel_layout(locs: torch.Tensor, attn: torch.Tensor):
+    """(B, Q, H, NL, P, 2) / (B, Q, H, NL, P) -> (BH, NL, P, 2, Q) /
+    (BH, NL, P, Q), f32."""
+    B, Q, H, NL, P, _ = locs.shape
+    locs_t = locs.float().permute(0, 2, 3, 4, 5, 1).reshape(B * H, NL, P, 2, Q)
+    attn_t = attn.float().permute(0, 2, 3, 4, 1).reshape(B * H, NL, P, Q)
+    return locs_t, attn_t
+
+
+def query_order(row: torch.Tensor, px: torch.Tensor, L: int):
+    """The order the kernels see the queries in: raster for Q == L (already
+    local), else sorted by the first row tap's flat position; None for
+    raster."""
+    if px.shape[-1] == L:
+        return None
+    return torch.argsort(row[:, 0, :] + px[:, 0, :].long(), dim=1, stable=True)
+
+
+def sort_and_pad(t: torch.Tensor, order, q_axis: int = -1) -> torch.Tensor:
+    """Queries of t (on q_axis) in `order`, zero-padded to a QBLOCK multiple,
+    contiguous."""
+    q_axis %= t.dim()
+    if order is not None:
+        shape = [1] * t.dim()
+        shape[0], shape[q_axis] = order.shape
+        t = torch.gather(t, q_axis, order.view(shape).expand(
+            *[t.shape[i] if i != q_axis else order.shape[1] for i in range(t.dim())]))
+    Q = t.shape[q_axis]
+    pad = -Q % QBLOCK
+    if pad:
+        widths = [0, 0] * (t.dim() - 1 - q_axis) + [0, pad]
+        t = torch.nn.functional.pad(t, widths)
+    return t.contiguous()
+
+
+def unsort(t: torch.Tensor, order, Q: int, q_axis: int = -1) -> torch.Tensor:
+    """Inverse of sort_and_pad: the first Q sorted queries back in order."""
+    q_axis %= t.dim()
+    t = t.narrow(q_axis, 0, Q)
+    if order is None:
+        return t
+    shape = [1] * t.dim()
+    shape[0], shape[q_axis] = order.shape
+    index = order.view(shape).expand(*t.shape)
+    return torch.empty_like(t).scatter_(q_axis, index, t)
+
+
+def _to_reference(t_bh: torch.Tensor, B: int, H: int) -> torch.Tensor:
+    """(BH, Q, D) -> (B, Q, H*D)."""
+    _, Q, D = t_bh.shape
+    return t_bh.view(B, H, Q, D).permute(0, 2, 1, 3).reshape(B, Q, H * D)
+
+
+class MSDASweepFunction(torch.autograd.Function):
+    """The custom VJP of ms_deform_attn_pallas_t (msda_pallas.py:1415-1535):
+    row-tap forward (K6, or K7 for a sorted query set under dec_fused); the
+    backward re-expands the taps it needs, launches K9 (corner taps) or K10
+    (row taps), and chains the tap gradients to the locations and weights
+    with autograd of the expansion (the JAX package's jax.vjp)."""
+
+    @staticmethod
+    def forward(ctx, value, locs, attn, spatial_shapes, bwd, dec_fused):
+        B, L, H, D = value.shape
+        Q = locs.shape[1]
+        ctx.spatial_shapes, ctx.bwd = spatial_shapes, bwd
+        ctx.save_for_backward(value, locs, attn)
+        row, px, w = rowtap_positions_and_weights(*kernel_layout(locs, attn), spatial_shapes)
+        order = query_order(row, px, L)
+        launch = sweep_fwd_allq if (dec_fused and order is not None) else sweep_fwd
+        out = launch(value, spatial_shapes, *(sort_and_pad(t, order) for t in (row, px, w)))
+        return _to_reference(unsort(out, order, Q, q_axis=1), B, H)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        value, locs, attn = ctx.saved_tensors
+        shapes = ctx.spatial_shapes
+        B, L, H, D = value.shape
+        Q = locs.shape[1]
+        g = grad_out.float().reshape(B, Q, H, D).permute(0, 2, 1, 3).reshape(B * H, Q, D)
+        with torch.enable_grad():
+            locs_t, attn_t = (t.detach().requires_grad_(True) for t in kernel_layout(locs, attn))
+            row, px, w = rowtap_positions_and_weights(locs_t, attn_t, shapes)
+            order = query_order(row, px.detach(), L)
+            g_k = sort_and_pad(g, order, q_axis=1)
+            if ctx.bwd == "rowtap":
+                gv, gpx, gw = sweep_bwd_rowtap(value, shapes, sort_and_pad(row, order),
+                                               sort_and_pad(px.detach(), order),
+                                               sort_and_pad(w.detach(), order), g_k)
+                outs = (px, w)
+                grads = (unsort(gpx, order, Q) * w.detach(), unsort(gw, order, Q))
+            else:
+                idx, wc = corner_indices_and_weights(locs_t, attn_t, shapes)
+                gv, gw = sweep_bwd_corner(value, shapes, sort_and_pad(idx, order),
+                                          sort_and_pad(wc.detach(), order), g_k)
+                outs, grads = (wc,), (unsort(gw, order, Q),)
+            g_locs_t, g_attn_t = torch.autograd.grad(outs, (locs_t, attn_t), grads)
+        NL, P = locs.shape[3], locs.shape[4]
+        grad_locs = g_locs_t.view(B, H, NL, P, 2, Q).permute(0, 5, 1, 2, 3, 4)
+        grad_attn = g_attn_t.view(B, H, NL, P, Q).permute(0, 4, 1, 2, 3)
+        return gv, grad_locs.contiguous(), grad_attn.contiguous(), None, None, None
+
+
+def ms_deform_attn_sweep_plain(value, spatial_shapes, locs, attn):
+    """The sweep's function for CPU tensors: row-tap expansion and
+    sweep_fwd_plain, differentiable by autograd.  Returns (B, Q, H*D) in
+    value's dtype."""
+    B, L, H, D = value.shape
+    row, px, w = rowtap_positions_and_weights(*kernel_layout(locs, attn), spatial_shapes)
+    return _to_reference(sweep_fwd_plain(value, row, px, w), B, H).to(value.dtype)
+
+
+def ms_deform_attn_sweep(value: torch.Tensor, spatial_shapes: Shapes, level_start: Sequence[int],
+                         locs: torch.Tensor, attn: torch.Tensor, bwd: str = "corner",
+                         dec_fused: bool = False) -> torch.Tensor:
+    """ms_deform_attn's contract (ops/msda.py) through the sweep kernels:
+    value (B, L, H, D), locs (B, Q, H, NL, P, 2), attn (B, Q, H, NL, P) ->
+    (B, Q, H*D).  On CUDA tensors (value f32, D = 32, P <= 4): K6 forward, or
+    K7 for Q != L under `dec_fused`; K9 backward (`bwd="corner"`) or K10
+    (`bwd="rowtap"`).  On CPU tensors the plain version.  `level_start` is
+    the raster offsets of the levels, checked against spatial_shapes."""
+    if bwd not in SWEEP_BWD:
+        raise ValueError(f"bwd must be one of {SWEEP_BWD}, got {bwd!r}")
+    if tuple(level_start) != level_starts(spatial_shapes):
+        raise ValueError("the sweep takes the raster level order (level_start of spatial_shapes)")
+    if value.device.type == "cpu":
+        return ms_deform_attn_sweep_plain(value, spatial_shapes, locs, attn)
+    if value.device.type != "cuda":
+        raise ValueError(f"ms_deform_attn_sweep: unsupported device {value.device}")
+    return MSDASweepFunction.apply(value, locs, attn, tuple(map(tuple, spatial_shapes)), bwd,
+                                   bool(dec_fused))
+
+
+sweep_fwd.launches = 0
+sweep_fwd_allq.launches = 0
+sweep_bwd_corner.launches = 0
+sweep_bwd_rowtap.launches = 0

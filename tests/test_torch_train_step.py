@@ -1,9 +1,10 @@
 """The port's training step against the JAX package's make_train_step.
 
-A nano GroundingDINO (1 + 1 layers) initialized by the JAX package (sampling
-offsets perturbed off the pixel lattice, ROADMAP section 3) is converted with
-`state_dict_from_jax_params` and loaded into the port (checkpointing on,
-fusion droppath 0, f32).  Both take two steps on the same batch with the same
+A nano GroundingDINO (1 + 1 layers) from the port's seeded init (sampling
+offsets perturbed off the pixel lattice, ROADMAP section 3), carried into the
+JAX tree by the JAX package's reference-checkpoint converter (no JAX init to
+compile), goes into both packages (the port with checkpointing on; fusion
+droppath 0, f32).  Both take two steps on the same batch with the same
 AdamW settings:
   * the losses agree at rel 1e-5;
   * the first step's gradients, the JAX tree carried through the same
@@ -37,6 +38,7 @@ from open_groundingdino_tpu.models.swin import SwinConfig as JSwinConfig
 from open_groundingdino_tpu.parallel.optim import make_optimizer as jmake_optimizer
 from open_groundingdino_tpu.parallel.train_state import TrainState as JTrainState
 from open_groundingdino_tpu.parallel.train_state import make_train_step as jmake_train_step
+from open_groundingdino_tpu.utils.checkpoint import convert_groundingdino_checkpoint
 from open_groundingdino_tpu_torch.models.bert import BertConfig
 from open_groundingdino_tpu_torch.models.criterion import SetCriterion
 from open_groundingdino_tpu_torch.models.groundingdino import GroundingDINO, init_weights_
@@ -117,24 +119,24 @@ def jax_run():
         bert_cfg=JBertConfig(**BERT, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0),
         msda_impl="xla", **JAX_TOP)
     batch = _batch()
-    params = jax.jit(model.init)(jax.random.PRNGKey(0),
-                                 **{k: jnp.asarray(batch[k]) for k in INPUT_KEYS})["params"]
     rng = np.random.RandomState(1)
-
-    def perturb(path, x):
-        keys = jax.tree_util.keystr(path)
-        if ("sampling_offsets" in keys or "attention_weights" in keys) and "kernel" in keys:
-            return (x + 0.05 * rng.randn(*x.shape)).astype(np.float32)
-        if "text_layer_0" in keys and "norm2" in keys:
+    sd = {}
+    for name, t in _port_model(None, JAX_TOP).state_dict().items():
+        x = t.numpy()
+        if ("sampling_offsets" in name or "attention_weights" in name) and "weight" in name:
+            x = (x + 0.05 * rng.randn(*x.shape)).astype(np.float32)
+        if "text_layers.0.norm2" in name:
             # token logits up to ~17 at this init saturate the f32 sigmoid;
             # there XLA's jit of the JAX matching cost reassociates
             # (1 - p) + 1e-8 to 0, takes log(0) and drops the class term
             # (ROADMAP section 3).  Smaller text features (the text
             # enhancer's last LayerNorm) keep the logits small.
-            return (x * 0.3).astype(np.float32)
-        return np.asarray(x)
-
-    params = jax.tree_util.tree_map_with_path(perturb, jax.device_get(params))
+            x = x * np.float32(0.3)
+        sd[name] = x
+    params = convert_groundingdino_checkpoint(
+        sd, swin_depths=SWIN["depths"], out_indices=SWIN["out_indices"],
+        num_feature_levels=JAX_TOP["num_feature_levels"], enc_layers=JAX_TOP["enc_layers"],
+        dec_layers=JAX_TOP["dec_layers"], bert_layers=BERT["num_hidden_layers"])
     crit = JSetCriterion(num_queries=QN)
     keep_grads = optax.GradientTransformation(
         lambda p: jax.tree_util.tree_map(jnp.zeros_like, p), lambda u, s, p=None: (u, u))
