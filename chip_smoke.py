@@ -56,7 +56,21 @@ Phases, one line of output each (any failure exits nonzero, with no result):
  15. sweep train parity - phase 11's step through the sweep against the
                gather's step on the card: loss within 5e-3, each gradient the
                MSDA kernels feed within 1e-2; with K9's gw negated it must fail
-then the {"kernels": [...]} line (K1-K4, then K6, K7, K9, K10) and, last,
+ 16. K5, K8  - the per-point banded forward K5 and the corner-tap sweep
+               forward K8 against their plain versions on the operands their
+               paths give them, and each op against K1 on the same inputs, at
+               phase 3's B = 1 and phase 8's B = 4 encoder and decoder shapes
+ 17. banded serve - load_model + predict through msda_kernel="banded_point"
+               (K5: 12 a request, no K1) on phase 5's requests; one forward
+               against phase 6's CPU forward, flip-aware; a profiled request
+ 18. banded train - main with --options msda_kernel=banded_point: 2 B = 4
+               steps (18 K5 and 12 K3 a step) and a profiled one; then phase
+               11's step through K5 against the gather's step on the card:
+               loss within 5e-3, each MSDA-fed gradient within 1e-2
+ 19. microbench - open_groundingdino_tpu_torch.tools.msda_microbench with
+               --sweep --fwd_variant corner --banded_mp 0 --bwd --xla: K5 and
+               K8 (K3 and K9 under --bwd) at the flagship B = 4 encoder shape
+then the {"kernels": [...]} line (K1-K10) and, last,
 {"ok": true, "device": {...}}.
 
 Exits nonzero when no CUDA device is present.  Scratch files (checkpoint,
@@ -613,6 +627,110 @@ def sweep_vs_gather(value, shapes, starts, locs, attn, grad_out) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- K5, K8
+# K5 and K8 against their plain versions and against K1: forwards on exact
+# corner or row weights, so only the order of each output's f32 sums differs
+K5_K8_TOL = 1e-4
+
+
+def check_banded_corner(device) -> dict:
+    """K5 (per-point banded forward) and K8 (corner-tap sweep forward)
+    against their plain versions on the operands their paths give them (K5:
+    banded_operands, the decoder's queries sorted; K8: corner taps sorted by
+    the first for Q != L), and the ops that launch them against K1 on the
+    same inputs, at phase 3's B = 1 and phase 8's B = 4 (BATCH_VALID)
+    encoder and decoder shapes."""
+    import torch
+
+    from open_groundingdino_tpu_torch.ops import msda
+    from open_groundingdino_tpu_torch.ops import msda_banded as mb
+    from open_groundingdino_tpu_torch.ops import msda_sweep as sw
+
+    shapes = level_shapes(*BUCKET)
+    L = sum(h * w for h, w in shapes)
+    starts = msda.level_starts(shapes)
+    g = torch.Generator(device=device).manual_seed(SEED + 16)
+    rows = {}
+    for batch, valid in (("B=1", (BUCKET,)), ("B=4", BATCH_VALID)):
+        for name, q, ref_dim in (("encoder", L, 2), ("decoder", 900, 4)):
+            value, locs, attn = msda_inputs(shapes, q, ref_dim, g, device, valid)
+            k1 = msda.ms_deform_attn(value, shapes, starts, locs, attn)
+            bound = msda_bound_ms(value, shapes, locs, attn)
+            _, locs_t, px, py, wa = mb.banded_operands(locs, attn, shapes, L)
+            ranges = mb.band_ranges(locs_t, shapes, px.shape[-1] // sw.QBLOCK,
+                                    mb.level_bands(shapes, mb.BAND))
+            idx, w = sw.corner_indices_and_weights(*sw.kernel_layout(locs, attn), shapes)
+            order = sw.query_order(idx, None, L)
+            idx, w = sw.sort_and_pad(idx, order), sw.sort_and_pad(w, order)
+            for kname, kernel, plain, op in (
+                    ("K5", lambda: mb.banded_fwd(value, shapes, px, py, wa),
+                     lambda: mb.banded_fwd_plain(value, shapes, px, py, wa, ranges),
+                     lambda: mb.ms_deform_attn_banded(value, shapes, starts, locs, attn)),
+                    ("K8", lambda: sw.sweep_fwd_corner(value, shapes, idx, w),
+                     lambda: sw.sweep_fwd_corner_plain(value, idx, w),
+                     lambda: sw.ms_deform_attn_sweep(value, shapes, starts, locs, attn,
+                                                     fwd="corner"))):
+                err = float((kernel() - plain()).abs().max())
+                op_err = float((op() - k1).abs().max())
+                ms = event_ms(kernel, 10)
+                plain_ms = event_ms(plain, 2)
+                rows[kname, batch, name] = dict(Q=q, max_abs_err=err, k1_max_abs_err=op_err,
+                                                ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                                                bound_by=bound[1])
+                log(kname, f"{name}: {batch} Q={q} L={L}: max|kernel-plain| {err:.3e}, the op "
+                           f"against K1 {op_err:.3e} (tolerance {K5_K8_TOL}); kernel {ms:.4f} ms, "
+                           f"plain {plain_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+                if not (err <= K5_K8_TOL and op_err <= K5_K8_TOL):
+                    raise AssertionError(f"{kname} {batch} {name}: {rows[kname, batch, name]}")
+    return rows
+
+
+def check_banded_train_parity(harness, gather_card) -> dict:
+    """One training step through banded_point (K5 forward, K3 backward)
+    against the gather's step on the card (phase 11's) from the same weights
+    and batch: loss within PARITY_LOSS_RTOL, module gradient norms within
+    PARITY_GRAD_RTOL, each parameter that the MSDA kernels feed within
+    PARITY_LEAF_RTOL."""
+    step, gaps, within = harness
+    run = step("cuda", msda={"kernel": "banded_point"})
+    gap = gaps(run, gather_card, MSDA_FED)
+    loss_rel, norm_rel, leaf_rel = gap
+    worst = sorted(leaf_rel.items(), key=lambda kv: -kv[1])[:3]
+    log("banded-train-parity", f"banded_point step vs gather step on the card: loss "
+                               f"{run['loss']:.6f} vs {gather_card['loss']:.6f} (rel "
+                               f"{loss_rel:.2e}, limit {PARITY_LOSS_RTOL}); grad-norm rel by "
+                               f"module { {k: f'{v:.2e}' for k, v in norm_rel.items()} }; "
+                               f"{len(leaf_rel)} MSDA-fed leaves ||dg||/||g|| max "
+                               f"{max(leaf_rel.values()):.2e} (limit {PARITY_LEAF_RTOL}), worst "
+                               f"{[(n, f'{v:.2e}') for n, v in worst]}; step s {run['seconds']:.1f}")
+    if not (math.isfinite(run["loss"]) and within(gap)):
+        raise AssertionError("the banded_point training step disagrees with the gather's")
+    return dict(loss_rel=loss_rel, norm_rel=norm_rel, leaf_rel_max=max(leaf_rel.values()))
+
+
+def run_microbench() -> tuple:
+    """The port's MSDA microbench in this process, K5 and K8 paths with
+    their backwards and the plain op, a few iterations; returns (its
+    results, the kernels' launches in the run)."""
+    from open_groundingdino_tpu_torch.tools import msda_microbench
+
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    argv = ["--sweep", "--fwd_variant", "corner", "--banded_mp", "0", "--bwd", "--xla",
+            "--iters", "3", "--repeats", "2"]
+    res = msda_microbench.main(argv)
+    counts = {k: fn.launches for k, fn in counters.items()}
+    log("microbench", f"msda_microbench {' '.join(argv)}: ms a layer "
+                      f"{ {k: round(v, 3) for k, v in res.items() if k != 'max_abs_diff'} }, "
+                      f"max|banded - plain| {res['max_abs_diff']:.2e}; launches "
+                      f"{ {k: v for k, v in counts.items() if v} }")
+    if not all(counts[k] > 0 for k in ("banded_fwd", "sweep_fwd_corner", "sweep_bwd_corner",
+                                       "msda_bwd")) or not res["max_abs_diff"] <= K5_K8_TOL:
+        raise AssertionError(f"the microbench missed a kernel or disagrees: {counts} {res}")
+    return res, counts
+
+
 # ---------------------------------------------------------------- serving
 VOCAB_WORDS = ("a", "the", "cat", "dog", "person", "bicycle", "car", "traffic", "light",
                "on", "in", "bird", "chair", "table", "sofa", "tree")
@@ -698,7 +816,9 @@ def serving_launches(args, n_req: int) -> dict:
     want = dict.fromkeys(kernel_counters(), 0)
     enc, dec = args.enc_layers * n_req, args.dec_layers * n_req
     want["fusion_fwd"] = enc
-    if str(args.msda_kernel) == "sweep":
+    if str(args.msda_kernel) == "banded_point":
+        want["banded_fwd"] = enc + dec
+    elif str(args.msda_kernel) == "sweep":
         fused = bool(args.msda_dec_fused)
         want["sweep_fwd"] = enc + (0 if fused else dec)
         want["sweep_fwd_allq"] = dec if fused else 0
@@ -858,20 +978,26 @@ def write_odvg(work: str) -> str:
 
 def kernel_counters():
     from open_groundingdino_tpu_torch.ops import fusion, msda
+    from open_groundingdino_tpu_torch.ops import msda_banded as mb
     from open_groundingdino_tpu_torch.ops import msda_sweep as sw
 
     return {"msda_fwd": msda.ms_deform_attn, "fusion_fwd": fusion.fused_bi_attention,
             "msda_bwd": msda.ms_deform_attn_bwd, "fusion_bwd": fusion.fused_bi_attention_bwd,
+            "banded_fwd": mb.banded_fwd,
             "sweep_fwd": sw.sweep_fwd, "sweep_fwd_allq": sw.sweep_fwd_allq,
+            "sweep_fwd_corner": sw.sweep_fwd_corner,
             "sweep_bwd_corner": sw.sweep_bwd_corner, "sweep_bwd_rowtap": sw.sweep_bwd_rowtap}
 
 
 def train_launches_per_step(msda_keys: dict) -> dict:
     """TRAIN_LAUNCHES_PER_STEP with the MSDA kernels the config selects: the
     sweep runs K6 where the gather runs K1 (the decoder's B = 4 query sets
-    too: msda_dec_fused is off), and K9 or K10 where it runs K3."""
+    too: msda_dec_fused is off), and K9 or K10 where it runs K3; banded_point
+    runs K5 where the gather runs K1, and K3."""
     want = dict.fromkeys(kernel_counters(), 0) | TRAIN_LAUNCHES_PER_STEP
-    if msda_keys.get("msda_kernel") == "sweep":
+    if msda_keys.get("msda_kernel") == "banded_point":
+        want["banded_fwd"], want["msda_fwd"] = want["msda_fwd"], 0
+    elif msda_keys.get("msda_kernel") == "sweep":
         want["sweep_fwd"] = want.pop("msda_fwd")
         bwd = "sweep_bwd_" + msda_keys.get("msda_sweep_bwd", "corner")
         want[bwd] = want.pop("msda_bwd")
@@ -957,10 +1083,12 @@ def profile_train_step(run, top: int = 8, tag: str = "train-profile") -> dict:
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     kernels.sort(key=lambda k: -k[1])
     groups = {"K1 msda_fwd": 0.0, "K2 fusion_fwd": 0.0, "K3 msda_bwd": 0.0,
-              "K4 fusion_bwd": 0.0, "K6/K7 sweep_fwd": 0.0, "K9/K10 sweep_bwd": 0.0,
-              "matmul": 0.0, "other": 0.0}
+              "K4 fusion_bwd": 0.0, "K5 banded_fwd": 0.0, "K6/K7 sweep_fwd": 0.0,
+              "K9/K10 sweep_bwd": 0.0, "matmul": 0.0, "other": 0.0}
     for key, ms, _ in kernels:
-        if "sweep_fwd_kernel" in key:
+        if "banded_fwd_kernel" in key:
+            groups["K5 banded_fwd"] += ms
+        elif "sweep_fwd_kernel" in key:
             groups["K6/K7 sweep_fwd"] += ms
         elif "sweep_bwd_kernel" in key:
             groups["K9/K10 sweep_bwd"] += ms
@@ -1205,10 +1333,12 @@ def profile_request(im, image, caption, top: int = 8, tag: str = "profile") -> d
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     kernels.sort(key=lambda k: -k[1])
-    groups = {"K1 msda_fwd": 0.0, "K2 fusion_fwd": 0.0, "K6/K7 sweep_fwd": 0.0, "matmul": 0.0,
-              "other": 0.0}
+    groups = {"K1 msda_fwd": 0.0, "K2 fusion_fwd": 0.0, "K5 banded_fwd": 0.0,
+              "K6/K7 sweep_fwd": 0.0, "matmul": 0.0, "other": 0.0}
     for key, ms, _ in kernels:
-        if "sweep_fwd_kernel" in key:
+        if "banded_fwd_kernel" in key:
+            groups["K5 banded_fwd"] += ms
+        elif "sweep_fwd_kernel" in key:
             groups["K6/K7 sweep_fwd"] += ms
         elif "msda_fwd_kernel" in key:
             groups["K1 msda_fwd"] += ms
@@ -1295,6 +1425,22 @@ def main() -> int:
                 profile_train_step(run.pop("run"), tag="sweep-train-profile")
             del run
         check_sweep_train_parity(harness, gather_card)                 # 15
+
+        banded = check_banded_corner("cuda")                           # 16
+        banded_files = (msda_config(cfg, work, "banded-serve", msda_kernel="banded_point"),
+                        *files[1:])
+        im, _, serve_counts["banded-serve"], _ = serve(banded_files, "cuda", "banded-serve")  # 17
+        compare_forward(forward_outputs(im, images[0], CAPTIONS[0]), cpu_out,
+                        "banded-serve-forward", "against phase 6's CPU forward")
+        profile_request(im, images[0], CAPTIONS[0], tag="banded-profile")
+        del im
+        run = train(cfg, work, train_files, "cuda", {"msda_kernel": "banded_point"},  # 18
+                    tag="banded-train", epochs=1)
+        train_counts_sweep["banded-train"] = run["counts"]
+        profile_train_step(run.pop("run"), tag="banded-train-profile")
+        del run
+        check_banded_train_parity(harness, gather_card)
+        _, bench_counts = run_microbench()                              # 19
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1336,25 +1482,35 @@ def main() -> int:
          "launches_by_path": {"serve": 0, "train": train_counts["fusion_bwd"]},
          **single_row(k4)},
     ]
-    # the sweep kernels (phase 12 at phase 8's B = 4 shapes); launches: K6's
-    # and K7's from the sweep serving runs (phase 13), K9's and K10's from the
-    # sweep training runs (phase 14); every sweep run's counts under
-    # launches_by_path
-    by_path = {**serve_counts, **train_counts_sweep}
+    # K5 and K8 (phase 16; the row is phase 8's B = 4 shapes, per_shape adds
+    # B = 1) and the sweep kernels (phase 12 at phase 8's B = 4 shapes);
+    # launches: K5's from the banded serving run (phase 17), K6's and K7's
+    # from the sweep serving runs (phase 13), K8's from the microbench (phase
+    # 19), K9's and K10's from the sweep training runs (phase 14); every
+    # run's counts under launches_by_path
+    by_path = {**serve_counts, **train_counts_sweep, "microbench": bench_counts}
+    measured = {**sweep, **{(k, n): r for (k, batch, n), r in banded.items() if batch == "B=4"}}
     for kname, counter, launches_from, source, line in (
+            ("K5", "banded_fwd", "banded-serve", "msda_banded_fwd.cu", "msda_banded.py:152"),
             ("K6", "sweep_fwd", "sweep-serve", "msda_sweep_fwd.cu", "msda_pallas.py:484"),
             ("K7", "sweep_fwd_allq", "sweep-serve-fused", "msda_sweep_fwd.cu",
              "msda_pallas.py:634"),
+            ("K8", "sweep_fwd_corner", "microbench", "msda_sweep_fwd.cu", "msda_pallas.py:169"),
             ("K9", "sweep_bwd_corner", "sweep-train", "msda_sweep_bwd.cu", "msda_pallas.py:955"),
             ("K10", "sweep_bwd_rowtap", "sweep-train-rowtap", "msda_sweep_bwd.cu",
              "msda_pallas.py:1200")):
-        shapes = {n: sweep[kname, n] for n in ("encoder", "decoder") if (kname, n) in sweep}
+        shapes = {n: measured[kname, n] for n in ("encoder", "decoder") if (kname, n) in measured}
         row = mean_row(shapes) if len(shapes) == 2 else single_row(shapes["decoder"])
+        if kname in ("K5", "K8"):
+            row["per_shape"] = {f"{batch} {n}": r for (k, batch, n), r in banded.items()
+                                if k == kname}
+            row["max_abs_err"] = max(max(r["max_abs_err"], r["k1_max_abs_err"])
+                                     for r in row["per_shape"].values())
         kernels.append({"name": counter, "route": "cuda", "source": src + source,
                         "replaces": tpu + line, "launches": by_path[launches_from][counter],
                         "launches_by_path": {k: v[counter] for k, v in by_path.items()}, **row})
         if kernels[-1]["launches"] <= 0:
-            raise AssertionError(f"{kname} was not launched on its model path")
+            raise AssertionError(f"{kname} was not launched on its path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

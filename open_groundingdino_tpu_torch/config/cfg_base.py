@@ -23,8 +23,10 @@ num_feature_levels = 4
 enc_n_points = 4
 dec_n_points = 4
 # the deformable attentions' core op: "gather" (K1 forward, K3 backward; the
-# JAX package's default banded path) or "sweep" (the tile sweep: the JAX
-# package's msda_impl = "pallas" with MSDA_BANDED=0)
+# JAX package's default banded path), "sweep" (the tile sweep: the JAX
+# package's msda_impl = "pallas" with MSDA_BANDED=0) or "banded_point" (K5
+# forward, one band sweep per sample point, K3 backward: the banded path with
+# MSDA_BANDED_MP=0)
 msda_kernel = "gather"
 # the sweep's backward: "corner" (K9) or "rowtap" (K10), the JAX package's
 # MSDA_BWD_VARIANT

@@ -1,10 +1,12 @@
-// K6 and K7: multi-scale deformable attention forward as a row-tap tile
-// sweep, for Hopper (sm_90a).
+// K6, K7 and K8: multi-scale deformable attention forward as a tile sweep,
+// for Hopper (sm_90a).
 //
 // Replaces: open_groundingdino_tpu/ops/msda_pallas.py::_msda_rowtap_kernel
 // (with its _msda_rowtap_nblk_kernel, several query blocks a sweep) as K6,
 // and ::_msda_rowtap_allq_kernel (every query block of one (b, h) in one
-// program, MSDA_DEC_FUSED=1) as K7.  Both compute
+// program, MSDA_DEC_FUSED=1) as K7, and ::_msda_kernel (corner taps,
+// MSDA_FWD_VARIANT=corner, reached through the op-level
+// ms_deform_attn(impl="pallas")) as K8.  K6 and K7 compute
 //   out[bh, q, :] = sum_r w[r, q] * sum_x relu(1 - |px[r, q] - x|) * V[bh, row[r, q] + x, :]
 // over the row taps r of each query (ops/msda_sweep.py expands each sample
 // point into two bilinear rows: the flat position of the row's first pixel,
@@ -15,6 +17,9 @@
 //   row    (B*H, R, Qp) int32; px, w (B*H, R, Qp) f32, Qp a multiple of 128;
 //          w == 0 marks a dead tap
 //   out    (B*H, Qp, 32) f32
+// K8 computes out[bh, q, :] = sum_t w[t, q] * V[bh, idx[t, q], :] over the
+// corner taps t (four a sample point, grouped by level: taps_per_level each;
+// idx int32 (B*H, T, Qp) flat positions, clamped into the level where w == 0).
 //
 // Design.  A kernel block of 128 threads owns one 128-query block (K6: one
 // such group per CTA, one CTA per (b*h, query block); K7: up to 8 groups
@@ -27,7 +32,11 @@
 // each thread scatters its query's two non-zeros per row: the weights
 // (1 - f) and 1 - ((p0 + 1) - px), as the dense relu gives them) and
 // accumulates S^T-by-V into registers (8 queries x 4 channels a thread, f32
-// SIMT FMAs; a tile no tap of the group lands in skips its product).  K7's
+// SIMT FMAs; a tile no tap of the group lands in skips its product).  K8 is
+// K6 with corner taps: each live tap puts its one weight at its position in
+// its query's column of S (up to 16 a level), a tap's range being its
+// position alone; the TPU's (TILE, 128) compare/select build of S is not
+// carried over.  K7's
 // point is the shared staging: at B = 1 the decoder has only 8 (b, h) pairs,
 // so each pair gets a whole SM (8 groups = 1024 threads, T = 32, 132 KB of
 // shared memory); K6 runs T = 64 and 40 KB a CTA, five CTAs an SM.
@@ -52,7 +61,8 @@ __device__ __forceinline__ const float* value_row(const float* value, int b, int
   return value + (((size_t)b * L + pos) * H + h) * kD;
 }
 
-template <int T, int NB>
+// kCorner: row holds corner positions and px is unused (K8).
+template <int T, int NB, bool kCorner>
 __global__ void __launch_bounds__(kQB * NB, 1)
 sweep_fwd_kernel(const float* __restrict__ value, const int* __restrict__ row,
                  const float* __restrict__ px, const float* __restrict__ w,
@@ -96,9 +106,15 @@ sweep_fwd_kernel(const float* __restrict__ value, const int* __restrict__ row,
         int mn = INT_MAX, mx = INT_MIN;
         for (int r = r0; r < r1; ++r) {
           if (wb[(size_t)r * Qp + q] != 0.f) {
-            const int p0 = rowb[(size_t)r * Qp + q] + (int)floorf(pxb[(size_t)r * Qp + q]);
-            mn = min(mn, p0);
-            mx = max(mx, p0 + 1);
+            if (kCorner) {
+              const int p0 = rowb[(size_t)r * Qp + q];
+              mn = min(mn, p0);
+              mx = max(mx, p0);
+            } else {
+              const int p0 = rowb[(size_t)r * Qp + q] + (int)floorf(pxb[(size_t)r * Qp + q]);
+              mn = min(mn, p0);
+              mx = max(mx, p0 + 1);
+            }
           }
         }
         mn = __reduce_min_sync(0xffffffffu, mn);
@@ -139,6 +155,14 @@ sweep_fwd_kernel(const float* __restrict__ value, const int* __restrict__ row,
           for (int r = r0; r < r1; ++r) {
             const float wv = wb[(size_t)r * Qp + q];
             if (wv == 0.f) continue;
+            if (kCorner) {
+              const int s0 = rowb[(size_t)r * Qp + q] - base;
+              if (s0 >= 0 && s0 < T) {
+                S[s0 * kQB + lt] += wv;
+                any = true;
+              }
+              continue;
+            }
             const float x = pxb[(size_t)r * Qp + q];
             const float xf = floorf(x);
             const int s0 = rowb[(size_t)r * Qp + q] + (int)xf - base;
@@ -182,17 +206,17 @@ sweep_fwd_kernel(const float* __restrict__ value, const int* __restrict__ row,
   }
 }
 
-template <int T, int NB>
+template <int T, int NB, bool kCorner = false>
 int launch(const void* value, const void* row, const void* px, const void* w, void* out, int B,
            int L, int H,
            int Qp, int NL, int rows_per_level, int nb, int grid_x, cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)T * kD + (size_t)nb * T * kQB);
-  cudaError_t err = cudaFuncSetAttribute(sweep_fwd_kernel<T, NB>,
+  cudaError_t err = cudaFuncSetAttribute(sweep_fwd_kernel<T, NB, kCorner>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(grid_x, B * H);
-  sweep_fwd_kernel<T, NB><<<grid, kQB * nb, smem, stream>>>(
+  sweep_fwd_kernel<T, NB, kCorner><<<grid, kQB * nb, smem, stream>>>(
       (const float*)value, (const int*)row, (const float*)px, (const float*)w, (float*)out, L, H,
       Qp, NL,
       rows_per_level, nb);
@@ -229,6 +253,15 @@ int msda_sweep_fwd_allq_f32(const void* value, const void* row, const void* px, 
   const int nb = nqb < kMaxGroups ? nqb : kMaxGroups;
   return launch<32, kMaxGroups>(value, row, px, w, out, B, L, H, Qp, NL, rows_per_level, nb, 1,
                                 (cudaStream_t)stream);
+}
+
+// K8: K6's grid and shape on corner taps.  idx int32 (B*H, NL *
+// taps_per_level, Qp), w f32 of the same shape.
+int msda_sweep_fwd_corner_f32(const void* value, const void* idx, const void* w, void* out, int B,
+                              int L, int H, int Qp, int NL, int taps_per_level, void* stream) {
+  if (bad_args(B, L, H, Qp, NL, taps_per_level)) return (int)cudaErrorInvalidValue;
+  return launch<64, 1, true>(value, idx, nullptr, w, out, B, L, H, Qp, NL, taps_per_level, 1,
+                             Qp / kQB, (cudaStream_t)stream);
 }
 
 }  // extern "C"

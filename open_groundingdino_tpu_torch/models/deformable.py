@@ -8,12 +8,14 @@ reference's; sampling_offsets starts at zero weight with the rotated-grid
 bias (reference ms_deform_attn.py:198-221).
 
 The core op is `kernel="gather"` (K1/K3, ops/msda.py; the JAX package's
-default banded path) or `kernel="sweep"` (K6/K7 forward, K9/K10 backward,
+default banded path), `kernel="sweep"` (K6/K7 forward, K9/K10 backward,
 ops/msda_sweep.py; the JAX package's `msda_impl="pallas"` with
-`MSDA_BANDED=0`, deformable.py:176-177).  The sweep takes the same
-projections and parameters: the JAX package's `_transposed_path` keeps the
-nn.Dense parameter tree (deformable.py:165-167), so one checkpoint serves
-both.
+`MSDA_BANDED=0`, deformable.py:176-177) or `kernel="banded_point"` (K5
+forward, K3 backward, ops/msda_banded.py; the banded path with
+`MSDA_BANDED_MP=0`, one band sweep per sample point, window height 4).  All
+take the same projections and parameters: the JAX package's
+`_transposed_path` keeps the nn.Dense parameter tree (deformable.py:165-167),
+so one checkpoint serves every kernel.
 """
 from __future__ import annotations
 
@@ -25,9 +27,10 @@ import torch
 from torch import nn
 
 from ..ops.msda import level_starts, ms_deform_attn
+from ..ops.msda_banded import ms_deform_attn_banded
 from ..ops.msda_sweep import SWEEP_BWD, ms_deform_attn_sweep
 
-KERNELS = ("gather", "sweep")
+KERNELS = ("gather", "sweep", "banded_point")
 
 
 def sampling_offsets_bias(num_heads: int, num_levels: int, num_points: int) -> np.ndarray:
@@ -104,6 +107,8 @@ class MSDeformAttn(nn.Module):
                 locs.contiguous(), attn.contiguous())
         if self.kernel == "sweep":
             out = ms_deform_attn_sweep(*args, bwd=self.sweep_bwd, dec_fused=self.dec_fused)
+        elif self.kernel == "banded_point":
+            out = ms_deform_attn_banded(*args)
         else:
             out = ms_deform_attn(*args)
         return self.output_proj(out)

@@ -1,0 +1,272 @@
+"""Multi-scale deformable attention with one band sweep per sample point: K5
+(csrc/msda_banded_fwd.cu), its plain PyTorch version, and the autograd
+Function around it (K5 forward, K3 backward).
+
+The port of the JAX package's ops/msda_banded.py under MSDA_BANDED_MP=0 (its
+`_banded_core` with `_msda_banded_kernel`).  The function is
+ms_deform_attn_xla's (ops/msda.py here), split into its separable factors:
+for each sample point, the bilinear x-interpolation of a value row,
+sum_x relu(1 - |px - x|) * V[y, x], is weighted by relu(1 - |py - y|) * wa
+and summed over the rows of the point's band windows.  Per (batch*head,
+128-query block, level, point) the windows [ylo + i*band, ylo + (i+1)*band),
+i < n_it, cover the rows the block's points touch; rows at or past the
+level's height read zero.
+
+Operands (kernel layout, from `banded_prep`; the TPU's (BH, H_l*D, W_l) value
+layout is not ported, the kernel reads the reference (B, L, H, D) value):
+  px   (BH, NL*P, Q) continuous x within the row, edge-collapsed (a point
+       with one valid x corner sits on that corner's integer column, its
+       partial weight folded into wa) and clipped to [0, W_l - 1]
+  py   (BH, NL*P, Q) continuous y, clipped to [-1, H_l]
+  wa   (BH, NL*P, Q) edge x weight * attention weight (0 kills the point)
+Query sets with Q != L (the decoder) are sorted by the position of their
+first finest-level point (`query_order`, ms_deform_attn_banded_sorted's
+key), so that a block's bands stay local, and un-sorted afterwards; the JAX
+decoder's sort-once across layers is a TPU trick the port does not take.
+
+`ms_deform_attn_banded` takes the plain version for CPU tensors (autograd
+differentiates it) and `MSDABandedFunction` for CUDA tensors, whose backward
+is K3 on the reference operands (ops/msda.ms_deform_attn_bwd), as the JAX
+custom VJP runs the native banded backward (`_banded_bwd`).  `banded_fwd` is
+K5's launcher: CUDA tensors only, counting `banded_fwd.launches`; nothing on
+the card reaches a plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
+
+import torch
+
+from . import build, msda
+from .msda import level_starts
+from .msda_sweep import (HEAD_DIM, QBLOCK, _gather_rows, _to_reference, _value_bh, kernel_layout,
+                         sort_and_pad, unsort)
+
+Shapes = Sequence[Tuple[int, int]]
+
+BAND = 4                   # rows a band window (the JAX package's MSDA_BAND default)
+MAX_LEVELS = 8             # csrc/msda_banded_fwd.cu's limits
+MAX_TAPS = 64              # levels x points
+SMEM_BYTES = 230400        # one window's value rows: Hopper's 227 KB a block less K5's static arrays
+
+
+def level_bands(spatial_shapes: Shapes, band: int) -> Tuple[int, ...]:
+    """Each level's window height: the band, at most the level's height."""
+    return tuple(min(band, h) for h, _ in spatial_shapes)
+
+
+def banded_prep(locs_t: torch.Tensor, attn_t: torch.Tensor, spatial_shapes: Shapes):
+    """The kernel's separable factors (msda_banded.py::_banded_prep):
+    locs_t (BH, NL, P, 2, Q), attn_t (BH, NL, P, Q), f32 -> (px, py, wa),
+    each (BH, NL*P, Q) f32, differentiable in both inputs."""
+    px_parts, py_parts, wa_parts = [], [], []
+    for lvl, (Hl, Wl) in enumerate(spatial_shapes):
+        pxc = locs_t[:, lvl, :, 0, :] * Wl - 0.5          # (BH, P, Q)
+        pyc = locs_t[:, lvl, :, 1, :] * Hl - 0.5
+        x0 = torch.floor(pxc)
+        fx = pxc - x0
+        x0i = x0.long()
+        v0 = (x0i >= 0) & (x0i <= Wl - 1)
+        v1 = (x0i + 1 >= 0) & (x0i + 1 <= Wl - 1)
+        interior = v0 & v1
+        edge_px = torch.where(v0, x0, x0 + 1.0)
+        edge_wx = torch.where(v0, 1.0 - fx, torch.where(v1, fx, torch.zeros_like(fx)))
+        px = torch.where(interior, pxc, edge_px).clamp(0.0, float(max(Wl - 1, 0)))
+        wx = torch.where(interior, torch.ones_like(fx), edge_wx)
+        px_parts.append(px)
+        py_parts.append(pyc.clamp(-1.0, float(Hl)))
+        wa_parts.append(wx * attn_t[:, lvl])
+    BH, Q = locs_t.shape[0], locs_t.shape[-1]
+    stack = lambda parts: torch.stack(parts, 1).reshape(BH, -1, Q)
+    return stack(px_parts), stack(py_parts), stack(wa_parts)
+
+
+def band_ranges(locs_t: torch.Tensor, spatial_shapes: Shapes, nqb: int, bands) -> torch.Tensor:
+    """Per (bh, 128-query block, level, point) [ylo, n_it]
+    (msda_banded.py::_band_ranges): ylo the block's least first-corner row,
+    n_it = (yhi - ylo) // band + 1 windows to its greatest second-corner row,
+    both clipped into the level.  Queries past Q (padding to nqb blocks)
+    take ylo = H_l - 1, yhi = 0 and widen nothing.  -> (BH, nqb*NL*P*2)
+    int32."""
+    BH, Q = locs_t.shape[0], locs_t.shape[-1]
+    pad = nqb * QBLOCK - Q
+    parts = []
+    for lvl, (Hl, _) in enumerate(spatial_shapes):
+        y0 = torch.floor(locs_t[:, lvl, :, 1, :] * Hl - 0.5).long()   # (BH, P, Q)
+        y_lo = torch.nn.functional.pad(y0.clamp(0, Hl - 1), (0, pad), value=Hl - 1)
+        y_hi = torch.nn.functional.pad((y0 + 1).clamp(0, Hl - 1), (0, pad), value=0)
+        lo = y_lo.view(BH, -1, nqb, QBLOCK).amin(3)                    # (BH, P, nqb)
+        hi = y_hi.view(BH, -1, nqb, QBLOCK).amax(3)
+        parts.append(torch.stack([lo, (hi - lo) // bands[lvl] + 1], -1))
+    ranges = torch.stack(parts, 1).movedim(3, 1)                       # (BH, nqb, NL, P, 2)
+    return ranges.reshape(BH, -1).to(torch.int32)
+
+
+def query_order(locs_t: torch.Tensor, spatial_shapes: Shapes, L: int):
+    """The order K5 sees the queries in: raster for Q == L (already local),
+    else sorted by the (y, x) position of the first finest-level point
+    (ms_deform_attn_banded_sorted's key, y * H0 * (W0 + 2) + x * W0 on
+    coordinates clipped to [-0.1, 1.1]); None for raster."""
+    if locs_t.shape[-1] == L:
+        return None
+    H0, W0 = spatial_shapes[0]
+    y = locs_t[:, 0, 0, 1, :].detach().clamp(-0.1, 1.1)
+    x = locs_t[:, 0, 0, 0, :].detach().clamp(-0.1, 1.1)
+    return torch.argsort(y * H0 * (W0 + 2) + x * W0, dim=1, stable=True)
+
+
+def _take_q(t: torch.Tensor, order) -> torch.Tensor:
+    """t's queries (last axis) in `order` (BH, Q)."""
+    if order is None:
+        return t
+    shape = (t.shape[0],) + (1,) * (t.dim() - 2) + (t.shape[-1],)
+    return torch.gather(t, -1, order.view(shape).expand(t.shape))
+
+
+def banded_operands(locs: torch.Tensor, attn: torch.Tensor, spatial_shapes: Shapes, L: int):
+    """What K5 takes on the model path: (order, locs_t, px, py, wa) with
+    locs_t (BH, NL, P, 2, Q) in the kernel's query order and px, py, wa
+    from it, zero-padded to a QBLOCK multiple (a padded query has wa == 0)."""
+    locs_t, attn_t = kernel_layout(locs, attn)
+    order = query_order(locs_t, spatial_shapes, L)
+    locs_t, attn_t = _take_q(locs_t, order), _take_q(attn_t, order)
+    px, py, wa = (sort_and_pad(t, None) for t in banded_prep(locs_t, attn_t, spatial_shapes))
+    return order, locs_t, px, py, wa
+
+
+# ---------------------------------------------------------------- plain version
+def banded_fwd_plain(value, spatial_shapes: Shapes, px, py, wa, ranges, band: int = BAND):
+    """K5's function done the kernel's way: for each level, point, band
+    window and row, relu(1 - |py - y|) * wa times the row's x-interpolation
+    r0 * V[y, x0] + r1 * V[y, x0 + 1] (the two non-zeros of
+    relu(1 - |px - x|)), accumulated in that order; rows at or past H_l read
+    zero.  value (B, L, H, D); px, py, wa (BH, NL*P, Q_pad); ranges
+    (BH, nqb*NL*P*2) from band_ranges -> (BH, Q_pad, D) f32."""
+    v = _value_bh(value)
+    BH, R, Qp = px.shape
+    NL = len(spatial_shapes)
+    P = R // NL
+    nqb = Qp // QBLOCK
+    rng = ranges.view(BH, nqb, NL, P, 2).long().repeat_interleave(QBLOCK, dim=1)  # per query
+    out = torch.zeros(BH, Qp, v.shape[-1], dtype=torch.float32, device=v.device)
+    for lvl, ((Hl, Wl), start, bl) in enumerate(zip(spatial_shapes, level_starts(spatial_shapes),
+                                                    level_bands(spatial_shapes, band))):
+        for p in range(P):
+            t = lvl * P + p
+            x, y, a = px[:, t], py[:, t], wa[:, t]
+            xf = torch.floor(x)
+            r0 = 1.0 - (x - xf)
+            r1 = 1.0 - ((xf + 1.0) - x)
+            x0 = xf.long()
+            x1 = (x0 + 1).clamp(max=Wl - 1)   # past the row only where r1 == 0
+            lo, n_it = rng[:, :, lvl, p, 0], rng[:, :, lvl, p, 1]
+            for i in range(int(n_it.max())):
+                for r in range(bl):
+                    yr = lo + i * bl + r
+                    live = (i < n_it) & (yr < Hl)
+                    wy = torch.clamp(1.0 - (y - yr.float()).abs(), min=0.0) * a
+                    wy = torch.where(live, wy, torch.zeros_like(wy))
+                    base = start + yr.clamp(max=Hl - 1) * Wl
+                    c = (_gather_rows(v, base + x0) * r0[..., None]
+                         + _gather_rows(v, base + x1) * r1[..., None])
+                    out = out + wy[..., None] * c
+    return out
+
+
+# ---------------------------------------------------------------- K5
+_FWD_CTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+               + [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_void_p])
+
+
+def banded_fwd(value, spatial_shapes: Shapes, px, py, wa, band: int = BAND):
+    """K5 on CUDA tensors: one kernel block per (b*h, 128-query block), which
+    finds each (level, point)'s band range over its live points (wa != 0)
+    itself.  value (B, L, H, 32) f32; px, py, wa (BH, NL*P, Q_pad) f32,
+    contiguous -> (BH, Q_pad, 32) f32."""
+    for name, t in (("value", value), ("px", px), ("py", py), ("wa", wa)):
+        if t.device.type != "cuda":
+            raise ValueError(f"banded_fwd: unsupported device {t.device} for {name}")
+        if t.device != value.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"banded_fwd: {name} must be contiguous float32 on {value.device}")
+    if value.dim() != 4 or value.shape[-1] != HEAD_DIM:
+        raise ValueError(f"banded_fwd: value must be (B, L, H, {HEAD_DIM}), got {tuple(value.shape)}")
+    B, L, H, _ = value.shape
+    BH, R, Qp = px.shape
+    NL = len(spatial_shapes)
+    if BH != B * H or py.shape != px.shape or wa.shape != px.shape or Qp % QBLOCK:
+        raise ValueError(f"banded_fwd: px/py/wa {tuple(px.shape)} do not fit value "
+                         f"{tuple(value.shape)} and {QBLOCK}-query blocks")
+    if NL > MAX_LEVELS or R % NL or R > MAX_TAPS or sum(h * w for h, w in spatial_shapes) != L:
+        raise ValueError(f"banded_fwd: {R} taps over levels {tuple(spatial_shapes)} do not fit "
+                         f"L = {L} (at most {MAX_LEVELS} levels, {MAX_TAPS} taps)")
+    window = max(b * w for b, (_, w) in zip(level_bands(spatial_shapes, band), spatial_shapes))
+    if band < 1 or window * HEAD_DIM * 4 > SMEM_BYTES:
+        raise ValueError(f"banded_fwd: a band of {band} rows of the widest level does not fit "
+                         f"shared memory ({window * HEAD_DIM * 4} > {SMEM_BYTES} bytes)")
+    out = torch.empty(BH, Qp, HEAD_DIM, dtype=torch.float32, device=value.device)
+    fn = build.load("msda_banded_fwd").msda_banded_fwd_f32
+    fn.argtypes = _FWD_CTYPES
+    fn.restype = ctypes.c_int
+    err = fn(value.data_ptr(), px.data_ptr(), py.data_ptr(), wa.data_ptr(), out.data_ptr(),
+             B, L, H, Qp, NL, R // NL, band,
+             *msda._level_arrays(spatial_shapes, level_starts(spatial_shapes)),
+             torch.cuda.current_stream(value.device).cuda_stream)
+    build.check(err, "msda_banded_fwd")
+    banded_fwd.launches += 1
+    return out
+
+
+class MSDABandedFunction(torch.autograd.Function):
+    """K5 forward; K3 backward on the reference operands (the JAX package's
+    custom VJP of `_banded_core`: its native banded backward, which
+    ops/msda.py's K3 ports)."""
+
+    @staticmethod
+    def forward(ctx, value, locs, attn, spatial_shapes, level_start, band):
+        B, L, H, _ = value.shape
+        ctx.spatial_shapes, ctx.level_start = spatial_shapes, level_start
+        ctx.save_for_backward(value, locs, attn)
+        order, _, px, py, wa = banded_operands(locs, attn, spatial_shapes, L)
+        out = banded_fwd(value, spatial_shapes, px, py, wa, band)
+        return _to_reference(unsort(out, order, locs.shape[1], q_axis=1), B, H)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        value, locs, attn = ctx.saved_tensors
+        grads = msda.ms_deform_attn_bwd(value, ctx.spatial_shapes, ctx.level_start, locs, attn,
+                                        grad_out.contiguous())
+        return (*grads, None, None, None)
+
+
+def ms_deform_attn_banded_plain(value, spatial_shapes: Shapes, locs, attn, band: int = BAND):
+    """The banded op's function for CPU tensors: the operands K5 takes,
+    band_ranges and banded_fwd_plain, differentiable by autograd.  Returns
+    (B, Q, H*D) in value's dtype."""
+    B, L, H, _ = value.shape
+    order, locs_t, px, py, wa = banded_operands(locs, attn, spatial_shapes, L)
+    ranges = band_ranges(locs_t, spatial_shapes, px.shape[-1] // QBLOCK,
+                         level_bands(spatial_shapes, band))
+    out = banded_fwd_plain(value, spatial_shapes, px, py, wa, ranges, band)
+    return _to_reference(unsort(out, order, locs.shape[1], q_axis=1), B, H).to(value.dtype)
+
+
+def ms_deform_attn_banded(value: torch.Tensor, spatial_shapes: Shapes, level_start: Sequence[int],
+                          locs: torch.Tensor, attn: torch.Tensor, band: int = BAND) -> torch.Tensor:
+    """ms_deform_attn's contract (ops/msda.py) through the per-point banded
+    forward: value (B, L, H, D), locs (B, Q, H, NL, P, 2), attn
+    (B, Q, H, NL, P) -> (B, Q, H*D).  On CUDA tensors (value f32, D = 32) K5
+    forward and K3 backward; on CPU tensors the plain version.  `band` is
+    the window height in rows; `level_start` must be the raster offsets of
+    the levels."""
+    if tuple(level_start) != level_starts(spatial_shapes):
+        raise ValueError("the banded op takes the raster level order (level_start of spatial_shapes)")
+    if value.device.type == "cpu":
+        return ms_deform_attn_banded_plain(value, spatial_shapes, locs, attn, band)
+    if value.device.type != "cuda":
+        raise ValueError(f"ms_deform_attn_banded: unsupported device {value.device}")
+    shapes = tuple(map(tuple, spatial_shapes))
+    return MSDABandedFunction.apply(value, locs, attn, shapes, level_starts(shapes), int(band))
+
+
+banded_fwd.launches = 0

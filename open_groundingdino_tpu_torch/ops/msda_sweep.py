@@ -1,9 +1,11 @@
-"""Multi-scale deformable attention as a tile sweep: K6 and K7 (forward,
+"""Multi-scale deformable attention as a tile sweep: K6, K7 and K8 (forward,
 csrc/msda_sweep_fwd.cu), K9 and K10 (backward, csrc/msda_sweep_bwd.cu), their
 plain PyTorch versions, and the autograd Function around them.
 
 The port of the JAX package's ops/msda_pallas.py::ms_deform_attn_pallas_t,
-the model path of `msda_impl="pallas"` with `MSDA_BANDED=0`.  The function is
+the model path of `msda_impl="pallas"` with `MSDA_BANDED=0`, and of its
+op-level ms_deform_attn_pallas under MSDA_FWD_VARIANT=corner (`fwd="corner"`:
+corner taps into K8, the tools' microbench path).  The function is
 ms_deform_attn_xla's (ops/msda.py here), written as sparse-times-dense tile
 products: each sample point is expanded into taps on the flat value sequence,
 and for each query block and each value tile its taps touch, a weight matrix
@@ -29,12 +31,13 @@ Kernel operands: value in the reference layout (B, L, H, D) f32, D = 32,
 taps (BH, R, Q_pad) with Q_pad a multiple of QBLOCK (padded queries have
 w == 0), upstream gradient and output (BH, Q_pad, D) f32, grad_value
 (B, L, H, D) f32.  Query sets with Q != L (the decoder) are sorted by their
-first row tap's position, so that a block's taps are local; the output and
-the per-tap gradients are un-sorted afterwards.  Each kernel block finds the
+first row tap's position (K8: their first corner tap's, as
+msda_pallas.py:937-943 sorts), so that a block's taps are local; the output
+and the per-tap gradients are un-sorted afterwards.  Each kernel block finds the
 range of positions its live taps touch, per level, itself.
 
 `ms_deform_attn_sweep` takes the plain version for CPU tensors (autograd
-differentiates it) and `MSDASweepFunction` for CUDA tensors.  The four
+differentiates it) and `MSDASweepFunction` for CUDA tensors.  The five
 kernel wrappers take CUDA tensors only and count their launches
 (`sweep_fwd.launches`, ...); nothing on the card reaches a plain version.
 """
@@ -54,6 +57,7 @@ QBLOCK = 128          # queries per kernel block
 HEAD_DIM = 32         # the kernels' channels per head
 MAX_POINTS = 4        # the kernels hold up to 4 points (16 corner taps) a level
 SWEEP_BWD = ("corner", "rowtap")
+SWEEP_FWD = ("rowtap", "corner")
 
 
 # ---------------------------------------------------------------- expansions
@@ -171,6 +175,17 @@ def sweep_fwd_plain(value, row, px, w):
     return out
 
 
+def sweep_fwd_corner_plain(value, idx, w):
+    """K8's function: out[bh, q] = sum_t w[t, q] * V[bh, idx[t, q]], the
+    taps gathered in order.  value (B, L, H, D); idx, w (BH, T, Q) ->
+    (BH, Q, D) f32."""
+    v = _value_bh(value)
+    out = torch.zeros(w.shape[0], w.shape[2], v.shape[2], dtype=torch.float32, device=v.device)
+    for t in range(w.shape[1]):
+        out = out + _gather_rows(v, idx[:, t].long()) * w[:, t][..., None]
+    return out
+
+
 def _scatter_rows(shape, idx, rows):
     """grad_value (B, L, H, D) from per-tap rows: rows (BH, T, Q, D) added at
     positions idx (BH, T, Q) of their (b, h) value map."""
@@ -218,6 +233,7 @@ def sweep_bwd_corner_plain(value, idx, w, g):
 
 # ---------------------------------------------------------------- kernel wrappers
 _FWD_CTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_FWD_CORNER_CTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _BWD_CTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
@@ -289,6 +305,24 @@ def sweep_fwd_allq(value, spatial_shapes, row, px, w):
     return out
 
 
+def sweep_fwd_corner(value, spatial_shapes, idx, w):
+    """K8 on CUDA tensors: K6's design on corner taps, idx int32 and w
+    (BH, NL*P*4, Q_pad) -> (BH, Q_pad, D) f32."""
+    B, L, H, R, Q_pad = _check(value, idx, w, "sweep_fwd_corner")
+    if idx.dtype != torch.int32:
+        raise ValueError("sweep_fwd_corner: idx must be int32")
+    NL, per_level = _levels(spatial_shapes, R, 4)
+    out = torch.empty(B * H, Q_pad, HEAD_DIM, dtype=torch.float32, device=value.device)
+    fn = build.load("msda_sweep_fwd").msda_sweep_fwd_corner_f32
+    fn.argtypes = _FWD_CORNER_CTYPES
+    fn.restype = ctypes.c_int
+    err = fn(value.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(),
+             B, L, H, Q_pad, NL, per_level, torch.cuda.current_stream(value.device).cuda_stream)
+    build.check(err, "msda_sweep_fwd_corner_f32")
+    sweep_fwd_corner.launches += 1
+    return out
+
+
 def _launch_bwd(symbol, value, spatial_shapes, taps, w, g, per_point, row=None):
     B, L, H, R, Q_pad = _check(value, taps, w, symbol, g, row)
     with_gpx = row is not None
@@ -339,13 +373,14 @@ def kernel_layout(locs: torch.Tensor, attn: torch.Tensor):
     return locs_t, attn_t
 
 
-def query_order(row: torch.Tensor, px: torch.Tensor, L: int):
+def query_order(row: torch.Tensor, px, L: int):
     """The order the kernels see the queries in: raster for Q == L (already
-    local), else sorted by the first row tap's flat position; None for
-    raster."""
-    if px.shape[-1] == L:
+    local), else sorted by the first row tap's flat position (px None: by the
+    first corner tap's, `row` holding corner positions); None for raster."""
+    if row.shape[-1] == L:
         return None
-    return torch.argsort(row[:, 0, :] + px[:, 0, :].long(), dim=1, stable=True)
+    key = row[:, 0, :] if px is None else row[:, 0, :] + px[:, 0, :].long()
+    return torch.argsort(key, dim=1, stable=True)
 
 
 def sort_and_pad(t: torch.Tensor, order, q_axis: int = -1) -> torch.Tensor:
@@ -385,17 +420,24 @@ def _to_reference(t_bh: torch.Tensor, B: int, H: int) -> torch.Tensor:
 
 class MSDASweepFunction(torch.autograd.Function):
     """The custom VJP of ms_deform_attn_pallas_t (msda_pallas.py:1415-1535):
-    row-tap forward (K6, or K7 for a sorted query set under dec_fused); the
-    backward re-expands the taps it needs, launches K9 (corner taps) or K10
-    (row taps), and chains the tap gradients to the locations and weights
-    with autograd of the expansion (the JAX package's jax.vjp)."""
+    row-tap forward (K6, or K7 for a sorted query set under dec_fused), or
+    with fwd="corner" that of ms_deform_attn_pallas under
+    MSDA_FWD_VARIANT=corner (K8 on corner taps); the backward re-expands the
+    taps it needs, launches K9 (corner taps) or K10 (row taps), and chains
+    the tap gradients to the locations and weights with autograd of the
+    expansion (the JAX package's jax.vjp)."""
 
     @staticmethod
-    def forward(ctx, value, locs, attn, spatial_shapes, bwd, dec_fused):
+    def forward(ctx, value, locs, attn, spatial_shapes, bwd, dec_fused, fwd="rowtap"):
         B, L, H, D = value.shape
         Q = locs.shape[1]
         ctx.spatial_shapes, ctx.bwd = spatial_shapes, bwd
         ctx.save_for_backward(value, locs, attn)
+        if fwd == "corner":
+            idx, w = corner_indices_and_weights(*kernel_layout(locs, attn), spatial_shapes)
+            order = query_order(idx, None, L)
+            out = sweep_fwd_corner(value, spatial_shapes, *(sort_and_pad(t, order) for t in (idx, w)))
+            return _to_reference(unsort(out, order, Q, q_axis=1), B, H)
         row, px, w = rowtap_positions_and_weights(*kernel_layout(locs, attn), spatial_shapes)
         order = query_order(row, px, L)
         launch = sweep_fwd_allq if (dec_fused and order is not None) else sweep_fwd
@@ -429,40 +471,53 @@ class MSDASweepFunction(torch.autograd.Function):
         NL, P = locs.shape[3], locs.shape[4]
         grad_locs = g_locs_t.view(B, H, NL, P, 2, Q).permute(0, 5, 1, 2, 3, 4)
         grad_attn = g_attn_t.view(B, H, NL, P, Q).permute(0, 4, 1, 2, 3)
-        return gv, grad_locs.contiguous(), grad_attn.contiguous(), None, None, None
+        return gv, grad_locs.contiguous(), grad_attn.contiguous(), None, None, None, None
 
 
-def ms_deform_attn_sweep_plain(value, spatial_shapes, locs, attn):
-    """The sweep's function for CPU tensors: row-tap expansion and
-    sweep_fwd_plain, differentiable by autograd.  Returns (B, Q, H*D) in
-    value's dtype."""
+def ms_deform_attn_sweep_plain(value, spatial_shapes, locs, attn, fwd="rowtap"):
+    """The sweep's function for CPU tensors: row-tap (or corner) expansion
+    and sweep_fwd_plain (sweep_fwd_corner_plain), differentiable by
+    autograd.  Returns (B, Q, H*D) in value's dtype."""
     B, L, H, D = value.shape
-    row, px, w = rowtap_positions_and_weights(*kernel_layout(locs, attn), spatial_shapes)
-    return _to_reference(sweep_fwd_plain(value, row, px, w), B, H).to(value.dtype)
+    if fwd == "corner":
+        out = sweep_fwd_corner_plain(value, *corner_indices_and_weights(
+            *kernel_layout(locs, attn), spatial_shapes))
+    else:
+        out = sweep_fwd_plain(value, *rowtap_positions_and_weights(
+            *kernel_layout(locs, attn), spatial_shapes))
+    return _to_reference(out, B, H).to(value.dtype)
 
 
 def ms_deform_attn_sweep(value: torch.Tensor, spatial_shapes: Shapes, level_start: Sequence[int],
                          locs: torch.Tensor, attn: torch.Tensor, bwd: str = "corner",
-                         dec_fused: bool = False) -> torch.Tensor:
+                         dec_fused: bool = False, fwd: str = "rowtap") -> torch.Tensor:
     """ms_deform_attn's contract (ops/msda.py) through the sweep kernels:
     value (B, L, H, D), locs (B, Q, H, NL, P, 2), attn (B, Q, H, NL, P) ->
     (B, Q, H*D).  On CUDA tensors (value f32, D = 32, P <= 4): K6 forward, or
-    K7 for Q != L under `dec_fused`; K9 backward (`bwd="corner"`) or K10
-    (`bwd="rowtap"`).  On CPU tensors the plain version.  `level_start` is
-    the raster offsets of the levels, checked against spatial_shapes."""
+    K7 for Q != L under `dec_fused`, or K8 with `fwd="corner"`; K9 backward
+    (`bwd="corner"`) or K10 (`bwd="rowtap"`).  The corner forward is the JAX
+    op-level path, which has neither a fused decoder nor the row-tap
+    backward: with it, both raise.  On CPU tensors the plain version.
+    `level_start` is the raster offsets of the levels, checked against
+    spatial_shapes."""
     if bwd not in SWEEP_BWD:
         raise ValueError(f"bwd must be one of {SWEEP_BWD}, got {bwd!r}")
+    if fwd not in SWEEP_FWD:
+        raise ValueError(f"fwd must be one of {SWEEP_FWD}, got {fwd!r}")
+    if fwd == "corner" and (dec_fused or bwd != "corner"):
+        raise ValueError("the corner forward takes the corner backward and no fused decoder")
     if tuple(level_start) != level_starts(spatial_shapes):
         raise ValueError("the sweep takes the raster level order (level_start of spatial_shapes)")
     if value.device.type == "cpu":
-        return ms_deform_attn_sweep_plain(value, spatial_shapes, locs, attn)
+        return ms_deform_attn_sweep_plain(value, spatial_shapes, locs, attn, fwd)
     if value.device.type != "cuda":
         raise ValueError(f"ms_deform_attn_sweep: unsupported device {value.device}")
     return MSDASweepFunction.apply(value, locs, attn, tuple(map(tuple, spatial_shapes)), bwd,
-                                   bool(dec_fused))
+                                   bool(dec_fused), fwd)
 
 
 sweep_fwd.launches = 0
 sweep_fwd_allq.launches = 0
+sweep_fwd_corner.launches = 0
 sweep_bwd_corner.launches = 0
 sweep_bwd_rowtap.launches = 0

@@ -30,10 +30,11 @@ def _imported_roots(path):
     return roots
 
 
-# every module of the serving, training and sweep slices: the walk below must find
-# them all, and importing them must load nothing of JAX
+# every module of the serving, training, sweep and banded slices and the tools: the
+# walk below must find them all, and importing them must load nothing of JAX
 EXPECTED = (
-    "inference", "main", "engine", "ops.msda", "ops.msda_sweep", "ops.fusion", "ops.build",
+    "inference", "main", "engine", "ops.msda", "ops.msda_sweep", "ops.msda_banded", "ops.fusion",
+    "ops.build", "tools", "tools.msda_microbench",
     "models.matcher", "models.criterion", "models.layers", "models.transformer",
     "parallel.optim", "parallel.train_state", "utils.ema", "utils.box_ops",
     "data.odvg", "data.loader", "data.transforms", "data.tokenization",

@@ -11,7 +11,9 @@ tests/test_msda_pallas.py runs it), at that file's tiny shapes.
   * Each kernel's plain version against its TPU kernel on the same expanded
     operands at 1e-5 (f32; only the order of the sums differs): K6 and K7's
     `sweep_fwd_plain` through `_msda_pallas_fwd_rowtap_call` and
-    `_msda_pallas_fwd_rowtap_allq_call`, K9's through `_msda_pallas_bwd_call`,
+    `_msda_pallas_fwd_rowtap_allq_call`, K8's `sweep_fwd_corner_plain`
+    through `_msda_pallas_fwd_call` (on corner taps sorted by the first, as
+    msda_pallas.py:937-943 sorts them), K9's through `_msda_pallas_bwd_call`,
     K10's through `_msda_rowtap_bwd_call`.  Tap gradients are compared where
     the tap is live (w != 0): a dead tap's gradient depends on the sweep's
     ranges in both packages and the chain rule multiplies it by zero.
@@ -127,9 +129,30 @@ def _rowtap_operands(Q, seed, sort):
     return value, value_t, px, w
 
 
-@pytest.mark.parametrize("kernel", ["K6", "K7"])
+def _corner_operands(Q, seed):
+    """Expanded corner taps (the JAX expansion), sorted by the first tap as
+    the op-level path sorts a Q != L query set, padded to the TPU block."""
+    value, value_t, locs_t, attn_t = _expanded(Q, seed)
+    idx, w = (np.asarray(a) for a in mp._corner_indices_and_weights_t(
+        jnp.asarray(locs_t), jnp.asarray(attn_t), SHAPES))
+    order = np.argsort(idx[:, 0, :], axis=1, kind="stable")
+    idx, w = (np.take_along_axis(a, order[:, None, :], 2) for a in (idx, w))
+    return value, value_t, _pad_q(idx, mp.QBLOCK), _pad_q(w, mp.QBLOCK)
+
+
+@pytest.mark.parametrize("kernel", ["K6", "K7", "K8"])
 def test_sweep_fwd_plain_matches_tpu_kernel(kernel):
     Q = 173
+    if kernel == "K8":
+        value, value_t, idx, w = _corner_operands(Q, 2)
+        ranges = mp._tile_ranges(jnp.asarray(idx), jnp.asarray(w),
+                                 idx.shape[-1] // mp.QBLOCK).reshape(-1)
+        ref = mp._msda_pallas_fwd_call(_pad_l(value_t, mp.TILE), jnp.asarray(idx),
+                                       jnp.asarray(w), ranges)
+        got = sw.sweep_fwd_corner_plain(torch.from_numpy(value), torch.from_numpy(idx),
+                                        torch.from_numpy(w))
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+        return
     value, value_t, px, w = _rowtap_operands(Q, 2, sort=kernel == "K7")
     row, px_row = _split_rows(px)
     nqb = px.shape[-1] // mp.QBLOCK
@@ -201,6 +224,8 @@ def test_sort_and_pad_round_trip():
     torch.testing.assert_close(sw.unsort(sw.sort_and_pad(g, order, 1), order, 50, 1), g,
                                rtol=0, atol=0)
     assert sw.query_order(row[..., :1], px[..., :1], 1) is None   # Q == L: raster order
+    corner = sw.sort_and_pad(row, sw.query_order(row, None, L))    # corner taps: by the first
+    assert (corner[:, 0, 1:50] >= corner[:, 0, :49]).all()
 
 
 def test_kernel_wrappers_take_cuda_tensors_only():
@@ -210,6 +235,7 @@ def test_kernel_wrappers_take_cuda_tensors_only():
     value = torch.zeros(1, L, 1, 32)
     taps, rows = torch.zeros(1, 8 * NL, 128), torch.zeros(1, 8 * NL, 128, dtype=torch.int32)
     for launch, args in ((sw.sweep_fwd, (value, SHAPES, rows, taps, taps)),
+                         (sw.sweep_fwd_corner, (value, SHAPES, rows, taps)),
                          (sw.sweep_fwd_allq, (value, SHAPES, rows, taps, taps)),
                          (sw.sweep_bwd_rowtap, (value, SHAPES, rows, taps, taps,
                                                 torch.zeros(1, 128, 32))),
@@ -223,3 +249,8 @@ def test_kernel_wrappers_take_cuda_tensors_only():
         sw.ms_deform_attn_sweep(value, SHAPES, STARTS, locs, attn, bwd="banded")
     with pytest.raises(ValueError, match="raster level order"):
         sw.ms_deform_attn_sweep(value, SHAPES, (0, 1, 2), locs, attn)
+    with pytest.raises(ValueError, match="fwd must be"):
+        sw.ms_deform_attn_sweep(value, SHAPES, STARTS, locs, attn, fwd="banded")
+    for kw in (dict(dec_fused=True), dict(bwd="rowtap")):   # not on the JAX op-level path
+        with pytest.raises(ValueError, match="corner forward"):
+            sw.ms_deform_attn_sweep(value, SHAPES, STARTS, locs, attn, fwd="corner", **kw)

@@ -14,6 +14,12 @@ location gradients through the W scale).  DEC_FUSED has no effect where
 Q == L (nothing is sorted), so that case runs once per backward.  Sampling
 points are continuous random draws, off the pixel lattice, where the
 row-tap and corner derivatives agree.
+
+The corner forward (`fwd="corner"`, K8 with the K9 backward) is held against
+the op-level `ms_deform_attn_pallas` with FWD_VARIANT="corner" and its VJP
+at the nano model's four levels, at the same tolerances, on the CPU path and
+through the Function, whose K8 and K9 launchers must receive the corner taps
+in the query order the op documents.
 """
 import numpy as np
 import pytest
@@ -57,8 +63,12 @@ def _plain_launchers(monkeypatch):
             return sw.sweep_fwd_plain(value, row, px, w)
         return launch
 
+    def corner_fwd(value, shapes, idx, w):
+        called.append(("K8", idx, w))
+        return sw.sweep_fwd_corner_plain(value, idx, w)
+
     def corner(value, shapes, idx, w, g):
-        called.append("K9")
+        called.append(("K9", idx, w, g))
         return sw.sweep_bwd_corner_plain(value, idx, w, g)
 
     def rowtap(value, shapes, row, px, w, g):
@@ -67,6 +77,7 @@ def _plain_launchers(monkeypatch):
 
     monkeypatch.setattr(sw, "sweep_fwd", fwd("K6"))
     monkeypatch.setattr(sw, "sweep_fwd_allq", fwd("K7"))
+    monkeypatch.setattr(sw, "sweep_fwd_corner", corner_fwd)
     monkeypatch.setattr(sw, "sweep_bwd_corner", corner)
     monkeypatch.setattr(sw, "sweep_bwd_rowtap", rowtap)
     return called
@@ -95,4 +106,65 @@ def test_sweep_matches_pallas_t(monkeypatch, Q, dec_fused, bwd):
     called = _plain_launchers(monkeypatch)
     run(lambda v, l, a: sw.MSDASweepFunction.apply(v, l, a, SHAPES, bwd, bool(dec_fused)))
     fwd = "K7" if dec_fused and Q != L else "K6"
-    assert called == [fwd, "K9" if bwd == "corner" else "K10"]
+    assert _names(called) == [fwd, "K9" if bwd == "corner" else "K10"]
+
+
+def _names(called):
+    return [c if isinstance(c, str) else c[0] for c in called]
+
+
+SHAPES4 = ((8, 12), (4, 6), (2, 3), (1, 2))
+L4 = sum(h * w for h, w in SHAPES4)
+STARTS4 = (0, 96, 120, 126)
+
+
+def _inputs4(Q, seed):
+    rng = np.random.RandomState(seed)
+    value = rng.randn(B, L4, H, D).astype(np.float32)
+    locs = rng.uniform(-0.1, 1.1, size=(B, Q, H, 4, P, 2)).astype(np.float32)
+    attn = rng.uniform(size=(B, Q, H, 4, P)).astype(np.float32)
+    attn /= attn.reshape(B, Q, H, -1).sum(-1).reshape(B, Q, H, 1, 1)
+    return value, locs, attn, rng.randn(B, Q, H * D).astype(np.float32)
+
+
+def test_corner_sweep_matches_pallas(monkeypatch):
+    """A decoder-style query set (Q != L, sorted): the path that differs from
+    the raster one only by its sort and un-sort."""
+    Q = 150
+    monkeypatch.setattr(mp, "FWD_VARIANT", "corner")
+    value, locs, attn, grad = _inputs4(Q, 11)
+
+    @jax.jit   # traced anew: FWD_VARIANT is read then
+    def fwd_bwd(v, l, a, g):
+        out, vjp = jax.vjp(lambda v, l, a: mp.ms_deform_attn_pallas(v, SHAPES4, l, a), v, l, a)
+        return out, vjp(g)
+
+    ref_out, ref_grads = fwd_bwd(*(jnp.asarray(a) for a in (value, locs, attn, grad)))
+
+    def run(fn):
+        leaves = [torch.from_numpy(a).requires_grad_(True) for a in (value, locs, attn)]
+        out = fn(*leaves)
+        out.backward(torch.from_numpy(grad))
+        np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref_out), **GRAD_TOL)
+        for name, t, r in zip(("value", "locs", "attn"), leaves, ref_grads):
+            np.testing.assert_allclose(t.grad.numpy(), np.asarray(r), **GRAD_TOL, err_msg=name)
+
+    run(lambda v, l, a: sw.ms_deform_attn_sweep(v, SHAPES4, STARTS4, l, a, fwd="corner"))
+    called = _plain_launchers(monkeypatch)
+    run(lambda v, l, a: sw.MSDASweepFunction.apply(v, l, a, SHAPES4, "corner", False, "corner"))
+    assert _names(called) == ["K8", "K9"]
+    idx, w = sw.corner_indices_and_weights(*sw.kernel_layout(*(torch.from_numpy(a)
+                                                               for a in (locs, attn))), SHAPES4)
+    order = sw.query_order(idx, None, L4)
+    assert order is not None
+    torch.testing.assert_close(called[0][1], sw.sort_and_pad(idx, order), rtol=0, atol=0)
+    torch.testing.assert_close(called[0][2], sw.sort_and_pad(w, order), rtol=0, atol=0)
+    # the backward's K9: the same taps and the upstream gradient, in the row
+    # taps' query order (any order is exact; the backward sorts as the model path does)
+    row, px, _ = sw.rowtap_positions_and_weights(*sw.kernel_layout(
+        *(torch.from_numpy(a) for a in (locs, attn))), SHAPES4)
+    order = sw.query_order(row, px, L4)
+    g = torch.from_numpy(grad).view(B, Q, H, D).permute(0, 2, 1, 3).reshape(B * H, Q, D)
+    for got, want in zip(called[1][1:], (sw.sort_and_pad(idx, order), sw.sort_and_pad(w, order),
+                                          sw.sort_and_pad(g, order, 1))):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
