@@ -10,7 +10,10 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                at the encoder (Q = L, 2-d refs) and decoder (Q = 900, 4-d refs)
                shapes of the 800x1216 bucket
   4. K2      - the fusion kernel against its plain version at the encoder
-               fusion shape (Nv = 20197, Nl = 256 with 41 live tokens, E = 1024)
+               fusion shape (Nv = 20197, Nl = 256 with 41 live tokens, E = 1024);
+               its library's SASS must hold tensor-core MMA instructions
+               (cuobjdump), and ptxas's registers, shared memory and spills
+               of each of its kernels are printed
   5. serve   - load_model + predict at full Swin-T / BERT-base width (seeded
                random weights, synthetic 30522-entry WordPiece vocab) on three
                images of different sizes with two captions; counts the kernel
@@ -28,7 +31,8 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                version (gq, gk, gvv, gvl), and K2 against its plain version
                on the same operands, at the encoder fusion shape of that
                B = 4 batch, each image with its own valid region and live
-               text count
+               text count; K2 is also timed there, against its B = 4 bound;
+               phase 4's SASS and ptxas report for both fusion libraries
  10. train   - the port's training entry (open_groundingdino_tpu_torch.main) on
                a synthetic 8-image ODVG set at full Swin-T / BERT-base width
                and depth, B = 4, f32, from the seeded checkpoint: 1 warm-up +
@@ -93,9 +97,12 @@ BUCKET = (800, 1216)
 HEADS, HEAD_DIM, LEVELS, POINTS = 8, 32, 4, 4      # flagship MSDA geometry
 FUSION_E, FUSION_HEADS, TEXT_LEN, LIVE_TEXT = 1024, 4, 256, 41
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside the
-# tensor cores (both kernels compute in f32 on the SIMT units)
+# tensor cores (the MSDA kernels compute in f32 on the SIMT units)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+# the least time f32-accurate products take on the tensor cores: 3xTF32, three
+# TF32 products (495 TFLOP/s dense) for each f32 one; the fusion kernels' rate
+TF32X3_FLOP_PER_S = 495e12 / 3
 K1_TOL = 1e-4   # f32; only the order of the 64 weighted taps differs
 K2_TOL = 1e-4   # f32; online softmax and split partials reorder the sums
 # K3 and K4 against autograd of the plain versions, relative to the largest
@@ -312,8 +319,51 @@ def fusion_bound_ms(q, k, mask_v, mask_l) -> tuple:
     for lv, ll in zip((~mask_v).sum(-1).tolist(), (~mask_l).sum(-1).tolist()):
         products += (nv * ll + lv * nl - lv * ll) + nv * ll + nl * lv
     ops = 2 * D * FUSION_HEADS * products
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / TF32X3_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def tensor_core_report(libs, nv: int) -> dict:
+    """Each library's SASS (cuobjdump) must hold tensor-core MMA instructions
+    (HMMA with TF32 from mma.sync, or HGMMA from wgmma); returns the count
+    of each, ptxas's registers, static shared memory and spills of each
+    kernel from the build's report, and the dynamic shared memory of the
+    main kernel's two passes at Nv = nv image tokens."""
+    import ctypes
+    import re
+
+    from open_groundingdino_tpu_torch.ops import build, fusion
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    report = {}
+    for name in libs:
+        sass = subprocess.run([tool, "-sass", os.path.join(build.BUILD_DIR, f"lib{name}.so")],
+                              capture_output=True, text=True, check=True, timeout=120).stdout
+        hmma = sum(1 for line in sass.splitlines() if "HMMA" in line and "TF32" in line)
+        hgmma = sass.count("HGMMA")
+        if hmma + hgmma == 0:
+            raise AssertionError(f"{name}: no tensor-core MMA instruction in its SASS")
+        with open(os.path.join(build.BUILD_DIR, f"{name}.log")) as f:
+            ptxas = f.read()
+        kernels = {}
+        for entry, body in re.findall(r"Compiling entry function '([^']+)'(.*?)(?=Compiling entry|\Z)",
+                                      ptxas, re.S):
+            kname = next((k for k in ("attend_kernel", "combine_kernel", "bwd_kernel",
+                                      "sum_splits_kernel") if k in entry), entry)
+            regs = re.search(r"Used (\d+) registers", body)
+            smem = re.search(r"(\d+) bytes smem", body)
+            spill = [int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", body)]
+            kernels[kname] = dict(registers=int(regs.group(1)) if regs else None,
+                                  static_smem=int(smem.group(1)) if smem else 0,
+                                  spill_bytes=sum(spill))
+        smem_fn = getattr(build.load(name), f"{name}_smem_bytes")
+        smem_fn.argtypes, smem_fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+        n_splits = max(2, min(64, -(-nv // fusion.IMAGE_TOKENS_PER_SPLIT)))
+        dynamic = {"image_rows": smem_fn(TEXT_LEN, 1), "text_rows": smem_fn(nv, n_splits)}
+        report[name] = dict(hmma_tf32=hmma, hgmma=hgmma, ptxas=kernels, dynamic_smem=dynamic)
+        log("sass", f"lib{name}.so: {hmma} HMMA.TF32, {hgmma} HGMMA; ptxas {kernels}; "
+                    f"dynamic shared memory {dynamic} bytes")
+    return report
 
 
 def check_fusion(g, device):
@@ -333,8 +383,9 @@ def check_fusion(g, device):
               f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     if not err <= K2_TOL:
         raise AssertionError(f"K2: max abs error {err} > {K2_TOL}")
+    sass = tensor_core_report(("fusion_fwd",), q.shape[1])
     return dict(Nv=q.shape[1], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, sass=sass)
 
 
 # ---------------------------------------------------------------- K3 (MSDA backward)
@@ -407,7 +458,8 @@ def fusion_bwd_bound_ms(q, k, mask_v, mask_l) -> tuple:
     products this data needs: over the (image, text) pairs that some softmax
     reaches (U = every image token with the live text, every text token with
     the live image), the logits and gq and gk; G1 and gvl where the row
-    softmax is live; G2 and gvv where the column softmax is live."""
+    softmax is live; G2 and gvv where the column softmax is live; at the
+    3xTF32 rate."""
     B, nv, E = q.shape
     nl = k.shape[1]
     H = FUSION_HEADS
@@ -419,7 +471,7 @@ def fusion_bwd_bound_ms(q, k, mask_v, mask_l) -> tuple:
         union = nv * ll + lv * nl - lv * ll
         products += 3 * union + 2 * nv * ll + 2 * lv * nl
     ops = 2 * D * H * products
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / TF32X3_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -443,6 +495,13 @@ def check_fusion_bwd(device):
     del ov_p, ol_p
     if not fwd_err <= K2_TOL:
         raise AssertionError(f"K2 at B={q.shape[0]}: max abs error {fwd_err} > {K2_TOL}")
+    # K2 at the B = 4 shape, where the training step's launches run
+    k2_ms = event_ms(lambda: fusion._fusion_fwd_cuda(*args, FUSION_HEADS), 5)
+    k2_plain_ms = event_ms(lambda: fusion.fused_bi_attention_plain(*args, FUSION_HEADS), 3)
+    k2_bound_ms, k2_bound_by = fusion_bound_ms(q, k, mask_v, mask_l)
+    log("K2", f"B={q.shape[0]} (valid {BATCH_VALID}, live text {BATCH_LIVE_TEXT}): "
+              f"max|kernel-plain|={fwd_err:.3e} kernel {k2_ms:.3f} ms, plain "
+              f"{k2_plain_ms:.3f} ms, bound {k2_bound_ms:.4f} ms ({k2_bound_by})")
     bwd_args = (*args, out_v, out_l, lse_v, lse_l, g_ov, g_ol, FUSION_HEADS)
     got = fusion.fused_bi_attention_bwd(*bwd_args)
     ref = fusion.fused_bi_attention_bwd_plain(*args, g_ov, g_ol, FUSION_HEADS)
@@ -462,9 +521,12 @@ def check_fusion_bwd(device):
               f"K2 on the same operands {fwd_err:.3e} (tolerance {K2_TOL}); "
               f"kernel {ms:.3f} ms, plain (autograd: forward + backward) {plain_ms:.3f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by})")
+    sass = tensor_core_report(("fusion_fwd", "fusion_bwd"), q.shape[1])
+    k2 = dict(B=q.shape[0], max_abs_err=fwd_err, ms=k2_ms, plain_ms=k2_plain_ms,
+              bound_ms=k2_bound_ms, bound_by=k2_bound_by)
     return dict(B=q.shape[0], Nv=q.shape[1], max_abs_err=max(errs.values()), errs=errs,
                 k2_max_abs_err=fwd_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+                bound_by=bound_by, k2=k2, sass=sass)
 
 
 # ---------------------------------------------------------------- K6, K7, K9, K10 (sweep)
@@ -1472,7 +1534,9 @@ def main() -> int:
          "replaces": tpu + "fusion_pallas.py:50", "launches": counts["fusion_fwd"],
          "launches_by_path": {"serve": counts["fusion_fwd"],
                               "train": train_counts["fusion_fwd"]},
-         **single_row(k2) | {"max_abs_err": max(k2["max_abs_err"], k2_err)}},
+         **single_row(k2) | {"max_abs_err": max(k2["max_abs_err"], k2_err)},
+         "per_shape": {"B=1": single_row(k2), "B=4": single_row(k4["k2"])},
+         "sass": k2["sass"]["fusion_fwd"]},
         {"name": "msda_bwd", "route": "cuda", "source": src + "msda_bwd.cu",
          "replaces": tpu + "msda_banded.py:524", "launches": train_counts["msda_bwd"],
          "launches_by_path": {"serve": 0, "train": train_counts["msda_bwd"]},
@@ -1480,7 +1544,7 @@ def main() -> int:
         {"name": "fusion_bwd", "route": "cuda", "source": src + "fusion_bwd.cu",
          "replaces": tpu + "fusion_pallas.py:198", "launches": train_counts["fusion_bwd"],
          "launches_by_path": {"serve": 0, "train": train_counts["fusion_bwd"]},
-         **single_row(k4)},
+         **single_row(k4), "sass": k4["sass"]["fusion_bwd"]},
     ]
     # K5 and K8 (phase 16; the row is phase 8's B = 4 shapes, per_shape adds
     # B = 1) and the sweep kernels (phase 12 at phase 8's B = 4 shapes);

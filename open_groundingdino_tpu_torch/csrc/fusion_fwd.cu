@@ -13,57 +13,75 @@
 // max shift and +-50000 clamps are no-ops unless the logit range exceeds 50000.
 //
 // What bounds it: operations.  At the flagship bucket (Nv ~ 20k, Nl = 256,
-// E = 1024, H = 4, D = 256) the three products are ~32 GFLOP per call against
-// ~250 MB of compulsory traffic (q, val_v, out_v in f32), i.e. ~130 FLOP/B:
-// above the f32 ridge (67 TFLOP/s / 3.35 TB/s = 20 FLOP/B) of the SIMT units.
+// E = 1024, H = 4, D = 256) the products are tens of GFLOP per call against
+// ~250 MB of compulsory traffic, ~100 FLOP/B: above the ridge of the f32 SIMT
+// units (67 TFLOP/s / 3.35 TB/s = 20 FLOP/B) and near that of the tensor
+// cores in 3xTF32 (165 TFLOP/s, 49 FLOP/B).  The f32 SIMT design this
+// replaced held its logits at one scalar shared-memory load per FMA and
+// reached ~10% of the SIMT peak.  On the tensor cores the limit is the
+// instruction stream around the MMAs: every fragment element needs its split
+// and its swizzled address, and each warp needs independent accumulator
+// chains to keep the tensor pipe fed.
 //
-// What the design does about it.  The TPU carries the column softmax state
-// across a sequential grid axis; CUDA blocks run in parallel and in no order,
-// and one head's text keys and values (Nl x D f32 = 256 KB each) do not fit in
-// the 227 KB of shared memory a block may use.  So both directions run as the
-// same flash-style kernel (online softmax over key tiles of 32, query blocks
-// of 64 rows, one warp per 8 query rows, lane = key column for the logits and
-// lane = output channel for the product):
-//   1. image rows attend over text keys: grid (Nv/64, H, B), one pass, out_v
-//      written directly;
-//   2. text rows attend over image keys: grid (Nl/64, H*S, B), the image axis
-//      split in S chunks, each writing a partial (max, sum, acc[64, D]);
-//   3. a combine kernel merges the S partials into out_l.
-// The logits are computed twice (4 products instead of 3), which keeps each
-// pass a plain streaming kernel.  A key tile whose keys are all padding is
-// skipped (a caption of 41 tokens leaves 6 of pass 1's 8 text tiles dead).
-// f32 SIMT math (no tensor cores, no TF32) so
-// the result matches the f32 plain version to rounding.  Faster tensor-core
-// variants are later work.
+// What the design does about it.  Every product runs on the tensor cores
+// (mma.sync m16n8k8 tf32) in 3xTF32 (tf32x3.cuh), which keeps the error near
+// f32's (the smoke holds K2 to 1e-4 absolute; one TF32 pass would miss it).
+// Both directions run as one flash-style kernel: 128 query rows a block, one
+// warp per 16-row slab holding that slab's whole 256-wide f32 output in
+// registers (240 a thread, no spills); key tiles of 16 rows staged by
+// cp.async into two shared-memory stages, the next tile loading while this
+// one computes.  Each key and value tile is split into hi and lo once, by the
+// whole block, for all eight warps; the query tile is split as it is read.  Fragments come in by ldmatrix (query, keys)
+// and scalar loads (values) at per-thread offsets computed once, so the inner
+// loops carry no address arithmetic.  The online softmax runs on the
+// accumulator fragments of S = Q.K^T (row max and sum over the 4 threads of
+// a quad), and P feeds P.V straight from those fragments, the value tile
+// being read in the matching permuted key order.
+//   1. image rows attend over text keys: grid (Nv/128, H, B), out_v written
+//      directly;
+//   2. text rows attend over image keys: grid (Nl/128, H*S, B), the image axis
+//      split in S chunks, each writing a partial (max, sum, acc[128, D]);
+//   3. a combine kernel merges the S partials, in order, into out_l.
+// The logits are computed once per direction (4 products instead of 3), which
+// keeps each pass a plain streaming kernel.  A key tile whose keys are all
+// padding is neither loaded nor computed (a caption of 41 tokens leaves 13 of
+// pass 1's 16 text tiles dead).  Rows past the ragged end (Nv = 20197) are
+// zero-filled on load and never written.
 #include <cuda_runtime.h>
 #include <cfloat>
 #include <cmath>
 #include <cstdint>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int kRows = 64;          // query rows per block
-constexpr int kWarps = 8;          // 8 rows per warp
-constexpr int kRowsPerWarp = kRows / kWarps;
-constexpr int kKeys = 32;          // key tile = one key per lane
+using namespace tf32x3;
+
+constexpr int D = kD;
+constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
+constexpr int kRows = 16 * kWarps;   // query rows per block: one 16-row slab a warp
+constexpr int kKeys = 16;            // key tile
+constexpr int kNT = D / 8;           // 8-lane output tiles per row slab
+// the query tile, two stages of key and value tiles and the lo parts of the
+// current pair; then the key-padding flags of the block's key range and a
+// live flag per key tile (chunk and chunk / kKeys bytes, see `smem_bytes`)
+constexpr size_t kSmemTiles = sizeof(float) * ((size_t)kRows * D + 6 * (size_t)kKeys * D);
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+size_t smem_bytes(int chunk) { return kSmemTiles + round16(chunk) + round16(chunk / kKeys); }
+
+// keys per split: whole key tiles, so a split never starts mid-tile
+int split_chunk(int Nk, int n_splits) {
+  const int chunk = (Nk + n_splits - 1) / n_splits;
+  return (chunk + kKeys - 1) / kKeys * kKeys;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-template <int D>
-constexpr size_t smem_bytes() {
-  // sQ[kRows][D] + sKt[D][kKeys + 1] + sV[kKeys][D]
-  return sizeof(float) * ((size_t)kRows * D + (size_t)D * (kKeys + 1) + (size_t)kKeys * D);
+// first key tile at or after c0 (a multiple of kKeys from k_begin) holding a
+// live key, or k_end
+__device__ __forceinline__ int next_live(const uint8_t* sLive, int c0, int k_begin, int k_end) {
+  while (c0 < k_end && !sLive[(c0 - k_begin) / kKeys]) c0 += kKeys;
+  return min(c0, k_end);
 }
 
 // One block: kRows query rows of head h, keys [k_begin, k_end) of split s.
@@ -72,21 +90,24 @@ constexpr size_t smem_bytes() {
 // log-sum-exp over its live keys to lse (B, H, Nq) (+inf for a row with no
 // live key, so that exp(s - lse) is 0 in the backward).
 // n_splits > 1: writes the partial (acc, max, sum) of split s.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 attend_kernel(const float* __restrict__ Qm, const float* __restrict__ Km,
               const float* __restrict__ Vm, const uint8_t* __restrict__ key_pad,
               int Nq, int Nk, int E, int H, int n_splits, int chunk,
               float* __restrict__ out, float* __restrict__ lse,
               float* __restrict__ part_acc, float* __restrict__ part_m,
               float* __restrict__ part_s) {
-  constexpr int DJ = D / 32;
-  extern __shared__ float smem[];
-  float* sQ = smem;                            // [kRows][D]
-  float* sKt = sQ + kRows * D;                 // [D][kKeys + 1]
-  float* sV = sKt + D * (kKeys + 1);           // [kKeys][D]
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);   // [kRows][D]
+  float* sK = sQ + kRows * D;                    // [2][kKeys][D]
+  float* sV = sK + 2 * kKeys * D;                // [2][kKeys][D]
+  float* sKlo = sV + 2 * kKeys * D;              // [kKeys][D]
+  float* sVlo = sKlo + kKeys * D;                // [kKeys][D]
+  uint8_t* sPad = reinterpret_cast<uint8_t*>(sVlo + kKeys * D);     // [chunk]
+  uint8_t* sLive = sPad + round16(chunk);                           // [chunk / kKeys]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const int r0 = blockIdx.x * kRows;
   const int h = blockIdx.y % H;
   const int split = blockIdx.y / H;
@@ -99,108 +120,146 @@ attend_kernel(const float* __restrict__ Qm, const float* __restrict__ Km,
   const float* vb = Vm + (long long)b * Nk * E + h * D;
   const uint8_t* padb = key_pad + (long long)b * Nk;
 
-  // query block -> shared (zeros past Nq)
-  for (int i = tid; i < kRows * D / 4; i += kThreads) {
-    const int r = i / (D / 4), c4 = i % (D / 4);
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < Nq) v = reinterpret_cast<const float4*>(qb + (long long)(r0 + r) * E)[c4];
-    reinterpret_cast<float4*>(sQ + r * D)[c4] = v;
+  load_tile<kRows, kThreads>(sQ, qb, E, r0, Nq, tid);
+  stage_pads(sPad, sLive, padb, k_begin, k_end, chunk, kKeys, tid, kThreads);
+  int c0 = next_live(sLive, k_begin, k_begin, k_end);
+  if (c0 < k_end) {
+    load_tile<kKeys, kThreads>(sK, kb, E, c0, k_end, tid);
+    load_tile<kKeys, kThreads>(sV, vb, E, c0, k_end, tid);
   }
+  cp_async_commit();
 
-  float m[kRowsPerWarp], l[kRowsPerWarp], o[kRowsPerWarp][DJ];
+  // this thread's rows: m0 + g (fragment elements 0, 1) and m0 + g + 8 (2, 3)
+  const int m0 = warp * 16;
+  float o[kNT][4];
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    m[i] = -FLT_MAX;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) o[i][j] = 0.f;
-  }
+  for (int n = 0; n < kNT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.f, 0.f};
+  // fragment offsets within the tiles, the same for every key tile
+  const StepOffsets qo = a_offsets(m0, 0, lane), ko = key2_offsets(0, lane);
+  const ValOffsets vo = val_offsets(0, g, t);
+  const uint32_t sQa = smem_addr(sQ), sKloa = smem_addr(sKlo);
 
-  for (int c0 = k_begin; c0 < k_end; c0 += kKeys) {
-    // Barrier (previous tile consumed, sQ written) and vote: a tile whose keys
-    // are all padding adds nothing, so the block skips it.
-    const int kk = c0 + tid;
-    if (!__syncthreads_or(tid < kKeys && kk < k_end && key_pad[(long long)b * Nk + kk] == 0)) {
-      continue;
+  int stage = 0;
+  while (c0 < k_end) {
+    cp_async_wait<0>();   // this stage (and the query tile) have landed
+    // every warp is past the previous tile: its stage and the lo tiles are free
+    __syncthreads();
+    const int c1 = next_live(sLive, c0 + kKeys, k_begin, k_end);
+    if (c1 < k_end) {     // the next tile loads while this one computes
+      load_tile<kKeys, kThreads>(sK + (stage ^ 1) * kKeys * D, kb, E, c1, k_end, tid);
+      load_tile<kKeys, kThreads>(sV + (stage ^ 1) * kKeys * D, vb, E, c1, k_end, tid);
     }
-    for (int i = tid; i < kKeys * D; i += kThreads) {
-      const int c = i / D, k = i % D;
-      const bool in = c0 + c < k_end;
-      sKt[k * (kKeys + 1) + c] = in ? kb[(long long)(c0 + c) * E + k] : 0.f;
-    }
-    for (int i = tid; i < kKeys * D / 4; i += kThreads) {
-      const int c = i / (D / 4), c4 = i % (D / 4);
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (c0 + c < k_end) v = reinterpret_cast<const float4*>(vb + (long long)(c0 + c) * E)[c4];
-      reinterpret_cast<float4*>(sV + c * D)[c4] = v;
-    }
+    cp_async_commit();
+    // split the key and value tiles once for all warps: hi in place, lo apart
+    float* K = sK + stage * kKeys * D;
+    float* V = sV + stage * kKeys * D;
+    split_tile<kThreads>(K, sKlo, kKeys * D, tid);
+    split_tile<kThreads>(V, sVlo, kKeys * D, tid);
     __syncthreads();
 
-    // logits: this warp's 8 rows x key column `lane`
-    float s[kRowsPerWarp];
+    // S = Q . K^T: this warp's 16 rows x 16 keys, in four independent
+    // accumulator chains (each 8-key tile's big and small terms)
+    float s[2][4], ss[2][4];
 #pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) s[i] = 0.f;
-    const float* qw = sQ + warp * kRowsPerWarp * D;
-    for (int k = 0; k < D; k += 4) {
-      const float k0 = sKt[(k + 0) * (kKeys + 1) + lane];
-      const float k1 = sKt[(k + 1) * (kKeys + 1) + lane];
-      const float k2 = sKt[(k + 2) * (kKeys + 1) + lane];
-      const float k3 = sKt[(k + 3) * (kKeys + 1) + lane];
+    for (int j = 0; j < 2; ++j) {
 #pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const float4 qq = *reinterpret_cast<const float4*>(qw + i * D + k);
-        s[i] = fmaf(qq.x, k0, s[i]);
-        s[i] = fmaf(qq.y, k1, s[i]);
-        s[i] = fmaf(qq.z, k2, s[i]);
-        s[i] = fmaf(qq.w, k3, s[i]);
+      for (int e = 0; e < 4; ++e) s[j][e] = ss[j][e] = 0.f;
+    }
+    const uint32_t Ka = smem_addr(K);
+#pragma unroll 2
+    for (int it = 0; it < D / 32; ++it) {   // reduction steps 4 it + q
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const FragA a = load_a(sQa, qo, q, it);
+        FragB bk[2];
+        load_b_key2_split(bk, Ka, sKloa, ko, q, it);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) mma3(s[j], ss[j], a, bk[j]);
       }
     }
-
-    // online softmax over this tile's live keys
-    const int key = c0 + lane;
-    const bool valid = key < k_end && padb[key] == 0;
-    float p[kRowsPerWarp];
 #pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const float m_new = fmaxf(m[i], warp_max(valid ? s[i] : -FLT_MAX));
-      p[i] = valid ? expf(s[i] - m_new) : 0.f;
-      const float alpha = expf(m[i] - m_new);
-      l[i] = l[i] * alpha + warp_sum(p[i]);
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] += ss[j][e];
+    }
+
+    // online softmax over this tile's live keys (element e of n-tile j is key
+    // c0 + 8j + 2t + (e & 1), row g for e < 2 and g + 8 for e >= 2)
+    bool valid[2][2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) valid[j][e] = sPad[c0 - k_begin + 8 * j + 2 * t + e] == 0;
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {   // row half: g (i = 0), g + 8 (i = 1)
+      float mx = -FLT_MAX;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (valid[j][e]) mx = fmaxf(mx, s[j][2 * i + e]);
+        }
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = __expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = valid[j][e] ? __expf(s[j][2 * i + e] - m_new) : 0.f;
+          s[j][2 * i + e] = p;
+          sum += p;
+        }
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l[i] = l[i] * alpha + sum;
       m[i] = m_new;
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) o[i][j] *= alpha;
-    }
-
-    // o[i][:] += p[i][:] @ V_tile ; lane owns channels lane + 32*j
-#pragma unroll 4
-    for (int c = 0; c < kKeys; ++c) {
-      float vv[DJ];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) vv[j] = sV[c * D + lane + 32 * j];
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const float pc = __shfl_sync(0xffffffffu, p[i], c);
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) o[i][j] = fmaf(pc, vv[j], o[i][j]);
+      for (int n = 0; n < kNT; ++n) {
+        o[n][2 * i] *= alpha;
+        o[n][2 * i + 1] *= alpha;
       }
     }
+
+    // O += P . V over the tile's two 8-key halves
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const FragA p = a_from_acc(s[j]);
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) mma3(o[n], p, load_b_val_split(V, sVlo, vo, j, n));
+    }
+    c0 = c1;
+    stage ^= 1;
   }
+  cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int r = r0 + warp * kRowsPerWarp + i;
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + m0 + g + 8 * i;
     if (r >= Nq) continue;
     if (n_splits == 1) {
       const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-      float* orow = out + ((long long)b * Nq + r) * E + h * D;
+      float* orow = out + ((long long)b * Nq + r) * E + h * D + 2 * t;
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) orow[lane + 32 * j] = o[i][j] * inv;
-      if (lane == 0) lse[((long long)b * H + h) * Nq + r] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
+      for (int n = 0; n < kNT; ++n) {
+        *reinterpret_cast<float2*>(orow + 8 * n) =
+            make_float2(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
+      }
+      if (t == 0) lse[((long long)b * H + h) * Nq + r] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
     } else {
       const long long idx = (((long long)b * H + h) * n_splits + split) * Nq + r;
+      float* prow = part_acc + idx * D + 2 * t;
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) part_acc[idx * D + lane + 32 * j] = o[i][j];
-      if (lane == 0) {
+      for (int n = 0; n < kNT; ++n) {
+        *reinterpret_cast<float2*>(prow + 8 * n) = make_float2(o[n][2 * i], o[n][2 * i + 1]);
+      }
+      if (t == 0) {
         part_m[idx] = m[i];
         part_s[idx] = l[i];
       }
@@ -214,7 +273,7 @@ __global__ void combine_kernel(const float* __restrict__ part_acc,
                                const float* __restrict__ part_m,
                                const float* __restrict__ part_s,
                                float* __restrict__ out, float* __restrict__ lse,
-                               int Nq, int E, int H, int D, int n_splits) {
+                               int Nq, int E, int H, int n_splits) {
   const int r = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const long long base = (((long long)b * H + h) * n_splits) * Nq + r;
   float M = -FLT_MAX;
@@ -236,40 +295,35 @@ __global__ void combine_kernel(const float* __restrict__ part_acc,
   }
 }
 
-template <int D>
 cudaError_t attend(const float* Qm, const float* Km, const float* Vm, const uint8_t* key_pad,
                    int B, int Nq, int Nk, int E, int H, int n_splits, float* out, float* lse,
                    float* part_acc, float* part_m, float* part_s, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(attend_kernel<D>,
+  const int chunk = split_chunk(Nk, n_splits);
+  const size_t smem = smem_bytes(chunk);   // a chunk too long for shared memory fails here
+  cudaError_t err = cudaFuncSetAttribute(attend_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  // split chunk: whole key tiles, so a split never starts mid-tile
-  int chunk = (Nk + n_splits - 1) / n_splits;
-  chunk = (chunk + kKeys - 1) / kKeys * kKeys;
   dim3 grid((Nq + kRows - 1) / kRows, H * n_splits, B);
-  attend_kernel<D><<<grid, kThreads, smem, stream>>>(Qm, Km, Vm, key_pad, Nq, Nk, E, H,
-                                                     n_splits, chunk, out, lse, part_acc,
-                                                     part_m, part_s);
+  attend_kernel<<<grid, kThreads, smem, stream>>>(Qm, Km, Vm, key_pad, Nq, Nk, E, H, n_splits,
+                                                   chunk, out, lse, part_acc, part_m, part_s);
   return cudaGetLastError();
 }
 
-template <int D>
 int fusion_fwd(const float* q, const float* k, const float* val_v, const float* val_l,
                const uint8_t* pad_v, const uint8_t* pad_l, float* out_v, float* out_l,
                float* lse_v, float* lse_l, float* part_acc, float* part_m, float* part_s,
                int B, int Nv, int Nl, int E, int H, int n_splits, cudaStream_t stream) {
   // 1. image rows over text keys -> out_v, lse_v
-  cudaError_t err = attend<D>(q, k, val_l, pad_l, B, Nv, Nl, E, H, 1, out_v, lse_v,
-                              nullptr, nullptr, nullptr, stream);
+  cudaError_t err = attend(q, k, val_l, pad_l, B, Nv, Nl, E, H, 1, out_v, lse_v,
+                           nullptr, nullptr, nullptr, stream);
   if (err != cudaSuccess) return (int)err;
   // 2. text rows over image keys, image axis in n_splits chunks -> partials
-  err = attend<D>(k, q, val_v, pad_v, B, Nl, Nv, E, H, n_splits, nullptr, nullptr,
-                  part_acc, part_m, part_s, stream);
+  err = attend(k, q, val_v, pad_v, B, Nl, Nv, E, H, n_splits, nullptr, nullptr,
+               part_acc, part_m, part_s, stream);
   if (err != cudaSuccess) return (int)err;
   // 3. merge the partials -> out_l, lse_l
-  combine_kernel<<<dim3(Nl, H, B), D < 256 ? D : 256, 0, stream>>>(
-      part_acc, part_m, part_s, out_l, lse_l, Nl, E, H, D, n_splits);
+  combine_kernel<<<dim3(Nl, H, B), 256, 0, stream>>>(part_acc, part_m, part_s, out_l, lse_l,
+                                                    Nl, E, H, n_splits);
   return (int)cudaGetLastError();
 }
 
@@ -289,12 +343,19 @@ int fusion_fwd_f32(const void* q, const void* k, const void* val_v, const void* 
                    const void* pad_v, const void* pad_l, void* out_v, void* out_l,
                    void* lse_v, void* lse_l, void* part_acc, void* part_m, void* part_s,
                    int B, int Nv, int Nl, int E, int H, int n_splits, void* stream) {
-  if (H * 256 != E || n_splits < 2) return (int)cudaErrorInvalidValue;
-  return fusion_fwd<256>((const float*)q, (const float*)k, (const float*)val_v,
-                         (const float*)val_l, (const uint8_t*)pad_v, (const uint8_t*)pad_l,
-                         (float*)out_v, (float*)out_l, (float*)lse_v, (float*)lse_l,
-                         (float*)part_acc, (float*)part_m, (float*)part_s,
-                         B, Nv, Nl, E, H, n_splits, (cudaStream_t)stream);
+  if (H * D != E || n_splits < 2) return (int)cudaErrorInvalidValue;
+  return fusion_fwd((const float*)q, (const float*)k, (const float*)val_v,
+                    (const float*)val_l, (const uint8_t*)pad_v, (const uint8_t*)pad_l,
+                    (float*)out_v, (float*)out_l, (float*)lse_v, (float*)lse_l,
+                    (float*)part_acc, (float*)part_m, (float*)part_s,
+                    B, Nv, Nl, E, H, n_splits, (cudaStream_t)stream);
+}
+
+
+// Dynamic shared memory (bytes) of attend_kernel for a pass over Nk keys in
+// n_splits chunks (the image-row pass has Nk = Nl and one chunk).
+int fusion_fwd_smem_bytes(int Nk, int n_splits) {
+  return (int)smem_bytes(split_chunk(Nk, n_splits));
 }
 
 }  // extern "C"

@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` into
-its own shared library under `<repo>/build/torch_kernels/`, then loaded with
-ctypes (no PyTorch headers, so a build takes seconds).  All sources are
-compiled in parallel, once per process, at the first kernel call; a library
-newer than its source is reused.  A failed build raises: nothing falls back
-to the plain versions.
+Each `csrc/<name>.cu` (with the shared `csrc/*.cuh` headers it includes)
+has a plain C interface and is compiled by `nvcc` into its own shared library
+under `<repo>/build/torch_kernels/`, then loaded with ctypes (no PyTorch
+headers, so a build takes seconds).  All sources are compiled in parallel,
+once per process, at the first kernel call; a library newer than its source
+and the headers is reused.  A failed build raises: nothing falls back to the
+plain versions.
 """
 from __future__ import annotations
 
@@ -47,9 +48,13 @@ def _lib_path(name: str) -> str:
 
 
 def _stale(name: str) -> bool:
+    """The library is missing or older than its source or a shared header."""
     lib = _lib_path(name)
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    return not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(src)
+    if not os.path.exists(lib):
+        return True
+    deps = [os.path.join(CSRC_DIR, f"{name}.cu")]
+    deps += [os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR) if f.endswith(".cuh")]
+    return os.path.getmtime(lib) < max(os.path.getmtime(d) for d in deps)
 
 
 def build_all() -> float:
