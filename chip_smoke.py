@@ -23,10 +23,14 @@ Phases, one line of output each (any failure exits nonzero, with no result):
   7. profile - torch.profiler over one request: device time by kernel group
   8. K3      - the MSDA backward kernel against autograd of K1's plain
                version (grad_value, grad_locs, grad_attn), and K1 against its
-               plain version on the same operands, at the encoder and decoder
-               shapes of a B = 4 training batch of the 800x1216 bucket whose
-               images each have their own valid region, with a seeded
-               upstream gradient
+               plain version on the same operands (and timed: 18 of its
+               launches a step run at these shapes), at the encoder and
+               decoder shapes of a B = 4 training batch of the 800x1216
+               bucket whose images each have their own valid region, with a
+               seeded upstream gradient; K1 and K3 (here and in phase 3) also
+               by torch.profiler's device time; ptxas's report of both MSDA
+               libraries, K3's launch plans against the library's count of
+               their shared memory, and the atomics in K3's SASS
   9. K4      - the fusion backward kernel against autograd of K2's plain
                version (gq, gk, gvv, gvl), and K2 against its plain version
                on the same operands, at the encoder fusion shape of that
@@ -37,8 +41,10 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                a synthetic 8-image ODVG set at full Swin-T / BERT-base width
                and depth, B = 4, f32, from the seeded checkpoint: 1 warm-up +
                5 timed steps, each loss finite; median step time, peak device
-               memory, and the launches of K1-K4 (18 / 12 / 12 / 6 a step
-               with checkpointing); then torch.profiler over one more step
+               memory beside the allocation when the run began (after a
+               garbage collection; each training phase reads it), and the
+               launches of K1-K4 (18 / 12 / 12 / 6 a step with
+               checkpointing); then torch.profiler over one more step
  11. train parity - one training step on the card and the same step on the
                CPU (plain versions): B = 1, the 800x1216 bucket, droppath 0;
                loss within 5e-3, each top-level module's gradient norm within
@@ -83,6 +89,7 @@ are removed at the end.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -152,6 +159,25 @@ def event_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_device_ms(fn, iters: int, match: str) -> float:
+    """torch.profiler's device time a call of the kernels whose names hold
+    `match`, over `iters` calls of fn after one warm-up call: the kernel
+    alone, without the host's launch cost, which sets event_ms's time where
+    a kernel takes tens of microseconds."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and match in e.key) / 1e3 / iters
 
 
 def padded_tokens(shapes, valid, device):
@@ -260,13 +286,15 @@ def check_msda(g, device):
         out_p = msda.ms_deform_attn_plain(value, shapes, starts, locs, attn)
         err = float((out_k - out_p).abs().max())
         ms = event_ms(lambda: msda.ms_deform_attn(value, shapes, starts, locs, attn), 50)
+        device_ms = kernel_device_ms(lambda: msda.ms_deform_attn(value, shapes, starts, locs, attn),
+                                     50, "msda_fwd_kernel")
         plain_ms = event_ms(lambda: msda.ms_deform_attn_plain(value, shapes, starts, locs, attn), 5)
         bound_ms, bound_by = msda_bound_ms(value, shapes, locs, attn)
-        rows[name] = dict(Q=q, L=L, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        rows[name] = dict(Q=q, L=L, max_abs_err=err, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by)
         log("K1", f"{name}: Q={q} L={L} shapes={shapes} max|kernel-plain|={err:.3e} "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by})")
+                  f"kernel {ms:.4f} ms (device time {device_ms:.4f} ms), plain {plain_ms:.3f} ms, "
+                  f"bound {bound_ms:.4f} ms ({bound_by})")
         if not err <= K1_TOL:
             raise AssertionError(f"K1 {name}: max abs error {err} > {K1_TOL}")
         # the bf16-value entry point: both versions accumulate in f32 and
@@ -323,6 +351,71 @@ def fusion_bound_ms(q, k, mask_v, mask_l) -> tuple:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def library_sass(name: str) -> str:
+    """cuobjdump's SASS of the built csrc/<name>.cu."""
+    from open_groundingdino_tpu_torch.ops import build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([tool, "-sass", os.path.join(build.BUILD_DIR, f"lib{name}.so")],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+
+
+def ptxas_kernels(name: str, kernel_names) -> dict:
+    """ptxas's registers, static shared memory and spill bytes of each kernel
+    of csrc/<name>.cu (the build's -Xptxas -v report), keyed by the first of
+    kernel_names (pairs of (mangled-name fragment, key)) each entry holds."""
+    import re
+
+    from open_groundingdino_tpu_torch.ops import build
+
+    with open(os.path.join(build.BUILD_DIR, f"{name}.log")) as f:
+        ptxas = f.read()
+    kernels = {}
+    for entry, body in re.findall(r"Compiling entry function '([^']+)'(.*?)(?=Compiling entry|\Z)",
+                                  ptxas, re.S):
+        kname = next((key for frag, key in kernel_names if frag in entry), entry)
+        regs = re.search(r"Used (\d+) registers", body)
+        smem = re.search(r"(\d+) bytes smem", body)
+        spill = [int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", body)]
+        kernels[kname] = dict(registers=int(regs.group(1)) if regs else None,
+                              static_smem=int(smem.group(1)) if smem else 0,
+                              spill_bytes=sum(spill))
+    return kernels
+
+
+def msda_kernel_report(plans: dict) -> dict:
+    """K1's and K3's ptxas report, K3's plans (`plans`: the wrapper's
+    msda_bwd_plan by shape) with their dynamic shared memory checked against
+    the library's own count, and the atomics in K3's SASS: vector global
+    reductions (RED ... F32x4) and shared-memory f32 atomics, which Hopper
+    runs as compare-and-swap loops (ATOMS.CAST.SPIN)."""
+    import ctypes
+    import re
+
+    from open_groundingdino_tpu_torch.ops import build
+
+    fn = build.load("msda_bwd").msda_bwd_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    for shape, plan in plans.items():
+        if fn(plan["smem_rows"]) != plan["smem_bytes"]:
+            raise AssertionError(f"K3's plan at the {shape} gives {plan['smem_bytes']} B of shared "
+                                 f"memory, the kernel needs {fn(plan['smem_rows'])}")
+    sass = library_sass("msda_bwd")
+    report = {
+        "msda_fwd": ptxas_kernels("msda_fwd", (("kernelIf", "msda_fwd_kernel<float>"),
+                                               ("bfloat16", "msda_fwd_kernel<bf16>"))),
+        "msda_bwd": ptxas_kernels("msda_bwd", (("msda_bwd_kernel", "msda_bwd_kernel"),)),
+        "msda_bwd_atomics": {"red_global_f32x4": len(re.findall(r"RED\S*F32x4", sass)),
+                             "red_global_f32": len(re.findall(r"RED\S*\.F32\b(?!x)", sass)),
+                             "atoms_cas": sass.count("ATOMS.CAST.SPIN")},
+        "msda_bwd_plans": plans,
+    }
+    log("sass", f"libmsda_fwd.so: ptxas {report['msda_fwd']}; libmsda_bwd.so: ptxas "
+                f"{report['msda_bwd']}, SASS atomics {report['msda_bwd_atomics']}; K3 plans "
+                f"(dynamic shared memory as the library counts it) {plans}")
+    return report
+
+
 def tensor_core_report(libs, nv: int) -> dict:
     """Each library's SASS (cuobjdump) must hold tensor-core MMA instructions
     (HMMA with TF32 from mma.sync, or HGMMA from wgmma); returns the count
@@ -330,32 +423,18 @@ def tensor_core_report(libs, nv: int) -> dict:
     kernel from the build's report, and the dynamic shared memory of the
     main kernel's two passes at Nv = nv image tokens."""
     import ctypes
-    import re
 
     from open_groundingdino_tpu_torch.ops import build, fusion
 
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     report = {}
     for name in libs:
-        sass = subprocess.run([tool, "-sass", os.path.join(build.BUILD_DIR, f"lib{name}.so")],
-                              capture_output=True, text=True, check=True, timeout=120).stdout
+        sass = library_sass(name)
         hmma = sum(1 for line in sass.splitlines() if "HMMA" in line and "TF32" in line)
         hgmma = sass.count("HGMMA")
         if hmma + hgmma == 0:
             raise AssertionError(f"{name}: no tensor-core MMA instruction in its SASS")
-        with open(os.path.join(build.BUILD_DIR, f"{name}.log")) as f:
-            ptxas = f.read()
-        kernels = {}
-        for entry, body in re.findall(r"Compiling entry function '([^']+)'(.*?)(?=Compiling entry|\Z)",
-                                      ptxas, re.S):
-            kname = next((k for k in ("attend_kernel", "combine_kernel", "bwd_kernel",
-                                      "sum_splits_kernel") if k in entry), entry)
-            regs = re.search(r"Used (\d+) registers", body)
-            smem = re.search(r"(\d+) bytes smem", body)
-            spill = [int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", body)]
-            kernels[kname] = dict(registers=int(regs.group(1)) if regs else None,
-                                  static_smem=int(smem.group(1)) if smem else 0,
-                                  spill_bytes=sum(spill))
+        kernels = ptxas_kernels(name, [(k, k) for k in ("attend_kernel", "combine_kernel",
+                                                        "bwd_kernel", "sum_splits_kernel")])
         smem_fn = getattr(build.load(name), f"{name}_smem_bytes")
         smem_fn.argtypes, smem_fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
         n_splits = max(2, min(64, -(-nv // fusion.IMAGE_TOKENS_PER_SPLIT)))
@@ -426,6 +505,17 @@ def check_msda_bwd(device):
                          - msda.ms_deform_attn_plain(value, shapes, starts, locs, attn)).abs().max())
         if not fwd_err <= K1_TOL:
             raise AssertionError(f"K1 {name} at B={B}: max abs error {fwd_err} > {K1_TOL}")
+        # K1 at the training shapes too: 18 of its launches a step run here
+        k1_call = lambda: msda.ms_deform_attn(value, shapes, starts, locs, attn)   # noqa: E731
+        k1_bound = msda_bound_ms(value, shapes, locs, attn)
+        k1 = dict(max_abs_err=fwd_err, ms=event_ms(k1_call, 50),
+                  device_ms=kernel_device_ms(k1_call, 50, "msda_fwd_kernel"),
+                  plain_ms=event_ms(
+                      lambda: msda.ms_deform_attn_plain(value, shapes, starts, locs, attn), 3),
+                  bound_ms=k1_bound[0], bound_by=k1_bound[1])
+        log("K1", f"{name}: B={B} (valid {BATCH_VALID}) Q={q}: max|kernel-plain|={fwd_err:.3e} "
+                  f"kernel {k1['ms']:.4f} ms (device time {k1['device_ms']:.4f} ms), plain "
+                  f"{k1['plain_ms']:.3f} ms, bound {k1['bound_ms']:.4f} ms ({k1['bound_by']})")
         grad_out = torch.randn(B, q, HEADS * HEAD_DIM, generator=g, device=device)
         args = (value, shapes, starts, locs, attn, grad_out)
         got = msda.ms_deform_attn_bwd(*args)
@@ -438,16 +528,19 @@ def check_msda_bwd(device):
                 raise AssertionError(f"K3 {name} {key}: max abs error {err} > "
                                      f"{K3_RTOL} x max|ref| {scale}")
         ms = event_ms(lambda: msda.ms_deform_attn_bwd(*args), 20)
+        device_ms = kernel_device_ms(lambda: msda.ms_deform_attn_bwd(*args), 20, "msda_bwd_kernel")
         plain_ms = event_ms(lambda: msda.ms_deform_attn_bwd_plain(*args), 3)
         bound_ms, bound_by = msda_bwd_bound_ms(value, shapes, locs, attn)
         rows[name] = dict(B=B, Q=q, L=L, max_abs_err=max(errs.values()), errs=errs,
-                          k1_max_abs_err=fwd_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by)
+                          k1_max_abs_err=fwd_err, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, k1=k1,
+                          plan=msda.msda_bwd_plan(shapes, B, q, HEADS)._asdict())
         log("K3", f"{name}: B={B} (valid {BATCH_VALID}) Q={q} max|kernel-plain| "
                   f"{ {k: f'{v:.3e}' for k, v in errs.items()} } (tolerance {K3_RTOL} x "
                   f"max|ref|), K1 on the same operands {fwd_err:.3e} (tolerance {K1_TOL}); "
-                  f"kernel {ms:.4f} ms, plain (autograd: forward + backward) "
-                  f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+                  f"kernel {ms:.4f} ms (device time {device_ms:.4f} ms), plain (autograd: forward "
+                  f"+ backward) {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); plan "
+                  f"{rows[name]['plan']}")
     return rows
 
 
@@ -1094,6 +1187,12 @@ def train(cfg: str, work: str, files, device: str, msda_keys=None, epochs: int =
     counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
+    # what earlier phases still hold counts in the peak: free what nothing
+    # references (models in reference cycles too) and read the rest
+    held = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     run = train_main.main(cli)
@@ -1112,7 +1211,10 @@ def train(cfg: str, work: str, files, device: str, msda_keys=None, epochs: int =
              f"{', '.join(f'{k}={v}' for k, v in msda_keys.items())}) in {wall:.1f} s with set-up: "
                  f"losses {[round(x, 4) for x in losses]}; step s "
                  f"{[round(x, 3) for x in step_s]} (median of the {len(timed)} timed: "
-                 f"{median_s:.3f} s); max_memory_allocated {peak / 2**30:.2f} GiB; "
+                 f"{median_s:.3f} s); max_memory_allocated {peak / 2**30:.2f} GiB, of it "
+                 f"{base / 2**30:.2f} GiB allocated before the run ({held / 2**30:.2f} GiB "
+                 f"before a garbage collection freed what earlier phases left), the run's own "
+                 f"{(peak - base) / 2**30:.2f} GiB; "
                  f"log.txt lines {epochs_logged}; launches { {k: v for k, v in counts.items() if v} } "
                  f"(per step { {k: v / max(len(records), 1) for k, v in counts.items() if v} })")
     if len(records) != steps or not all(map(math.isfinite, losses)):
@@ -1457,6 +1559,7 @@ def main() -> int:
         profile_request(im, images[0], CAPTIONS[0])                    # 7
         del im
         k3 = check_msda_bwd("cuda")                                    # 8
+        msda_sass = msda_kernel_report({n: k3[n]["plan"] for n in k3})
         k4 = check_fusion_bwd("cuda")                                  # 9
         train_files = (cfg, os.path.join(work, "train_ckpt.pth"), files[2])
         write_checkpoint(cfg, train_files[1], random_biases=True)
@@ -1522,14 +1625,20 @@ def main() -> int:
     # launches: the serving run's (phase 5) for K1 and K2, the training run's
     # (phase 10) for K3 and K4; both runs' counts under launches_by_path
     train_counts = tr["counts"]
-    # K1 and K2 were also held to their plain versions at B = 4 (phases 8, 9)
-    k1_err = max(r["k1_max_abs_err"] for r in k3.values())
+    # K1 and K2 were also held to their plain versions, and timed, at B = 4
+    # (phases 8, 9); K1's row is serving's B = 1, per_shape adds B = 4
+    k1_b4 = {n: k3[n].pop("k1") for n in k3}
+    k1_err = max(r["max_abs_err"] for r in k1_b4.values())
     k2_err = k4["k2_max_abs_err"]
+    k1_row = mean_row(k1)
+    k1_row["per_shape"] = {f"{batch} {n}": r for batch, rows in (("B=1", k1), ("B=4", k1_b4))
+                           for n, r in rows.items()}
     kernels = [
         {"name": "msda_fwd", "route": "cuda", "source": src + "msda_fwd.cu",
          "replaces": tpu + "msda_banded.py:311", "launches": counts["msda_fwd"],
          "launches_by_path": {"serve": counts["msda_fwd"], "train": train_counts["msda_fwd"]},
-         **mean_row(k1) | {"max_abs_err": max(mean_row(k1)["max_abs_err"], k1_err)}},
+         **k1_row | {"max_abs_err": max(k1_row["max_abs_err"], k1_err)},
+         "sass": msda_sass["msda_fwd"]},
         {"name": "fusion_fwd", "route": "cuda", "source": src + "fusion_fwd.cu",
          "replaces": tpu + "fusion_pallas.py:50", "launches": counts["fusion_fwd"],
          "launches_by_path": {"serve": counts["fusion_fwd"],
@@ -1540,7 +1649,7 @@ def main() -> int:
         {"name": "msda_bwd", "route": "cuda", "source": src + "msda_bwd.cu",
          "replaces": tpu + "msda_banded.py:524", "launches": train_counts["msda_bwd"],
          "launches_by_path": {"serve": 0, "train": train_counts["msda_bwd"]},
-         **mean_row(k3)},
+         **mean_row(k3), "sass": {k: msda_sass[k] for k in ("msda_bwd", "msda_bwd_atomics")}},
         {"name": "fusion_bwd", "route": "cuda", "source": src + "fusion_bwd.cu",
          "replaces": tpu + "fusion_pallas.py:198", "launches": train_counts["fusion_bwd"],
          "launches_by_path": {"serve": 0, "train": train_counts["fusion_bwd"]},

@@ -16,110 +16,158 @@
 //   d/dpx                 = a * sum_d g * ((1-fy)(v10 - v00) + fy (v11 - v01))
 //   d/dpy                 = a * sum_d g * ((1-fx)(v01 - v00) + fx (v11 - v10))
 //   grad_locs[s]          = (d/dpx * W_l, d/dpy * H_l)
+// Built for D = 32, P = 4, NL <= 4 (msda_common.cuh).
 //
-// What bounds it: the grad_value scatter.  Each (b, q, h) adds NL*P*4 corner
-// rows of D values at data-dependent places; the compulsory bytes (value,
-// locations, weights and g read once, the three gradients written once) are
-// ~145 MB per encoder call at the flagship bucket, and the scatter turns
-// every corner row into D atomic read-modify-writes in L2.
+// What bounds it: the grad_value scatter.  Each (b, q, h) adds 64 corner rows
+// of 32 f32 at data-dependent places; one scalar atomicAdd a channel, as a
+// warp per (b, q, h) with lane = channel did, is 1.3 G atomics a B = 4
+// encoder call, and they pile onto few addresses: each (b, h) sends 323 k
+// row-scatters into every level, so level 3's 247 rows take ~1,300
+// read-modify-writes each and level 2's 950 rows ~340, serialised in L2.
+// The compulsory work (8 FLOP a channel a corner) takes ~0.15 ms there.
 //
-// What the design does about it: the reference CUDA op's ms_deform_col2im
-// shape.  One warp per (b, q, h), lane = channel d (D = 32: one coalesced
-// 128-byte row per corner read and per corner scatter), f32 atomicAdd into a
-// grad_value buffer the wrapper zeroes.  grad_attn and grad_locs are per-lane
-// partial sums reduced by warp shuffles.  The TPU kernel zeroes grad_value at
-// the first query block and read-modify-writes it across the sequential
-// query axis; GPU blocks run in no order, so that carry becomes atomics, and
-// the order of the f32 sums changes from run to run.
-#include <cuda_runtime.h>
+// What the design does about it (the rest as K1, msda_common.cuh: a CTA per
+// (b, h) and tile of consecutive queries, samples staged once, 4 lane groups
+// of 8 lanes a warp, float4 rows):
+//   - the levels whose per-head map fits in shared memory accumulate their
+//     grad_value there, with shared-memory float atomics (compare-and-swap
+//     loops on Hopper: ATOMS.CAST.SPIN), the four groups' channels rotated so
+//     they hit different banks.  At the end of the tile each touched row is
+//     added to global memory once, one float4 atomic a 16 B.  This is the TPU
+//     kernel's resident grad_value block, which it zeroes at the first query
+//     block and read-modify-writes across the sequential query axis: CTAs run
+//     in no order, so the carry across tiles stays an atomic add, one a row a
+//     tile.  The budget keeps 2 CTAs of 16 warps an SM: at the 800x1216
+//     bucket only level 3 (247 rows, 31 KB) goes there.  Levels 2 and 3
+//     together (153 KB) leave one CTA an SM and were slower (PERF.md, PR 6);
+//   - the other levels scatter straight to global memory with Hopper's
+//     vector atomic (atomicAdd on float4, red.global.add.v4.f32): one
+//     instruction a 16 B, 4x fewer than scalar atomics;
+//   - grad_attn and grad_locs are summed within the lane group, 3 shuffle
+//     levels a sample;
+//   - ops/msda.py plans the tile, the shared-memory levels and the dynamic
+//     shared-memory bytes (msda_bwd_plan) and passes them in.
+// The order of the f32 sums changes from run to run (atomics).
+// ptxas -v (-O3, sm_90a, CUDA 12.8): 60 registers, no spills; dynamic shared
+// memory 44,160 B at the 800x1216 bucket (slots 12,288 + level 3's 31,616 +
+// flags 256).  Its SASS holds 19 vector global reductions (RED F32x4), no
+// scalar ones, and 64 shared-memory compare-and-swap loops (ATOMS.CAST.SPIN).
+#include "msda_common.cuh"
 
 namespace {
 
-constexpr int kMaxLevels = 8;
-constexpr int kWarpsPerBlock = 8;
+using namespace msda;
 
-struct Levels {
-  int h[kMaxLevels];
-  int w[kMaxLevels];
-  int start[kMaxLevels];
-};
+constexpr int kWarps = 16;
+constexpr int kThreads = kWarps * 32;
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// component j (0..3) of v, without indexing a register array at run time
+__device__ __forceinline__ float pick(float4 v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+// the level's position of shared-memory accumulator row r
+__device__ __forceinline__ int smem_row_position(int r, int NL, const Levels& lv) {
+  int pos = 0;
+#pragma unroll
+  for (int l = 0; l < kMaxLevels; ++l) {
+    const int r0 = lv.smem_row[l];
+    if (l < NL && r0 >= 0 && r >= r0 && r < r0 + lv.h[l] * lv.w[l])
+      pos = lv.start[l] + (r - r0);
+  }
+  return pos;
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
 msda_bwd_kernel(const float* __restrict__ value, const float* __restrict__ locs,
                 const float* __restrict__ attn, const float* __restrict__ grad_out,
                 float* __restrict__ grad_value, float* __restrict__ grad_locs,
                 float* __restrict__ grad_attn,
-                int B, int L, int H, int D, int Q, int NL, int P, Levels lv) {
-  const int lane = threadIdx.x & 31;
-  const long long warp = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const long long n_warps = (long long)B * Q * H;
-  if (warp >= n_warps) return;   // whole warps exit together: shuffles stay full
-  const int h = (int)(warp % H);
-  const long long bq = warp / H;          // b * Q + q
-  const int b = (int)(bq / Q);
+                int L, int H, int Q, int NL, int tile_q, int n_tiles, int smem_rows, Levels lv) {
+  // dynamic shared memory: the warps' sample slots, then smem_rows
+  // accumulator rows of kD f32, then a touched flag a row
+  extern __shared__ float4 smem[];
+  Slot* slots = reinterpret_cast<Slot*>(smem);
+  float* acc = reinterpret_cast<float*>(slots + kWarps * kSamples);
+  unsigned char* touched = reinterpret_cast<unsigned char*>(acc + (long long)smem_rows * kD);
 
-  const long long samp0 = warp * NL * P;
-  const float* loc = locs + samp0 * 2;
-  const float* wgt = attn + samp0;
-  const float* g_row = grad_out + warp * D;   // grad_out[b, q, h*D + d]
-  const long long vbase = ((long long)b * L * H + h) * D;
-  const long long row_stride = (long long)H * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int group = lane / kGroupLanes, sub = lane % kGroupLanes;
+  const int tile = blockIdx.x % n_tiles;
+  const int bh = blockIdx.x / n_tiles;
+  const int h = bh % H, b = bh / H;
+  const int nlp = NL * kP;
+  const long long row_stride = (long long)H * kD;
+  const long long vbase = ((long long)b * L * H + h) * kD;
+  const int q_end = min(Q, (tile + 1) * tile_q);
+  Slot* my = slots + warp * kSamples;
 
-  for (int l = 0; l < NL; ++l) {
-    const int Hl = lv.h[l], Wl = lv.w[l];
-    const long long lbase = vbase + (long long)lv.start[l] * row_stride;
-    for (int p = 0; p < P; ++p) {
-      const int s = l * P + p;
-      const float a = wgt[s];
-      // px rounded twice, as the plain version and the reference compute it:
-      // a contracted fma(x, W, -0.5) can land on the other side of an integer,
-      // where floor() picks other corners (and the derivative jumps)
-      const float x = __fmul_rn(loc[2 * s], (float)Wl) - 0.5f;
-      const float y = __fmul_rn(loc[2 * s + 1], (float)Hl) - 0.5f;
-      const float xf = floorf(x), yf = floorf(y);
-      const int x0 = (int)xf, y0 = (int)yf;
-      const float fx = x - xf, fy = y - yf;
-      const float cw[4] = {(1.f - fx) * (1.f - fy), fx * (1.f - fy),
-                           (1.f - fx) * fy, fx * fy};
-      const int cx[4] = {x0, x0 + 1, x0, x0 + 1};
-      const int cy[4] = {y0, y0, y0 + 1, y0 + 1};
-      bool in[4];
-      long long off[4];
+  for (int i = threadIdx.x; i < smem_rows * (kD / 4); i += kThreads)
+    reinterpret_cast<float4*>(acc)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = threadIdx.x; i < smem_rows; i += kThreads) touched[i] = 0;
+  __syncthreads();
+
+  for (int q = tile * tile_q + warp; q < q_end; q += kWarps) {
+    const long long bqh = ((long long)b * Q + q) * H + h;
+    if (lane < kSamples)
+      stage_sample<false>(locs + bqh * nlp * 2, attn + bqh * nlp, lane, nlp, lv, my + lane);
+    __syncwarp();
+    const float4 g = load4(grad_out + bqh * kD, sub);
+#pragma unroll
+    for (int i = 0; i < kMaxLevels; ++i) {
+      const Slot& s = my[i * kGroups + group];
+      const int4 pos = s.pos;
+      const float4 w = s.w;
+      const float4 aux = s.aux;
+      const int pc[4] = {pos.x, pos.y, pos.z, pos.w};
+      float4 v[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        v[c] = pc[c] >= 0 ? load4(value + vbase + pc[c] * row_stride, sub)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float a = aux.x, fx = aux.y, fy = aux.z;
+      const float gv0 = dot4(g, v[0]), gv1 = dot4(g, v[1]);
+      const float gv2 = dot4(g, v[2]), gv3 = dot4(g, v[3]);
+      const float pa = xor_sum<1, kGroupLanes / 2>(w.x * gv0 + w.y * gv1 + w.z * gv2 + w.w * gv3);
+      const float pdx = xor_sum<1, kGroupLanes / 2>((1.f - fy) * (gv1 - gv0) + fy * (gv3 - gv2));
+      const float pdy = xor_sum<1, kGroupLanes / 2>((1.f - fx) * (gv2 - gv0) + fx * (gv3 - gv1));
+      const int sidx = i * kP + group;        // (level i, point group)
+      if (sub == 0 && i < NL) {
+        grad_attn[bqh * nlp + sidx] = pa;
+        grad_locs[(bqh * nlp + sidx) * 2] = a * pdx * (float)lv.w[i];
+        grad_locs[(bqh * nlp + sidx) * 2 + 1] = a * pdy * (float)lv.h[i];
+      }
+      const int srow0 = __float_as_int(aux.w);
+      const float wc[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        in[c] = cx[c] >= 0 && cx[c] < Wl && cy[c] >= 0 && cy[c] < Hl;
-        off[c] = lbase + ((long long)cy[c] * Wl + cx[c]) * row_stride;
-      }
-      float pa = 0.f, pdx = 0.f, pdy = 0.f;
-      for (int d0 = 0; d0 < D; d0 += 32) {
-        const int d = d0 + lane;
-        if (d >= D) break;
-        const float g = g_row[d];
-        float v[4];
+        if (pc[c] < 0) continue;
+        const float k = a * wc[c];
+        const float4 add = make_float4(k * g.x, k * g.y, k * g.z, k * g.w);
+        if (srow0 != INT_MIN) {
+          const int r = srow0 + pc[c];
+          float* row = acc + (long long)r * kD + 4 * sub;
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          v[c] = in[c] ? value[off[c] + d] : 0.f;
-          if (in[c]) atomicAdd(grad_value + off[c] + d, a * cw[c] * g);
+          for (int j = 0; j < 4; ++j) {
+            const int jj = (j + group) & 3;   // the 4 groups on 4 different banks
+            atomicAdd(row + jj, pick(add, jj));
+          }
+          if (sub == 0) touched[r] = 1;
+        } else {
+          atomicAdd(reinterpret_cast<float4*>(grad_value + vbase + pc[c] * row_stride) + sub, add);
         }
-        pa += g * (cw[0] * v[0] + cw[1] * v[1] + cw[2] * v[2] + cw[3] * v[3]);
-        pdx += g * ((1.f - fy) * (v[1] - v[0]) + fy * (v[3] - v[2]));
-        pdy += g * ((1.f - fx) * (v[2] - v[0]) + fx * (v[3] - v[1]));
-      }
-      pa = warp_sum(pa);
-      pdx = warp_sum(pdx);
-      pdy = warp_sum(pdy);
-      if (lane == 0) {
-        grad_attn[samp0 + s] = pa;
-        grad_locs[(samp0 + s) * 2] = a * pdx * Wl;
-        grad_locs[(samp0 + s) * 2 + 1] = a * pdy * Hl;
       }
     }
+    __syncwarp();   // the slots are restaged for the next query
+  }
+
+  __syncthreads();
+  for (int i = threadIdx.x; i < smem_rows * (kD / 4); i += kThreads) {
+    const int r = i / (kD / 4);
+    if (!touched[r]) continue;
+    const int pos = smem_row_position(r, NL, lv);
+    atomicAdd(reinterpret_cast<float4*>(grad_value + vbase + pos * row_stride) + i % (kD / 4),
+              reinterpret_cast<const float4*>(acc)[i]);
   }
 }
 
@@ -127,26 +175,46 @@ msda_bwd_kernel(const float* __restrict__ value, const float* __restrict__ locs,
 
 extern "C" {
 
-// All f32 contiguous.  grad_value must be zeroed by the caller (the kernel
-// accumulates into it); grad_locs and grad_attn are written whole.
+// Dynamic shared memory of msda_bwd_f32 with smem_rows accumulator rows.
+int msda_bwd_smem_bytes(int smem_rows) {
+  return (int)(kWarps * kSamples * sizeof(Slot)) + smem_rows * kD * 4 + ((smem_rows + 15) / 16) * 16;
+}
+
+// All f32 contiguous; value, grad_out and grad_value 16-byte aligned.
+// grad_value must be zeroed by the caller (the kernel accumulates into it);
+// grad_locs and grad_attn are written whole.  The plan (ops/msda.py
+// msda_bwd_plan): tile_q queries a CTA; smem_row[l] the first accumulator
+// row of level l in shared memory, or -1 for a level scattered to global
+// memory; smem_rows rows in all, in smem_bytes of dynamic shared memory.
 // Returns a cudaError_t (0 = launched).
 int msda_bwd_f32(const void* value, const void* locs, const void* attn, const void* grad_out,
                  void* grad_value, void* grad_locs, void* grad_attn,
                  int B, int L, int H, int D, int Q, int NL, int P,
-                 const int* shapes_hw, const int* level_start, void* stream) {
-  if (NL > kMaxLevels || NL <= 0) return (int)cudaErrorInvalidValue;
+                 const int* shapes_hw, const int* level_start, int tile_q,
+                 const int* smem_row, int smem_rows, int smem_bytes, void* stream) {
+  if (D != kD || P != kP || NL <= 0 || NL > kMaxLevels || tile_q <= 0 || smem_rows < 0
+      || smem_bytes < msda_bwd_smem_bytes(smem_rows))
+    return (int)cudaErrorInvalidValue;
   Levels lv;
-  for (int l = 0; l < NL; ++l) {
-    lv.h[l] = shapes_hw[2 * l];
-    lv.w[l] = shapes_hw[2 * l + 1];
-    lv.start[l] = level_start[l];
+  for (int l = 0; l < kMaxLevels; ++l) {
+    const bool live = l < NL;
+    lv.h[l] = live ? shapes_hw[2 * l] : 0;
+    lv.w[l] = live ? shapes_hw[2 * l + 1] : 0;
+    lv.start[l] = live ? level_start[l] : 0;
+    lv.smem_row[l] = live ? smem_row[l] : -1;
+    if (live && lv.smem_row[l] >= 0 && lv.smem_row[l] + lv.h[l] * lv.w[l] > smem_rows)
+      return (int)cudaErrorInvalidValue;
   }
-  const long long n_warps = (long long)B * Q * H;
-  if (n_warps == 0) return (int)cudaSuccess;
-  const long long blocks = (n_warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  msda_bwd_kernel<<<(unsigned)blocks, kWarpsPerBlock * 32, 0, (cudaStream_t)stream>>>(
+  const int n_tiles = (Q + tile_q - 1) / tile_q;
+  const long long blocks = (long long)B * H * n_tiles;
+  if (blocks == 0) return (int)cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(msda_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  msda_bwd_kernel<<<(unsigned)blocks, kThreads, smem_bytes, (cudaStream_t)stream>>>(
       (const float*)value, (const float*)locs, (const float*)attn, (const float*)grad_out,
-      (float*)grad_value, (float*)grad_locs, (float*)grad_attn, B, L, H, D, Q, NL, P, lv);
+      (float*)grad_value, (float*)grad_locs, (float*)grad_attn,
+      L, H, Q, NL, tile_q, n_tiles, smem_rows, lv);
   return (int)cudaGetLastError();
 }
 

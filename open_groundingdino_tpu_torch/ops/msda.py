@@ -20,11 +20,16 @@ K3 backward.  `ms_deform_attn_bwd` is K3's wrapper and takes CUDA tensors
 only; `ms_deform_attn_bwd_plain` is its reference.  Nothing else reaches a
 plain version; `ms_deform_attn.launches` and `ms_deform_attn_bwd.launches`
 count the kernels' launches.
+
+The kernels are built for the flagship's geometry (`check_geometry`: D = 32
+channels a head, P = 4 points, at most 4 levels) and take a launch plan
+from here: K1 the queries a CTA (`msda_fwd_tile`), K3 also which levels
+accumulate grad_value in shared memory (`msda_bwd_plan`).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -102,13 +107,89 @@ def ms_deform_attn_bwd_plain(value, spatial_shapes, level_start, locs, attn, gra
         return torch.autograd.grad(out, leaves, grad_out)
 
 
+# the geometry csrc/msda_common.cuh is built for
+HEAD_DIM, POINTS, MAX_LEVELS = 32, 4, 4
+FWD_WARPS, BWD_WARPS = 8, 16          # warps a CTA (csrc/msda_fwd.cu, msda_bwd.cu)
+TILES = (256, 128, 64, 32, 16)       # queries a CTA, largest first
+# the fewest CTAs a launch should have (the 132 SMs hold 8 of K1's 8-warp
+# CTAs each, 2 of K3's 16-warp ones): the least of the times measured at the
+# flagship shapes (PERF.md, PR 6): small tiles for K1, where a CTA's own
+# queries gain little from L1 and more CTAs balance the SMs, large ones for
+# K3, which zeroes and flushes its shared-memory levels once a tile
+FWD_MIN_CTAS = 64 * 132
+BWD_MIN_CTAS = 4 * 132
+# K3's shared memory a CTA, so that 2 CTAs share an SM's 228 KB (1 KB of it
+# reserved a CTA; a CTA alone could have 232,448 B): at 1 CTA an SM K3 loses
+# more to idle warps than the shared-memory levels save
+BWD_SMEM_BUDGET = 233_472 // 2 - 1024
+SLOT_BYTES = 48                       # one staged sample (msda_common.cuh Slot)
+SAMPLES = MAX_LEVELS * POINTS
+
+
+def check_geometry(D: int, NL: int, P: int) -> None:
+    """Raise ValueError unless the kernels are built for this geometry."""
+    if D != HEAD_DIM or P != POINTS or not 1 <= NL <= MAX_LEVELS:
+        raise ValueError(f"the MSDA kernels are built for D = {HEAD_DIM}, P = {POINTS} and "
+                         f"1..{MAX_LEVELS} levels; got D = {D}, P = {P}, {NL} levels")
+
+
+def _tile(B: int, Q: int, H: int, min_ctas: int, min_tile: int) -> int:
+    """The largest tile of TILES that gives at least min_ctas CTAs (B*H of
+    them a tile of queries), else the smallest of at least min_tile."""
+    fits = [t for t in TILES if t >= min_tile]
+    for t in fits:
+        if B * H * -(-Q // t) >= min_ctas:
+            return t
+    return fits[-1]
+
+
+def msda_fwd_tile(B: int, Q: int, H: int) -> int:
+    """K1's queries a CTA: two for each warp at least."""
+    return _tile(B, Q, H, FWD_MIN_CTAS, 2 * FWD_WARPS)
+
+
+class BwdPlan(NamedTuple):
+    tile_q: int                       # queries a CTA
+    smem_row: Tuple[int, ...]         # first accumulator row of each level, -1: global
+    smem_rows: int
+    smem_bytes: int                   # dynamic shared memory of a CTA
+
+
+def bwd_smem_bytes(smem_rows: int) -> int:
+    """K3's dynamic shared memory (csrc/msda_bwd.cu msda_bwd_smem_bytes):
+    the warps' sample slots, smem_rows rows of HEAD_DIM f32, a flag a row."""
+    return BWD_WARPS * SAMPLES * SLOT_BYTES + smem_rows * HEAD_DIM * 4 + -(-smem_rows // 16) * 16
+
+
+def msda_bwd_plan(spatial_shapes: Shapes, B: int, Q: int, H: int) -> BwdPlan:
+    """K3's launch plan.  A level accumulates its grad_value in shared memory
+    when a tile scatters at least as many corner rows into it as it has rows
+    (tile * P * 4 >= h * w: zeroing and flushing it costs no more than the
+    scatter would) and it fits in BWD_SMEM_BUDGET, taking the levels from
+    the smallest up; the others scatter straight to global memory."""
+    tile = _tile(B, Q, H, BWD_MIN_CTAS, BWD_WARPS)
+    rows = [h * w for h, w in spatial_shapes]
+    smem_row = [-1] * len(rows)
+    used = 0
+    for lvl in sorted(range(len(rows)), key=lambda i: rows[i]):
+        if tile * POINTS * 4 >= rows[lvl] and bwd_smem_bytes(used + rows[lvl]) <= BWD_SMEM_BUDGET:
+            smem_row[lvl] = -2                # placed below, in level order
+            used += rows[lvl]
+    used = 0
+    for lvl, r in enumerate(rows):
+        if smem_row[lvl] == -2:
+            smem_row[lvl], used = used, used + r
+    return BwdPlan(tile, tuple(smem_row), used, bwd_smem_bytes(used))
+
+
 _FWD_CTYPES = (
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-    + [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_void_p]
+    + [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_int, ctypes.c_void_p]
 )
 _BWD_CTYPES = (
     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-    + [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_void_p]
+    + [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 )
 
 
@@ -137,6 +218,9 @@ def _check_operands(value, spatial_shapes, level_start, locs, attn, what: str):
             raise ValueError(f"{name} is on {t.device}, value on {value.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if value.data_ptr() % 16:
+        raise ValueError("value must be 16-byte aligned (the kernels read rows as float4)")
+    check_geometry(D, NL, P)
     return B, L, H, D, Q, NL, P
 
 
@@ -160,7 +244,7 @@ def _msda_fwd_cuda(value, spatial_shapes, level_start, locs, attn):
     err = fn(
         value.data_ptr(), locs.data_ptr(), attn.data_ptr(), out.data_ptr(),
         B, L, H, D, Q, NL, P, *_level_arrays(spatial_shapes, level_start),
-        torch.cuda.current_stream(value.device).cuda_stream,
+        msda_fwd_tile(B, Q, H), torch.cuda.current_stream(value.device).cuda_stream,
     )
     build.check(err, "msda_fwd")
     ms_deform_attn.launches += 1
@@ -176,11 +260,14 @@ def ms_deform_attn_bwd(value, spatial_shapes, level_start, locs, attn, grad_out)
     if value.dtype != torch.float32:
         raise TypeError(f"the backward takes float32 values only, got {value.dtype}")
     if (tuple(grad_out.shape) != (B, Q, H * D) or grad_out.dtype != torch.float32
-            or grad_out.device != value.device or not grad_out.is_contiguous()):
-        raise ValueError(f"grad_out must be contiguous float32 {(B, Q, H * D)} on {value.device}")
+            or grad_out.device != value.device or not grad_out.is_contiguous()
+            or grad_out.data_ptr() % 16):
+        raise ValueError(f"grad_out must be contiguous, 16-byte aligned float32 {(B, Q, H * D)} "
+                         f"on {value.device}")
     grad_value = torch.zeros_like(value)
     grad_locs = torch.empty_like(locs)
     grad_attn = torch.empty_like(attn)
+    plan = msda_bwd_plan(spatial_shapes, B, Q, H)
     fn = build.load("msda_bwd").msda_bwd_f32
     fn.argtypes = _BWD_CTYPES
     fn.restype = ctypes.c_int
@@ -188,6 +275,7 @@ def ms_deform_attn_bwd(value, spatial_shapes, level_start, locs, attn, grad_out)
         value.data_ptr(), locs.data_ptr(), attn.data_ptr(), grad_out.data_ptr(),
         grad_value.data_ptr(), grad_locs.data_ptr(), grad_attn.data_ptr(),
         B, L, H, D, Q, NL, P, *_level_arrays(spatial_shapes, level_start),
+        plan.tile_q, (ctypes.c_int * NL)(*plan.smem_row), plan.smem_rows, plan.smem_bytes,
         torch.cuda.current_stream(value.device).cuda_stream,
     )
     build.check(err, "msda_bwd")
