@@ -28,9 +28,10 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                decoder shapes of a B = 4 training batch of the 800x1216
                bucket whose images each have their own valid region, with a
                seeded upstream gradient; K1 and K3 (here and in phase 3) also
-               by torch.profiler's device time; ptxas's report of both MSDA
-               libraries, K3's launch plans against the library's count of
-               their shared memory, and the atomics in K3's SASS
+               by torch.profiler's device time; ptxas's report of the K1,
+               K3, K5 and K9 libraries, K3's and K9's launch plans and K5's
+               tiles against each library's count of their shared memory,
+               and the atomics in K3's and K9's SASS
   9. K4      - the fusion backward kernel against autograd of K2's plain
                version (gq, gk, gvv, gvl), and K2 against its plain version
                on the same operands, at the encoder fusion shape of that
@@ -55,7 +56,8 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                with MSDA_BANDED=0): K6 (and K7 on the decoder's sorted query
                set), K9 and K10 against their plain versions on the operands
                the model path gives them, at phase 8's encoder and decoder
-               shapes; then the sweep op against K1 and K3 on the same inputs
+               shapes (K9 and K10 also by torch.profiler's device time); then
+               the sweep op against K1 and K3 on the same inputs
  13. sweep serve - load_model + predict through msda_kernel="sweep" (K6), and
                again with msda_dec_fused=True (K7 in the decoder), on phase
                5's requests; each one forward against phase 6's CPU forward,
@@ -70,6 +72,7 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                forward K8 against their plain versions on the operands their
                paths give them, and each op against K1 on the same inputs, at
                phase 3's B = 1 and phase 8's B = 4 encoder and decoder shapes
+               (each kernel also by torch.profiler's device time)
  17. banded serve - load_model + predict through msda_kernel="banded_point"
                (K5: 12 a request, no K1) on phase 5's requests; one forward
                against phase 6's CPU forward, flip-aware; a profiled request
@@ -161,23 +164,38 @@ def event_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn, iters: int, match: str) -> float:
-    """torch.profiler's device time a call of the kernels whose names hold
-    `match`, over `iters` calls of fn after one warm-up call: the kernel
-    alone, without the host's launch cost, which sets event_ms's time where
-    a kernel takes tens of microseconds."""
+def kernel_device_ms(fn, iters: int, match) -> float:
+    """torch.profiler's mean device time a launch of the kernels whose
+    names hold `match` (a string, or a tuple of them: any), over `iters`
+    calls of fn that each launch one: the kernel alone, without the host's
+    launch cost, which sets event_ms's time where a kernel takes tens of
+    microseconds.  The calls run twice under the profiler, and only the
+    second pass is recorded (the schedule's warm-up step): launches right
+    after the profiler starts can go unrecorded.  The mean is over the
+    launches recorded (a line says when that is fewer than `iters`); NaN
+    when none is."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and match in e.key) / 1e3 / iters
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    matches = (match,) if isinstance(match, str) else match
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and any(m in e.key for m in matches)]
+    count = sum(e.count for e in events)
+    if count != iters:
+        log("profiler", f"{count} of {iters} launches of {matches} recorded")
+    if not count:
+        return float("nan")
+    return sum(e.self_device_time_total for e in events) / 1e3 / count
 
 
 def padded_tokens(shapes, valid, device):
@@ -383,16 +401,29 @@ def ptxas_kernels(name: str, kernel_names) -> dict:
     return kernels
 
 
-def msda_kernel_report(plans: dict) -> dict:
-    """K1's and K3's ptxas report, K3's plans (`plans`: the wrapper's
-    msda_bwd_plan by shape) with their dynamic shared memory checked against
-    the library's own count, and the atomics in K3's SASS: vector global
-    reductions (RED ... F32x4) and shared-memory f32 atomics, which Hopper
+def sass_atomics(name: str) -> dict:
+    """The atomics in the SASS of csrc/<name>.cu: vector global reductions
+    (RED ... F32x4), scalar ones, and shared-memory f32 atomics, which Hopper
     runs as compare-and-swap loops (ATOMS.CAST.SPIN)."""
-    import ctypes
     import re
 
-    from open_groundingdino_tpu_torch.ops import build
+    sass = library_sass(name)
+    return {"red_global_f32x4": len(re.findall(r"RED\S*F32x4", sass)),
+            "red_global_f32": len(re.findall(r"RED\S*\.F32\b(?!x)", sass)),
+            "atoms_cas": sass.count("ATOMS.CAST.SPIN")}
+
+
+def msda_kernel_report(plans: dict) -> dict:
+    """The MSDA gather kernels' ptxas report (K1, K3, K5, K9), their launch
+    plans with their dynamic shared memory checked against each library's
+    own count (K3: `plans`, the wrapper's msda_bwd_plan by shape; K9:
+    corner_bwd_plan and K5: its tile, at phase 8's B = 4 and phase 3's B = 1
+    encoder and decoder shapes), and the atomics in K3's and K9's SASS."""
+    import ctypes
+
+    from open_groundingdino_tpu_torch.ops import build, msda
+    from open_groundingdino_tpu_torch.ops import msda_banded as mb
+    from open_groundingdino_tpu_torch.ops import msda_sweep as sw
 
     fn = build.load("msda_bwd").msda_bwd_smem_bytes
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
@@ -400,19 +431,48 @@ def msda_kernel_report(plans: dict) -> dict:
         if fn(plan["smem_rows"]) != plan["smem_bytes"]:
             raise AssertionError(f"K3's plan at the {shape} gives {plan['smem_bytes']} B of shared "
                                  f"memory, the kernel needs {fn(plan['smem_rows'])}")
-    sass = library_sass("msda_bwd")
+    shapes = level_shapes(*BUCKET)
+    L = sum(h * w for h, w in shapes)
+    corner_fn = build.load("msda_corner_bwd").msda_corner_bwd_smem_bytes
+    corner_fn.argtypes, corner_fn.restype = [ctypes.c_int], ctypes.c_int
+    banded_fn = build.load("msda_banded_fwd").msda_banded_fwd_smem_bytes
+    banded_fn.argtypes, banded_fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    corner_plans, banded_plans = {}, {}
+    for part, q in (("encoder", L), ("decoder", 900)):
+        qp = -(-q // sw.QBLOCK) * sw.QBLOCK
+        plan = sw.corner_bwd_plan(shapes, len(BATCH_VALID), qp, HEADS)._asdict()
+        if corner_fn(plan["smem_rows"]) != plan["smem_bytes"]:
+            raise AssertionError(f"K9's plan at the {part} gives {plan['smem_bytes']} B of shared "
+                                 f"memory, the kernel needs {corner_fn(plan['smem_rows'])}")
+        corner_plans[part] = plan
+        for batch in (1, len(BATCH_VALID)):
+            tile = msda.msda_fwd_tile(batch, qp, HEADS)
+            smem = mb.fwd_smem_bytes(LEVELS, tile)
+            if banded_fn(LEVELS, tile) != smem:
+                raise AssertionError(f"K5's tile {tile} gives {smem} B of shared memory, the "
+                                     f"kernel needs {banded_fn(LEVELS, tile)}")
+            banded_plans[f"B={batch} {part}"] = {"tile_q": tile, "smem_bytes": smem}
     report = {
         "msda_fwd": ptxas_kernels("msda_fwd", (("kernelIf", "msda_fwd_kernel<float>"),
                                                ("bfloat16", "msda_fwd_kernel<bf16>"))),
         "msda_bwd": ptxas_kernels("msda_bwd", (("msda_bwd_kernel", "msda_bwd_kernel"),)),
-        "msda_bwd_atomics": {"red_global_f32x4": len(re.findall(r"RED\S*F32x4", sass)),
-                             "red_global_f32": len(re.findall(r"RED\S*\.F32\b(?!x)", sass)),
-                             "atoms_cas": sass.count("ATOMS.CAST.SPIN")},
+        "msda_bwd_atomics": sass_atomics("msda_bwd"),
         "msda_bwd_plans": plans,
+        "msda_banded_fwd": ptxas_kernels("msda_banded_fwd",
+                                         (("banded_fwd_kernel", "banded_fwd_kernel"),)),
+        "msda_banded_fwd_plans": banded_plans,
+        "msda_corner_bwd": ptxas_kernels("msda_corner_bwd",
+                                         (("corner_bwd_kernel", "corner_bwd_kernel"),)),
+        "msda_corner_bwd_atomics": sass_atomics("msda_corner_bwd"),
+        "msda_corner_bwd_plans": corner_plans,
     }
     log("sass", f"libmsda_fwd.so: ptxas {report['msda_fwd']}; libmsda_bwd.so: ptxas "
                 f"{report['msda_bwd']}, SASS atomics {report['msda_bwd_atomics']}; K3 plans "
                 f"(dynamic shared memory as the library counts it) {plans}")
+    log("sass", f"libmsda_banded_fwd.so (K5): ptxas {report['msda_banded_fwd']}, tiles and "
+                f"dynamic shared memory {banded_plans}; libmsda_corner_bwd.so (K9): ptxas "
+                f"{report['msda_corner_bwd']}, SASS atomics {report['msda_corner_bwd_atomics']}, "
+                f"B = 4 plans {corner_plans}")
     return report
 
 
@@ -631,6 +691,9 @@ def check_fusion_bwd(device):
 # zero)
 SWEEP_TOL = 1e-4
 SWEEP_RTOL = 1e-4
+# the kernels' names as torch.profiler sees them, for kernel_device_ms
+DEVICE_NAMES = {"K5": "banded_fwd_kernel", "K8": "sweep_fwd_kernel", "K9": "corner_bwd_kernel",
+                "K10": "sweep_bwd_kernel"}
 
 
 def sweep_operands(value, shapes, locs, attn, grad_out):
@@ -713,14 +776,17 @@ def check_sweep(device) -> dict:
             errs = rel_errs(got, ref, masks)
             del got, ref
             ms = event_ms(lambda: fn(value, shapes, *args, g_k), 5)
+            device_ms = kernel_device_ms(lambda: fn(value, shapes, *args, g_k), 5,
+                                         DEVICE_NAMES[kname])
             plain_ms = event_ms(lambda: plain(value, *args, g_k), 2)
             rows[kname, name] = dict(Q=q, max_abs_err=max(errs.values()), errs=errs, ms=ms,
-                                     plain_ms=plain_ms, bound_ms=bwd_bound[0],
-                                     bound_by=bwd_bound[1])
+                                     device_ms=device_ms, plain_ms=plain_ms,
+                                     bound_ms=bwd_bound[0], bound_by=bwd_bound[1])
             log(kname, f"{name}: B={B} Q={q}: max|kernel-plain| / max|plain| "
                        f"{ {k: f'{v:.3e}' for k, v in errs.items()} } (tolerance {SWEEP_RTOL}, "
-                       f"tap gradients where w != 0); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-                       f"bound {bwd_bound[0]:.4f} ms ({bwd_bound[1]})")
+                       f"tap gradients where w != 0); kernel {ms:.4f} ms (device time "
+                       f"{device_ms:.4f} ms), plain {plain_ms:.3f} ms, bound {bwd_bound[0]:.4f} ms "
+                       f"({bwd_bound[1]})")
             if not max(errs.values()) <= SWEEP_RTOL:
                 raise AssertionError(f"{kname} {name}: {errs} > {SWEEP_RTOL}")
         rows["vs K1/K3", name] = sweep_vs_gather(value, shapes, starts, locs, attn, grad_out)
@@ -828,13 +894,15 @@ def check_banded_corner(device) -> dict:
                 err = float((kernel() - plain()).abs().max())
                 op_err = float((op() - k1).abs().max())
                 ms = event_ms(kernel, 10)
+                device_ms = kernel_device_ms(kernel, 10, DEVICE_NAMES[kname])
                 plain_ms = event_ms(plain, 2)
                 rows[kname, batch, name] = dict(Q=q, max_abs_err=err, k1_max_abs_err=op_err,
-                                                ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
-                                                bound_by=bound[1])
+                                                ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                                                bound_ms=bound[0], bound_by=bound[1])
                 log(kname, f"{name}: {batch} Q={q} L={L}: max|kernel-plain| {err:.3e}, the op "
-                           f"against K1 {op_err:.3e} (tolerance {K5_K8_TOL}); kernel {ms:.4f} ms, "
-                           f"plain {plain_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+                           f"against K1 {op_err:.3e} (tolerance {K5_K8_TOL}); kernel {ms:.4f} ms "
+                           f"(device time {device_ms:.4f} ms), plain {plain_ms:.3f} ms, bound "
+                           f"{bound[0]:.4f} ms ({bound[1]})")
                 if not (err <= K5_K8_TOL and op_err <= K5_K8_TOL):
                     raise AssertionError(f"{kname} {batch} {name}: {rows[kname, batch, name]}")
     return rows
@@ -1228,50 +1296,67 @@ def train(cfg: str, work: str, files, device: str, msda_keys=None, epochs: int =
                 median_step_s=median_s, peak_bytes=peak, wall_s=wall)
 
 
-def profile_train_step(run, top: int = 8, tag: str = "train-profile") -> dict:
-    """torch.profiler over one more training step: device time by kernel
-    group against the step's wall time (profiler on)."""
-    import torch
+# the port's kernels by the names torch.profiler shows, first match wins
+# (K4's bwd_kernel after the MSDA backwards, whose names hold it too)
+KERNEL_GROUPS = (("K5 banded_fwd", ("banded_fwd_kernel",)),
+                 ("K6/K7 sweep_fwd", ("sweep_fwd_kernel",)),
+                 ("K9 corner_bwd", ("corner_bwd_kernel",)),
+                 ("K10 sweep_bwd", ("sweep_bwd_kernel",)),
+                 ("K1 msda_fwd", ("msda_fwd_kernel",)),
+                 ("K2 fusion_fwd", ("attend_kernel", "combine_kernel")),
+                 ("K3 msda_bwd", ("msda_bwd_kernel",)),
+                 ("K4 fusion_bwd", ("bwd_kernel", "sum_splits_kernel")))
+
+
+def device_time_by_group(prof):
+    """A profile's device kernels, largest first, as (name, ms, launches),
+    and their device ms and launches summed by KERNEL_GROUPS, matrix
+    products and the rest."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    # the schedule's step annotation spans the step on the device too
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+               and not e.key.startswith("ProfilerStep")]
+    kernels.sort(key=lambda k: -k[1])
+    names = [g for g, _ in KERNEL_GROUPS] + ["matmul", "other"]
+    groups, launches = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
+    for key, ms, n in kernels:
+        group = next((g for g, frags in KERNEL_GROUPS if any(f in key for f in frags)), None)
+        if group is None:
+            matmul = any(t in key.lower() for t in ("gemm", "xmma", "cutlass", "matmul"))
+            group = "matmul" if matmul else "other"
+        groups[group] += ms
+        launches[group] += n
+    return kernels, groups, launches
+
+
+def profile_train_step(run, top: int = 8, tag: str = "train-profile") -> dict:
+    """torch.profiler over one more training step (after one under its
+    warm-up): device time and launches by kernel group against the step's
+    wall time (profiler on)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     batches = iter(run["loader"])
     batch = next(batches)
     batches.close()   # stops the loader's threads
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run["train_step"](run["state"], batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    kernels.sort(key=lambda k: -k[1])
-    groups = {"K1 msda_fwd": 0.0, "K2 fusion_fwd": 0.0, "K3 msda_bwd": 0.0,
-              "K4 fusion_bwd": 0.0, "K5 banded_fwd": 0.0, "K6/K7 sweep_fwd": 0.0,
-              "K9/K10 sweep_bwd": 0.0, "matmul": 0.0, "other": 0.0}
-    for key, ms, _ in kernels:
-        if "banded_fwd_kernel" in key:
-            groups["K5 banded_fwd"] += ms
-        elif "sweep_fwd_kernel" in key:
-            groups["K6/K7 sweep_fwd"] += ms
-        elif "sweep_bwd_kernel" in key:
-            groups["K9/K10 sweep_bwd"] += ms
-        elif "msda_fwd_kernel" in key:
-            groups["K1 msda_fwd"] += ms
-        elif "attend_kernel" in key or "combine_kernel" in key:
-            groups["K2 fusion_fwd"] += ms
-        elif "msda_bwd_kernel" in key:
-            groups["K3 msda_bwd"] += ms
-        elif "bwd_kernel" in key or "sum_splits_kernel" in key:
-            groups["K4 fusion_bwd"] += ms
-        elif any(t in key.lower() for t in ("gemm", "xmma", "cutlass", "matmul")):
-            groups["matmul"] += ms
-        else:
-            groups["other"] += ms
+    # two steps, the second recorded (launches right after the profiler
+    # starts can go unrecorded)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            run["train_step"](run["state"], batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            prof.step()
+    kernels, groups, launches = device_time_by_group(prof)
     busy = sum(groups.values())
     log(tag, f"one step {wall_ms:.1f} ms wall (profiler on), device busy "
                          f"{busy:.1f} ms ({busy / wall_ms:.0%}); by group ms "
-                         f"{ {k: round(v, 2) for k, v in groups.items()} }; top kernels "
+                         f"{ {k: round(v, 2) for k, v in groups.items()} }, launches "
+                         f"{ {k: n for k, n in launches.items() if n} }; top kernels "
                          f"{[(k[:48], round(ms, 2), n) for k, ms, n in kernels[:top]]}")
     if busy <= 0:
         raise AssertionError("the profiler recorded no device time")
@@ -1478,44 +1563,32 @@ def check_sweep_train_parity(harness, gather_card) -> dict:
 
 
 def profile_request(im, image, caption, top: int = 8, tag: str = "profile") -> dict:
-    """torch.profiler over one warm request: device time by kernel, grouped
-    as K1, K2, matrix products and the rest, against the request's wall
-    time (profiler on)."""
+    """torch.profiler over one warm request (after one under its warm-up):
+    device time and launches by kernel group (KERNEL_GROUPS, matrix
+    products, the rest) against the request's wall time (profiler on)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from open_groundingdino_tpu_torch import inference
 
     inference.predict(im, image, caption)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        inference.predict(im, image, caption)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    kernels.sort(key=lambda k: -k[1])
-    groups = {"K1 msda_fwd": 0.0, "K2 fusion_fwd": 0.0, "K5 banded_fwd": 0.0,
-              "K6/K7 sweep_fwd": 0.0, "matmul": 0.0, "other": 0.0}
-    for key, ms, _ in kernels:
-        if "banded_fwd_kernel" in key:
-            groups["K5 banded_fwd"] += ms
-        elif "sweep_fwd_kernel" in key:
-            groups["K6/K7 sweep_fwd"] += ms
-        elif "msda_fwd_kernel" in key:
-            groups["K1 msda_fwd"] += ms
-        elif "attend_kernel" in key or "combine_kernel" in key:
-            groups["K2 fusion_fwd"] += ms
-        elif any(t in key.lower() for t in ("gemm", "xmma", "cutlass", "matmul")):
-            groups["matmul"] += ms
-        else:
-            groups["other"] += ms
+    # two requests, the second recorded (launches right after the profiler
+    # starts can go unrecorded)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            inference.predict(im, image, caption)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            prof.step()
+    kernels, groups, launches = device_time_by_group(prof)
     busy = sum(groups.values())
     log(tag, f"one request {wall_ms:.1f} ms wall (profiler on), device busy {busy:.1f} ms "
                    f"({busy / wall_ms:.0%}); by group ms "
-                   f"{ {k: round(v, 2) for k, v in groups.items()} }; top kernels "
+                   f"{ {k: round(v, 2) for k, v in groups.items()} }, launches "
+                   f"{ {k: n for k, n in launches.items() if n} }; top kernels "
                    f"{[(k[:48], round(ms, 2), n) for k, ms, n in kernels[:top]]}")
     if busy <= 0:
         raise AssertionError("the profiler recorded no device time")
@@ -1649,7 +1722,8 @@ def main() -> int:
         {"name": "msda_bwd", "route": "cuda", "source": src + "msda_bwd.cu",
          "replaces": tpu + "msda_banded.py:524", "launches": train_counts["msda_bwd"],
          "launches_by_path": {"serve": 0, "train": train_counts["msda_bwd"]},
-         **mean_row(k3), "sass": {k: msda_sass[k] for k in ("msda_bwd", "msda_bwd_atomics")}},
+         **mean_row(k3),
+         "sass": {k: msda_sass[k] for k in ("msda_bwd", "msda_bwd_atomics", "msda_bwd_plans")}},
         {"name": "fusion_bwd", "route": "cuda", "source": src + "fusion_bwd.cu",
          "replaces": tpu + "fusion_pallas.py:198", "launches": train_counts["fusion_bwd"],
          "launches_by_path": {"serve": 0, "train": train_counts["fusion_bwd"]},
@@ -1669,7 +1743,7 @@ def main() -> int:
             ("K7", "sweep_fwd_allq", "sweep-serve-fused", "msda_sweep_fwd.cu",
              "msda_pallas.py:634"),
             ("K8", "sweep_fwd_corner", "microbench", "msda_sweep_fwd.cu", "msda_pallas.py:169"),
-            ("K9", "sweep_bwd_corner", "sweep-train", "msda_sweep_bwd.cu", "msda_pallas.py:955"),
+            ("K9", "sweep_bwd_corner", "sweep-train", "msda_corner_bwd.cu", "msda_pallas.py:955"),
             ("K10", "sweep_bwd_rowtap", "sweep-train-rowtap", "msda_sweep_bwd.cu",
              "msda_pallas.py:1200")):
         shapes = {n: measured[kname, n] for n in ("encoder", "decoder") if (kname, n) in measured}
@@ -1679,6 +1753,10 @@ def main() -> int:
                                 if k == kname}
             row["max_abs_err"] = max(max(r["max_abs_err"], r["k1_max_abs_err"])
                                      for r in row["per_shape"].values())
+        sass = {"K5": ("msda_banded_fwd", "msda_banded_fwd_plans"),
+                "K9": ("msda_corner_bwd", "msda_corner_bwd_atomics", "msda_corner_bwd_plans")}
+        if kname in sass:
+            row["sass"] = {k: msda_sass[k] for k in sass[kname]}
         kernels.append({"name": counter, "route": "cuda", "source": src + source,
                         "replaces": tpu + line, "launches": by_path[launches_from][counter],
                         "launches_by_path": {k: v[counter] for k, v in by_path.items()}, **row})

@@ -1,19 +1,16 @@
-// K9 and K10: multi-scale deformable attention backward as a tile sweep, for
-// Hopper (sm_90a).
+// K10: multi-scale deformable attention backward as a row-tap tile sweep,
+// for Hopper (sm_90a).
 //
-// Replaces: open_groundingdino_tpu/ops/msda_pallas.py::_msda_bwd_kernel (K9,
-// corner taps, the default backward of the MSDA_BANDED=0 path) and
-// ::_msda_rowtap_bwd_kernel (K10, row taps, MSDA_BWD_VARIANT=rowtap).  With
-// P[s, q] = V[bh, s, :] . g[bh, q, :] over the value positions s:
-//   K9   idx (int32), w (B*H, NL*P*4, Qp): a corner tap puts weight w at idx
-//        gw[t, q] = P[idx[t, q], q]
-//   K10  row (int32), px, w (B*H, NL*2*P, Qp): a row tap puts
-//        w * relu(1 - |px - x|) at position row + x (the TPU kernel takes
-//        row + px as one f32 flat position; see msda_sweep.py)
-//        gw[r, q]  = sum_x relu(1 - |px - x|) P[row + x, q]
-//        gpx[r, q] = sum_x -sign(px - x) [|px - x| < 1] P[row + x, q]  (the
-//                    caller multiplies by w, as msda_pallas.py:1464-1466 does)
-//   both grad_value[s, :] = sum_q S[q, s] g[q, :], S the taps' weights
+// Replaces: open_groundingdino_tpu/ops/msda_pallas.py::_msda_rowtap_bwd_kernel
+// (row taps, MSDA_BWD_VARIANT=rowtap; the corner-tap backward K9 is
+// msda_corner_bwd.cu).  With P[s, q] = V[bh, s, :] . g[bh, q, :] over the
+// value positions s, row (int32), px, w (B*H, NL*2*P, Qp): a row tap puts
+// w * relu(1 - |px - x|) at position row + x (the TPU kernel takes row + px
+// as one f32 flat position; see msda_sweep.py)
+//   gw[r, q]  = sum_x relu(1 - |px - x|) P[row + x, q]
+//   gpx[r, q] = sum_x -sign(px - x) [|px - x| < 1] P[row + x, q]  (the
+//               caller multiplies by w, as msda_pallas.py:1464-1466 does)
+//   grad_value[s, :] = sum_q S[q, s] g[q, :], S the taps' weights
 // value (B, L, H, 32) f32 (reference layout), g (B*H, Qp, 32) f32,
 // grad_value (B, L, H, 32) f32 (zeroed by the caller).
 //
@@ -48,14 +45,13 @@ constexpr int kQB = 128;
 constexpr int kD = 32;
 constexpr int kT = 64;   // value positions a tile
 
-template <bool kRowtap>
 __global__ void __launch_bounds__(kQB)
 sweep_bwd_kernel(const float* __restrict__ value, const int* __restrict__ row,
-                 const void* __restrict__ taps,
+                 const float* __restrict__ px,
                  const float* __restrict__ w, const float* __restrict__ g,
                  float* __restrict__ gv, float* __restrict__ gw, float* __restrict__ gpx,
                  int L, int H, int Qp, int NL, int per_level) {
-  constexpr int kMaxTaps = kRowtap ? 8 : 16;   // a level's taps of one query (P <= 4)
+  constexpr int kMaxTaps = 8;   // a level's row taps of one query (P <= 4)
   extern __shared__ float4 smem4[];
   float* gsm = reinterpret_cast<float*>(smem4);   // kQB x kD, g of the block
   float* vt = gsm + kQB * kD;                     // kT x kD, value tile
@@ -68,9 +64,8 @@ sweep_bwd_kernel(const float* __restrict__ value, const int* __restrict__ row,
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int q = blockIdx.x * kQB + lt;
   const int R = NL * per_level;
-  const int* rowb = kRowtap ? row + (size_t)bh * R * Qp : nullptr;
-  const float* pxb = static_cast<const float*>(taps) + (size_t)bh * R * Qp;
-  const int* idxb = static_cast<const int*>(taps) + (size_t)bh * R * Qp;
+  const int* rowb = row + (size_t)bh * R * Qp;
+  const float* pxb = px + (size_t)bh * R * Qp;
   const float* wb = w + (size_t)bh * R * Qp;
   const int s0 = (lt >> 3) * 4;   // grad_value tile: 4 positions x 4 channels
   const int d0 = (lt & 7) * 4;
@@ -103,14 +98,9 @@ sweep_bwd_kernel(const float* __restrict__ value, const int* __restrict__ row,
       if (k >= per_level) break;
       const size_t o = (size_t)(t0 + k) * Qp + q;
       if (wb[o] == 0.f) continue;
-      if (kRowtap) {
-        const int p0 = rowb[o] + (int)floorf(pxb[o]);
-        mn = min(mn, p0);
-        mx = max(mx, p0 + 1);
-      } else {
-        mn = min(mn, idxb[o]);
-        mx = max(mx, idxb[o]);
-      }
+      const int p0 = rowb[o] + (int)floorf(pxb[o]);
+      mn = min(mn, p0);
+      mx = max(mx, p0 + 1);
     }
     mn = __reduce_min_sync(0xffffffffu, mn);
     mx = __reduce_max_sync(0xffffffffu, mx);
@@ -150,27 +140,18 @@ sweep_bwd_kernel(const float* __restrict__ value, const int* __restrict__ row,
         const size_t o = (size_t)(t0 + k) * Qp + q;
         const float wv = wb[o];
         if (wv == 0.f) continue;
-        if (kRowtap) {
-          const float x = pxb[o];
-          const float xf = floorf(x);
-          const int s = rowb[o] + (int)xf - base;
-          if (s >= 0 && s < kT) {
-            S[lt * kT + s] += (1.f - (x - xf)) * wv;
-            touched[s] = 1;
-            any = true;
-          }
-          if (s + 1 >= 0 && s + 1 < kT) {
-            S[lt * kT + s + 1] += (1.f - ((xf + 1.f) - x)) * wv;
-            touched[s + 1] = 1;
-            any = true;
-          }
-        } else {
-          const int s = idxb[o] - base;
-          if (s >= 0 && s < kT) {
-            S[lt * kT + s] += wv;
-            touched[s] = 1;
-            any = true;
-          }
+        const float x = pxb[o];
+        const float xf = floorf(x);
+        const int s = rowb[o] + (int)xf - base;
+        if (s >= 0 && s < kT) {
+          S[lt * kT + s] += (1.f - (x - xf)) * wv;
+          touched[s] = 1;
+          any = true;
+        }
+        if (s + 1 >= 0 && s + 1 < kT) {
+          S[lt * kT + s + 1] += (1.f - ((xf + 1.f) - x)) * wv;
+          touched[s + 1] = 1;
+          any = true;
         }
       }
       if (any) live_s = 1;
@@ -192,19 +173,14 @@ sweep_bwd_kernel(const float* __restrict__ value, const int* __restrict__ row,
         for (int k = 0; k < kMaxTaps; ++k) {
           if (k >= per_level) break;
           const size_t o = (size_t)(t0 + k) * Qp + q;
-          if (kRowtap) {
-            const float x = pxb[o];
-            const float xf = floorf(x);
-            const int s = rowb[o] + (int)xf - base;
-            const bool in0 = s >= 0 && s < kT, in1 = s + 1 >= 0 && s + 1 < kT;
-            const float p0 = in0 ? Pm[s * kQB + lt] : 0.f;
-            const float p1 = in1 ? Pm[(s + 1) * kQB + lt] : 0.f;
-            gwa[k] += (1.f - (x - xf)) * p0 + (1.f - ((xf + 1.f) - x)) * p1;
-            if (x > xf) gpa[k] += p1 - p0;
-          } else {
-            const int s = idxb[o] - base;
-            if (s >= 0 && s < kT) gwa[k] += Pm[s * kQB + lt];
-          }
+          const float x = pxb[o];
+          const float xf = floorf(x);
+          const int s = rowb[o] + (int)xf - base;
+          const bool in0 = s >= 0 && s < kT, in1 = s + 1 >= 0 && s + 1 < kT;
+          const float p0 = in0 ? Pm[s * kQB + lt] : 0.f;
+          const float p1 = in1 ? Pm[(s + 1) * kQB + lt] : 0.f;
+          gwa[k] += (1.f - (x - xf)) * p0 + (1.f - ((xf + 1.f) - x)) * p1;
+          if (x > xf) gpa[k] += p1 - p0;
         }
         float a[4][4];
 #pragma unroll
@@ -240,50 +216,33 @@ sweep_bwd_kernel(const float* __restrict__ value, const int* __restrict__ row,
       if (k >= per_level) break;
       const size_t o = ((size_t)bh * R + t0 + k) * Qp + q;
       gw[o] = gwa[k];
-      if (kRowtap) gpx[o] = gpa[k];
+      gpx[o] = gpa[k];
     }
   }
-}
-
-template <bool kRowtap>
-int launch(const void* value, const void* row, const void* taps, const void* w, const void* g,
-           void* gv, void* gw, void* gpx, int B, int L, int H, int Qp, int NL, int per_level,
-           cudaStream_t stream) {
-  if (B <= 0 || L <= 0 || H <= 0 || Qp <= 0 || Qp % kQB || NL <= 0 || per_level <= 0 ||
-      per_level > (kRowtap ? 8 : 16) || B * H > 65535)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)kQB * kD + kT * kD + 2 * kQB * kT) +
-                      sizeof(int) * kT;
-  cudaError_t err = cudaFuncSetAttribute(sweep_bwd_kernel<kRowtap>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(Qp / kQB, B * H);
-  sweep_bwd_kernel<kRowtap><<<grid, kQB, smem, stream>>>(
-      (const float*)value, (const int*)row, taps, (const float*)w, (const float*)g, (float*)gv,
-      (float*)gw, (float*)gpx, L, H, Qp, NL, per_level);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// K9.  idx int32, everything else f32, all contiguous; grad_value zeroed by
-// the caller, gw written whole (row and gpx unused).  Returns a cudaError_t.
-int msda_sweep_bwd_corner_f32(const void* value, const void* row, const void* idx, const void* w,
-                              const void* g, void* grad_value, void* gw, void* gpx, int B, int L,
-                              int H, int Qp, int NL, int taps_per_level, void* stream) {
-  return launch<false>(value, row, idx, w, g, grad_value, gw, gpx, B, L, H, Qp, NL, taps_per_level,
-                       (cudaStream_t)stream);
-}
-
 // K10.  row int32, the rest f32, all contiguous; grad_value zeroed by the
 // caller, gw and gpx written whole.  Returns a cudaError_t.
 int msda_sweep_bwd_rowtap_f32(const void* value, const void* row, const void* px, const void* w,
                               const void* g, void* grad_value, void* gw, void* gpx, int B, int L,
                               int H, int Qp, int NL, int rows_per_level, void* stream) {
-  return launch<true>(value, row, px, w, g, grad_value, gw, gpx, B, L, H, Qp, NL, rows_per_level,
-                      (cudaStream_t)stream);
+  if (B <= 0 || L <= 0 || H <= 0 || Qp <= 0 || Qp % kQB || NL <= 0 || rows_per_level <= 0 ||
+      rows_per_level > 8 || B * H > 65535)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * ((size_t)kQB * kD + kT * kD + 2 * kQB * kT) +
+                      sizeof(int) * kT;
+  cudaError_t err = cudaFuncSetAttribute(sweep_bwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(Qp / kQB, B * H);
+  sweep_bwd_kernel<<<grid, kQB, smem, (cudaStream_t)stream>>>(
+      (const float*)value, (const int*)row, (const float*)px, (const float*)w, (const float*)g,
+      (float*)grad_value, (float*)gw, (float*)gpx, L, H, Qp, NL, rows_per_level);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

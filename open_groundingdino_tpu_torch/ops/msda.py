@@ -161,25 +161,35 @@ def bwd_smem_bytes(smem_rows: int) -> int:
     return BWD_WARPS * SAMPLES * SLOT_BYTES + smem_rows * HEAD_DIM * 4 + -(-smem_rows // 16) * 16
 
 
-def msda_bwd_plan(spatial_shapes: Shapes, B: int, Q: int, H: int) -> BwdPlan:
-    """K3's launch plan.  A level accumulates its grad_value in shared memory
-    when a tile scatters at least as many corner rows into it as it has rows
-    (tile * P * 4 >= h * w: zeroing and flushing it costs no more than the
-    scatter would) and it fits in BWD_SMEM_BUDGET, taking the levels from
-    the smallest up; the others scatter straight to global memory."""
-    tile = _tile(B, Q, H, BWD_MIN_CTAS, BWD_WARPS)
+def smem_levels(spatial_shapes: Shapes, tile: int, smem_bytes) -> Tuple[Tuple[int, ...], int]:
+    """The levels that accumulate their grad_value in shared memory at
+    `tile` queries a CTA: those a tile scatters at least as many corner rows
+    into as they have rows (tile * P * 4 >= h * w: zeroing and flushing them
+    costs no more than the scatter would) and that fit with smem_bytes(rows)
+    within BWD_SMEM_BUDGET, taken from the smallest up.  Returns (the first
+    accumulator row of each level in level order, -1 for a level scattered
+    to global memory; the rows in all)."""
     rows = [h * w for h, w in spatial_shapes]
     smem_row = [-1] * len(rows)
     used = 0
     for lvl in sorted(range(len(rows)), key=lambda i: rows[i]):
-        if tile * POINTS * 4 >= rows[lvl] and bwd_smem_bytes(used + rows[lvl]) <= BWD_SMEM_BUDGET:
+        if tile * POINTS * 4 >= rows[lvl] and smem_bytes(used + rows[lvl]) <= BWD_SMEM_BUDGET:
             smem_row[lvl] = -2                # placed below, in level order
             used += rows[lvl]
     used = 0
     for lvl, r in enumerate(rows):
         if smem_row[lvl] == -2:
             smem_row[lvl], used = used, used + r
-    return BwdPlan(tile, tuple(smem_row), used, bwd_smem_bytes(used))
+    return tuple(smem_row), used
+
+
+def msda_bwd_plan(spatial_shapes: Shapes, B: int, Q: int, H: int) -> BwdPlan:
+    """K3's launch plan: the tile (the fewest CTAs BWD_MIN_CTAS) and its
+    shared-memory levels (`smem_levels`); the other levels scatter straight
+    to global memory."""
+    tile = _tile(B, Q, H, BWD_MIN_CTAS, BWD_WARPS)
+    smem_row, used = smem_levels(spatial_shapes, tile, bwd_smem_bytes)
+    return BwdPlan(tile, smem_row, used, bwd_smem_bytes(used))
 
 
 _FWD_CTYPES = (

@@ -10,7 +10,10 @@ sum_x relu(1 - |px - x|) * V[y, x], is weighted by relu(1 - |py - y|) * wa
 and summed over the rows of the point's band windows.  Per (batch*head,
 128-query block, level, point) the windows [ylo + i*band, ylo + (i+1)*band),
 i < n_it, cover the rows the block's points touch; rows at or past the
-level's height read zero.
+level's height read zero.  Only the two rows floor(py) and floor(py) + 1 of
+a point have a non-zero weight, so the windows enumerate rows and never
+change the result: K5 takes each point's (at most) four corners directly,
+and `band` shapes only the plain version's loop.
 
 Operands (kernel layout, from `banded_prep`; the TPU's (BH, H_l*D, W_l) value
 layout is not ported, the kernel reads the reference (B, L, H, D) value):
@@ -21,7 +24,7 @@ layout is not ported, the kernel reads the reference (B, L, H, D) value):
   wa   (BH, NL*P, Q) edge x weight * attention weight (0 kills the point)
 Query sets with Q != L (the decoder) are sorted by the position of their
 first finest-level point (`query_order`, ms_deform_attn_banded_sorted's
-key), so that a block's bands stay local, and un-sorted afterwards; the JAX
+key), so that a block's points stay local, and un-sorted afterwards; the JAX
 decoder's sort-once across layers is a TPU trick the port does not take.
 
 `ms_deform_attn_banded` takes the plain version for CPU tensors (autograd
@@ -46,9 +49,6 @@ from .msda_sweep import (HEAD_DIM, QBLOCK, _gather_rows, _to_reference, _value_b
 Shapes = Sequence[Tuple[int, int]]
 
 BAND = 4                   # rows a band window (the JAX package's MSDA_BAND default)
-MAX_LEVELS = 8             # csrc/msda_banded_fwd.cu's limits
-MAX_TAPS = 64              # levels x points
-SMEM_BYTES = 230400        # one window's value rows: Hopper's 227 KB a block less K5's static arrays
 
 
 def level_bands(spatial_shapes: Shapes, band: int) -> Tuple[int, ...]:
@@ -175,43 +175,50 @@ def banded_fwd_plain(value, spatial_shapes: Shapes, px, py, wa, ranges, band: in
 
 
 # ---------------------------------------------------------------- K5
-_FWD_CTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-               + [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_void_p])
+_FWD_CTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+               + [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_int, ctypes.c_void_p])
+
+
+def fwd_smem_bytes(NL: int, tile_q: int) -> int:
+    """K5's dynamic shared memory (csrc/msda_banded_fwd.cu
+    msda_banded_fwd_smem_bytes): each (point, query) of a tile's corner
+    positions (int4) and weights (float4), a row of tile_q + 1 a point."""
+    return NL * msda.POINTS * (tile_q + 1) * 32
 
 
 def banded_fwd(value, spatial_shapes: Shapes, px, py, wa, band: int = BAND):
-    """K5 on CUDA tensors: one kernel block per (b*h, 128-query block), which
-    finds each (level, point)'s band range over its live points (wa != 0)
-    itself.  value (B, L, H, 32) f32; px, py, wa (BH, NL*P, Q_pad) f32,
-    contiguous -> (BH, Q_pad, 32) f32."""
+    """K5 on CUDA tensors: one kernel block per (b*h, tile of queries), the
+    tile chosen as K1's (msda.msda_fwd_tile); each live point (wa != 0)
+    reads its at most four corner rows.  value (B, L, H, 32) f32, 16-byte
+    aligned; px, py, wa (BH, NL*P, Q_pad) f32, contiguous -> (BH, Q_pad, 32)
+    f32.  `band` does not change the result (the module's docstring) and is
+    not used here."""
     for name, t in (("value", value), ("px", px), ("py", py), ("wa", wa)):
         if t.device.type != "cuda":
             raise ValueError(f"banded_fwd: unsupported device {t.device} for {name}")
         if t.device != value.device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"banded_fwd: {name} must be contiguous float32 on {value.device}")
-    if value.dim() != 4 or value.shape[-1] != HEAD_DIM:
-        raise ValueError(f"banded_fwd: value must be (B, L, H, {HEAD_DIM}), got {tuple(value.shape)}")
-    B, L, H, _ = value.shape
+    if value.dim() != 4 or value.data_ptr() % 16:
+        raise ValueError(f"banded_fwd: value must be a 16-byte aligned (B, L, H, D), got "
+                         f"{tuple(value.shape)}")
+    B, L, H, D = value.shape
     BH, R, Qp = px.shape
     NL = len(spatial_shapes)
     if BH != B * H or py.shape != px.shape or wa.shape != px.shape or Qp % QBLOCK:
         raise ValueError(f"banded_fwd: px/py/wa {tuple(px.shape)} do not fit value "
                          f"{tuple(value.shape)} and {QBLOCK}-query blocks")
-    if NL > MAX_LEVELS or R % NL or R > MAX_TAPS or sum(h * w for h, w in spatial_shapes) != L:
+    if R % NL or sum(h * w for h, w in spatial_shapes) != L:
         raise ValueError(f"banded_fwd: {R} taps over levels {tuple(spatial_shapes)} do not fit "
-                         f"L = {L} (at most {MAX_LEVELS} levels, {MAX_TAPS} taps)")
-    window = max(b * w for b, (_, w) in zip(level_bands(spatial_shapes, band), spatial_shapes))
-    if band < 1 or window * HEAD_DIM * 4 > SMEM_BYTES:
-        raise ValueError(f"banded_fwd: a band of {band} rows of the widest level does not fit "
-                         f"shared memory ({window * HEAD_DIM * 4} > {SMEM_BYTES} bytes)")
+                         f"L = {L}")
+    msda.check_geometry(D, NL, R // NL)
     out = torch.empty(BH, Qp, HEAD_DIM, dtype=torch.float32, device=value.device)
     fn = build.load("msda_banded_fwd").msda_banded_fwd_f32
     fn.argtypes = _FWD_CTYPES
     fn.restype = ctypes.c_int
     err = fn(value.data_ptr(), px.data_ptr(), py.data_ptr(), wa.data_ptr(), out.data_ptr(),
-             B, L, H, Qp, NL, R // NL, band,
+             B, L, H, Qp, NL, R // NL,
              *msda._level_arrays(spatial_shapes, level_starts(spatial_shapes)),
-             torch.cuda.current_stream(value.device).cuda_stream)
+             msda.msda_fwd_tile(B, Qp, H), torch.cuda.current_stream(value.device).cuda_stream)
     build.check(err, "msda_banded_fwd")
     banded_fwd.launches += 1
     return out

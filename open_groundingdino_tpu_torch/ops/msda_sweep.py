@@ -1,6 +1,7 @@
 """Multi-scale deformable attention as a tile sweep: K6, K7 and K8 (forward,
-csrc/msda_sweep_fwd.cu), K9 and K10 (backward, csrc/msda_sweep_bwd.cu), their
-plain PyTorch versions, and the autograd Function around them.
+csrc/msda_sweep_fwd.cu), K9 (backward on corner taps, csrc/msda_corner_bwd.cu)
+and K10 (backward on row taps, csrc/msda_sweep_bwd.cu), their plain PyTorch
+versions, and the autograd Function around them.
 
 The port of the JAX package's ops/msda_pallas.py::ms_deform_attn_pallas_t,
 the model path of `msda_impl="pallas"` with `MSDA_BANDED=0`, and of its
@@ -34,7 +35,8 @@ w == 0), upstream gradient and output (BH, Q_pad, D) f32, grad_value
 first row tap's position (K8: their first corner tap's, as
 msda_pallas.py:937-943 sorts), so that a block's taps are local; the output
 and the per-tap gradients are un-sorted afterwards.  Each kernel block finds the
-range of positions its live taps touch, per level, itself.
+range of positions its live taps touch, per level, itself; K9 instead
+gathers and scatters the rows of its live taps (K3's design, ops/msda.py).
 
 `ms_deform_attn_sweep` takes the plain version for CPU tensors (autograd
 differentiates it) and `MSDASweepFunction` for CUDA tensors.  The five
@@ -48,7 +50,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from . import build
+from . import build, msda
 from .msda import level_starts
 
 Shapes = Sequence[Tuple[int, int]]
@@ -235,6 +237,13 @@ def sweep_bwd_corner_plain(value, idx, w, g):
 _FWD_CTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _FWD_CORNER_CTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _BWD_CTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_CORNER_BWD_CTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                      + [ctypes.POINTER(ctypes.c_int)] * 2
+                      + [ctypes.c_int, ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 2
+                      + [ctypes.c_void_p])
+CORNER_BWD_WARPS = 16                          # csrc/msda_corner_bwd.cu: warps a CTA
+CORNER_CHUNK = 2 * CORNER_BWD_WARPS            # queries whose taps a CTA stages at a time
+CORNER_TAPS = msda.SAMPLES * 4                 # corner taps a query, at most
 
 
 def _check(value, taps, w, what, g=None, row=None):
@@ -323,44 +332,73 @@ def sweep_fwd_corner(value, spatial_shapes, idx, w):
     return out
 
 
-def _launch_bwd(symbol, value, spatial_shapes, taps, w, g, per_point, row=None):
-    B, L, H, R, Q_pad = _check(value, taps, w, symbol, g, row)
-    with_gpx = row is not None
-    NL, per_level = _levels(spatial_shapes, R, per_point)
-    gv = torch.zeros_like(value)
-    gw = torch.empty_like(w)
-    gpx = torch.empty_like(w) if with_gpx else None
-    fn = getattr(build.load("msda_sweep_bwd"), symbol)
-    fn.argtypes = _BWD_CTYPES
-    fn.restype = ctypes.c_int
-    err = fn(value.data_ptr(), row.data_ptr() if with_gpx else None, taps.data_ptr(),
-             w.data_ptr(), g.data_ptr(), gv.data_ptr(),
-             gw.data_ptr(), gpx.data_ptr() if with_gpx else None,
-             B, L, H, Q_pad, NL, per_level,
-             torch.cuda.current_stream(value.device).cuda_stream)
-    build.check(err, symbol)
-    return gv, gpx, gw
+def corner_bwd_smem_bytes(smem_rows: int) -> int:
+    """K9's dynamic shared memory (csrc/msda_corner_bwd.cu
+    msda_corner_bwd_smem_bytes): a chunk's staged idx, w and gw (CORNER_TAPS
+    rows of CORNER_CHUNK + 1), smem_rows rows of HEAD_DIM f32, a flag a row."""
+    return (3 * CORNER_TAPS * (CORNER_CHUNK + 1) * 4 + smem_rows * HEAD_DIM * 4
+            + -(-smem_rows // 16) * 16)
+
+
+def corner_bwd_plan(spatial_shapes: Shapes, B: int, Q_pad: int, H: int) -> msda.BwdPlan:
+    """K9's launch plan, K3's rule (ops/msda.py) with K9's shared memory: a
+    tile of queries a CTA (at least a staged chunk; the fewest CTAs
+    msda.BWD_MIN_CTAS) and the levels whose grad_value it accumulates in
+    shared memory (msda.smem_levels)."""
+    tile = msda._tile(B, Q_pad, H, msda.BWD_MIN_CTAS, CORNER_CHUNK)
+    smem_row, used = msda.smem_levels(spatial_shapes, tile, corner_bwd_smem_bytes)
+    return msda.BwdPlan(tile, smem_row, used, corner_bwd_smem_bytes(used))
 
 
 def sweep_bwd_corner(value, spatial_shapes, idx, w, g):
     """K9 on CUDA tensors: idx int32 and w (BH, NL*P*4, Q_pad), g
-    (BH, Q_pad, D) -> (grad_value (B, L, H, D), gw).  gw is computed for every
-    tap whose position lies in a tile its block sweeps; a dead tap (w == 0)
-    elsewhere gets 0 (the chain rule multiplies it by zero)."""
+    (BH, Q_pad, D) -> (grad_value (B, L, H, D), gw).  One kernel block per
+    (b*h, tile of queries) gathers and scatters the rows of the live taps;
+    gw is 0 for every dead tap (w == 0), which the chain rule multiplies by
+    zero.  value and g 16-byte aligned; built for D = 32, P = 4, NL <= 4."""
+    B, L, H, R, Q_pad = _check(value, idx, w, "sweep_bwd_corner", g)
     if idx.dtype != torch.int32:
         raise ValueError("sweep_bwd_corner: idx must be int32")
-    gv, _, gw = _launch_bwd("msda_sweep_bwd_corner_f32", value, spatial_shapes, idx, w, g, 4)
+    if value.data_ptr() % 16 or g.data_ptr() % 16:
+        raise ValueError("sweep_bwd_corner: value and g must be 16-byte aligned")
+    NL, per_level = _levels(spatial_shapes, R, 4)
+    msda.check_geometry(value.shape[-1], NL, per_level // 4)
+    plan = corner_bwd_plan(spatial_shapes, B, Q_pad, H)
+    gv = torch.zeros_like(value)
+    gw = torch.empty_like(w)
+    fn = build.load("msda_corner_bwd").msda_corner_bwd_f32
+    fn.argtypes = _CORNER_BWD_CTYPES
+    fn.restype = ctypes.c_int
+    err = fn(value.data_ptr(), idx.data_ptr(), w.data_ptr(), g.data_ptr(), gv.data_ptr(),
+             gw.data_ptr(), B, L, H, Q_pad, NL, per_level // 4,
+             *msda._level_arrays(spatial_shapes, level_starts(spatial_shapes)), plan.tile_q,
+             (ctypes.c_int * NL)(*plan.smem_row), plan.smem_rows, plan.smem_bytes,
+             torch.cuda.current_stream(value.device).cuda_stream)
+    build.check(err, "msda_corner_bwd")
     sweep_bwd_corner.launches += 1
     return gv, gw
 
 
 def sweep_bwd_rowtap(value, spatial_shapes, row, px, w, g):
     """K10 on CUDA tensors: row, px, w (BH, NL*2*P, Q_pad), g (BH, Q_pad, D)
-    -> (grad_value (B, L, H, D), gpx, gw); gpx without the row weight.  Dead
-    taps as for K9."""
-    out = _launch_bwd("msda_sweep_bwd_rowtap_f32", value, spatial_shapes, px, w, g, 2, row)
+    -> (grad_value (B, L, H, D), gpx, gw); gpx without the row weight.  gw
+    and gpx are computed for every tap whose position lies in a tile its
+    block sweeps; a dead tap (w == 0) elsewhere gets 0 (the chain rule
+    multiplies it by zero)."""
+    B, L, H, R, Q_pad = _check(value, px, w, "sweep_bwd_rowtap", g, row)
+    NL, per_level = _levels(spatial_shapes, R, 2)
+    gv = torch.zeros_like(value)
+    gw = torch.empty_like(w)
+    gpx = torch.empty_like(w)
+    fn = build.load("msda_sweep_bwd").msda_sweep_bwd_rowtap_f32
+    fn.argtypes = _BWD_CTYPES
+    fn.restype = ctypes.c_int
+    err = fn(value.data_ptr(), row.data_ptr(), px.data_ptr(), w.data_ptr(), g.data_ptr(),
+             gv.data_ptr(), gw.data_ptr(), gpx.data_ptr(), B, L, H, Q_pad, NL, per_level,
+             torch.cuda.current_stream(value.device).cuda_stream)
+    build.check(err, "msda_sweep_bwd_rowtap_f32")
     sweep_bwd_rowtap.launches += 1
-    return out
+    return gv, gpx, gw
 
 
 # ---------------------------------------------------------------- the op
