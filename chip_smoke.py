@@ -29,9 +29,10 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                bucket whose images each have their own valid region, with a
                seeded upstream gradient; K1 and K3 (here and in phase 3) also
                by torch.profiler's device time; ptxas's report of the K1,
-               K3, K5 and K9 libraries, K3's and K9's launch plans and K5's
-               tiles against each library's count of their shared memory,
-               and the atomics in K3's and K9's SASS
+               K3, K5, K6, K9 and K10 libraries, K3's, K9's and K10's launch
+               plans and K5's and K6's tiles against each library's count of
+               their shared memory, and the atomics in K3's, K9's and K10's
+               SASS
   9. K4      - the fusion backward kernel against autograd of K2's plain
                version (gq, gk, gvv, gvl), and K2 against its plain version
                on the same operands, at the encoder fusion shape of that
@@ -56,18 +57,21 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                with MSDA_BANDED=0): K6 (and K7 on the decoder's sorted query
                set), K9 and K10 against their plain versions on the operands
                the model path gives them, at phase 8's encoder and decoder
-               shapes (K9 and K10 also by torch.profiler's device time); then
-               the sweep op against K1 and K3 on the same inputs
+               shapes (K10's tap gradients on every tap; each kernel also by
+               torch.profiler's device time); then the sweep op against K1
+               and K3 on the same inputs; then K6 at phase 3's B = 1 shapes
  13. sweep serve - load_model + predict through msda_kernel="sweep" (K6), and
                again with msda_dec_fused=True (K7 in the decoder), on phase
                5's requests; each one forward against phase 6's CPU forward,
                flip-aware; a profiled request
  14. sweep train - main with --options msda_kernel=sweep: 2 B = 4 steps (K6,
                K9) and a profiled one; then 1 step with msda_sweep_bwd=rowtap
-               (K10)
- 15. sweep train parity - phase 11's step through the sweep against the
-               gather's step on the card: loss within 5e-3, each gradient the
-               MSDA kernels feed within 1e-2; with K9's gw negated it must fail
+               (K6, K10) and a profiled one
+ 15. sweep train parity - phase 11's step through the sweep, with the corner
+               (K9) and the row-tap (K10) backward, against the gather's step
+               on the card: loss within 5e-3, each gradient the MSDA kernels
+               feed within 1e-2; with K9's, and apart K10's, gw negated each
+               must fail
  16. K5, K8  - the per-point banded forward K5 and the corner-tap sweep
                forward K8 against their plain versions on the operands their
                paths give them, and each op against K1 on the same inputs, at
@@ -164,6 +168,18 @@ def event_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def json_safe(x):
+    """x with every non-finite float (a device time no profile recorded) as
+    None, so that json.dumps writes standard JSON."""
+    if isinstance(x, float) and not math.isfinite(x):
+        return None
+    if isinstance(x, dict):
+        return {k: json_safe(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [json_safe(v) for v in x]
+    return x
+
+
 def kernel_device_ms(fn, iters: int, match) -> float:
     """torch.profiler's mean device time a launch of the kernels whose
     names hold `match` (a string, or a tuple of them: any), over `iters`
@@ -172,30 +188,31 @@ def kernel_device_ms(fn, iters: int, match) -> float:
     microseconds.  The calls run twice under the profiler, and only the
     second pass is recorded (the schedule's warm-up step): launches right
     after the profiler starts can go unrecorded.  The mean is over the
-    launches recorded (a line says when that is fewer than `iters`); NaN
-    when none is."""
+    launches recorded (a line says when that is fewer than `iters`); a
+    profile that records none is taken again, twice at most, then NaN."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        for _ in range(2):
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
     matches = (match,) if isinstance(match, str) else match
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and any(m in e.key for m in matches)]
-    count = sum(e.count for e in events)
-    if count != iters:
-        log("profiler", f"{count} of {iters} launches of {matches} recorded")
-    if not count:
-        return float("nan")
-    return sum(e.self_device_time_total for e in events) / 1e3 / count
+    for _ in range(3):   # a pass that records no launch at all is taken again
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and any(m in e.key for m in matches)]
+        count = sum(e.count for e in events)
+        if count != iters:
+            log("profiler", f"{count} of {iters} launches of {matches} recorded")
+        if count:
+            return sum(e.self_device_time_total for e in events) / 1e3 / count
+    return float("nan")
 
 
 def padded_tokens(shapes, valid, device):
@@ -414,65 +431,74 @@ def sass_atomics(name: str) -> dict:
 
 
 def msda_kernel_report(plans: dict) -> dict:
-    """The MSDA gather kernels' ptxas report (K1, K3, K5, K9), their launch
-    plans with their dynamic shared memory checked against each library's
-    own count (K3: `plans`, the wrapper's msda_bwd_plan by shape; K9:
-    corner_bwd_plan and K5: its tile, at phase 8's B = 4 and phase 3's B = 1
-    encoder and decoder shapes), and the atomics in K3's and K9's SASS."""
+    """The MSDA gather kernels' ptxas report (K1, K3, K5, K6, K9, K10), their
+    launch plans with their dynamic shared memory checked against each
+    library's own count (K3: `plans`, the wrapper's msda_bwd_plan by shape;
+    K9 and K10: corner_bwd_plan and rowtap_bwd_plan at phase 8's B = 4; K5
+    and K6: their tile at phase 8's B = 4 and phase 3's B = 1; encoder and
+    decoder shapes), and the atomics in K3's, K9's and K10's SASS."""
     import ctypes
 
     from open_groundingdino_tpu_torch.ops import build, msda
     from open_groundingdino_tpu_torch.ops import msda_banded as mb
     from open_groundingdino_tpu_torch.ops import msda_sweep as sw
 
-    fn = build.load("msda_bwd").msda_bwd_smem_bytes
-    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    def smem_fn(lib, nargs):
+        fn = getattr(build.load(lib), f"{lib}_smem_bytes")
+        fn.argtypes, fn.restype = [ctypes.c_int] * nargs, ctypes.c_int
+        return fn
+
+    fn = smem_fn("msda_bwd", 1)
     for shape, plan in plans.items():
         if fn(plan["smem_rows"]) != plan["smem_bytes"]:
             raise AssertionError(f"K3's plan at the {shape} gives {plan['smem_bytes']} B of shared "
                                  f"memory, the kernel needs {fn(plan['smem_rows'])}")
     shapes = level_shapes(*BUCKET)
     L = sum(h * w for h, w in shapes)
-    corner_fn = build.load("msda_corner_bwd").msda_corner_bwd_smem_bytes
-    corner_fn.argtypes, corner_fn.restype = [ctypes.c_int], ctypes.c_int
-    banded_fn = build.load("msda_banded_fwd").msda_banded_fwd_smem_bytes
-    banded_fn.argtypes, banded_fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-    corner_plans, banded_plans = {}, {}
+    bwd_plans = {"K9": ("msda_corner_bwd", sw.corner_bwd_plan),
+                 "K10": ("msda_rowtap_bwd", sw.rowtap_bwd_plan)}
+    fwd_tiles = {"K5": ("msda_banded_fwd", mb.fwd_smem_bytes),
+                 "K6": ("msda_rowtap_fwd", sw.rowtap_fwd_smem_bytes)}
+    found = {k: {} for k in (*bwd_plans, *fwd_tiles)}
     for part, q in (("encoder", L), ("decoder", 900)):
         qp = -(-q // sw.QBLOCK) * sw.QBLOCK
-        plan = sw.corner_bwd_plan(shapes, len(BATCH_VALID), qp, HEADS)._asdict()
-        if corner_fn(plan["smem_rows"]) != plan["smem_bytes"]:
-            raise AssertionError(f"K9's plan at the {part} gives {plan['smem_bytes']} B of shared "
-                                 f"memory, the kernel needs {corner_fn(plan['smem_rows'])}")
-        corner_plans[part] = plan
+        for kname, (lib, plan_fn) in bwd_plans.items():
+            plan = plan_fn(shapes, len(BATCH_VALID), qp, HEADS)._asdict()
+            if smem_fn(lib, 1)(plan["smem_rows"]) != plan["smem_bytes"]:
+                raise AssertionError(f"{kname}'s plan at the {part} gives {plan['smem_bytes']} B "
+                                     f"of shared memory, the kernel needs "
+                                     f"{smem_fn(lib, 1)(plan['smem_rows'])}")
+            found[kname][part] = plan
         for batch in (1, len(BATCH_VALID)):
             tile = msda.msda_fwd_tile(batch, qp, HEADS)
-            smem = mb.fwd_smem_bytes(LEVELS, tile)
-            if banded_fn(LEVELS, tile) != smem:
-                raise AssertionError(f"K5's tile {tile} gives {smem} B of shared memory, the "
-                                     f"kernel needs {banded_fn(LEVELS, tile)}")
-            banded_plans[f"B={batch} {part}"] = {"tile_q": tile, "smem_bytes": smem}
+            for kname, (lib, bytes_fn) in fwd_tiles.items():
+                smem = bytes_fn(LEVELS, tile)
+                if smem_fn(lib, 2)(LEVELS, tile) != smem:
+                    raise AssertionError(f"{kname}'s tile {tile} gives {smem} B of shared memory, "
+                                         f"the kernel needs {smem_fn(lib, 2)(LEVELS, tile)}")
+                found[kname][f"B={batch} {part}"] = {"tile_q": tile, "smem_bytes": smem}
     report = {
         "msda_fwd": ptxas_kernels("msda_fwd", (("kernelIf", "msda_fwd_kernel<float>"),
                                                ("bfloat16", "msda_fwd_kernel<bf16>"))),
         "msda_bwd": ptxas_kernels("msda_bwd", (("msda_bwd_kernel", "msda_bwd_kernel"),)),
         "msda_bwd_atomics": sass_atomics("msda_bwd"),
         "msda_bwd_plans": plans,
-        "msda_banded_fwd": ptxas_kernels("msda_banded_fwd",
-                                         (("banded_fwd_kernel", "banded_fwd_kernel"),)),
-        "msda_banded_fwd_plans": banded_plans,
-        "msda_corner_bwd": ptxas_kernels("msda_corner_bwd",
-                                         (("corner_bwd_kernel", "corner_bwd_kernel"),)),
-        "msda_corner_bwd_atomics": sass_atomics("msda_corner_bwd"),
-        "msda_corner_bwd_plans": corner_plans,
     }
+    for kname, lib, kernel in (("K5", "msda_banded_fwd", "banded_fwd_kernel"),
+                               ("K6", "msda_rowtap_fwd", "rowtap_fwd_kernel"),
+                               ("K9", "msda_corner_bwd", "corner_bwd_kernel"),
+                               ("K10", "msda_rowtap_bwd", "rowtap_bwd_kernel")):
+        report[lib] = ptxas_kernels(lib, ((kernel, kernel),))
+        if kname in bwd_plans:
+            report[f"{lib}_atomics"] = sass_atomics(lib)
+        report[f"{lib}_plans"] = found[kname]
+        log("sass", f"lib{lib}.so ({kname}): ptxas {report[lib]}"
+                    + (f", SASS atomics {report[f'{lib}_atomics']}" if kname in bwd_plans else "")
+                    + f"; {'B = 4 plans' if kname in bwd_plans else 'tiles'} and dynamic shared "
+                      f"memory {found[kname]}")
     log("sass", f"libmsda_fwd.so: ptxas {report['msda_fwd']}; libmsda_bwd.so: ptxas "
                 f"{report['msda_bwd']}, SASS atomics {report['msda_bwd_atomics']}; K3 plans "
                 f"(dynamic shared memory as the library counts it) {plans}")
-    log("sass", f"libmsda_banded_fwd.so (K5): ptxas {report['msda_banded_fwd']}, tiles and "
-                f"dynamic shared memory {banded_plans}; libmsda_corner_bwd.so (K9): ptxas "
-                f"{report['msda_corner_bwd']}, SASS atomics {report['msda_corner_bwd_atomics']}, "
-                f"B = 4 plans {corner_plans}")
     return report
 
 
@@ -686,14 +712,14 @@ def check_fusion_bwd(device):
 # the sweep kernels against their plain versions: forward abs (f32, only the
 # order of each output's sums differs); backward relative to each gradient's
 # largest |reference| (grad_value by atomics in an order that changes from
-# run to run), tap gradients where the tap is live (w != 0: a dead tap's
-# gradient depends on the sweep's ranges and the chain rule multiplies it by
+# run to run); K10's tap gradients on every tap, K9's where the tap is live
+# (w != 0: K9 gives a dead tap gw = 0, which the chain rule multiplies by
 # zero)
 SWEEP_TOL = 1e-4
 SWEEP_RTOL = 1e-4
 # the kernels' names as torch.profiler sees them, for kernel_device_ms
-DEVICE_NAMES = {"K5": "banded_fwd_kernel", "K8": "sweep_fwd_kernel", "K9": "corner_bwd_kernel",
-                "K10": "sweep_bwd_kernel"}
+DEVICE_NAMES = {"K5": "banded_fwd_kernel", "K6": "rowtap_fwd_kernel", "K7": "sweep_fwd_kernel",
+                "K8": "sweep_fwd_kernel", "K9": "corner_bwd_kernel", "K10": "rowtap_bwd_kernel"}
 
 
 def sweep_operands(value, shapes, locs, attn, grad_out):
@@ -731,8 +757,8 @@ def rel_errs(got, ref, masks=None) -> dict:
 def check_sweep(device) -> dict:
     """K6 (and K7 on the decoder's sorted query set), K9 and K10 against their
     plain versions at the encoder and decoder shapes of phase 8's B = 4
-    batch; then the sweep op as the model calls it against K1 and K3 on the
-    same inputs."""
+    batch, then the sweep op as the model calls it against K1 and K3 on the
+    same inputs; then K6 again at phase 3's B = 1 shapes, serving's."""
     import torch
 
     from open_groundingdino_tpu_torch.ops import msda
@@ -742,54 +768,66 @@ def check_sweep(device) -> dict:
     L = sum(h * w for h, w in shapes)
     starts = msda.level_starts(shapes)
     g = torch.Generator(device=device).manual_seed(SEED + 12)
-    B = len(BATCH_VALID)
     rows = {}
-    for name, q, ref_dim in (("encoder", L, 2), ("decoder", 900, 4)):
-        value, locs, attn = msda_inputs(shapes, q, ref_dim, g, device, BATCH_VALID)
-        grad_out = torch.randn(B, q, HEADS * HEAD_DIM, generator=g, device=device)
-        ops = sweep_operands(value, shapes, locs, attn, grad_out)
-        row, px, w, idx, wc, g_k = (ops[k] for k in ("row", "px", "w", "idx", "wc", "g"))
-        fwd_bound = msda_bound_ms(value, shapes, locs, attn)
-        bwd_bound = msda_bwd_bound_ms(value, shapes, locs, attn)
-        out_p = sw.sweep_fwd_plain(value, row, px, w)
-        fwd_plain_ms = event_ms(lambda: sw.sweep_fwd_plain(value, row, px, w), 3)
-        fwds = [("K6", sw.sweep_fwd)] + ([("K7", sw.sweep_fwd_allq)] if q != L else [])
-        for kname, fn in fwds:
-            err = float((fn(value, shapes, row, px, w) - out_p).abs().max())
-            ms = event_ms(lambda: fn(value, shapes, row, px, w), 10)
-            rows[kname, name] = dict(Q=q, max_abs_err=err, ms=ms, plain_ms=fwd_plain_ms,
-                                     bound_ms=fwd_bound[0], bound_by=fwd_bound[1])
-            log(kname, f"{name}: B={B} Q={q} L={L}: max|kernel-plain| {err:.3e} (tolerance "
-                       f"{SWEEP_TOL}); kernel {ms:.4f} ms, plain {fwd_plain_ms:.3f} ms, bound "
-                       f"{fwd_bound[0]:.4f} ms ({fwd_bound[1]})")
-            if not err <= SWEEP_TOL:
-                raise AssertionError(f"{kname} {name}: max abs error {err} > {SWEEP_TOL}")
-        del out_p
-        live_c, live_r = wc != 0, w != 0
-        for kname, fn, plain, args, keys, masks in (
-                ("K9", sw.sweep_bwd_corner, sw.sweep_bwd_corner_plain, (idx, wc),
-                 ("grad_value", "gw"), {"gw": live_c}),
-                ("K10", sw.sweep_bwd_rowtap, sw.sweep_bwd_rowtap_plain, (row, px, w),
-                 ("grad_value", "gpx", "gw"), {"gpx": live_r, "gw": live_r})):
-            got = dict(zip(keys, fn(value, shapes, *args, g_k)))
-            ref = dict(zip(keys, plain(value, *args, g_k)))
-            errs = rel_errs(got, ref, masks)
-            del got, ref
-            ms = event_ms(lambda: fn(value, shapes, *args, g_k), 5)
-            device_ms = kernel_device_ms(lambda: fn(value, shapes, *args, g_k), 5,
-                                         DEVICE_NAMES[kname])
-            plain_ms = event_ms(lambda: plain(value, *args, g_k), 2)
-            rows[kname, name] = dict(Q=q, max_abs_err=max(errs.values()), errs=errs, ms=ms,
-                                     device_ms=device_ms, plain_ms=plain_ms,
-                                     bound_ms=bwd_bound[0], bound_by=bwd_bound[1])
-            log(kname, f"{name}: B={B} Q={q}: max|kernel-plain| / max|plain| "
-                       f"{ {k: f'{v:.3e}' for k, v in errs.items()} } (tolerance {SWEEP_RTOL}, "
-                       f"tap gradients where w != 0); kernel {ms:.4f} ms (device time "
-                       f"{device_ms:.4f} ms), plain {plain_ms:.3f} ms, bound {bwd_bound[0]:.4f} ms "
-                       f"({bwd_bound[1]})")
-            if not max(errs.values()) <= SWEEP_RTOL:
-                raise AssertionError(f"{kname} {name}: {errs} > {SWEEP_RTOL}")
-        rows["vs K1/K3", name] = sweep_vs_gather(value, shapes, starts, locs, attn, grad_out)
+    for batch, valid in (("B=4", BATCH_VALID), ("B=1", (BUCKET,))):
+        B = len(valid)
+        for name, q, ref_dim in (("encoder", L, 2), ("decoder", 900, 4)):
+            value, locs, attn = msda_inputs(shapes, q, ref_dim, g, device, valid)
+            grad_out = torch.randn(B, q, HEADS * HEAD_DIM, generator=g, device=device)
+            ops = sweep_operands(value, shapes, locs, attn, grad_out)
+            row, px, w, idx, wc, g_k = (ops[k] for k in ("row", "px", "w", "idx", "wc", "g"))
+            fwd_bound = msda_bound_ms(value, shapes, locs, attn)
+            bwd_bound = msda_bwd_bound_ms(value, shapes, locs, attn)
+            out_p = sw.sweep_fwd_plain(value, row, px, w)
+            fwd_plain_ms = event_ms(lambda: sw.sweep_fwd_plain(value, row, px, w), 3)
+            fwds = [("K6", sw.sweep_fwd)]
+            if q != L and batch == "B=4":
+                fwds.append(("K7", sw.sweep_fwd_allq))
+            # the B = 4 rows keep their (kernel, shape) keys; B = 1 K6's name its batch
+            key = name if batch == "B=4" else f"{batch} {name}"
+            for kname, fn in fwds:
+                err = float((fn(value, shapes, row, px, w) - out_p).abs().max())
+                call = lambda: fn(value, shapes, row, px, w)   # noqa: E731
+                ms = event_ms(call, 10)
+                device_ms = kernel_device_ms(call, 10, DEVICE_NAMES[kname])
+                rows[kname, key] = dict(B=B, Q=q, max_abs_err=err, ms=ms, device_ms=device_ms,
+                                        plain_ms=fwd_plain_ms, bound_ms=fwd_bound[0],
+                                        bound_by=fwd_bound[1])
+                log(kname, f"{name}: {batch} Q={q} L={L}: max|kernel-plain| {err:.3e} (tolerance "
+                           f"{SWEEP_TOL}); kernel {ms:.4f} ms (device time {device_ms:.4f} ms), "
+                           f"plain {fwd_plain_ms:.3f} ms, bound {fwd_bound[0]:.4f} ms "
+                           f"({fwd_bound[1]})")
+                if not err <= SWEEP_TOL:
+                    raise AssertionError(f"{kname} {batch} {name}: max abs error {err} > "
+                                         f"{SWEEP_TOL}")
+            del out_p
+            if batch == "B=1":
+                continue
+            for kname, fn, plain, args, keys, masks in (
+                    ("K9", sw.sweep_bwd_corner, sw.sweep_bwd_corner_plain, (idx, wc),
+                     ("grad_value", "gw"), {"gw": wc != 0}),
+                    ("K10", sw.sweep_bwd_rowtap, sw.sweep_bwd_rowtap_plain, (row, px, w),
+                     ("grad_value", "gpx", "gw"), None)):
+                got = dict(zip(keys, fn(value, shapes, *args, g_k)))
+                ref = dict(zip(keys, plain(value, *args, g_k)))
+                errs = rel_errs(got, ref, masks)
+                del got, ref
+                ms = event_ms(lambda: fn(value, shapes, *args, g_k), 5)
+                device_ms = kernel_device_ms(lambda: fn(value, shapes, *args, g_k), 5,
+                                             DEVICE_NAMES[kname])
+                plain_ms = event_ms(lambda: plain(value, *args, g_k), 2)
+                rows[kname, name] = dict(B=B, Q=q, max_abs_err=max(errs.values()), errs=errs,
+                                         ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                                         bound_ms=bwd_bound[0], bound_by=bwd_bound[1])
+                where = "where w != 0" if masks else "on every tap"
+                log(kname, f"{name}: B={B} Q={q}: max|kernel-plain| / max|plain| "
+                           f"{ {k: f'{v:.3e}' for k, v in errs.items()} } (tolerance "
+                           f"{SWEEP_RTOL}, tap gradients {where}); kernel {ms:.4f} ms (device "
+                           f"time {device_ms:.4f} ms), plain {plain_ms:.3f} ms, bound "
+                           f"{bwd_bound[0]:.4f} ms ({bwd_bound[1]})")
+                if not max(errs.values()) <= SWEEP_RTOL:
+                    raise AssertionError(f"{kname} {name}: {errs} > {SWEEP_RTOL}")
+            rows["vs K1/K3", name] = sweep_vs_gather(value, shapes, starts, locs, attn, grad_out)
     return rows
 
 
@@ -816,9 +854,9 @@ def sweep_vs_gather(value, shapes, starts, locs, attn, grad_out) -> dict:
     Location gradients are compared off the pixel lattice: at B = 4 some
     tens of the 10M f32 sampling points have a coordinate with zero
     fraction, where K3 takes the one-sided derivative through floor and the
-    sweep, as its TPU kernels do, another one (row taps: sign(0) = 0; a tap
-    whose bilinear weight is zero there is swept only with a live tap's
-    tile).  The count is reported."""
+    sweep, as its TPU kernels do, another one (row taps: sign(0) = 0; corner
+    taps: K9 gives gw = 0 on a tap whose bilinear weight is zero there).
+    The count is reported."""
     import torch
 
     from open_groundingdino_tpu_torch.ops import msda
@@ -1299,9 +1337,10 @@ def train(cfg: str, work: str, files, device: str, msda_keys=None, epochs: int =
 # the port's kernels by the names torch.profiler shows, first match wins
 # (K4's bwd_kernel after the MSDA backwards, whose names hold it too)
 KERNEL_GROUPS = (("K5 banded_fwd", ("banded_fwd_kernel",)),
-                 ("K6/K7 sweep_fwd", ("sweep_fwd_kernel",)),
+                 ("K6 rowtap_fwd", ("rowtap_fwd_kernel",)),
+                 ("K7/K8 sweep_fwd", ("sweep_fwd_kernel",)),
                  ("K9 corner_bwd", ("corner_bwd_kernel",)),
-                 ("K10 sweep_bwd", ("sweep_bwd_kernel",)),
+                 ("K10 rowtap_bwd", ("rowtap_bwd_kernel",)),
                  ("K1 msda_fwd", ("msda_fwd_kernel",)),
                  ("K2 fusion_fwd", ("attend_kernel", "combine_kernel")),
                  ("K3 msda_bwd", ("msda_bwd_kernel",)),
@@ -1534,32 +1573,38 @@ def check_train_parity(harness) -> dict:
 
 
 def check_sweep_train_parity(harness, gather_card) -> dict:
-    """One training step through the sweep (K6 forward, K9 backward) against
-    the gather's step on the card (phase 11's) from the same weights and
-    batch: loss within PARITY_LOSS_RTOL, module gradient norms within
-    PARITY_GRAD_RTOL, and each parameter that the MSDA kernels feed within
-    PARITY_LEAF_RTOL.  Then with K9's gw negated, which must fail."""
+    """One training step through the sweep (K6 forward, K9 backward) and one
+    with the row-tap backward (K10) against the gather's step on the card
+    (phase 11's) from the same weights and batch: loss within
+    PARITY_LOSS_RTOL, module gradient norms within PARITY_GRAD_RTOL, and
+    each parameter that the MSDA kernels feed within PARITY_LEAF_RTOL.  Then
+    each with its backward's gw negated, which must fail."""
     from open_groundingdino_tpu_torch.ops import msda_sweep as sw
 
     step, gaps, within = harness
-    sweep = {"kernel": "sweep", "sweep_bwd": "corner"}
-    run = step("cuda", msda=sweep)
-    gap = gaps(run, gather_card, MSDA_FED)
-    loss_rel, norm_rel, leaf_rel = gap
-    worst = sorted(leaf_rel.items(), key=lambda kv: -kv[1])[:3]
-    log("sweep-train-parity", f"sweep step vs gather step on the card: loss {run['loss']:.6f} "
-                              f"vs {gather_card['loss']:.6f} (rel {loss_rel:.2e}); grad-norm rel "
-                              f"by module { {k: f'{v:.2e}' for k, v in norm_rel.items()} }; "
-                              f"{len(leaf_rel)} MSDA-fed leaves ||dg||/||g|| max "
-                              f"{max(leaf_rel.values()):.2e} (limit {PARITY_LEAF_RTOL}), worst "
-                              f"{[(n, f'{v:.2e}') for n, v in worst]}; step s {run['seconds']:.1f}")
-    if not within(gap):
-        raise AssertionError("the sweep's training step disagrees with the gather's")
-    planted = planted_faults(step, gaps, within, gather_card, MSDA_FED,
-                             (("K9 gw negated", sw, "sweep_bwd_corner", 1),),
-                             "sweep-train-parity", msda=sweep)
-    return dict(loss_rel=loss_rel, norm_rel=norm_rel, leaf_rel_max=max(leaf_rel.values()),
-                planted=planted)
+    res = {}
+    for bwd, fault in (("corner", ("K9 gw negated", sw, "sweep_bwd_corner", 1)),
+                       ("rowtap", ("K10 gw negated", sw, "sweep_bwd_rowtap", 2))):
+        sweep = {"kernel": "sweep", "sweep_bwd": bwd}
+        run = step("cuda", msda=sweep)
+        gap = gaps(run, gather_card, MSDA_FED)
+        loss_rel, norm_rel, leaf_rel = gap
+        worst = sorted(leaf_rel.items(), key=lambda kv: -kv[1])[:3]
+        log("sweep-train-parity", f"sweep step ({bwd} backward) vs gather step on the card: loss "
+                                  f"{run['loss']:.6f} vs {gather_card['loss']:.6f} (rel "
+                                  f"{loss_rel:.2e}); grad-norm rel by module "
+                                  f"{ {k: f'{v:.2e}' for k, v in norm_rel.items()} }; "
+                                  f"{len(leaf_rel)} MSDA-fed leaves ||dg||/||g|| max "
+                                  f"{max(leaf_rel.values()):.2e} (limit {PARITY_LEAF_RTOL}), "
+                                  f"worst {[(n, f'{v:.2e}') for n, v in worst]}; step s "
+                                  f"{run['seconds']:.1f}")
+        if not within(gap):
+            raise AssertionError(f"the sweep's training step ({bwd}) disagrees with the gather's")
+        planted = planted_faults(step, gaps, within, gather_card, MSDA_FED, (fault,),
+                                 "sweep-train-parity", msda=sweep)
+        res[bwd] = dict(loss_rel=loss_rel, norm_rel=norm_rel,
+                        leaf_rel_max=max(leaf_rel.values()), planted=planted)
+    return res
 
 
 def profile_request(im, image, caption, top: int = 8, tag: str = "profile") -> dict:
@@ -1659,8 +1704,7 @@ def main() -> int:
                  dict(epochs=1, max_steps=1))):
             run = train(cfg, work, train_files, "cuda", keys, tag=tag, **kw)
             train_counts_sweep[tag] = run["counts"]
-            if tag == "sweep-train":
-                profile_train_step(run.pop("run"), tag="sweep-train-profile")
+            profile_train_step(run.pop("run"), tag=f"{tag}-profile")
             del run
         check_sweep_train_parity(harness, gather_card)                 # 15
 
@@ -1730,7 +1774,8 @@ def main() -> int:
          **single_row(k4), "sass": k4["sass"]["fusion_bwd"]},
     ]
     # K5 and K8 (phase 16; the row is phase 8's B = 4 shapes, per_shape adds
-    # B = 1) and the sweep kernels (phase 12 at phase 8's B = 4 shapes);
+    # B = 1) and the sweep kernels (phase 12 at phase 8's B = 4 shapes; K6's
+    # per_shape adds B = 1);
     # launches: K5's from the banded serving run (phase 17), K6's and K7's
     # from the sweep serving runs (phase 13), K8's from the microbench (phase
     # 19), K9's and K10's from the sweep training runs (phase 14); every
@@ -1739,12 +1784,12 @@ def main() -> int:
     measured = {**sweep, **{(k, n): r for (k, batch, n), r in banded.items() if batch == "B=4"}}
     for kname, counter, launches_from, source, line in (
             ("K5", "banded_fwd", "banded-serve", "msda_banded_fwd.cu", "msda_banded.py:152"),
-            ("K6", "sweep_fwd", "sweep-serve", "msda_sweep_fwd.cu", "msda_pallas.py:484"),
+            ("K6", "sweep_fwd", "sweep-serve", "msda_rowtap_fwd.cu", "msda_pallas.py:484"),
             ("K7", "sweep_fwd_allq", "sweep-serve-fused", "msda_sweep_fwd.cu",
              "msda_pallas.py:634"),
             ("K8", "sweep_fwd_corner", "microbench", "msda_sweep_fwd.cu", "msda_pallas.py:169"),
             ("K9", "sweep_bwd_corner", "sweep-train", "msda_corner_bwd.cu", "msda_pallas.py:955"),
-            ("K10", "sweep_bwd_rowtap", "sweep-train-rowtap", "msda_sweep_bwd.cu",
+            ("K10", "sweep_bwd_rowtap", "sweep-train-rowtap", "msda_rowtap_bwd.cu",
              "msda_pallas.py:1200")):
         shapes = {n: measured[kname, n] for n in ("encoder", "decoder") if (kname, n) in measured}
         row = mean_row(shapes) if len(shapes) == 2 else single_row(shapes["decoder"])
@@ -1753,16 +1798,20 @@ def main() -> int:
                                 if k == kname}
             row["max_abs_err"] = max(max(r["max_abs_err"], r["k1_max_abs_err"])
                                      for r in row["per_shape"].values())
-        sass = {"K5": ("msda_banded_fwd", "msda_banded_fwd_plans"),
-                "K9": ("msda_corner_bwd", "msda_corner_bwd_atomics", "msda_corner_bwd_plans")}
-        if kname in sass:
-            row["sass"] = {k: msda_sass[k] for k in sass[kname]}
+        if kname == "K6":
+            row["per_shape"] = {f"B=4 {n}" if n in shapes else n: r
+                                for (k, n), r in sweep.items() if k == "K6"}
+            row["max_abs_err"] = max(r["max_abs_err"] for r in row["per_shape"].values())
+        lib = {"K5": "msda_banded_fwd", "K6": "msda_rowtap_fwd", "K9": "msda_corner_bwd",
+               "K10": "msda_rowtap_bwd"}.get(kname)
+        if lib:
+            row["sass"] = {k: v for k, v in msda_sass.items() if k.startswith(lib)}
         kernels.append({"name": counter, "route": "cuda", "source": src + source,
                         "replaces": tpu + line, "launches": by_path[launches_from][counter],
                         "launches_by_path": {k: v[counter] for k, v in by_path.items()}, **row})
         if kernels[-1]["launches"] <= 0:
             raise AssertionError(f"{kname} was not launched on its path")
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": json_safe(kernels)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

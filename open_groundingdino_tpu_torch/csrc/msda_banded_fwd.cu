@@ -51,7 +51,9 @@ using namespace msda;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 
-__global__ void __launch_bounds__(kThreads)
+// 5 CTAs an SM: ptxas then takes 48 registers, no spills; without the bound
+// it took 40 with 12 B of spills, and the kernel ran ~3% slower (PERF.md)
+__global__ void __launch_bounds__(kThreads, 5)
 banded_fwd_kernel(const float* __restrict__ value, const float* __restrict__ px,
                   const float* __restrict__ py, const float* __restrict__ wa,
                   float* __restrict__ out, int L, int H, int Qp, int NL, int tile_q,
@@ -65,8 +67,6 @@ banded_fwd_kernel(const float* __restrict__ value, const float* __restrict__ px,
   int4* cpos = smem;
   float4* cw = reinterpret_cast<float4*>(smem + nlp * stride);
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int group = lane / kGroupLanes, sub = lane % kGroupLanes;
   const int tile = blockIdx.x % n_tiles;
   const int bh = blockIdx.x / n_tiles;
   const int h = bh % H, b = bh / H;
@@ -112,41 +112,9 @@ banded_fwd_kernel(const float* __restrict__ value, const float* __restrict__ px,
   }
   __syncthreads();
 
-  const long long row_stride = (long long)H * kD;
-  const float* vbase = value + ((long long)b * L * H + h) * kD;
-  // two queries a warp at a time, qq and qq + kWarps
-  for (int qq = warp; qq < nq; qq += 2 * kWarps) {
-    float4 acc[2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
-      const int qj = qq + j * kWarps;
-      if (qj >= nq) continue;   // warp-uniform
-#pragma unroll
-      for (int i = 0; i < kMaxLevels; ++i) {
-        if (i >= NL) break;
-        const int s = (i * kP + group) * stride + qj;
-        const int4 pos = cpos[s];
-        const float4 w = cw[s];
-        const int pc[4] = {pos.x, pos.y, pos.z, pos.w};
-        const float wc[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          if (pc[c] >= 0) acc[j] = fma4(wc[c], load4(vbase + pc[c] * row_stride, sub), acc[j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      acc[j].x = xor_sum<kGroupLanes, 16>(acc[j].x);
-      acc[j].y = xor_sum<kGroupLanes, 16>(acc[j].y);
-      acc[j].z = xor_sum<kGroupLanes, 16>(acc[j].z);
-      acc[j].w = xor_sum<kGroupLanes, 16>(acc[j].w);
-    }
-    if (group == 0) store4(out + ((long long)bh * Qp + q0 + qq) * kD, sub, acc[0]);
-    if (group == 1 && qq + kWarps < nq)
-      store4(out + ((long long)bh * Qp + q0 + qq + kWarps) * kD, sub, acc[1]);
-  }
+  gather_staged_corners<kWarps>(cpos, cw, stride, nq, NL,
+                                value + ((long long)b * L * H + h) * kD, (long long)H * kD,
+                                out + ((long long)bh * Qp + q0) * kD);
 }
 
 }  // namespace

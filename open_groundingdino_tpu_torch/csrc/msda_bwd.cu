@@ -61,23 +61,6 @@ using namespace msda;
 constexpr int kWarps = 16;
 constexpr int kThreads = kWarps * 32;
 
-// component j (0..3) of v, without indexing a register array at run time
-__device__ __forceinline__ float pick(float4 v, int j) {
-  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
-}
-
-// the level's position of shared-memory accumulator row r
-__device__ __forceinline__ int smem_row_position(int r, int NL, const Levels& lv) {
-  int pos = 0;
-#pragma unroll
-  for (int l = 0; l < kMaxLevels; ++l) {
-    const int r0 = lv.smem_row[l];
-    if (l < NL && r0 >= 0 && r >= r0 && r < r0 + lv.h[l] * lv.w[l])
-      pos = lv.start[l] + (r - r0);
-  }
-  return pos;
-}
-
 __global__ void __launch_bounds__(kThreads, 2)
 msda_bwd_kernel(const float* __restrict__ value, const float* __restrict__ locs,
                 const float* __restrict__ attn, const float* __restrict__ grad_out,
@@ -102,9 +85,7 @@ msda_bwd_kernel(const float* __restrict__ value, const float* __restrict__ locs,
   const int q_end = min(Q, (tile + 1) * tile_q);
   Slot* my = slots + warp * kSamples;
 
-  for (int i = threadIdx.x; i < smem_rows * (kD / 4); i += kThreads)
-    reinterpret_cast<float4*>(acc)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int i = threadIdx.x; i < smem_rows; i += kThreads) touched[i] = 0;
+  zero_rows(acc, touched, smem_rows, kThreads);
   __syncthreads();
 
   for (int q = tile * tile_q + warp; q < q_end; q += kWarps) {
@@ -143,32 +124,16 @@ msda_bwd_kernel(const float* __restrict__ value, const float* __restrict__ locs,
       for (int c = 0; c < 4; ++c) {
         if (pc[c] < 0) continue;
         const float k = a * wc[c];
-        const float4 add = make_float4(k * g.x, k * g.y, k * g.z, k * g.w);
-        if (srow0 != INT_MIN) {
-          const int r = srow0 + pc[c];
-          float* row = acc + (long long)r * kD + 4 * sub;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int jj = (j + group) & 3;   // the 4 groups on 4 different banks
-            atomicAdd(row + jj, pick(add, jj));
-          }
-          if (sub == 0) touched[r] = 1;
-        } else {
-          atomicAdd(reinterpret_cast<float4*>(grad_value + vbase + pc[c] * row_stride) + sub, add);
-        }
+        add_row(acc, touched, srow0 != INT_MIN ? srow0 + pc[c] : -1,
+                grad_value + vbase + pc[c] * row_stride, group, sub,
+                make_float4(k * g.x, k * g.y, k * g.z, k * g.w));
       }
     }
     __syncwarp();   // the slots are restaged for the next query
   }
 
   __syncthreads();
-  for (int i = threadIdx.x; i < smem_rows * (kD / 4); i += kThreads) {
-    const int r = i / (kD / 4);
-    if (!touched[r]) continue;
-    const int pos = smem_row_position(r, NL, lv);
-    atomicAdd(reinterpret_cast<float4*>(grad_value + vbase + pos * row_stride) + i % (kD / 4),
-              reinterpret_cast<const float4*>(acc)[i]);
-  }
+  flush_rows(acc, touched, smem_rows, NL, lv, grad_value + vbase, row_stride, kThreads);
 }
 
 }  // namespace

@@ -1,16 +1,20 @@
-// What K1 (msda_fwd.cu) and K3 (msda_bwd.cu) share: the geometry they are
-// built for, the per-sample staging, vector row loads and lane-group sums.
+// What the MSDA gather kernels share (K1 msda_fwd.cu, K3 msda_bwd.cu, K5
+// msda_banded_fwd.cu, K6 msda_rowtap_fwd.cu, K9 msda_corner_bwd.cu, K10
+// msda_rowtap_bwd.cu): the geometry they are built for, the per-sample
+// staging, vector row loads, lane-group sums, the corner gather of the
+// staged forwards and the grad_value accumulation of the backwards.
 //
 // Geometry, fixed at compile time (ops/msda.py checks it before a launch):
 // D = 32 channels a head, P = 4 points a level, at most 4 levels, so at most
 // 16 samples a (b, q, h).  A D = 32 value row is 128 B in f32 (64 B in bf16).
 //
-// Work layout, both kernels: a CTA takes one (b, h) and a tile of consecutive
+// Work layout, all of them: a CTA takes one (b, h) and a tile of consecutive
 // queries; its warps take the tile's queries in turns (warp w: queries
 // q0 + w, q0 + w + n_warps, ...).  For one (b, q, h) a warp
 //   1. stages the samples: lane s < 16 loads sample s's location and weight
 //      (coalesced) and computes its four corner positions and bilinear
-//      weights once, into the warp's slots in shared memory;
+//      weights once, into the warp's slots in shared memory (K5, K6, K9 and
+//      K10 stage a whole tile or chunk of queries at once, coalesced along q);
 //   2. works as 4 lane groups of 8 lanes: group g takes the samples
 //      (level i, point g), i = 0..3, and each lane of the group 4 channels
 //      (one 16-B float4 of an f32 row, 8 B of a bf16 one), so a warp has 16
@@ -35,8 +39,8 @@ struct Levels {
   int h[kMaxLevels];
   int w[kMaxLevels];
   int start[kMaxLevels];
-  // K3 only: the first shared-memory accumulator row of each level, or -1
-  // where the level scatters straight to global memory
+  // the backwards: the first shared-memory accumulator row of each level,
+  // or -1 where the level scatters straight to global memory
   int smem_row[kMaxLevels];
 };
 
@@ -135,6 +139,119 @@ __device__ __forceinline__ float xor_sum(float x) {
 #pragma unroll
   for (int o = first; o <= last; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
+}
+
+// component j (0..3) of v, without indexing a register array at run time
+__device__ __forceinline__ float pick(float4 v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// ---------------------------------------------------------------- staged forwards (K5, K6)
+// The gather half of K5 and K6, once a tile's corners are staged: cpos / cw
+// hold, for point t = level * kP + point and query qq of the tile, the four
+// corners' value positions (-1: no load) and weights at [t * stride + qq].
+// Each warp takes two queries at a time (qq and qq + kWarps), its 4 lane
+// groups on the points (level i, point g), each lane on 4 channels, loops
+// unrolled: 32 corner rows in flight a warp; the groups' sums meet in two
+// shuffle levels and the tile's nq outputs go to out_tile (nq rows of kD).
+template <int kWarps>
+__device__ __forceinline__ void gather_staged_corners(const int4* cpos, const float4* cw,
+                                                      int stride, int nq, int NL,
+                                                      const float* vbase, long long row_stride,
+                                                      float* out_tile) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int group = lane / kGroupLanes, sub = lane % kGroupLanes;
+  for (int qq = warp; qq < nq; qq += 2 * kWarps) {
+    float4 acc[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      const int qj = qq + j * kWarps;
+      if (qj >= nq) continue;   // warp-uniform
+#pragma unroll
+      for (int i = 0; i < kMaxLevels; ++i) {
+        if (i >= NL) break;
+        const int s = (i * kP + group) * stride + qj;
+        const int4 pos = cpos[s];
+        const float4 w = cw[s];
+        const int pc[4] = {pos.x, pos.y, pos.z, pos.w};
+        const float wc[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if (pc[c] >= 0) acc[j] = fma4(wc[c], load4(vbase + pc[c] * row_stride, sub), acc[j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      acc[j].x = xor_sum<kGroupLanes, 16>(acc[j].x);
+      acc[j].y = xor_sum<kGroupLanes, 16>(acc[j].y);
+      acc[j].z = xor_sum<kGroupLanes, 16>(acc[j].z);
+      acc[j].w = xor_sum<kGroupLanes, 16>(acc[j].w);
+    }
+    if (group == 0) store4(out_tile + (long long)qq * kD, sub, acc[0]);
+    if (group == 1 && qq + kWarps < nq) store4(out_tile + (long long)(qq + kWarps) * kD, sub, acc[1]);
+  }
+}
+
+// ---------------------------------------------------------------- grad_value (K3, K9, K10)
+// The backwards accumulate the grad_value rows of the levels their plan
+// admits in shared memory (acc: smem_rows rows of kD f32, a touched flag a
+// row) and flush them once a tile; the other levels' rows go straight to
+// global memory.
+
+// acc and touched zeroed by the CTA's n_threads threads (no barrier)
+__device__ __forceinline__ void zero_rows(float* acc, unsigned char* touched, int smem_rows,
+                                          int n_threads) {
+  for (int i = threadIdx.x; i < smem_rows * (kD / 4); i += n_threads)
+    reinterpret_cast<float4*>(acc)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = threadIdx.x; i < smem_rows; i += n_threads) touched[i] = 0;
+}
+
+// this lane's 4 channels `add` of a corner row: into shared accumulator row
+// r with shared f32 atomics, the 4 groups' channels rotated onto 4
+// different banks, or, for r < 0, into the global row grow with one float4
+// atomic (red.global.add.v4.f32)
+__device__ __forceinline__ void add_row(float* acc, unsigned char* touched, int r, float* grow,
+                                        int group, int sub, float4 add) {
+  if (r >= 0) {
+    float* row = acc + (long long)r * kD + 4 * sub;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int jj = (j + group) & 3;
+      atomicAdd(row + jj, pick(add, jj));
+    }
+    if (sub == 0) touched[r] = 1;
+  } else {
+    atomicAdd(reinterpret_cast<float4*>(grow) + sub, add);
+  }
+}
+
+// the level's position of shared-memory accumulator row r
+__device__ __forceinline__ int smem_row_position(int r, int NL, const Levels& lv) {
+  int pos = 0;
+#pragma unroll
+  for (int l = 0; l < kMaxLevels; ++l) {
+    const int r0 = lv.smem_row[l];
+    if (l < NL && r0 >= 0 && r >= r0 && r < r0 + lv.h[l] * lv.w[l])
+      pos = lv.start[l] + (r - r0);
+  }
+  return pos;
+}
+
+// every touched accumulator row added to grad_value (gv_base: the (b, h)
+// map's position 0, rows row_stride apart), one float4 atomic a 16 B; after
+// a barrier
+__device__ __forceinline__ void flush_rows(const float* acc, const unsigned char* touched,
+                                           int smem_rows, int NL, const Levels& lv,
+                                           float* gv_base, long long row_stride, int n_threads) {
+  for (int i = threadIdx.x; i < smem_rows * (kD / 4); i += n_threads) {
+    const int r = i / (kD / 4);
+    if (!touched[r]) continue;
+    const int pos = smem_row_position(r, NL, lv);
+    atomicAdd(reinterpret_cast<float4*>(gv_base + pos * row_stride) + i % (kD / 4),
+              reinterpret_cast<const float4*>(acc)[i]);
+  }
 }
 
 }  // namespace msda

@@ -55,23 +55,6 @@ constexpr int kChunk = 2 * kWarps;          // queries staged at a time
 constexpr int kTaps = kSamples * 4;         // corner taps a query, at most
 constexpr int kStride = kChunk + 1;         // a tap's row of staged queries
 
-// component j (0..3) of v, without indexing a register array at run time
-__device__ __forceinline__ float pick(float4 v, int j) {
-  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
-}
-
-// the level's position of shared-memory accumulator row r
-__device__ __forceinline__ int smem_row_position(int r, int NL, const Levels& lv) {
-  int pos = 0;
-#pragma unroll
-  for (int l = 0; l < kMaxLevels; ++l) {
-    const int r0 = lv.smem_row[l];
-    if (l < NL && r0 >= 0 && r >= r0 && r < r0 + lv.h[l] * lv.w[l])
-      pos = lv.start[l] + (r - r0);
-  }
-  return pos;
-}
-
 __global__ void __launch_bounds__(kThreads, 2)
 corner_bwd_kernel(const float* __restrict__ value, const int* __restrict__ idx,
                   const float* __restrict__ w, const float* __restrict__ g,
@@ -98,9 +81,7 @@ corner_bwd_kernel(const float* __restrict__ value, const int* __restrict__ idx,
   const long long vbase = ((long long)b * L * H + h) * kD;
   const int q_end = min(Qp, (tile + 1) * tile_q);
 
-  for (int i = threadIdx.x; i < smem_rows * (kD / 4); i += kThreads)
-    reinterpret_cast<float4*>(acc)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int i = threadIdx.x; i < smem_rows; i += kThreads) touched[i] = 0;
+  zero_rows(acc, touched, smem_rows, kThreads);
 
   for (int c0 = tile * tile_q; c0 < q_end; c0 += kChunk) {
     const int nq = min(kChunk, q_end - c0);
@@ -140,20 +121,10 @@ corner_bwd_kernel(const float* __restrict__ value, const int* __restrict__ idx,
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           if (wc[c] == 0.f) continue;
-          const float4 add = make_float4(wc[c] * gq.x, wc[c] * gq.y, wc[c] * gq.z, wc[c] * gq.w);
           const int r = pc[c] - start;
-          if (srow0 >= 0 && r >= 0 && r < n_rows) {
-            float* row = acc + (long long)(srow0 + r) * kD + 4 * sub;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const int jj = (j + group) & 3;   // the 4 groups on 4 different banks
-              atomicAdd(row + jj, pick(add, jj));
-            }
-            if (sub == 0) touched[srow0 + r] = 1;
-          } else {
-            atomicAdd(reinterpret_cast<float4*>(grad_value + vbase + pc[c] * row_stride) + sub,
-                      add);
-          }
+          add_row(acc, touched, srow0 >= 0 && r >= 0 && r < n_rows ? srow0 + r : -1,
+                  grad_value + vbase + pc[c] * row_stride, group, sub,
+                  make_float4(wc[c] * gq.x, wc[c] * gq.y, wc[c] * gq.z, wc[c] * gq.w));
         }
       }
     }
@@ -165,13 +136,7 @@ corner_bwd_kernel(const float* __restrict__ value, const int* __restrict__ idx,
   }
 
   __syncthreads();
-  for (int i = threadIdx.x; i < smem_rows * (kD / 4); i += kThreads) {
-    const int r = i / (kD / 4);
-    if (!touched[r]) continue;
-    const int pos = smem_row_position(r, NL, lv);
-    atomicAdd(reinterpret_cast<float4*>(grad_value + vbase + pos * row_stride) + i % (kD / 4),
-              reinterpret_cast<const float4*>(acc)[i]);
-  }
+  flush_rows(acc, touched, smem_rows, NL, lv, grad_value + vbase, row_stride, kThreads);
 }
 
 }  // namespace

@@ -1,12 +1,11 @@
-// K6, K7 and K8: multi-scale deformable attention forward as a tile sweep,
-// for Hopper (sm_90a).
+// K7 and K8: multi-scale deformable attention forward as a tile sweep, for
+// Hopper (sm_90a).
 //
-// Replaces: open_groundingdino_tpu/ops/msda_pallas.py::_msda_rowtap_kernel
-// (with its _msda_rowtap_nblk_kernel, several query blocks a sweep) as K6,
-// and ::_msda_rowtap_allq_kernel (every query block of one (b, h) in one
-// program, MSDA_DEC_FUSED=1) as K7, and ::_msda_kernel (corner taps,
-// MSDA_FWD_VARIANT=corner, reached through the op-level
-// ms_deform_attn(impl="pallas")) as K8.  K6 and K7 compute
+// Replaces: open_groundingdino_tpu/ops/msda_pallas.py::_msda_rowtap_allq_kernel
+// (every query block of one (b, h) in one program, MSDA_DEC_FUSED=1) as K7,
+// and ::_msda_kernel (corner taps, MSDA_FWD_VARIANT=corner, reached through
+// the op-level ms_deform_attn(impl="pallas")) as K8.  K7 computes K6's
+// function (msda_rowtap_fwd.cu)
 //   out[bh, q, :] = sum_r w[r, q] * sum_x relu(1 - |px[r, q] - x|) * V[bh, row[r, q] + x, :]
 // over the row taps r of each query (ops/msda_sweep.py expands each sample
 // point into two bilinear rows: the flat position of the row's first pixel,
@@ -21,7 +20,7 @@
 // corner taps t (four a sample point, grouped by level: taps_per_level each;
 // idx int32 (B*H, T, Qp) flat positions, clamped into the level where w == 0).
 //
-// Design.  A kernel block of 128 threads owns one 128-query block (K6: one
+// Design.  A kernel block of 128 threads owns one 128-query block (K8: one
 // such group per CTA, one CTA per (b*h, query block); K7: up to 8 groups
 // per CTA, one CTA per (b, h) that walks all of its query blocks).  Per
 // level, each group reduces the range of positions its live taps touch
@@ -29,24 +28,22 @@
 // widen it.  The CTA sweeps the union of its groups' ranges in tiles of T
 // positions: the tile's T x 32 values are staged in shared memory once, and
 // every group whose range meets the tile builds its S (T x 128, zeroed, then
-// each thread scatters its query's two non-zeros per row: the weights
-// (1 - f) and 1 - ((p0 + 1) - px), as the dense relu gives them) and
-// accumulates S^T-by-V into registers (8 queries x 4 channels a thread, f32
-// SIMT FMAs; a tile no tap of the group lands in skips its product).  K8 is
-// K6 with corner taps: each live tap puts its one weight at its position in
-// its query's column of S (up to 16 a level), a tap's range being its
-// position alone; the TPU's (TILE, 128) compare/select build of S is not
-// carried over.  K7's
-// point is the shared staging: at B = 1 the decoder has only 8 (b, h) pairs,
-// so each pair gets a whole SM (8 groups = 1024 threads, T = 32, 132 KB of
-// shared memory); K6 runs T = 64 and 40 KB a CTA, five CTAs an SM.
+// each thread scatters its query's non-zeros per row: K7 the weights
+// (1 - f) and 1 - ((p0 + 1) - px) of each row tap, as the dense relu gives
+// them; K8 each corner tap's one weight at its position, up to 16 a level)
+// and accumulates S^T-by-V into registers (8 queries x 4 channels a thread,
+// f32 SIMT FMAs; a tile no tap of the group lands in skips its product).
+// The TPU's (TILE, 128) compare/select build of S is not carried over.
+// K7's point is the shared staging: at B = 1 the decoder has only 8 (b, h)
+// pairs, so each pair gets a whole SM (8 groups = 1024 threads, T = 32,
+// 132 KB of shared memory); K8 runs T = 64 and 40 KB a CTA, five CTAs an SM.
 //
 // What bounds it on this card: operations.  The dense S-by-V product does
 // T * 128 * 32 FMAs per (block, tile) where the gather (K1) needs 64 taps a
 // query; the bound the smoke reports is K1's (same function, same compulsory
-// bytes and operations), and this design is tens of times above it.  It is
-// the tile-product formulation that tensor cores take (wgmma on S and V);
-// that, and TF32/bf16, are later work: f32 parity first.
+// bytes and operations), and this design is tens of times above it.  K6
+// took K1's gather shape on the row taps (msda_rowtap_fwd.cu); the same
+// move for K7 and K8 is later work.
 #include <cuda_runtime.h>
 #include <climits>
 
@@ -232,17 +229,6 @@ bool bad_args(int B, int L, int H, int Qp, int NL, int rows_per_level) {
 
 extern "C" {
 
-// K6: grid (Qp / 128, B*H), one 128-query block a CTA.  row int32, the rest
-// f32, all contiguous; out is written whole.  Returns a cudaError_t (0 =
-// launched).
-int msda_sweep_fwd_f32(const void* value, const void* row, const void* px, const void* w,
-                       void* out, int B, int L, int H, int Qp, int NL, int rows_per_level,
-                       void* stream) {
-  if (bad_args(B, L, H, Qp, NL, rows_per_level)) return (int)cudaErrorInvalidValue;
-  return launch<64, 1>(value, row, px, w, out, B, L, H, Qp, NL, rows_per_level, 1, Qp / kQB,
-                       (cudaStream_t)stream);
-}
-
 // K7: grid (1, B*H), one CTA per (b, h) holding min(Qp / 128, 8) query
 // blocks at a time and walking all of them.
 int msda_sweep_fwd_allq_f32(const void* value, const void* row, const void* px, const void* w,
@@ -255,8 +241,9 @@ int msda_sweep_fwd_allq_f32(const void* value, const void* row, const void* px, 
                                 (cudaStream_t)stream);
 }
 
-// K8: K6's grid and shape on corner taps.  idx int32 (B*H, NL *
-// taps_per_level, Qp), w f32 of the same shape.
+// K8: grid (Qp / 128, B*H), one 128-query block a CTA, on corner taps.
+// idx int32 (B*H, NL * taps_per_level, Qp), w f32 of the same shape, all
+// contiguous; out is written whole.  Returns a cudaError_t (0 = launched).
 int msda_sweep_fwd_corner_f32(const void* value, const void* idx, const void* w, void* out, int B,
                               int L, int H, int Qp, int NL, int taps_per_level, void* stream) {
   if (bad_args(B, L, H, Qp, NL, taps_per_level)) return (int)cudaErrorInvalidValue;

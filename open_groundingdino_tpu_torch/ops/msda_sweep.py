@@ -1,7 +1,8 @@
-"""Multi-scale deformable attention as a tile sweep: K6, K7 and K8 (forward,
-csrc/msda_sweep_fwd.cu), K9 (backward on corner taps, csrc/msda_corner_bwd.cu)
-and K10 (backward on row taps, csrc/msda_sweep_bwd.cu), their plain PyTorch
-versions, and the autograd Function around them.
+"""Multi-scale deformable attention on sweep taps: K6 (forward on row taps,
+csrc/msda_rowtap_fwd.cu), K7 and K8 (tile-sweep forwards, csrc/msda_sweep_fwd.cu),
+K9 (backward on corner taps, csrc/msda_corner_bwd.cu) and K10 (backward on
+row taps, csrc/msda_rowtap_bwd.cu), their plain PyTorch versions, and the
+autograd Function around them.
 
 The port of the JAX package's ops/msda_pallas.py::ms_deform_attn_pallas_t,
 the model path of `msda_impl="pallas"` with `MSDA_BANDED=0`, and of its
@@ -34,9 +35,11 @@ w == 0), upstream gradient and output (BH, Q_pad, D) f32, grad_value
 (B, L, H, D) f32.  Query sets with Q != L (the decoder) are sorted by their
 first row tap's position (K8: their first corner tap's, as
 msda_pallas.py:937-943 sorts), so that a block's taps are local; the output
-and the per-tap gradients are un-sorted afterwards.  Each kernel block finds the
-range of positions its live taps touch, per level, itself; K9 instead
-gathers and scatters the rows of its live taps (K3's design, ops/msda.py).
+and the per-tap gradients are un-sorted afterwards.  K7's and K8's kernel
+blocks find the range of positions their live taps touch, per level, and
+sweep it; K6, K9 and K10 instead gather (and scatter) the rows of their
+taps' corners (K1's and K3's design, ops/msda.py), with K1's and K3's
+launch plans.
 
 `ms_deform_attn_sweep` takes the plain version for CPU tensors (autograd
 differentiates it) and `MSDASweepFunction` for CUDA tensors.  The five
@@ -234,16 +237,17 @@ def sweep_bwd_corner_plain(value, idx, w, g):
 
 
 # ---------------------------------------------------------------- kernel wrappers
-_FWD_CTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ALLQ_CTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _FWD_CORNER_CTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_BWD_CTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_CORNER_BWD_CTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                      + [ctypes.POINTER(ctypes.c_int)] * 2
-                      + [ctypes.c_int, ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 2
-                      + [ctypes.c_void_p])
-CORNER_BWD_WARPS = 16                          # csrc/msda_corner_bwd.cu: warps a CTA
-CORNER_CHUNK = 2 * CORNER_BWD_WARPS            # queries whose taps a CTA stages at a time
-CORNER_TAPS = msda.SAMPLES * 4                 # corner taps a query, at most
+_ROWTAP_FWD_CTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_PLAN_CTYPES = ([ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+                + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+_CORNER_BWD_CTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + _PLAN_CTYPES
+_ROWTAP_BWD_CTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + _PLAN_CTYPES
+BWD_WARPS = 16                     # csrc/msda_corner_bwd.cu, msda_rowtap_bwd.cu: warps a CTA
+BWD_CHUNK = 2 * BWD_WARPS          # queries whose taps a CTA stages at a time
+CORNER_TAPS = msda.SAMPLES * 4     # corner taps a query, at most
+ROWTAP_TAPS = msda.SAMPLES * 2     # row taps a query, at most
 
 
 def _check(value, taps, w, what, g=None, row=None):
@@ -283,24 +287,38 @@ def _levels(spatial_shapes, R: int, per_point: int):
     return NL, R // NL
 
 
-def _launch_fwd(symbol, value, spatial_shapes, row, px, w):
-    B, L, H, R, Q_pad = _check(value, px, w, symbol, row=row)
-    NL, per_level = _levels(spatial_shapes, R, 2)
-    out = torch.empty(B * H, Q_pad, HEAD_DIM, dtype=torch.float32, device=value.device)
-    fn = getattr(build.load("msda_sweep_fwd"), symbol)
-    fn.argtypes = _FWD_CTYPES
-    fn.restype = ctypes.c_int
-    err = fn(value.data_ptr(), row.data_ptr(), px.data_ptr(), w.data_ptr(), out.data_ptr(),
-             B, L, H, Q_pad, NL, per_level,
-             torch.cuda.current_stream(value.device).cuda_stream)
-    build.check(err, symbol)
-    return out
+def _check_gather(value, g, spatial_shapes, R, taps_per_point, what):
+    """Raise unless K6, K9 or K10 is built for these operands (value and g
+    16-byte aligned, D = 32, P = 4, NL <= 4); returns (NL, P)."""
+    if value.data_ptr() % 16 or (g is not None and g.data_ptr() % 16):
+        raise ValueError(f"{what}: value and g must be 16-byte aligned")
+    NL, per_level = _levels(spatial_shapes, R, taps_per_point)
+    msda.check_geometry(value.shape[-1], NL, per_level // taps_per_point)
+    return NL, per_level // taps_per_point
+
+
+def rowtap_fwd_smem_bytes(NL: int, tile_q: int) -> int:
+    """K6's dynamic shared memory (csrc/msda_rowtap_fwd.cu
+    msda_rowtap_fwd_smem_bytes): each (point, query) of a tile's four corner
+    positions (int4) and weights (float4), a row of tile_q + 1 a point."""
+    return NL * msda.POINTS * (tile_q + 1) * 32
 
 
 def sweep_fwd(value, spatial_shapes, row, px, w):
-    """K6 on CUDA tensors: one kernel block per (b*h, 128-query block).
-    Returns (BH, Q_pad, D) f32."""
-    out = _launch_fwd("msda_sweep_fwd_f32", value, spatial_shapes, row, px, w)
+    """K6 on CUDA tensors: one kernel block per (b*h, tile of queries), the
+    tile chosen as K1's (msda.msda_fwd_tile); each live tap reads its at
+    most two rows.  value (B, L, H, 32) f32, 16-byte aligned; row int32, px,
+    w (BH, NL*2*P, Q_pad) -> (BH, Q_pad, D) f32."""
+    B, L, H, R, Q_pad = _check(value, px, w, "sweep_fwd", row=row)
+    NL, P = _check_gather(value, None, spatial_shapes, R, 2, "sweep_fwd")
+    out = torch.empty(B * H, Q_pad, HEAD_DIM, dtype=torch.float32, device=value.device)
+    fn = build.load("msda_rowtap_fwd").msda_rowtap_fwd_f32
+    fn.argtypes = _ROWTAP_FWD_CTYPES
+    fn.restype = ctypes.c_int
+    err = fn(value.data_ptr(), row.data_ptr(), px.data_ptr(), w.data_ptr(), out.data_ptr(),
+             B, L, H, Q_pad, NL, P, msda.msda_fwd_tile(B, Q_pad, H),
+             torch.cuda.current_stream(value.device).cuda_stream)
+    build.check(err, "msda_rowtap_fwd")
     sweep_fwd.launches += 1
     return out
 
@@ -309,7 +327,16 @@ def sweep_fwd_allq(value, spatial_shapes, row, px, w):
     """K7 on CUDA tensors: every query block of one (b, h) in one kernel
     block, each value tile staged once for all of them.  Same function and
     operands as K6."""
-    out = _launch_fwd("msda_sweep_fwd_allq_f32", value, spatial_shapes, row, px, w)
+    B, L, H, R, Q_pad = _check(value, px, w, "sweep_fwd_allq", row=row)
+    NL, per_level = _levels(spatial_shapes, R, 2)
+    out = torch.empty(B * H, Q_pad, HEAD_DIM, dtype=torch.float32, device=value.device)
+    fn = build.load("msda_sweep_fwd").msda_sweep_fwd_allq_f32
+    fn.argtypes = _ALLQ_CTYPES
+    fn.restype = ctypes.c_int
+    err = fn(value.data_ptr(), row.data_ptr(), px.data_ptr(), w.data_ptr(), out.data_ptr(),
+             B, L, H, Q_pad, NL, per_level,
+             torch.cuda.current_stream(value.device).cuda_stream)
+    build.check(err, "msda_sweep_fwd_allq_f32")
     sweep_fwd_allq.launches += 1
     return out
 
@@ -335,19 +362,45 @@ def sweep_fwd_corner(value, spatial_shapes, idx, w):
 def corner_bwd_smem_bytes(smem_rows: int) -> int:
     """K9's dynamic shared memory (csrc/msda_corner_bwd.cu
     msda_corner_bwd_smem_bytes): a chunk's staged idx, w and gw (CORNER_TAPS
-    rows of CORNER_CHUNK + 1), smem_rows rows of HEAD_DIM f32, a flag a row."""
-    return (3 * CORNER_TAPS * (CORNER_CHUNK + 1) * 4 + smem_rows * HEAD_DIM * 4
+    rows of BWD_CHUNK + 1), smem_rows rows of HEAD_DIM f32, a flag a row."""
+    return (3 * CORNER_TAPS * (BWD_CHUNK + 1) * 4 + smem_rows * HEAD_DIM * 4
             + -(-smem_rows // 16) * 16)
 
 
-def corner_bwd_plan(spatial_shapes: Shapes, B: int, Q_pad: int, H: int) -> msda.BwdPlan:
-    """K9's launch plan, K3's rule (ops/msda.py) with K9's shared memory: a
-    tile of queries a CTA (at least a staged chunk; the fewest CTAs
+def rowtap_bwd_smem_bytes(smem_rows: int) -> int:
+    """K10's dynamic shared memory (csrc/msda_rowtap_bwd.cu
+    msda_rowtap_bwd_smem_bytes): a chunk's staged row, px, w, gw and gpx
+    (ROWTAP_TAPS rows of BWD_CHUNK + 1), smem_rows rows of HEAD_DIM f32, a
+    flag a row."""
+    return (5 * ROWTAP_TAPS * (BWD_CHUNK + 1) * 4 + smem_rows * HEAD_DIM * 4
+            + -(-smem_rows // 16) * 16)
+
+
+def _bwd_plan(spatial_shapes: Shapes, B: int, Q_pad: int, H: int, smem_bytes) -> msda.BwdPlan:
+    """K3's rule (ops/msda.py) with a kernel's own shared memory: a tile of
+    queries a CTA (at least a staged chunk; the fewest CTAs
     msda.BWD_MIN_CTAS) and the levels whose grad_value it accumulates in
     shared memory (msda.smem_levels)."""
-    tile = msda._tile(B, Q_pad, H, msda.BWD_MIN_CTAS, CORNER_CHUNK)
-    smem_row, used = msda.smem_levels(spatial_shapes, tile, corner_bwd_smem_bytes)
-    return msda.BwdPlan(tile, smem_row, used, corner_bwd_smem_bytes(used))
+    tile = msda._tile(B, Q_pad, H, msda.BWD_MIN_CTAS, BWD_CHUNK)
+    smem_row, used = msda.smem_levels(spatial_shapes, tile, smem_bytes)
+    return msda.BwdPlan(tile, smem_row, used, smem_bytes(used))
+
+
+def corner_bwd_plan(spatial_shapes: Shapes, B: int, Q_pad: int, H: int) -> msda.BwdPlan:
+    """K9's launch plan (_bwd_plan with corner_bwd_smem_bytes)."""
+    return _bwd_plan(spatial_shapes, B, Q_pad, H, corner_bwd_smem_bytes)
+
+
+def rowtap_bwd_plan(spatial_shapes: Shapes, B: int, Q_pad: int, H: int) -> msda.BwdPlan:
+    """K10's launch plan (_bwd_plan with rowtap_bwd_smem_bytes)."""
+    return _bwd_plan(spatial_shapes, B, Q_pad, H, rowtap_bwd_smem_bytes)
+
+
+def _plan_args(spatial_shapes, plan: msda.BwdPlan):
+    """The level and plan arguments K9's and K10's C entries take."""
+    NL = len(spatial_shapes)
+    return (*msda._level_arrays(spatial_shapes, level_starts(spatial_shapes)), plan.tile_q,
+            (ctypes.c_int * NL)(*plan.smem_row), plan.smem_rows, plan.smem_bytes)
 
 
 def sweep_bwd_corner(value, spatial_shapes, idx, w, g):
@@ -359,10 +412,7 @@ def sweep_bwd_corner(value, spatial_shapes, idx, w, g):
     B, L, H, R, Q_pad = _check(value, idx, w, "sweep_bwd_corner", g)
     if idx.dtype != torch.int32:
         raise ValueError("sweep_bwd_corner: idx must be int32")
-    if value.data_ptr() % 16 or g.data_ptr() % 16:
-        raise ValueError("sweep_bwd_corner: value and g must be 16-byte aligned")
-    NL, per_level = _levels(spatial_shapes, R, 4)
-    msda.check_geometry(value.shape[-1], NL, per_level // 4)
+    NL, P = _check_gather(value, g, spatial_shapes, R, 4, "sweep_bwd_corner")
     plan = corner_bwd_plan(spatial_shapes, B, Q_pad, H)
     gv = torch.zeros_like(value)
     gw = torch.empty_like(w)
@@ -370,9 +420,7 @@ def sweep_bwd_corner(value, spatial_shapes, idx, w, g):
     fn.argtypes = _CORNER_BWD_CTYPES
     fn.restype = ctypes.c_int
     err = fn(value.data_ptr(), idx.data_ptr(), w.data_ptr(), g.data_ptr(), gv.data_ptr(),
-             gw.data_ptr(), B, L, H, Q_pad, NL, per_level // 4,
-             *msda._level_arrays(spatial_shapes, level_starts(spatial_shapes)), plan.tile_q,
-             (ctypes.c_int * NL)(*plan.smem_row), plan.smem_rows, plan.smem_bytes,
+             gw.data_ptr(), B, L, H, Q_pad, NL, P, *_plan_args(spatial_shapes, plan),
              torch.cuda.current_stream(value.device).cuda_stream)
     build.check(err, "msda_corner_bwd")
     sweep_bwd_corner.launches += 1
@@ -380,23 +428,26 @@ def sweep_bwd_corner(value, spatial_shapes, idx, w, g):
 
 
 def sweep_bwd_rowtap(value, spatial_shapes, row, px, w, g):
-    """K10 on CUDA tensors: row, px, w (BH, NL*2*P, Q_pad), g (BH, Q_pad, D)
-    -> (grad_value (B, L, H, D), gpx, gw); gpx without the row weight.  gw
-    and gpx are computed for every tap whose position lies in a tile its
-    block sweeps; a dead tap (w == 0) elsewhere gets 0 (the chain rule
-    multiplies it by zero)."""
+    """K10 on CUDA tensors: row int32, px, w (BH, NL*2*P, Q_pad), g
+    (BH, Q_pad, D) -> (grad_value (B, L, H, D), gpx, gw); gpx without the
+    row weight.  One kernel block per (b*h, tile of queries,
+    rowtap_bwd_plan) gathers its taps' corner rows and scatters the live
+    ones; gw and gpx are given on every tap, dead ones too.  value and g
+    16-byte aligned; built for D = 32, P = 4, NL <= 4."""
     B, L, H, R, Q_pad = _check(value, px, w, "sweep_bwd_rowtap", g, row)
-    NL, per_level = _levels(spatial_shapes, R, 2)
+    NL, P = _check_gather(value, g, spatial_shapes, R, 2, "sweep_bwd_rowtap")
+    plan = rowtap_bwd_plan(spatial_shapes, B, Q_pad, H)
     gv = torch.zeros_like(value)
     gw = torch.empty_like(w)
     gpx = torch.empty_like(w)
-    fn = build.load("msda_sweep_bwd").msda_sweep_bwd_rowtap_f32
-    fn.argtypes = _BWD_CTYPES
+    fn = build.load("msda_rowtap_bwd").msda_rowtap_bwd_f32
+    fn.argtypes = _ROWTAP_BWD_CTYPES
     fn.restype = ctypes.c_int
     err = fn(value.data_ptr(), row.data_ptr(), px.data_ptr(), w.data_ptr(), g.data_ptr(),
-             gv.data_ptr(), gw.data_ptr(), gpx.data_ptr(), B, L, H, Q_pad, NL, per_level,
+             gv.data_ptr(), gw.data_ptr(), gpx.data_ptr(), B, L, H, Q_pad, NL, P,
+             *_plan_args(spatial_shapes, plan),
              torch.cuda.current_stream(value.device).cuda_stream)
-    build.check(err, "msda_sweep_bwd_rowtap_f32")
+    build.check(err, "msda_rowtap_bwd")
     sweep_bwd_rowtap.launches += 1
     return gv, gpx, gw
 

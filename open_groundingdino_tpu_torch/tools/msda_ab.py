@@ -1,18 +1,20 @@
-"""A/B of the MSDA kernels K1, K3, K5 and K9 on one GPU: this checkout's
+"""A/B of the MSDA kernels K1, K3, K5, K6, K9 and K10 on one GPU: this checkout's
 against other checkouts' (the parent commit unpacked with `git archive`, or
 a copy with one change), on the same seeded operands, in turns on one card.
 
     python -m open_groundingdino_tpu_torch.tools.msda_ab --ref NAME=DIR [--ref NAME=DIR ...] \\
-        [--kernels K1,K3,K5,K9] [--set NAME.ATTR=VALUE ...] [--iters N] [--rounds N]
+        [--kernels K1,K3,K5,K6,K9,K10] [--set NAME.ATTR=VALUE ...] [--iters N] [--rounds N]
 
 Run it from the repository root: the operands are chip_smoke.py's, at the
 800x1216 bucket's encoder (Q = L = 20197) and decoder (Q = 900) shapes, for
 serving's B = 1 (smoke phase 3) and training's B = 4 with a valid region
-for each image (phase 8).  K1 and K5 (the per-point banded forward, on the
-operands `banded_operands` makes) are timed at all four, K3 and K9 (the
-corner-tap backward, on the operands the sweep's backward makes) at B = 4.
+for each image (phase 8).  K1, K5 (the per-point banded forward, on the
+operands `banded_operands` makes) and K6 (the row-tap forward, on the row
+taps the sweep makes) are timed at all four, K3, K9 and K10 (the corner-
+and row-tap backwards, on the taps the sweep's backward makes) at B = 4.
 Each DIR holds an `open_groundingdino_tpu_torch/` package whose ops have
-`ms_deform_attn`, `ms_deform_attn_bwd`, `banded_fwd` and `sweep_bwd_corner`;
+`ms_deform_attn`, `ms_deform_attn_bwd`, `banded_fwd`, `sweep_fwd`,
+`sweep_bwd_corner` and `sweep_bwd_rowtap`;
 it is imported under NAME and builds its MSDA kernels into DIR/build/.  The
 same DIR may be given twice: `--set NAME.ATTR=VALUE` sets an int constant of
 NAME's ops/msda.py, ops/msda_banded.py or ops/msda_sweep.py (the first that
@@ -20,7 +22,8 @@ has it; a launch-plan constant such as FWD_MIN_CTAS).  This checkout is
 "this".
 
 Every version is held to the plain version with the smoke's tolerances
-first (K9's gw where the tap is live).  Then each round times every version
+first (K9's gw and K10's gw and gpx where the tap is live: older versions
+give a dead tap 0).  Then each round times every version
 with CUDA events (the mean of `--iters` back-to-back calls after a warm-up),
 in the order refs, this, this, refs; at the decoder's shapes that time is
 the host's launch cost as much as the kernel's, so torch.profiler's device
@@ -42,13 +45,16 @@ import threading
 import types
 
 THIS = "this"
-KERNELS = ("K1", "K3", "K5", "K9")
+KERNELS = ("K1", "K3", "K5", "K6", "K9", "K10")
 # the libraries the timed kernels live in, in this checkout or an older one
-LIBRARIES = ("msda_fwd", "msda_bwd", "msda_banded_fwd", "msda_sweep_bwd", "msda_corner_bwd")
-# the kernels' names as torch.profiler sees them (K9's before and after it
-# left the sweep's shared template)
+LIBRARIES = ("msda_fwd", "msda_bwd", "msda_banded_fwd", "msda_sweep_fwd", "msda_sweep_bwd",
+             "msda_rowtap_fwd", "msda_rowtap_bwd", "msda_corner_bwd")
+# the kernels' names as torch.profiler sees them (K6's, K9's and K10's
+# before and after they left the sweep's tile-product templates)
 DEVICE_NAMES = {"K1": "msda_fwd_kernel", "K3": "msda_bwd_kernel", "K5": "banded_fwd_kernel",
-                "K9": ("sweep_bwd_kernel", "corner_bwd_kernel")}
+                "K6": ("sweep_fwd_kernel", "rowtap_fwd_kernel"),
+                "K9": ("sweep_bwd_kernel", "corner_bwd_kernel"),
+                "K10": ("sweep_bwd_kernel", "rowtap_bwd_kernel")}
 
 
 def get_args_parser() -> argparse.ArgumentParser:
@@ -124,12 +130,22 @@ def cases(kernels, cs, this, shapes, g, device="cuda"):
                 out["K5"] = (lambda m: m.msda_banded.banded_fwd(value, shapes, px, py, wa),
                              [mb.banded_fwd_plain(value, shapes, px, py, wa, ranges)],
                              None, cs.K5_K8_TOL, fwd_bound)
-            if "K9" in kernels and batch == "B=4":
+            if {"K6", "K9", "K10"} & set(kernels):
                 ops = cs.sweep_operands(value, shapes, locs, attn, grad_out)
-                idx, wc, g_k = ops["idx"], ops["wc"], ops["g"]
+                row, rpx, w, idx, wc, g_k = (ops[k] for k in ("row", "px", "w", "idx", "wc", "g"))
+            if "K6" in kernels:
+                out["K6"] = (lambda m: m.msda_sweep.sweep_fwd(value, shapes, row, rpx, w),
+                             [sw.sweep_fwd_plain(value, row, rpx, w)], None, cs.SWEEP_TOL,
+                             fwd_bound)
+            if "K9" in kernels and batch == "B=4":
                 out["K9"] = (lambda m: m.msda_sweep.sweep_bwd_corner(value, shapes, idx, wc, g_k),
                              sw.sweep_bwd_corner_plain(value, idx, wc, g_k),
                              [None, wc != 0], cs.SWEEP_RTOL, bwd_bound)
+            if "K10" in kernels and batch == "B=4":
+                out["K10"] = (lambda m: m.msda_sweep.sweep_bwd_rowtap(value, shapes, row, rpx, w,
+                                                                      g_k),
+                              sw.sweep_bwd_rowtap_plain(value, row, rpx, w, g_k),
+                              [None, w != 0, w != 0], cs.SWEEP_RTOL, bwd_bound)
             if out:
                 yield f"{batch} {part}", out
             del value, locs, attn, grad_out, out
@@ -143,7 +159,7 @@ def rel_err(kernel, got, ref, masks) -> float:
         mask = masks[i] if masks else None
         if mask is not None:
             a, b = a[mask], b[mask]
-        scale = 1.0 if kernel in ("K1", "K5") else max(float(b.abs().max()), 1e-30)
+        scale = 1.0 if kernel in ("K1", "K5", "K6") else max(float(b.abs().max()), 1e-30)
         errs.append(float((a - b).abs().max()) / scale)
     return max(errs)
 

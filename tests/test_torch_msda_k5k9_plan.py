@@ -32,7 +32,7 @@ NANO = ((8, 12), (4, 6), (2, 3), (1, 2))
 MIXED = ((40, 60), (20, 30), (10, 15), (5, 8))
 SMEM_MAX = 232_448              # a CTA's most shared memory on Hopper
 K5_WARPS, THREADS = 8, 256      # csrc/msda_banded_fwd.cu
-K9_THREADS = 32 * sw.CORNER_BWD_WARPS
+K9_THREADS = 32 * sw.BWD_WARPS
 
 
 def _L(shapes):
@@ -69,7 +69,7 @@ def _k9_visits(Qp, tile, T):
     """K9's loops for every tile and chunk of 32 queries: staged (tap, query)
     pairs, the queries the warps take (warp w: w, w + 16) and the written gw
     pairs."""
-    chunk = sw.CORNER_CHUNK
+    chunk = sw.BWD_CHUNK
     staged, taken, written = [], [], []
     for t0 in range(0, Qp, tile):
         q_end = min(Qp, t0 + tile)
@@ -81,8 +81,8 @@ def _k9_visits(Qp, tile, T):
                     if qq < nq:
                         staged.append((t, c0 + qq))
                         written.append((t, c0 + qq))
-            for w in range(sw.CORNER_BWD_WARPS):
-                taken += [c0 + qq for qq in range(w, nq, sw.CORNER_BWD_WARPS)]
+            for w in range(sw.BWD_WARPS):
+                taken += [c0 + qq for qq in range(w, nq, sw.BWD_WARPS)]
     return staged, taken, written
 
 
@@ -103,7 +103,7 @@ def test_loops_visit_once_and_plans_fit(shapes, B, Q):
     assert sorted((t, q) for q, t in read) == every
 
     plan = sw.corner_bwd_plan(shapes, B, Qp, H)
-    assert plan.tile_q in msda.TILES and plan.tile_q >= sw.CORNER_CHUNK
+    assert plan.tile_q in msda.TILES and plan.tile_q >= sw.BWD_CHUNK
     assert plan.smem_bytes == sw.corner_bwd_smem_bytes(plan.smem_rows)
     assert plan.smem_bytes <= msda.BWD_SMEM_BUDGET <= SMEM_MAX
     rows = [h * w for h, w in shapes]
