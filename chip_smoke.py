@@ -29,10 +29,10 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                bucket whose images each have their own valid region, with a
                seeded upstream gradient; K1 and K3 (here and in phase 3) also
                by torch.profiler's device time; ptxas's report of the K1,
-               K3, K5, K6, K9 and K10 libraries, K3's, K9's and K10's launch
-               plans and K5's and K6's tiles against each library's count of
-               their shared memory, and the atomics in K3's, K9's and K10's
-               SASS
+               K3, K5, K6/K7, K8, K9 and K10 libraries, K3's, K9's and K10's
+               launch plans and K5's-K8's tiles against each library's count
+               of their shared memory, and the atomics in K3's, K9's and
+               K10's SASS
   9. K4      - the fusion backward kernel against autograd of K2's plain
                version (gq, gk, gvv, gvl), and K2 against its plain version
                on the same operands, at the encoder fusion shape of that
@@ -59,11 +59,13 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                the model path gives them, at phase 8's encoder and decoder
                shapes (K10's tap gradients on every tap; each kernel also by
                torch.profiler's device time); then the sweep op against K1
-               and K3 on the same inputs; then K6 at phase 3's B = 1 shapes
+               and K3 on the same inputs; then K6 and K7 at phase 3's B = 1
+               shapes
  13. sweep serve - load_model + predict through msda_kernel="sweep" (K6), and
                again with msda_dec_fused=True (K7 in the decoder), on phase
                5's requests; each one forward against phase 6's CPU forward,
-               flip-aware; a profiled request
+               flip-aware; a profiled request of each (the fused one reads
+               K7's time on its path)
  14. sweep train - main with --options msda_kernel=sweep: 2 B = 4 steps (K6,
                K9) and a profiled one; then 1 step with msda_sweep_bwd=rowtap
                (K6, K10) and a profiled one
@@ -431,12 +433,13 @@ def sass_atomics(name: str) -> dict:
 
 
 def msda_kernel_report(plans: dict) -> dict:
-    """The MSDA gather kernels' ptxas report (K1, K3, K5, K6, K9, K10), their
-    launch plans with their dynamic shared memory checked against each
-    library's own count (K3: `plans`, the wrapper's msda_bwd_plan by shape;
-    K9 and K10: corner_bwd_plan and rowtap_bwd_plan at phase 8's B = 4; K5
-    and K6: their tile at phase 8's B = 4 and phase 3's B = 1; encoder and
-    decoder shapes), and the atomics in K3's, K9's and K10's SASS."""
+    """The MSDA gather kernels' ptxas report (K1, K3, K5-K10), their launch
+    plans with their dynamic shared memory checked against each library's
+    own count (K3: `plans`, the wrapper's msda_bwd_plan by shape; K9 and
+    K10: corner_bwd_plan and rowtap_bwd_plan at phase 8's B = 4; K5-K8: their
+    tile at phase 8's B = 4 and phase 3's B = 1, encoder and decoder shapes,
+    K7 at the decoder's only), and the atomics in K3's, K9's and K10's
+    SASS."""
     import ctypes
 
     from open_groundingdino_tpu_torch.ops import build, msda
@@ -458,7 +461,9 @@ def msda_kernel_report(plans: dict) -> dict:
     bwd_plans = {"K9": ("msda_corner_bwd", sw.corner_bwd_plan),
                  "K10": ("msda_rowtap_bwd", sw.rowtap_bwd_plan)}
     fwd_tiles = {"K5": ("msda_banded_fwd", mb.fwd_smem_bytes),
-                 "K6": ("msda_rowtap_fwd", sw.rowtap_fwd_smem_bytes)}
+                 "K6": ("msda_rowtap_fwd", sw.rowtap_fwd_smem_bytes),
+                 "K7": ("msda_rowtap_fwd", sw.rowtap_fwd_smem_bytes),
+                 "K8": ("msda_corner_fwd", sw.corner_fwd_smem_bytes)}
     found = {k: {} for k in (*bwd_plans, *fwd_tiles)}
     for part, q in (("encoder", L), ("decoder", 900)):
         qp = -(-q // sw.QBLOCK) * sw.QBLOCK
@@ -472,6 +477,8 @@ def msda_kernel_report(plans: dict) -> dict:
         for batch in (1, len(BATCH_VALID)):
             tile = msda.msda_fwd_tile(batch, qp, HEADS)
             for kname, (lib, bytes_fn) in fwd_tiles.items():
+                if kname == "K7" and part != "decoder":   # the decoder's sorted query set
+                    continue
                 smem = bytes_fn(LEVELS, tile)
                 if smem_fn(lib, 2)(LEVELS, tile) != smem:
                     raise AssertionError(f"{kname}'s tile {tile} gives {smem} B of shared memory, "
@@ -484,18 +491,22 @@ def msda_kernel_report(plans: dict) -> dict:
         "msda_bwd_atomics": sass_atomics("msda_bwd"),
         "msda_bwd_plans": plans,
     }
-    for kname, lib, kernel in (("K5", "msda_banded_fwd", "banded_fwd_kernel"),
-                               ("K6", "msda_rowtap_fwd", "rowtap_fwd_kernel"),
-                               ("K9", "msda_corner_bwd", "corner_bwd_kernel"),
-                               ("K10", "msda_rowtap_bwd", "rowtap_bwd_kernel")):
-        report[lib] = ptxas_kernels(lib, ((kernel, kernel),))
-        if kname in bwd_plans:
+    for lib, kernels in (("msda_banded_fwd", {"K5": "banded_fwd_kernel"}),
+                         ("msda_rowtap_fwd", {"K6": "rowtap_fwd_kernel",
+                                              "K7": "allq_fwd_kernel"}),
+                         ("msda_corner_fwd", {"K8": "corner_fwd_kernel"}),
+                         ("msda_corner_bwd", {"K9": "corner_bwd_kernel"}),
+                         ("msda_rowtap_bwd", {"K10": "rowtap_bwd_kernel"})):
+        report[lib] = ptxas_kernels(lib, [(k, k) for k in kernels.values()])
+        bwd = any(kname in bwd_plans for kname in kernels)
+        if bwd:
             report[f"{lib}_atomics"] = sass_atomics(lib)
-        report[f"{lib}_plans"] = found[kname]
-        log("sass", f"lib{lib}.so ({kname}): ptxas {report[lib]}"
-                    + (f", SASS atomics {report[f'{lib}_atomics']}" if kname in bwd_plans else "")
-                    + f"; {'B = 4 plans' if kname in bwd_plans else 'tiles'} and dynamic shared "
-                      f"memory {found[kname]}")
+        for kname in kernels:
+            report[f"{kname}_plans"] = found[kname]
+        log("sass", f"lib{lib}.so ({', '.join(kernels)}): ptxas {report[lib]}"
+                    + (f", SASS atomics {report[f'{lib}_atomics']}" if bwd else "")
+                    + "".join(f"; {kname} {'B = 4 plans' if bwd else 'tiles'} and dynamic shared "
+                              f"memory {found[kname]}" for kname in kernels))
     log("sass", f"libmsda_fwd.so: ptxas {report['msda_fwd']}; libmsda_bwd.so: ptxas "
                 f"{report['msda_bwd']}, SASS atomics {report['msda_bwd_atomics']}; K3 plans "
                 f"(dynamic shared memory as the library counts it) {plans}")
@@ -718,8 +729,8 @@ def check_fusion_bwd(device):
 SWEEP_TOL = 1e-4
 SWEEP_RTOL = 1e-4
 # the kernels' names as torch.profiler sees them, for kernel_device_ms
-DEVICE_NAMES = {"K5": "banded_fwd_kernel", "K6": "rowtap_fwd_kernel", "K7": "sweep_fwd_kernel",
-                "K8": "sweep_fwd_kernel", "K9": "corner_bwd_kernel", "K10": "rowtap_bwd_kernel"}
+DEVICE_NAMES = {"K5": "banded_fwd_kernel", "K6": "rowtap_fwd_kernel", "K7": "allq_fwd_kernel",
+                "K8": "corner_fwd_kernel", "K9": "corner_bwd_kernel", "K10": "rowtap_bwd_kernel"}
 
 
 def sweep_operands(value, shapes, locs, attn, grad_out):
@@ -742,6 +753,17 @@ def sweep_operands(value, shapes, locs, attn, grad_out):
             "g": sw.sort_and_pad(g_k, order, 1)}
 
 
+def corner_operands(value, shapes, locs, attn):
+    """K8's operands as the corner forward (MSDASweepFunction with
+    fwd="corner") hands them over: corner taps (idx, w), sorted by the first
+    corner tap for Q != L and padded to the query block."""
+    from open_groundingdino_tpu_torch.ops import msda_sweep as sw
+
+    idx, w = sw.corner_indices_and_weights(*sw.kernel_layout(locs, attn), shapes)
+    order = sw.query_order(idx, None, value.shape[1])
+    return sw.sort_and_pad(idx, order), sw.sort_and_pad(w, order)
+
+
 def rel_errs(got, ref, masks=None) -> dict:
     """max |got - ref| / max |ref| for each named pair, over mask[name]
     where one is given."""
@@ -758,7 +780,7 @@ def check_sweep(device) -> dict:
     """K6 (and K7 on the decoder's sorted query set), K9 and K10 against their
     plain versions at the encoder and decoder shapes of phase 8's B = 4
     batch, then the sweep op as the model calls it against K1 and K3 on the
-    same inputs; then K6 again at phase 3's B = 1 shapes, serving's."""
+    same inputs; then K6 and K7 again at phase 3's B = 1 shapes, serving's."""
     import torch
 
     from open_groundingdino_tpu_torch.ops import msda
@@ -781,9 +803,9 @@ def check_sweep(device) -> dict:
             out_p = sw.sweep_fwd_plain(value, row, px, w)
             fwd_plain_ms = event_ms(lambda: sw.sweep_fwd_plain(value, row, px, w), 3)
             fwds = [("K6", sw.sweep_fwd)]
-            if q != L and batch == "B=4":
+            if q != L:
                 fwds.append(("K7", sw.sweep_fwd_allq))
-            # the B = 4 rows keep their (kernel, shape) keys; B = 1 K6's name its batch
+            # the B = 4 rows keep their (kernel, shape) keys; B = 1's name its batch
             key = name if batch == "B=4" else f"{batch} {name}"
             for kname, fn in fwds:
                 err = float((fn(value, shapes, row, px, w) - out_p).abs().max())
@@ -918,9 +940,7 @@ def check_banded_corner(device) -> dict:
             _, locs_t, px, py, wa = mb.banded_operands(locs, attn, shapes, L)
             ranges = mb.band_ranges(locs_t, shapes, px.shape[-1] // sw.QBLOCK,
                                     mb.level_bands(shapes, mb.BAND))
-            idx, w = sw.corner_indices_and_weights(*sw.kernel_layout(locs, attn), shapes)
-            order = sw.query_order(idx, None, L)
-            idx, w = sw.sort_and_pad(idx, order), sw.sort_and_pad(w, order)
+            idx, w = corner_operands(value, shapes, locs, attn)
             for kname, kernel, plain, op in (
                     ("K5", lambda: mb.banded_fwd(value, shapes, px, py, wa),
                      lambda: mb.banded_fwd_plain(value, shapes, px, py, wa, ranges),
@@ -1338,7 +1358,8 @@ def train(cfg: str, work: str, files, device: str, msda_keys=None, epochs: int =
 # (K4's bwd_kernel after the MSDA backwards, whose names hold it too)
 KERNEL_GROUPS = (("K5 banded_fwd", ("banded_fwd_kernel",)),
                  ("K6 rowtap_fwd", ("rowtap_fwd_kernel",)),
-                 ("K7/K8 sweep_fwd", ("sweep_fwd_kernel",)),
+                 ("K7 allq_fwd", ("allq_fwd_kernel",)),
+                 ("K8 corner_fwd", ("corner_fwd_kernel",)),
                  ("K9 corner_bwd", ("corner_bwd_kernel",)),
                  ("K10 rowtap_bwd", ("rowtap_bwd_kernel",)),
                  ("K1 msda_fwd", ("msda_fwd_kernel",)),
@@ -1687,15 +1708,15 @@ def main() -> int:
         _, gather_card = check_train_parity(harness)                   # 11
 
         sweep = check_sweep("cuda")                                    # 12
-        serve_counts = {}
+        serve_counts, sweep_profiles = {}, {}
         for tag, keys in (("sweep-serve", {"msda_kernel": "sweep"}),   # 13
                           ("sweep-serve-fused", {"msda_kernel": "sweep", "msda_dec_fused": True})):
             sweep_files = (msda_config(cfg, work, tag, **keys), *files[1:])
             im, _, serve_counts[tag], _ = serve(sweep_files, "cuda", tag)
             compare_forward(forward_outputs(im, images[0], CAPTIONS[0]), cpu_out,
                             f"{tag}-forward", "against phase 6's CPU forward")
-            if tag == "sweep-serve":
-                profile_request(im, images[0], CAPTIONS[0], tag="sweep-profile")
+            sweep_profiles[tag] = profile_request(im, images[0], CAPTIONS[0],
+                                                  tag=tag.replace("serve", "profile"))
             del im
         train_counts_sweep = {}
         for tag, keys, kw in (                                          # 14
@@ -1775,7 +1796,7 @@ def main() -> int:
     ]
     # K5 and K8 (phase 16; the row is phase 8's B = 4 shapes, per_shape adds
     # B = 1) and the sweep kernels (phase 12 at phase 8's B = 4 shapes; K6's
-    # per_shape adds B = 1);
+    # and K7's per_shape add B = 1);
     # launches: K5's from the banded serving run (phase 17), K6's and K7's
     # from the sweep serving runs (phase 13), K8's from the microbench (phase
     # 19), K9's and K10's from the sweep training runs (phase 14); every
@@ -1785,9 +1806,9 @@ def main() -> int:
     for kname, counter, launches_from, source, line in (
             ("K5", "banded_fwd", "banded-serve", "msda_banded_fwd.cu", "msda_banded.py:152"),
             ("K6", "sweep_fwd", "sweep-serve", "msda_rowtap_fwd.cu", "msda_pallas.py:484"),
-            ("K7", "sweep_fwd_allq", "sweep-serve-fused", "msda_sweep_fwd.cu",
+            ("K7", "sweep_fwd_allq", "sweep-serve-fused", "msda_rowtap_fwd.cu",
              "msda_pallas.py:634"),
-            ("K8", "sweep_fwd_corner", "microbench", "msda_sweep_fwd.cu", "msda_pallas.py:169"),
+            ("K8", "sweep_fwd_corner", "microbench", "msda_corner_fwd.cu", "msda_pallas.py:169"),
             ("K9", "sweep_bwd_corner", "sweep-train", "msda_corner_bwd.cu", "msda_pallas.py:955"),
             ("K10", "sweep_bwd_rowtap", "sweep-train-rowtap", "msda_rowtap_bwd.cu",
              "msda_pallas.py:1200")):
@@ -1798,14 +1819,17 @@ def main() -> int:
                                 if k == kname}
             row["max_abs_err"] = max(max(r["max_abs_err"], r["k1_max_abs_err"])
                                      for r in row["per_shape"].values())
-        if kname == "K6":
+        if kname in ("K6", "K7"):
             row["per_shape"] = {f"B=4 {n}" if n in shapes else n: r
-                                for (k, n), r in sweep.items() if k == "K6"}
+                                for (k, n), r in sweep.items() if k == kname}
             row["max_abs_err"] = max(r["max_abs_err"] for r in row["per_shape"].values())
-        lib = {"K5": "msda_banded_fwd", "K6": "msda_rowtap_fwd", "K9": "msda_corner_bwd",
-               "K10": "msda_rowtap_bwd"}.get(kname)
-        if lib:
-            row["sass"] = {k: v for k, v in msda_sass.items() if k.startswith(lib)}
+        if kname == "K7":   # its device time in one profiled fused request (phase 13)
+            row["request_profile_ms"] = sweep_profiles["sweep-serve-fused"]["groups_ms"][
+                "K7 allq_fwd"]
+        lib = {"K5": "msda_banded_fwd", "K6": "msda_rowtap_fwd", "K7": "msda_rowtap_fwd",
+               "K8": "msda_corner_fwd", "K9": "msda_corner_bwd", "K10": "msda_rowtap_bwd"}[kname]
+        row["sass"] = {k: v for k, v in msda_sass.items()
+                       if k.startswith(lib) or k == f"{kname}_plans"}
         kernels.append({"name": counter, "route": "cuda", "source": src + source,
                         "replaces": tpu + line, "launches": by_path[launches_from][counter],
                         "launches_by_path": {k: v[counter] for k, v in by_path.items()}, **row})

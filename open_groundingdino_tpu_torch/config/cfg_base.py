@@ -31,8 +31,9 @@ msda_kernel = "gather"
 # the sweep's backward: "corner" (K9) or "rowtap" (K10), the JAX package's
 # MSDA_BWD_VARIANT
 msda_sweep_bwd = "corner"
-# the sweep's forward for decoder-style query sets: all query blocks of one
-# (b, h) in one kernel block (K7), the JAX package's MSDA_DEC_FUSED=1
+# the sweep's forward for decoder-style query sets: K7, K6's kernel under
+# its own name, for the JAX package's MSDA_DEC_FUSED=1 (one program for all
+# query blocks of a (b, h) there)
 msda_dec_fused = False
 two_stage_type = "standard"
 dec_pred_bbox_embed_share = True

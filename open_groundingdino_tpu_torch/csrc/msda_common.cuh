@@ -1,8 +1,9 @@
 // What the MSDA gather kernels share (K1 msda_fwd.cu, K3 msda_bwd.cu, K5
-// msda_banded_fwd.cu, K6 msda_rowtap_fwd.cu, K9 msda_corner_bwd.cu, K10
-// msda_rowtap_bwd.cu): the geometry they are built for, the per-sample
-// staging, vector row loads, lane-group sums, the corner gather of the
-// staged forwards and the grad_value accumulation of the backwards.
+// msda_banded_fwd.cu, K6 and K7 msda_rowtap_fwd.cu, K8 msda_corner_fwd.cu,
+// K9 msda_corner_bwd.cu, K10 msda_rowtap_bwd.cu): the geometry they are
+// built for, the per-sample staging, vector row loads, lane-group sums, the
+// corner gather of the staged forwards and the grad_value accumulation of
+// the backwards.
 //
 // Geometry, fixed at compile time (ops/msda.py checks it before a launch):
 // D = 32 channels a head, P = 4 points a level, at most 4 levels, so at most
@@ -13,8 +14,8 @@
 // q0 + w, q0 + w + n_warps, ...).  For one (b, q, h) a warp
 //   1. stages the samples: lane s < 16 loads sample s's location and weight
 //      (coalesced) and computes its four corner positions and bilinear
-//      weights once, into the warp's slots in shared memory (K5, K6, K9 and
-//      K10 stage a whole tile or chunk of queries at once, coalesced along q);
+//      weights once, into the warp's slots in shared memory (K5-K10 stage
+//      a whole tile or chunk of queries at once, coalesced along q);
 //   2. works as 4 lane groups of 8 lanes: group g takes the samples
 //      (level i, point g), i = 0..3, and each lane of the group 4 channels
 //      (one 16-B float4 of an f32 row, 8 B of a bf16 one), so a warp has 16
@@ -146,10 +147,11 @@ __device__ __forceinline__ float pick(float4 v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
-// ---------------------------------------------------------------- staged forwards (K5, K6)
-// The gather half of K5 and K6, once a tile's corners are staged: cpos / cw
-// hold, for point t = level * kP + point and query qq of the tile, the four
-// corners' value positions (-1: no load) and weights at [t * stride + qq].
+// ---------------------------------------------------------------- staged forwards (K5-K8)
+// The gather half of K5, K6, K7 and K8, once a tile's corners are staged:
+// cpos / cw hold, for point t = level * kP + point and query qq of the
+// tile, the four corners' value positions (-1: no load) and weights at
+// [t * stride + qq].
 // Each warp takes two queries at a time (qq and qq + kWarps), its 4 lane
 // groups on the points (level i, point g), each lane on 4 channels, loops
 // unrolled: 32 corner rows in flight a warp; the groups' sums meet in two

@@ -1,11 +1,14 @@
-// K6: multi-scale deformable attention forward on row taps, for Hopper
-// (sm_90a).
+// K6 and K7: multi-scale deformable attention forward on row taps, for
+// Hopper (sm_90a).
 //
 // Replaces: open_groundingdino_tpu/ops/msda_pallas.py::_msda_rowtap_kernel
 // (with its _msda_rowtap_nblk_kernel, several query blocks a sweep), the
 // forward of the MSDA_BANDED=0 path, launched by
-// _msda_pallas_fwd_rowtap_call.  On the row taps
-// ops/msda_sweep.py::rowtap_positions_and_weights makes, it computes
+// _msda_pallas_fwd_rowtap_call, as K6; and ::_msda_rowtap_allq_kernel (every
+// query block of one (b, h) in one program, the decoder under
+// MSDA_DEC_FUSED=1), launched by _msda_pallas_fwd_rowtap_allq_call, as K7.
+// Both compute, on the row taps
+// ops/msda_sweep.py::rowtap_positions_and_weights makes,
 //   out[bh, q, :] = sum_r w[r, q] * sum_x relu(1 - |px[r, q] - x|) * V[bh, row[r, q] + x, :]
 //   value  (B, L, H, 32) f32, the reference layout
 //   row    (B*H, NL*2*P, Qp) int32, the flat position of the tap's row;
@@ -14,7 +17,9 @@
 //          level l's taps are l*2P + p (row y0 of point p) and l*2P + P + p
 //          (row y0 + 1)
 //   out    (B*H, Qp, 32) f32
-// A tap touches at most two positions: i0 = row + floor(px), weight
+// K7 takes the decoder's query set, sorted by the first row tap's position
+// (ops/msda_sweep.py query_order), so consecutive queries read neighbouring
+// rows.  A tap touches at most two positions: i0 = row + floor(px), weight
 // r0 = 1 - (px - floor(px)), and i0 + 1, weight r1 = 1 - ((floor(px) + 1) - px),
 // as the dense relu gives them.  r1 is exactly 0 where px is an integer (the
 // last column, an edge point), and there i0 + 1 may lie in the next row or
@@ -26,13 +31,13 @@
 // bytes; the smoke reports K1's bound).  Each live tap reads up to two
 // 128-B rows at data-dependent places, almost all re-reads from L1 and L2.
 //
-// The TPU kernel sweeps, for each 128-query block, the tiles of positions
-// its taps touch and builds a dense (positions x queries) weight matrix S
+// The TPU kernels sweep, for each 128-query block, the tiles of positions
+// its taps touch and build a dense (positions x queries) weight matrix S
 // for the MXU: on this card that product does T * 128 * 32 FMAs a (block,
 // tile) for at most 8 non-zeros a query a level.  Here each live tap is two
 // gathered rows (K5's design, msda_common.cuh):
-//   - a CTA takes one b*h and a tile of consecutive queries (ops/msda.py
-//     msda_fwd_tile, as for K1 and K5).  Its threads first stage the tile's
+//   - a tile is one b*h and consecutive queries (ops/msda.py msda_fwd_tile,
+//     as for K1 and K5).  The CTA's threads first stage the tile's
 //     (point, query) pairs, one pair a thread, reading row, px and w of the
 //     point's two taps coalesced along q, and put the point's four corners
 //     (i0 and i0 + 1 of each tap, weights r0 * w and r1 * w) into shared
@@ -41,8 +46,19 @@
 //   - gather_staged_corners then takes two queries a warp at a time, 4 lane
 //     groups of 8 lanes on point g of each level, a float4 a lane, the
 //     groups' sums meeting in shuffles.
-// ptxas -v (-O3, sm_90a, CUDA 12.8): 48 registers, no spills; dynamic shared
-// memory 8,704 B at 16 queries a CTA, 33,280 B at 64.
+// K7 is K6's kernel under its own name, for the decoder's sorted query set.
+// The TPU's all-q program amortises per-grid-step cost over every query
+// block of a (b, h); its Hopper counterpart, a persistent grid of at most
+// the CTAs the card holds (5 an SM), each walking a run of consecutive
+// sorted tiles so that its start-up is paid once and L1 still holds the
+// rows the last tile read, lost to one CTA a tile (device time at the
+// B = 4 decoder on an H100 SXM at 700 W: 0.0395 against 0.0359 ms; 0.0600
+// and 0.1031 ms with 2 and 1 CTAs an SM; PERF.md): the sort is by one tap,
+// so a tile's other taps spread, and the CTAs that replace a finished one
+// keep the SMs fuller.  At B = 1 the decoder has 512 tiles, fewer than the
+// card holds, and the two launches are one.
+// ptxas -v (-O3, sm_90a, CUDA 12.8): K6 and K7 48 registers each, no
+// spills; dynamic shared memory 8,704 B at 16 queries a CTA, 33,280 B at 64.
 #include "msda_common.cuh"
 
 namespace {
@@ -52,27 +68,20 @@ using namespace msda;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 
-// 5 CTAs an SM: without the bound ptxas took 44 registers and the kernel
-// ran ~3% slower (PERF.md)
-__global__ void __launch_bounds__(kThreads, 5)
-rowtap_fwd_kernel(const float* __restrict__ value, const int* __restrict__ row,
-                  const float* __restrict__ px, const float* __restrict__ w,
-                  float* __restrict__ out, int L, int H, int Qp, int NL, int tile_q,
-                  int n_tiles) {
-  // dynamic shared memory: the corners of every (point, query) of the tile,
-  // positions then weights, a row of tile_q + 1 per point (the pad puts the
-  // four groups' points on different banks)
-  extern __shared__ int4 smem[];
+// One tile, queries q0 .. q0 + tile_q - 1 of b*h = bh: its corners staged
+// into cpos / cw (a row of tile_q + 1 per point: the pad puts the four
+// groups' points on different banks), then gathered into out.
+__device__ __forceinline__ void rowtap_tile(const float* __restrict__ value,
+                                            const int* __restrict__ row,
+                                            const float* __restrict__ px,
+                                            const float* __restrict__ w,
+                                            float* __restrict__ out, int L, int H, int Qp,
+                                            int NL, int tile_q, int bh, int q0, int4* cpos,
+                                            float4* cw) {
   const int stride = tile_q + 1;
   const int nlp = NL * kP;
   const int R = 2 * nlp;
-  int4* cpos = smem;
-  float4* cw = reinterpret_cast<float4*>(smem + nlp * stride);
-
-  const int tile = blockIdx.x % n_tiles;
-  const int bh = blockIdx.x / n_tiles;
   const int h = bh % H, b = bh / H;
-  const int q0 = tile * tile_q;
   const int nq = min(tile_q, Qp - q0);
 
   for (int i = threadIdx.x; i < nlp * tile_q; i += kThreads) {
@@ -107,35 +116,77 @@ rowtap_fwd_kernel(const float* __restrict__ value, const int* __restrict__ row,
                                 out + ((long long)bh * Qp + q0) * kD);
 }
 
+// K6 and K7: one tile a CTA, tile blockIdx.x % n_tiles of b*h =
+// blockIdx.x / n_tiles; two kernels of one body, so that a profile tells
+// the sweep's K6 from the fused decoder's K7.
+// 5 CTAs an SM: without the bound ptxas took 44 registers and the kernel
+// ran ~3% slower (PERF.md)
+__global__ void __launch_bounds__(kThreads, 5)
+rowtap_fwd_kernel(const float* __restrict__ value, const int* __restrict__ row,
+                  const float* __restrict__ px, const float* __restrict__ w,
+                  float* __restrict__ out, int L, int H, int Qp, int NL, int tile_q,
+                  int n_tiles) {
+  extern __shared__ int4 smem[];   // the staged corners, positions then weights
+  rowtap_tile(value, row, px, w, out, L, H, Qp, NL, tile_q, blockIdx.x / n_tiles,
+              (blockIdx.x % n_tiles) * tile_q, smem,
+              reinterpret_cast<float4*>(smem + NL * kP * (tile_q + 1)));
+}
+
+__global__ void __launch_bounds__(kThreads, 5)
+allq_fwd_kernel(const float* __restrict__ value, const int* __restrict__ row,
+                const float* __restrict__ px, const float* __restrict__ w,
+                float* __restrict__ out, int L, int H, int Qp, int NL, int tile_q,
+                int n_tiles) {
+  extern __shared__ int4 smem[];
+  rowtap_tile(value, row, px, w, out, L, H, Qp, NL, tile_q, blockIdx.x / n_tiles,
+              (blockIdx.x % n_tiles) * tile_q, smem,
+              reinterpret_cast<float4*>(smem + NL * kP * (tile_q + 1)));
+}
+
+int smem_bytes(int NL, int tile_q) {
+  return NL * kP * (tile_q + 1) * (int)(sizeof(int4) + sizeof(float4));
+}
+
+int launch(decltype(&rowtap_fwd_kernel) kernel, const void* value, const void* row,
+           const void* px, const void* w, void* out, int B, int L, int H, int Qp, int NL, int P,
+           int tile_q, void* stream) {
+  if (B <= 0 || L <= 0 || H <= 0 || Qp <= 0 || NL <= 0 || NL > kMaxLevels || P != kP ||
+      tile_q <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int smem = smem_bytes(NL, tile_q);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_tiles = (Qp + tile_q - 1) / tile_q;
+  kernel<<<(unsigned)((long long)B * H * n_tiles), kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)value, (const int*)row, (const float*)px, (const float*)w, (float*)out, L, H,
+      Qp, NL, tile_q, n_tiles);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of msda_rowtap_fwd_f32 at tile_q queries a CTA.
-int msda_rowtap_fwd_smem_bytes(int NL, int tile_q) {
-  return NL * kP * (tile_q + 1) * (int)(sizeof(int4) + sizeof(float4));
-}
+// Dynamic shared memory of msda_rowtap_fwd_f32 and msda_sweep_fwd_allq_f32
+// at tile_q queries a CTA.
+int msda_rowtap_fwd_smem_bytes(int NL, int tile_q) { return smem_bytes(NL, tile_q); }
 
-// value, px, w, out f32, row int32, all contiguous; value and out 16-byte
-// aligned.  Built for D = 32 and P = 4 (msda_common.cuh): 2 * P row taps a
-// level; tile_q queries a CTA (ops/msda.py msda_fwd_tile).  Returns a
-// cudaError_t (0 = launched).
+// K6 (msda_rowtap_fwd_f32) and K7 (msda_sweep_fwd_allq_f32, the decoder's
+// sorted query set under dec_fused).  value, px, w, out f32, row int32, all
+// contiguous; value and out 16-byte aligned.  Built for D = 32 and P = 4
+// (msda_common.cuh): 2 * P row taps a level; tile_q queries a CTA
+// (ops/msda.py msda_fwd_tile).  Return a cudaError_t (0 = launched).
 int msda_rowtap_fwd_f32(const void* value, const void* row, const void* px, const void* w,
                         void* out, int B, int L, int H, int Qp, int NL, int P, int tile_q,
                         void* stream) {
-  if (B <= 0 || L <= 0 || H <= 0 || Qp <= 0 || NL <= 0 || NL > kMaxLevels || P != kP ||
-      tile_q <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int smem = msda_rowtap_fwd_smem_bytes(NL, tile_q);
-  cudaError_t err = cudaFuncSetAttribute(rowtap_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int n_tiles = (Qp + tile_q - 1) / tile_q;
-  rowtap_fwd_kernel<<<(unsigned)((long long)B * H * n_tiles), kThreads, smem,
-                      (cudaStream_t)stream>>>(
-      (const float*)value, (const int*)row, (const float*)px, (const float*)w, (float*)out, L, H,
-      Qp, NL, tile_q, n_tiles);
-  return (int)cudaGetLastError();
+  return launch(rowtap_fwd_kernel, value, row, px, w, out, B, L, H, Qp, NL, P, tile_q, stream);
+}
+
+int msda_sweep_fwd_allq_f32(const void* value, const void* row, const void* px, const void* w,
+                            void* out, int B, int L, int H, int Qp, int NL, int P, int tile_q,
+                            void* stream) {
+  return launch(allq_fwd_kernel, value, row, px, w, out, B, L, H, Qp, NL, P, tile_q, stream);
 }
 
 }  // extern "C"

@@ -1,17 +1,19 @@
-"""Multi-scale deformable attention on sweep taps: K6 (forward on row taps,
-csrc/msda_rowtap_fwd.cu), K7 and K8 (tile-sweep forwards, csrc/msda_sweep_fwd.cu),
-K9 (backward on corner taps, csrc/msda_corner_bwd.cu) and K10 (backward on
-row taps, csrc/msda_rowtap_bwd.cu), their plain PyTorch versions, and the
-autograd Function around them.
+"""Multi-scale deformable attention on sweep taps: K6 and K7 (forwards on row
+taps, csrc/msda_rowtap_fwd.cu; K7 for the decoder under dec_fused), K8
+(forward on corner taps, csrc/msda_corner_fwd.cu), K9 (backward on corner
+taps, csrc/msda_corner_bwd.cu) and K10 (backward on row taps,
+csrc/msda_rowtap_bwd.cu), their plain PyTorch versions, and the autograd
+Function around them.
 
 The port of the JAX package's ops/msda_pallas.py::ms_deform_attn_pallas_t,
 the model path of `msda_impl="pallas"` with `MSDA_BANDED=0`, and of its
 op-level ms_deform_attn_pallas under MSDA_FWD_VARIANT=corner (`fwd="corner"`:
 corner taps into K8, the tools' microbench path).  The function is
-ms_deform_attn_xla's (ops/msda.py here), written as sparse-times-dense tile
-products: each sample point is expanded into taps on the flat value sequence,
-and for each query block and each value tile its taps touch, a weight matrix
-S (queries x tile positions) is built and S @ V accumulated.
+ms_deform_attn_xla's (ops/msda.py here), written on taps: each sample point
+is expanded into taps on the flat value sequence.  The TPU kernels then
+build, for each query block and each value tile its taps touch, a dense
+weight matrix S (queries x tile positions) and accumulate S @ V; the kernels
+here gather the rows of the live taps instead.
 
 Expansions (kernel layout, raster value order):
   row taps     row (int32), px, w (f32), (BH, NL*2*P, Q): each point's two
@@ -35,11 +37,10 @@ w == 0), upstream gradient and output (BH, Q_pad, D) f32, grad_value
 (B, L, H, D) f32.  Query sets with Q != L (the decoder) are sorted by their
 first row tap's position (K8: their first corner tap's, as
 msda_pallas.py:937-943 sorts), so that a block's taps are local; the output
-and the per-tap gradients are un-sorted afterwards.  K7's and K8's kernel
-blocks find the range of positions their live taps touch, per level, and
-sweep it; K6, K9 and K10 instead gather (and scatter) the rows of their
-taps' corners (K1's and K3's design, ops/msda.py), with K1's and K3's
-launch plans.
+and the per-tap gradients are un-sorted afterwards.  Every kernel gathers
+(the backwards also scatter) the rows of its taps' corners (K1's and K3's
+design, ops/msda.py), with K1's and K3's launch plans; K7 is K6's kernel
+under its own name.
 
 `ms_deform_attn_sweep` takes the plain version for CPU tensors (autograd
 differentiates it) and `MSDASweepFunction` for CUDA tensors.  The five
@@ -168,7 +169,7 @@ def sweep_fwd_plain(value, row, px, w):
     """K6's and K7's function: out[bh, q] = sum_r w[r, q] * sum_x
     relu(1 - |px[r, q] - x|) * V[bh, row[r, q] + x].  value (B, L, H, D);
     row, px, w (BH, R, Q) -> (BH, Q, D) f32.  Each row touches two
-    positions, gathered; rows are summed in order, as the kernels build S."""
+    positions, gathered; rows are summed in order."""
     v = _value_bh(value)
     L = v.shape[1]
     i0, i1, r0, r1 = _rowtap_corners(row, px, L)
@@ -237,8 +238,7 @@ def sweep_bwd_corner_plain(value, idx, w, g):
 
 
 # ---------------------------------------------------------------- kernel wrappers
-_ALLQ_CTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_FWD_CORNER_CTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_FWD_CORNER_CTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _ROWTAP_FWD_CTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _PLAN_CTYPES = ([ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
                 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
@@ -288,8 +288,8 @@ def _levels(spatial_shapes, R: int, per_point: int):
 
 
 def _check_gather(value, g, spatial_shapes, R, taps_per_point, what):
-    """Raise unless K6, K9 or K10 is built for these operands (value and g
-    16-byte aligned, D = 32, P = 4, NL <= 4); returns (NL, P)."""
+    """Raise unless the gather kernels (K6-K10) are built for these operands
+    (value and g 16-byte aligned, D = 32, P = 4, NL <= 4); returns (NL, P)."""
     if value.data_ptr() % 16 or (g is not None and g.data_ptr() % 16):
         raise ValueError(f"{what}: value and g must be 16-byte aligned")
     NL, per_level = _levels(spatial_shapes, R, taps_per_point)
@@ -298,62 +298,69 @@ def _check_gather(value, g, spatial_shapes, R, taps_per_point, what):
 
 
 def rowtap_fwd_smem_bytes(NL: int, tile_q: int) -> int:
-    """K6's dynamic shared memory (csrc/msda_rowtap_fwd.cu
+    """K6's and K7's dynamic shared memory (csrc/msda_rowtap_fwd.cu
     msda_rowtap_fwd_smem_bytes): each (point, query) of a tile's four corner
     positions (int4) and weights (float4), a row of tile_q + 1 a point."""
     return NL * msda.POINTS * (tile_q + 1) * 32
 
 
-def sweep_fwd(value, spatial_shapes, row, px, w):
-    """K6 on CUDA tensors: one kernel block per (b*h, tile of queries), the
-    tile chosen as K1's (msda.msda_fwd_tile); each live tap reads its at
-    most two rows.  value (B, L, H, 32) f32, 16-byte aligned; row int32, px,
-    w (BH, NL*2*P, Q_pad) -> (BH, Q_pad, D) f32."""
-    B, L, H, R, Q_pad = _check(value, px, w, "sweep_fwd", row=row)
-    NL, P = _check_gather(value, None, spatial_shapes, R, 2, "sweep_fwd")
+# K8 stages the same four corners a (point, query) (csrc/msda_corner_fwd.cu
+# msda_corner_fwd_smem_bytes)
+corner_fwd_smem_bytes = rowtap_fwd_smem_bytes
+
+
+def _rowtap_fwd(entry, what, value, spatial_shapes, row, px, w):
+    """Launch K6 or K7 (the C entry `entry` of csrc/msda_rowtap_fwd.cu) on
+    the row taps: one kernel block per (b*h, tile of queries), the tile
+    chosen as K1's (msda.msda_fwd_tile)."""
+    B, L, H, R, Q_pad = _check(value, px, w, what, row=row)
+    NL, P = _check_gather(value, None, spatial_shapes, R, 2, what)
     out = torch.empty(B * H, Q_pad, HEAD_DIM, dtype=torch.float32, device=value.device)
-    fn = build.load("msda_rowtap_fwd").msda_rowtap_fwd_f32
+    fn = getattr(build.load("msda_rowtap_fwd"), entry)
     fn.argtypes = _ROWTAP_FWD_CTYPES
     fn.restype = ctypes.c_int
     err = fn(value.data_ptr(), row.data_ptr(), px.data_ptr(), w.data_ptr(), out.data_ptr(),
              B, L, H, Q_pad, NL, P, msda.msda_fwd_tile(B, Q_pad, H),
              torch.cuda.current_stream(value.device).cuda_stream)
-    build.check(err, "msda_rowtap_fwd")
+    build.check(err, entry)
+    return out
+
+
+def sweep_fwd(value, spatial_shapes, row, px, w):
+    """K6 on CUDA tensors: each live tap reads its at most two rows.  value
+    (B, L, H, 32) f32, 16-byte aligned; row int32, px, w (BH, NL*2*P, Q_pad)
+    -> (BH, Q_pad, D) f32."""
+    out = _rowtap_fwd("msda_rowtap_fwd_f32", "sweep_fwd", value, spatial_shapes, row, px, w)
     sweep_fwd.launches += 1
     return out
 
 
 def sweep_fwd_allq(value, spatial_shapes, row, px, w):
-    """K7 on CUDA tensors: every query block of one (b, h) in one kernel
-    block, each value tile staged once for all of them.  Same function and
-    operands as K6."""
-    B, L, H, R, Q_pad = _check(value, px, w, "sweep_fwd_allq", row=row)
-    NL, per_level = _levels(spatial_shapes, R, 2)
-    out = torch.empty(B * H, Q_pad, HEAD_DIM, dtype=torch.float32, device=value.device)
-    fn = build.load("msda_sweep_fwd").msda_sweep_fwd_allq_f32
-    fn.argtypes = _ALLQ_CTYPES
-    fn.restype = ctypes.c_int
-    err = fn(value.data_ptr(), row.data_ptr(), px.data_ptr(), w.data_ptr(), out.data_ptr(),
-             B, L, H, Q_pad, NL, per_level,
-             torch.cuda.current_stream(value.device).cuda_stream)
-    build.check(err, "msda_sweep_fwd_allq_f32")
+    """K7 on CUDA tensors: K6's function, operands and launch, for the
+    decoder's sorted query set under dec_fused, as a kernel of its own (its
+    own name in a profile, its own count)."""
+    out = _rowtap_fwd("msda_sweep_fwd_allq_f32", "sweep_fwd_allq", value, spatial_shapes, row,
+                      px, w)
     sweep_fwd_allq.launches += 1
     return out
 
 
 def sweep_fwd_corner(value, spatial_shapes, idx, w):
-    """K8 on CUDA tensors: K6's design on corner taps, idx int32 and w
+    """K8 on CUDA tensors: one kernel block per (b*h, tile of queries), the
+    tile chosen as K1's (msda.msda_fwd_tile); each live corner tap reads its
+    row.  value (B, L, H, 32) f32, 16-byte aligned; idx int32 and w
     (BH, NL*P*4, Q_pad) -> (BH, Q_pad, D) f32."""
     B, L, H, R, Q_pad = _check(value, idx, w, "sweep_fwd_corner")
     if idx.dtype != torch.int32:
         raise ValueError("sweep_fwd_corner: idx must be int32")
-    NL, per_level = _levels(spatial_shapes, R, 4)
+    NL, P = _check_gather(value, None, spatial_shapes, R, 4, "sweep_fwd_corner")
     out = torch.empty(B * H, Q_pad, HEAD_DIM, dtype=torch.float32, device=value.device)
-    fn = build.load("msda_sweep_fwd").msda_sweep_fwd_corner_f32
+    fn = build.load("msda_corner_fwd").msda_sweep_fwd_corner_f32
     fn.argtypes = _FWD_CORNER_CTYPES
     fn.restype = ctypes.c_int
     err = fn(value.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(),
-             B, L, H, Q_pad, NL, per_level, torch.cuda.current_stream(value.device).cuda_stream)
+             B, L, H, Q_pad, NL, P, msda.msda_fwd_tile(B, Q_pad, H),
+             torch.cuda.current_stream(value.device).cuda_stream)
     build.check(err, "msda_sweep_fwd_corner_f32")
     sweep_fwd_corner.launches += 1
     return out

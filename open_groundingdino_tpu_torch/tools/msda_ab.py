@@ -1,19 +1,23 @@
-"""A/B of the MSDA kernels K1, K3, K5, K6, K9 and K10 on one GPU: this checkout's
+"""A/B of the MSDA kernels K1, K3 and K5-K10 on one GPU: this checkout's
 against other checkouts' (the parent commit unpacked with `git archive`, or
 a copy with one change), on the same seeded operands, in turns on one card.
 
     python -m open_groundingdino_tpu_torch.tools.msda_ab --ref NAME=DIR [--ref NAME=DIR ...] \\
-        [--kernels K1,K3,K5,K6,K9,K10] [--set NAME.ATTR=VALUE ...] [--iters N] [--rounds N]
+        [--kernels K1,K3,K5,K6,K7,K8,K9,K10] [--set NAME.ATTR=VALUE ...] [--iters N] \\
+        [--rounds N]
 
 Run it from the repository root: the operands are chip_smoke.py's, at the
 800x1216 bucket's encoder (Q = L = 20197) and decoder (Q = 900) shapes, for
 serving's B = 1 (smoke phase 3) and training's B = 4 with a valid region
 for each image (phase 8).  K1, K5 (the per-point banded forward, on the
-operands `banded_operands` makes) and K6 (the row-tap forward, on the row
-taps the sweep makes) are timed at all four, K3, K9 and K10 (the corner-
-and row-tap backwards, on the taps the sweep's backward makes) at B = 4.
-Each DIR holds an `open_groundingdino_tpu_torch/` package whose ops have
-`ms_deform_attn`, `ms_deform_attn_bwd`, `banded_fwd`, `sweep_fwd`,
+operands `banded_operands` makes), K6 (the row-tap forward, on the row
+taps the sweep makes) and K8 (the corner-tap forward, on the corner taps
+sorted as the corner forward sorts them) are timed at all four, K7 (the
+fused decoder's row-tap forward) at the two decoder shapes, K3, K9 and K10
+(the corner- and row-tap backwards, on the taps the sweep's backward
+makes) at B = 4.  Each DIR holds an `open_groundingdino_tpu_torch/`
+package whose ops have `ms_deform_attn`, `ms_deform_attn_bwd`,
+`banded_fwd`, `sweep_fwd`, `sweep_fwd_allq`, `sweep_fwd_corner`,
 `sweep_bwd_corner` and `sweep_bwd_rowtap`;
 it is imported under NAME and builds its MSDA kernels into DIR/build/.  The
 same DIR may be given twice: `--set NAME.ATTR=VALUE` sets an int constant of
@@ -45,14 +49,16 @@ import threading
 import types
 
 THIS = "this"
-KERNELS = ("K1", "K3", "K5", "K6", "K9", "K10")
+KERNELS = ("K1", "K3", "K5", "K6", "K7", "K8", "K9", "K10")
 # the libraries the timed kernels live in, in this checkout or an older one
 LIBRARIES = ("msda_fwd", "msda_bwd", "msda_banded_fwd", "msda_sweep_fwd", "msda_sweep_bwd",
-             "msda_rowtap_fwd", "msda_rowtap_bwd", "msda_corner_bwd")
-# the kernels' names as torch.profiler sees them (K6's, K9's and K10's
-# before and after they left the sweep's tile-product templates)
+             "msda_rowtap_fwd", "msda_rowtap_bwd", "msda_corner_fwd", "msda_corner_bwd")
+# the kernels' names as torch.profiler sees them (K6-K10's before and after
+# they left the sweep's tile-product templates)
 DEVICE_NAMES = {"K1": "msda_fwd_kernel", "K3": "msda_bwd_kernel", "K5": "banded_fwd_kernel",
                 "K6": ("sweep_fwd_kernel", "rowtap_fwd_kernel"),
+                "K7": ("sweep_fwd_kernel", "allq_fwd_kernel"),
+                "K8": ("sweep_fwd_kernel", "corner_fwd_kernel"),
                 "K9": ("sweep_bwd_kernel", "corner_bwd_kernel"),
                 "K10": ("sweep_bwd_kernel", "rowtap_bwd_kernel")}
 
@@ -130,12 +136,21 @@ def cases(kernels, cs, this, shapes, g, device="cuda"):
                 out["K5"] = (lambda m: m.msda_banded.banded_fwd(value, shapes, px, py, wa),
                              [mb.banded_fwd_plain(value, shapes, px, py, wa, ranges)],
                              None, cs.K5_K8_TOL, fwd_bound)
-            if {"K6", "K9", "K10"} & set(kernels):
+            if {"K6", "K7", "K9", "K10"} & set(kernels):
                 ops = cs.sweep_operands(value, shapes, locs, attn, grad_out)
                 row, rpx, w, idx, wc, g_k = (ops[k] for k in ("row", "px", "w", "idx", "wc", "g"))
             if "K6" in kernels:
                 out["K6"] = (lambda m: m.msda_sweep.sweep_fwd(value, shapes, row, rpx, w),
                              [sw.sweep_fwd_plain(value, row, rpx, w)], None, cs.SWEEP_TOL,
+                             fwd_bound)
+            if "K7" in kernels and part == "decoder":
+                out["K7"] = (lambda m: m.msda_sweep.sweep_fwd_allq(value, shapes, row, rpx, w),
+                             [sw.sweep_fwd_plain(value, row, rpx, w)], None, cs.SWEEP_TOL,
+                             fwd_bound)
+            if "K8" in kernels:
+                idx8, w8 = cs.corner_operands(value, shapes, locs, attn)
+                out["K8"] = (lambda m: m.msda_sweep.sweep_fwd_corner(value, shapes, idx8, w8),
+                             [sw.sweep_fwd_corner_plain(value, idx8, w8)], None, cs.K5_K8_TOL,
                              fwd_bound)
             if "K9" in kernels and batch == "B=4":
                 out["K9"] = (lambda m: m.msda_sweep.sweep_bwd_corner(value, shapes, idx, wc, g_k),
@@ -159,7 +174,8 @@ def rel_err(kernel, got, ref, masks) -> float:
         mask = masks[i] if masks else None
         if mask is not None:
             a, b = a[mask], b[mask]
-        scale = 1.0 if kernel in ("K1", "K5", "K6") else max(float(b.abs().max()), 1e-30)
+        scale = 1.0 if kernel in ("K1", "K5", "K6", "K7", "K8") else max(float(b.abs().max()),
+                                                                          1e-30)
         errs.append(float((a - b).abs().max()) / scale)
     return max(errs)
 
