@@ -89,8 +89,27 @@ Phases, one line of output each (any failure exits nonzero, with no result):
  19. microbench - open_groundingdino_tpu_torch.tools.msda_microbench with
                --sweep --fwd_variant corner --banded_mp 0 --bwd --xla: K5 and
                K8 (K3 and K9 under --bwd) at the flagship B = 4 encoder shape
-then the {"kernels": [...]} line (K1-K10) and, last,
-{"ok": true, "device": {...}}.
+ 20. bf16 kernels - the bf16 entries of K1 and K3 (phase 3's B = 1 and phase
+               8's B = 4 encoder and decoder shapes) and of K2 and K4 (phase
+               4's B = 1 and phase 9's B = 4 fusion shapes) against their bf16
+               plain versions on the card (forward outputs within 1e-2 of each
+               output's largest |reference|, K3's grad_value within 3e-2 and
+               grad_locs / grad_attn within 1e-3, K4's gradients within 1e-2),
+               by CUDA events and torch.profiler's device time, against bounds
+               at bf16 bytes and the bf16 tensor-core rate; K2's and K4's
+               libraries must hold HMMA.16816.F32.BF16, K3's bf16 global
+               reductions
+ 21. bf16 train - main with the config's default compute_dtype (bf16) at
+               B = 4, full width and depth: 1 warm-up + 5 timed steps, each
+               loss finite, 18 K1 + 12 K3 + 12 K2 + 6 K4 bf16 launches a step
+               and no f32 one; a profiled step; then phase 11's step in bf16
+               on the card against phase 11's f32 step on the card: loss
+               within 2e-2 and each K3/K4-fed gradient within 0.75, relative
+               (bf16 itself moves some by ~0.4 at these random weights);
+               with the bf16 K3's grad_locs, and apart the bf16 K4's gvl,
+               negated each must fail
+then the {"kernels": [...]} line (K1-K10, then the bf16 entries of K1-K4)
+and, last, {"ok": true, "device": {...}}.
 
 Exits nonzero when no CUDA device is present.  Scratch files (checkpoint,
 vocab, the ODVG set, the training run's output) go to build/chip_smoke/ and
@@ -119,6 +138,9 @@ F32_FLOP_PER_S = 67e12
 # the least time f32-accurate products take on the tensor cores: 3xTF32, three
 # TF32 products (495 TFLOP/s dense) for each f32 one; the fusion kernels' rate
 TF32X3_FLOP_PER_S = 495e12 / 3
+# the bf16 entries of K2 and K4: one bf16 MMA with f32 sums a product (989
+# TFLOP/s dense)
+BF16_FLOP_PER_S = 989e12
 K1_TOL = 1e-4   # f32; only the order of the 64 weighted taps differs
 K2_TOL = 1e-4   # f32; online softmax and split partials reorder the sums
 # K3 and K4 against autograd of the plain versions, relative to the largest
@@ -182,12 +204,13 @@ def json_safe(x):
     return x
 
 
-def kernel_device_ms(fn, iters: int, match) -> float:
+def kernel_device_ms(fn, iters: int, match, per_call: bool = False) -> float:
     """torch.profiler's mean device time a launch of the kernels whose
     names hold `match` (a string, or a tuple of them: any), over `iters`
     calls of fn that each launch one: the kernel alone, without the host's
     launch cost, which sets event_ms's time where a kernel takes tens of
-    microseconds.  The calls run twice under the profiler, and only the
+    microseconds (`per_call`: the device time of every matching kernel a
+    call, for a call that launches several).  The calls run twice under the profiler, and only the
     second pass is recorded (the schedule's warm-up step): launches right
     after the profiler starts can go unrecorded.  The mean is over the
     launches recorded (a line says when that is fewer than `iters`); a
@@ -210,6 +233,8 @@ def kernel_device_ms(fn, iters: int, match) -> float:
         events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA and any(m in e.key for m in matches)]
         count = sum(e.count for e in events)
+        if per_call and count:
+            return sum(e.self_device_time_total for e in events) / 1e3 / iters
         if count != iters:
             log("profiler", f"{count} of {iters} launches of {matches} recorded")
         if count:
@@ -375,16 +400,21 @@ def fusion_bound_ms(q, k, mask_v, mask_l) -> tuple:
     products this data needs: logits for the (image, text) pairs some output
     reads (every image token with the live text, every text token with the
     live image), the image->text product over live text tokens, the
-    text->image product over live image tokens."""
+    text->image product over live image tokens.  f32 operands at the 3xTF32
+    rate; bf16 ones, with the f32 statistics they write, at the bf16 rate."""
     B, nv, E = q.shape
     nl = k.shape[1]
     D = E // FUSION_HEADS
-    nbytes = 4 * (3 * B * nv * E + 3 * B * nl * E) + mask_v.numel() + mask_l.numel()
+    es = q.element_size()
+    rate = BF16_FLOP_PER_S if es == 2 else TF32X3_FLOP_PER_S
+    nbytes = es * (3 * B * nv * E + 3 * B * nl * E) + mask_v.numel() + mask_l.numel()
+    if es == 2:   # the f32 softmax statistics the bf16 entry writes
+        nbytes += 4 * B * FUSION_HEADS * (nv + nl)
     products = 0   # multiply-adds of length D per head
     for lv, ll in zip((~mask_v).sum(-1).tolist(), (~mask_l).sum(-1).tolist()):
         products += (nv * ll + lv * nl - lv * ll) + nv * ll + nl * lv
     ops = 2 * D * FUSION_HEADS * products
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / TF32X3_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -429,6 +459,7 @@ def sass_atomics(name: str) -> dict:
     sass = library_sass(name)
     return {"red_global_f32x4": len(re.findall(r"RED\S*F32x4", sass)),
             "red_global_f32": len(re.findall(r"RED\S*\.F32\b(?!x)", sass)),
+            "red_global_bf16x2": len(re.findall(r"RED\S*BF16", sass)),
             "atoms_cas": sass.count("ATOMS.CAST.SPIN")}
 
 
@@ -487,7 +518,8 @@ def msda_kernel_report(plans: dict) -> dict:
     report = {
         "msda_fwd": ptxas_kernels("msda_fwd", (("kernelIf", "msda_fwd_kernel<float>"),
                                                ("bfloat16", "msda_fwd_kernel<bf16>"))),
-        "msda_bwd": ptxas_kernels("msda_bwd", (("msda_bwd_kernel", "msda_bwd_kernel"),)),
+        "msda_bwd": ptxas_kernels("msda_bwd", (("bfloat16", "msda_bwd_kernel<bf16>"),
+                                               ("msda_bwd_kernel", "msda_bwd_kernel<float>"))),
         "msda_bwd_atomics": sass_atomics("msda_bwd"),
         "msda_bwd_plans": plans,
     }
@@ -574,8 +606,9 @@ def msda_bwd_bound_ms(value, shapes, locs, attn) -> tuple:
     B, Q, H, NL, P, _ = locs.shape
     D = value.shape[-1]
     rows, corners = msda_traffic(value, shapes, locs)
-    nbytes = 4 * (rows * D + 2 * locs.numel() + 2 * attn.numel() + B * Q * H * D
-                  + value.numel())
+    es = value.element_size()   # value, upstream gradient and grad_value
+    nbytes = (es * (rows * D + B * Q * H * D + value.numel())
+              + 4 * (2 * locs.numel() + 2 * attn.numel()))
     ops = 8 * D * corners + 16 * B * Q * H * NL * P
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -649,19 +682,22 @@ def fusion_bwd_bound_ms(q, k, mask_v, mask_l) -> tuple:
     reaches (U = every image token with the live text, every text token with
     the live image), the logits and gq and gk; G1 and gvl where the row
     softmax is live; G2 and gvv where the column softmax is live; at the
-    3xTF32 rate."""
+    3xTF32 rate for f32 operands, at the bf16 rate for bf16 ones (the
+    statistics f32 either way)."""
     B, nv, E = q.shape
     nl = k.shape[1]
     H = FUSION_HEADS
     D = E // H
-    nbytes = 4 * (8 * B * nv * E + 8 * B * nl * E + B * H * (nv + nl)) \
+    es = q.element_size()
+    nbytes = es * (8 * B * nv * E + 8 * B * nl * E) + 4 * B * H * (nv + nl) \
         + mask_v.numel() + mask_l.numel()
     products = 0
     for lv, ll in zip((~mask_v).sum(-1).tolist(), (~mask_l).sum(-1).tolist()):
         union = nv * ll + lv * nl - lv * ll
         products += 3 * union + 2 * nv * ll + 2 * lv * nl
     ops = 2 * D * H * products
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / TF32X3_FLOP_PER_S
+    rate = BF16_FLOP_PER_S if es == 2 else TF32X3_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -995,13 +1031,11 @@ def run_microbench() -> tuple:
     results, the kernels' launches in the run)."""
     from open_groundingdino_tpu_torch.tools import msda_microbench
 
-    counters = kernel_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts()
     argv = ["--sweep", "--fwd_variant", "corner", "--banded_mp", "0", "--bwd", "--xla",
             "--iters", "3", "--repeats", "2"]
     res = msda_microbench.main(argv)
-    counts = {k: fn.launches for k, fn in counters.items()}
+    counts = read_counts()
     log("microbench", f"msda_microbench {' '.join(argv)}: ms a layer "
                       f"{ {k: round(v, 3) for k, v in res.items() if k != 'max_abs_diff'} }, "
                       f"max|banded - plain| {res['max_abs_diff']:.2e}; launches "
@@ -1122,9 +1156,7 @@ def serve(files, device: str, tag: str = "serve"):
     log(tag, f"load_model on {device} in {time.perf_counter() - t0:.1f} s")
     images = [synthetic_image(h, w, i) for i, (h, w) in enumerate(IMAGE_SIZES)]
 
-    counters = kernel_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts()
     inference.predict(im, images[0], CAPTIONS[0])           # warm-up
     torch.cuda.synchronize()
     lat = []
@@ -1139,7 +1171,7 @@ def serve(files, device: str, tag: str = "serve"):
                     and ((scores > 0.35) & (scores <= 1)).all()):
                 raise AssertionError(f"malformed predict output for image {i} {cap!r}")
     n_req = len(images) * len(CAPTIONS) + 1
-    counts = {k: fn.launches for k, fn in counters.items()}
+    counts = read_counts()
     log(tag, f"{n_req - 1} requests after 1 warm-up: latency ms "
              f"{[round(t * 1e3, 1) for t in lat]} "
              f"(median {1e3 * sorted(lat)[len(lat) // 2]:.1f}); "
@@ -1257,25 +1289,47 @@ def write_odvg(work: str) -> str:
     return manifest
 
 
+# the kernels with a bf16 entry, whose wrappers count its launches apart
+BF16_KERNELS = ("msda_fwd", "fusion_fwd", "msda_bwd", "fusion_bwd")
+
+
 def kernel_counters():
+    """{count name: (wrapper, attribute)}: each wrapper's f32 launches, and
+    as "<name>_bf16" the bf16 launches of the four that have a bf16 entry."""
     from open_groundingdino_tpu_torch.ops import fusion, msda
     from open_groundingdino_tpu_torch.ops import msda_banded as mb
     from open_groundingdino_tpu_torch.ops import msda_sweep as sw
 
-    return {"msda_fwd": msda.ms_deform_attn, "fusion_fwd": fusion.fused_bi_attention,
-            "msda_bwd": msda.ms_deform_attn_bwd, "fusion_bwd": fusion.fused_bi_attention_bwd,
-            "banded_fwd": mb.banded_fwd,
-            "sweep_fwd": sw.sweep_fwd, "sweep_fwd_allq": sw.sweep_fwd_allq,
-            "sweep_fwd_corner": sw.sweep_fwd_corner,
-            "sweep_bwd_corner": sw.sweep_bwd_corner, "sweep_bwd_rowtap": sw.sweep_bwd_rowtap}
+    fns = {"msda_fwd": msda.ms_deform_attn, "fusion_fwd": fusion.fused_bi_attention,
+           "msda_bwd": msda.ms_deform_attn_bwd, "fusion_bwd": fusion.fused_bi_attention_bwd,
+           "banded_fwd": mb.banded_fwd,
+           "sweep_fwd": sw.sweep_fwd, "sweep_fwd_allq": sw.sweep_fwd_allq,
+           "sweep_fwd_corner": sw.sweep_fwd_corner,
+           "sweep_bwd_corner": sw.sweep_bwd_corner, "sweep_bwd_rowtap": sw.sweep_bwd_rowtap}
+    counters = {k: (fn, "launches") for k, fn in fns.items()}
+    counters.update({f"{k}_bf16": (fns[k], "launches_bf16") for k in BF16_KERNELS})
+    return counters
 
 
-def train_launches_per_step(msda_keys: dict) -> dict:
+def reset_counts() -> None:
+    for fn, attr in kernel_counters().values():
+        setattr(fn, attr, 0)
+
+
+def read_counts() -> dict:
+    return {k: getattr(fn, attr) for k, (fn, attr) in kernel_counters().items()}
+
+
+def train_launches_per_step(msda_keys: dict, bf16: bool = False) -> dict:
     """TRAIN_LAUNCHES_PER_STEP with the MSDA kernels the config selects: the
     sweep runs K6 where the gather runs K1 (the decoder's B = 4 query sets
     too: msda_dec_fused is off), and K9 or K10 where it runs K3; banded_point
-    runs K5 where the gather runs K1, and K3."""
-    want = dict.fromkeys(kernel_counters(), 0) | TRAIN_LAUNCHES_PER_STEP
+    runs K5 where the gather runs K1, and K3.  In bf16 (the gather only) the
+    same launches go to the bf16 entries."""
+    want = dict.fromkeys(kernel_counters(), 0)
+    if bf16:
+        return want | {f"{k}_bf16": v for k, v in TRAIN_LAUNCHES_PER_STEP.items()}
+    want |= TRAIN_LAUNCHES_PER_STEP
     if msda_keys.get("msda_kernel") == "banded_point":
         want["banded_fwd"], want["msda_fwd"] = want["msda_fwd"], 0
     elif msda_keys.get("msda_kernel") == "sweep":
@@ -1287,12 +1341,13 @@ def train_launches_per_step(msda_keys: dict) -> dict:
 
 
 def train(cfg: str, work: str, files, device: str, msda_keys=None, epochs: int = TRAIN_EPOCHS,
-          max_steps: int = None, tag: str = "train") -> dict:
+          max_steps: int = None, tag: str = "train", compute_dtype="float32") -> dict:
     """The port's training entry (main.main) on the synthetic ODVG set at
-    the config's full width and depth: B = 4, f32, two steps an epoch (at
-    most max_steps) from the smoke's seeded checkpoint (random biases), with
-    the MSDA config keys `msda_keys` given as --options; counts the kernels'
-    launches of the run."""
+    the config's full width and depth: B = 4, `compute_dtype` (None: the
+    config's default, bf16), two steps an epoch (at most max_steps) from the
+    smoke's seeded checkpoint (random biases), with the MSDA config keys
+    `msda_keys` given as --options; counts the kernels' launches of the
+    run."""
     import torch
 
     from open_groundingdino_tpu_torch import main as train_main
@@ -1307,12 +1362,11 @@ def train(cfg: str, work: str, files, device: str, msda_keys=None, epochs: int =
         "--vocab", vocab, "--pretrain_model_path", ckpt, "--device", device,
         "--seed", str(SEED), "--num_workers", "2", "--print_freq", "1",
         *(["--max_steps", str(max_steps)] if max_steps else []),
-        "--options", f"epochs={epochs}", "batch_size=4", "compute_dtype=float32",
+        "--options", f"epochs={epochs}", "batch_size=4",
+        *([f"compute_dtype={compute_dtype}"] if compute_dtype else []),
         *(f"{k}={v}" for k, v in msda_keys.items()),
     ])
-    counters = kernel_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts()
     # what earlier phases still hold counts in the peak: free what nothing
     # references (models in reference cycles too) and read the rest
     held = torch.cuda.memory_allocated()
@@ -1324,7 +1378,7 @@ def train(cfg: str, work: str, files, device: str, msda_keys=None, epochs: int =
     run = train_main.main(cli)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {k: fn.launches for k, fn in counters.items()}
+    counts = read_counts()
     records = run["records"]
     losses = [r["loss"] for r in records]
     step_s = [r["step_seconds"] for r in records]
@@ -1333,7 +1387,8 @@ def train(cfg: str, work: str, files, device: str, msda_keys=None, epochs: int =
     peak = torch.cuda.max_memory_allocated()
     with open(os.path.join(out_dir, "log.txt")) as f:
         epochs_logged = len(f.read().splitlines())
-    log(tag, f"{len(records)} steps (B=4, f32, TF32 off{', ' if msda_keys else ''}"
+    dtype = run["train_step"].compute_dtype
+    log(tag, f"{len(records)} steps (B=4, {dtype}, TF32 off{', ' if msda_keys else ''}"
              f"{', '.join(f'{k}={v}' for k, v in msda_keys.items())}) in {wall:.1f} s with set-up: "
                  f"losses {[round(x, 4) for x in losses]}; step s "
                  f"{[round(x, 3) for x in step_s]} (median of the {len(timed)} timed: "
@@ -1347,16 +1402,25 @@ def train(cfg: str, work: str, files, device: str, msda_keys=None, epochs: int =
         raise AssertionError(f"expected {steps} finite losses, got {losses}")
     if epochs_logged != epochs:
         raise AssertionError(f"log.txt has {epochs_logged} lines, expected {epochs}")
-    want = {k: v * steps for k, v in train_launches_per_step(msda_keys).items()}
+    want = {k: v * steps
+            for k, v in train_launches_per_step(msda_keys, dtype == "bfloat16").items()}
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, expected {want}")
     return dict(run=run, counts=counts, losses=losses, step_seconds=step_s,
                 median_step_s=median_s, peak_bytes=peak, wall_s=wall)
 
 
+# K1's and K3's bf16 instances by name, demangled or not (the f32 and bf16
+# entries are one template)
+K1_BF16_NAMES = ("msda_fwd_kernel<__nv_bfloat16", "msda_fwd_kernelI13__nv_bfloat16")
+K3_BF16_NAMES = ("msda_bwd_kernel<__nv_bfloat16", "msda_bwd_kernelI13__nv_bfloat16")
 # the port's kernels by the names torch.profiler shows, first match wins
 # (K4's bwd_kernel after the MSDA backwards, whose names hold it too)
-KERNEL_GROUPS = (("K5 banded_fwd", ("banded_fwd_kernel",)),
+KERNEL_GROUPS = (("K1 msda_fwd bf16", K1_BF16_NAMES),
+                 ("K3 msda_bwd bf16", K3_BF16_NAMES),
+                 ("K2 fusion_fwd bf16", ("attend_bf16_kernel", "combine_bf16_kernel")),
+                 ("K4 fusion_bwd bf16", ("bwd_bf16_kernel", "sum_splits_bf16_kernel")),
+                 ("K5 banded_fwd", ("banded_fwd_kernel",)),
                  ("K6 rowtap_fwd", ("rowtap_fwd_kernel",)),
                  ("K7 allq_fwd", ("allq_fwd_kernel",)),
                  ("K8 corner_fwd", ("corner_fwd_kernel",)),
@@ -1438,7 +1502,7 @@ def negated_output(fn, index: int):
         out = list(fn(*args))
         out[index] = -out[index]
         return tuple(out)
-    planted.launches = 0   # the kernel's wrapper counts on its module's name, now this
+    planted.launches = planted.launches_bf16 = 0   # the wrapper counts on its module's name
     return planted
 
 
@@ -1446,9 +1510,10 @@ def parity_harness(cfg: str, files):
     """The one-step comparisons' common ground: the same seeded weights, the
     same batch (B = 1, an 800x1216-bucket image), fusion droppath 0, the
     config's full depth.  Returns (step, gaps, within):
-      step(device, msda=None) - one training step of a fresh copy of the
-          weights (MSDeformAttn attributes `msda` set on every deformable
-          attention): loss, every parameter's gradient on the host, seconds;
+      step(device, msda=None, compute_dtype=None) - one training step of a
+          fresh copy of the weights (MSDeformAttn attributes `msda` set on
+          every deformable attention; f32 unless compute_dtype says bf16):
+          loss, every parameter's gradient on the host, seconds;
       gaps(run, ref, fed) - (loss rel, {module: gradient-norm rel}, {leaf
           whose name holds one of `fed`: ||g_run - g_ref|| / ||g_ref||});
       within(gaps) - all three inside the PARITY_* limits."""
@@ -1488,7 +1553,7 @@ def parity_harness(cfg: str, files):
     if tuple(batch["images"].shape[1:3]) != BUCKET:
         raise AssertionError(f"parity batch landed in {batch['images'].shape}, not {BUCKET}")
 
-    def step(device, msda=None):
+    def step(device, msda=None, compute_dtype=None):
         model = copy.deepcopy(base).to(device)
         for m in model.modules():
             if isinstance(m, MSDeformAttn):
@@ -1508,8 +1573,8 @@ def parity_harness(cfg: str, files):
 
         opt.step = spy
         t0 = time.perf_counter()
-        metrics = make_train_step(build_criterion(args))(TrainState.create(model, opt, seed=SEED),
-                                                         batch)
+        metrics = make_train_step(build_criterion(args), compute_dtype=compute_dtype)(
+            TrainState.create(model, opt, seed=SEED), batch)
         if device == "cuda":
             torch.cuda.synchronize()
         return dict(loss=metrics["loss"], grads=grads, seconds=time.perf_counter() - t0)
@@ -1661,6 +1726,235 @@ def profile_request(im, image, caption, top: int = 8, tag: str = "profile") -> d
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "groups_ms": groups}
 
 
+# ---------------------------------------------------------------- bf16 (phases 20, 21)
+# the bf16 entries against their bf16 plain versions, relative to the largest
+# |reference| of each output: both sides take the same bf16 operands and sum
+# in f32, and round the same values to bf16, so they part where a sum's order
+# moves a rounding across a bf16 step (2^-8 relative) or, K2's text side,
+# where the kernel rounds P_l to bf16 and the plain version keeps f32 (the
+# TPU kernel's f32 sum); K3's grad_value adds in bf16 (atomics, each add
+# rounded), the JAX package's bound for that accumulation being 3e-2
+# (tests/test_msda_banded.py:133)
+BF16_FWD_RTOL = 1e-2
+BF16_K3_GV_RTOL = 3e-2
+BF16_K3_RTOL = 1e-3          # grad_locs, grad_attn: f32 from the same bf16 rows
+BF16_K4_RTOL = 1e-2
+# phase 21: the bf16 step on the card against the f32 step on the card, from
+# the same weights and batch.  bf16 moves each sampling offset by its
+# rounding, and a bilinear sample's position derivative jumps where the
+# position crosses a pixel centre: at these random weights the worst
+# K3/K4-fed gradient (a decoder value projection, an encoder's sampling
+# offsets) reads 0.38 of its norm apart (H100 run), as the JAX package's own
+# bf16 step reads a module's gradient 27% from its f32 step
+# (tests/test_torch_bf16.py); a negated bf16 kernel output reads ~2
+BF16_LOSS_RTOL = 2e-2
+BF16_LEAF_RTOL = 0.75
+
+
+def rel_err(got, ref) -> tuple:
+    """(max |got - ref|, that over max |ref|), in f32."""
+    err = float((got.float() - ref.float()).abs().max())
+    return err, err / max(float(ref.float().abs().max()), 1e-30)
+
+
+def bf16_mma_report(libs) -> dict:
+    """The fusion libraries' bf16 tensor-core MMAs in their SASS
+    (HMMA.16816.F32.BF16 from mma.sync m16n8k16 bf16: each must hold some)
+    and ptxas's report of their bf16 kernels."""
+    report = {}
+    for name in libs:
+        sass = library_sass(name)
+        hmma = sum(1 for line in sass.splitlines() if "HMMA.16816.F32.BF16" in line)
+        if hmma == 0:
+            raise AssertionError(f"{name}: no HMMA.16816.F32.BF16 in its SASS")
+        kernels = ptxas_kernels(name, [(k, k) for k in ("attend_bf16_kernel", "combine_bf16_kernel",
+                                                        "bwd_bf16_kernel",
+                                                        "sum_splits_bf16_kernel")])
+        report[name] = dict(hmma_bf16=hmma, ptxas={k: v for k, v in kernels.items()
+                                                   if "bf16" in k})
+        log("sass", f"lib{name}.so bf16 entry: {hmma} HMMA.16816.F32.BF16; ptxas "
+                    f"{report[name]['ptxas']}")
+    return report
+
+
+def check_bf16_kernels(device) -> dict:
+    """Phase 20: the bf16 entries of K1, K3 (phase 3's B = 1 and phase 8's
+    B = 4 encoder and decoder shapes) and K2, K4 (phase 4's B = 1 and phase
+    9's B = 4 fusion shapes) against their bf16 plain versions on the card,
+    timed by CUDA events and by torch.profiler's device time, with their
+    bounds at bf16 bytes and the bf16 tensor-core rate; K2's and K4's bf16
+    MMAs in their SASS, K3's bf16 atomics in its."""
+    import torch
+
+    from open_groundingdino_tpu_torch.ops import fusion, msda
+
+    import ctypes
+
+    from open_groundingdino_tpu_torch.ops import build
+
+    bf = torch.bfloat16
+    shapes = level_shapes(*BUCKET)
+    L = sum(h * w for h, w in shapes)
+    starts = msda.level_starts(shapes)
+    g = torch.Generator(device=device).manual_seed(SEED + 20)
+    smem_fn = build.load("msda_bwd").msda_bwd_smem_bytes
+    smem_fn.argtypes, smem_fn.restype = [ctypes.c_int], ctypes.c_int
+    rows = {}
+    for batch, valid in (("B=1", (BUCKET,)), ("B=4", BATCH_VALID)):
+        B = len(valid)
+        for name, q, ref_dim in (("encoder", L, 2), ("decoder", 900, 4)):
+            value, locs, attn = msda_inputs(shapes, q, ref_dim, g, device, valid)
+            value = value.to(bf)
+            fwd = lambda: msda.ms_deform_attn(value, shapes, starts, locs, attn)   # noqa: E731
+            err, rel = rel_err(fwd(), msda.ms_deform_attn_plain(value, shapes, starts, locs, attn))
+            if not rel <= BF16_FWD_RTOL:
+                raise AssertionError(f"K1 bf16 {batch} {name}: error {rel} of max|ref| > "
+                                     f"{BF16_FWD_RTOL}")
+            bound = msda_bound_ms(value, shapes, locs, attn)
+            rows["K1", batch, name] = dict(
+                max_abs_err=err, rel_err=rel, ms=event_ms(fwd, 50),
+                device_ms=kernel_device_ms(fwd, 50, K1_BF16_NAMES),
+                plain_ms=event_ms(
+                    lambda: msda.ms_deform_attn_plain(value, shapes, starts, locs, attn), 3),
+                bound_ms=bound[0], bound_by=bound[1])
+            grad_out = torch.randn(B, q, HEADS * HEAD_DIM, generator=g, device=device).to(bf)
+            args = (value, shapes, starts, locs, attn, grad_out)
+            got, ref = msda.ms_deform_attn_bwd(*args), msda.ms_deform_attn_bwd_plain(*args)
+            errs, abs_errs = {}, {}
+            for key, a, b, tol in zip(("grad_value", "grad_locs", "grad_attn"), got, ref,
+                                      (BF16_K3_GV_RTOL, BF16_K3_RTOL, BF16_K3_RTOL)):
+                abs_errs[key], errs[key] = rel_err(a, b)
+                if not errs[key] <= tol:
+                    raise AssertionError(f"K3 bf16 {batch} {name} {key}: error {errs[key]} of "
+                                         f"max|ref| > {tol}")
+            if got[0].dtype != bf or got[1].dtype != torch.float32:
+                raise AssertionError(f"K3 bf16 returned {[t.dtype for t in got]}")
+            bwd = lambda: msda.ms_deform_attn_bwd(*args)   # noqa: E731
+            bound = msda_bwd_bound_ms(value, shapes, locs, attn)
+            # a record, not a check: the f32 entry's plan (fewer levels in
+            # shared memory, more bf16 adds a row) on the same operands
+            budget, msda.BWD_SMEM_BUDGET_BF16 = msda.BWD_SMEM_BUDGET_BF16, msda.BWD_SMEM_BUDGET
+            try:
+                f32_plan = dict(grad_value_rel_err=rel_err(bwd()[0], ref[0])[1],
+                                ms=event_ms(bwd, 20))
+            finally:
+                msda.BWD_SMEM_BUDGET_BF16 = budget
+            plan = msda.msda_bwd_plan(shapes, B, q, HEADS, msda.BWD_SMEM_BUDGET_BF16)._asdict()
+            if smem_fn(plan["smem_rows"]) != plan["smem_bytes"]:
+                raise AssertionError(f"K3 bf16's plan {plan}: the kernel needs "
+                                     f"{smem_fn(plan['smem_rows'])} B of shared memory")
+            rows["K3", batch, name] = dict(plan=plan, with_f32_plan=f32_plan,
+                max_abs_err=max(abs_errs.values()), rel_errs=errs, ms=event_ms(bwd, 20),
+                device_ms=kernel_device_ms(bwd, 20, K3_BF16_NAMES),
+                plain_ms=event_ms(lambda: msda.ms_deform_attn_bwd_plain(*args), 3),
+                bound_ms=bound[0], bound_by=bound[1])
+            for kname in ("K1", "K3"):
+                r = rows[kname, batch, name]
+                log("bf16-kernels", f"{kname} {batch} {name} Q={q}: error of max|ref| "
+                    f"{r.get('rel_errs', r.get('rel_err'))} (limits fwd {BF16_FWD_RTOL}, "
+                    f"grad_value {BF16_K3_GV_RTOL}, grad_locs/attn {BF16_K3_RTOL}); kernel "
+                    f"{r['ms']:.4f} ms (device time {r['device_ms']:.4f} ms), plain "
+                    f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+                    + (f"; plan {r['plan']} (the f32 entry's plan: grad_value error "
+                       f"{r['with_f32_plan']['grad_value_rel_err']:.3e} of max|ref|, "
+                       f"{r['with_f32_plan']['ms']:.4f} ms)" if kname == "K3" else ""))
+    for batch, valid, live in (("B=1", ((800, 1066),), (LIVE_TEXT,)),
+                               ("B=4", BATCH_VALID, BATCH_LIVE_TEXT)):
+        args = list(fusion_inputs(g, device, valid, live))
+        args[:4] = [t.to(bf) for t in args[:4]]
+        q, k, val_v, val_l, mask_v, mask_l = args
+        fwd = lambda: fusion._fusion_fwd_cuda(*args, FUSION_HEADS)   # noqa: E731
+        out_v, out_l, lse_v, lse_l = fwd()
+        ov_p, ol_p = fusion.fused_bi_attention_plain(*args, FUSION_HEADS)
+        abs_errs, errs = zip(rel_err(out_v, ov_p), rel_err(out_l, ol_p))
+        errs = dict(zip(("out_v", "out_l"), errs))
+        del ov_p, ol_p
+        if not max(errs.values()) <= BF16_FWD_RTOL:
+            raise AssertionError(f"K2 bf16 {batch}: errors of max|ref| {errs} > {BF16_FWD_RTOL}")
+        bound = fusion_bound_ms(q, k, mask_v, mask_l)
+        frags = ("attend_bf16_kernel", "combine_bf16_kernel")
+        rows["K2", batch, "fusion"] = dict(
+            max_abs_err=max(abs_errs), rel_errs=errs, ms=event_ms(fwd, 5),
+            device_ms=kernel_device_ms(fwd, 5, frags, per_call=True),
+            plain_ms=event_ms(lambda: fusion.fused_bi_attention_plain(*args, FUSION_HEADS), 3),
+            bound_ms=bound[0], bound_by=bound[1])
+        g_ov = torch.randn(q.shape, generator=g, device=device).to(bf)
+        g_ol = torch.randn(k.shape, generator=g, device=device).to(bf)
+        bwd_args = (*args, out_v, out_l, lse_v, lse_l, g_ov, g_ol, FUSION_HEADS)
+        got = fusion.fused_bi_attention_bwd(*bwd_args)
+        ref = fusion.fused_bi_attention_bwd_plain(*args, g_ov, g_ol, FUSION_HEADS)
+        abs_errs, errs = zip(*(rel_err(a, b) for a, b in zip(got, ref)))
+        errs = dict(zip(("gq", "gk", "gvv", "gvl"), errs))
+        del ref
+        if not max(errs.values()) <= BF16_K4_RTOL or {t.dtype for t in got} != {bf}:
+            raise AssertionError(f"K4 bf16 {batch}: errors of max|ref| {errs} > {BF16_K4_RTOL} "
+                                 f"or dtypes {[t.dtype for t in got]}")
+        bwd = lambda: fusion.fused_bi_attention_bwd(*bwd_args)   # noqa: E731
+        bound = fusion_bwd_bound_ms(q, k, mask_v, mask_l)
+        rows["K4", batch, "fusion"] = dict(
+            max_abs_err=max(abs_errs), rel_errs=errs, ms=event_ms(bwd, 5),
+            device_ms=kernel_device_ms(bwd, 5, ("bwd_bf16_kernel", "sum_splits_bf16_kernel"),
+                                       per_call=True),
+            plain_ms=event_ms(
+                lambda: fusion.fused_bi_attention_bwd_plain(*args, g_ov, g_ol, FUSION_HEADS), 2),
+            bound_ms=bound[0], bound_by=bound[1])
+        for kname in ("K2", "K4"):
+            r = rows[kname, batch, "fusion"]
+            log("bf16-kernels", f"{kname} {batch} (valid {valid}, live text {live}): error of "
+                f"max|ref| { {k_: f'{v:.2e}' for k_, v in r['rel_errs'].items()} } (limit "
+                f"{BF16_FWD_RTOL if kname == 'K2' else BF16_K4_RTOL}); kernel {r['ms']:.3f} ms "
+                f"(device time {r['device_ms']:.3f} ms), plain {r['plain_ms']:.3f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        del got, bwd_args, args
+    sass = bf16_mma_report(("fusion_fwd", "fusion_bwd"))
+    atomics = sass_atomics("msda_bwd")
+    log("sass", f"libmsda_bwd.so SASS atomics with the bf16 entry: {atomics}")
+    if atomics["red_global_bf16x2"] == 0:
+        raise AssertionError("K3's bf16 entry holds no bf16 global reduction")
+    sass["msda_bwd_atomics"] = atomics
+    return {"rows": rows, "sass": sass}
+
+
+def train_bf16(cfg, work, train_files, harness, f32_card) -> dict:
+    """Phase 21: main with the config's default compute_dtype (bf16) at
+    B = 4, full width and depth, 1 warm-up + 5 timed steps (18 K1 + 12 K3 +
+    12 K2 + 6 K4 bf16 launches a step, no f32 ones) and a profiled step;
+    then phase 11's step in bf16 on the card against phase 11's f32 step on
+    the card (loss within BF16_LOSS_RTOL, each K3/K4-fed gradient within
+    BF16_LEAF_RTOL), and with a negated bf16 K3 grad_locs, and apart a
+    negated bf16 K4 gvl, each must fail."""
+    from open_groundingdino_tpu_torch.ops import fusion, msda
+
+    run = train(cfg, work, train_files, "cuda", tag="bf16-train", compute_dtype=None)
+    if run["run"]["train_step"].compute_dtype != "bfloat16":
+        raise AssertionError("main's default compute_dtype is not bf16")
+    run["profile"] = profile_train_step(run.pop("run"), tag="bf16-train-profile")
+
+    step, gaps, _ = harness
+
+    def within(gap):
+        return gap[0] < BF16_LOSS_RTOL and all(v < BF16_LEAF_RTOL for v in gap[2].values())
+
+    card = step("cuda", compute_dtype="bfloat16")
+    gap = gaps(card, f32_card, KERNEL_FED)
+    loss_rel, norm_rel, leaf_rel = gap
+    worst = sorted(leaf_rel.items(), key=lambda kv: -kv[1])[:3]
+    log("bf16-parity", f"B=1 {BUCKET} bucket: loss bf16 {card['loss']:.6f} f32 "
+                       f"{f32_card['loss']:.6f} (rel {loss_rel:.2e}, limit {BF16_LOSS_RTOL}); "
+                       f"grad-norm rel diff by module { {k: f'{v:.2e}' for k, v in norm_rel.items()} }; "
+                       f"{len(leaf_rel)} K3/K4-fed leaves ||dg||/||g|| max "
+                       f"{max(leaf_rel.values()):.2e} (limit {BF16_LEAF_RTOL}), worst "
+                       f"{[(n, f'{v:.2e}') for n, v in worst]}; step s {card['seconds']:.1f}")
+    if not within(gap):
+        raise AssertionError("the bf16 step disagrees with the f32 step")
+    planted = planted_faults(step, gaps, within, f32_card, KERNEL_FED,
+                             (("bf16 K3 grad_locs negated", msda, "ms_deform_attn_bwd", 1),
+                              ("bf16 K4 gvl negated", fusion, "fused_bi_attention_bwd", 3)),
+                             "bf16-parity", compute_dtype="bfloat16")
+    run["parity"] = dict(loss_rel=loss_rel, leaf_rel_max=max(leaf_rel.values()), planted=planted)
+    return run
+
+
 def main() -> int:
     import torch
 
@@ -1744,6 +2038,8 @@ def main() -> int:
         del run
         check_banded_train_parity(harness, gather_card)
         _, bench_counts = run_microbench()                              # 19
+        bf16 = check_bf16_kernels("cuda")                               # 20
+        bf16_train = train_bf16(cfg, work, train_files, harness, gather_card)   # 21
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1835,6 +2131,27 @@ def main() -> int:
                         "launches_by_path": {k: v[counter] for k, v in by_path.items()}, **row})
         if kernels[-1]["launches"] <= 0:
             raise AssertionError(f"{kname} was not launched on its path")
+    # the bf16 entries (phase 20; the row is phase 8's / 9's B = 4 shapes,
+    # per_shape adds B = 1); launches from the bf16 training run (phase 21)
+    bf16_rows, bf16_counts = bf16["rows"], bf16_train["counts"]
+    for kname, counter, source, line, parts in (
+            ("K1", "msda_fwd", "msda_fwd.cu", "msda_banded.py:311", ("encoder", "decoder")),
+            ("K2", "fusion_fwd", "fusion_fwd.cu", "fusion_pallas.py:50", ("fusion",)),
+            ("K3", "msda_bwd", "msda_bwd.cu", "msda_banded.py:524", ("encoder", "decoder")),
+            ("K4", "fusion_bwd", "fusion_bwd.cu", "fusion_pallas.py:198", ("fusion",))):
+        shapes = {n: bf16_rows[kname, "B=4", n] for n in parts}
+        row = mean_row(shapes) if len(parts) == 2 else single_row(shapes["fusion"])
+        row["per_shape"] = {f"{batch} {n}": r for (k, batch, n), r in bf16_rows.items()
+                            if k == kname}
+        row["max_abs_err"] = max(r["max_abs_err"] for r in row["per_shape"].values())
+        row["device_ms"] = sum(r["device_ms"] for r in shapes.values()) / len(shapes)
+        row["sass"] = bf16["sass"].get({"K2": "fusion_fwd", "K3": "msda_bwd_atomics",
+                                        "K4": "fusion_bwd"}.get(kname))
+        kernels.append({"name": f"{counter}_bf16", "route": "cuda", "source": src + source,
+                        "replaces": tpu + line, "launches": bf16_counts[f"{counter}_bf16"],
+                        "launches_by_path": {"bf16-train": bf16_counts[f"{counter}_bf16"]}, **row})
+        if kernels[-1]["launches"] <= 0:
+            raise AssertionError(f"{kname}'s bf16 entry was not launched on its path")
     print(json.dumps({"kernels": json_safe(kernels)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -106,8 +106,9 @@ image_buckets = [
 eval_shortest_edge = 800
 eval_max_size = 1333
 max_gt_boxes = 128          # static per-image GT padding for the criterion
-compute_dtype = "float32"   # the port trains in f32 (bf16 is queued); the JAX
-                            # package's default is "bfloat16"
+compute_dtype = "bfloat16"  # training: bf16 compute over f32 master params, f32
+                            # AdamW and EMA, as the JAX package's default
+                            # (parallel/train_state.py); "float32" for the f32 step
 u8_images = True            # ship uint8 pixels, normalize on the device
 use_ema = False             # reference cfg use_ema (util/utils.py ModelEma)
 ema_decay = 0.9997

@@ -52,6 +52,7 @@
 #include <cmath>
 #include <cstdint>
 
+#include "bf16_mma.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -327,6 +328,225 @@ int fusion_fwd(const float* q, const float* k, const float* val_v, const float* 
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------- bf16 entry
+// The same two passes and combine on bf16 operands (bf16_mma.cuh): S = Q.K^T
+// on bf16 operands with f32 sums, the online softmax in f32, P rounded to
+// bf16 for P.V, f32 sums, outputs rounded to bf16 once.  The TPU kernel
+// rounds the image side's P_v the same way (fusion_pallas.py:98-102); its
+// text side sums val_v^T.P_l in f32 (:116-120), where this pass rounds P_l
+// to bf16 as well (chip_smoke.py holds the difference against the plain
+// version's f32 sum).  A block is 8 warps of 16 query rows, each holding its
+// rows' 256-lane f32 output (128 registers a thread); key tiles of 16 keys
+// in two cp.async stages; S takes 16 MMAs a 16-key tile a warp, P.V 32.
+namespace bm = bf16mma;
+
+// the query tile and two stages of key and value tiles (bf16); then the
+// key-padding flags and live-tile flags, as the f32 entry's
+constexpr size_t kSmemTilesBf16 = sizeof(bm::bf16) * ((size_t)kRows * D + 4 * (size_t)kKeys * D);
+
+size_t smem_bytes_bf16(int chunk) {
+  return kSmemTilesBf16 + round16(chunk) + round16(chunk / kKeys);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+attend_bf16_kernel(const bm::bf16* __restrict__ Qm, const bm::bf16* __restrict__ Km,
+                   const bm::bf16* __restrict__ Vm, const uint8_t* __restrict__ key_pad,
+                   int Nq, int Nk, int E, int H, int n_splits, int chunk,
+                   bm::bf16* __restrict__ out, float* __restrict__ lse,
+                   float* __restrict__ part_acc, float* __restrict__ part_m,
+                   float* __restrict__ part_s) {
+  extern __shared__ float4 smem4[];
+  bm::bf16* sQ = reinterpret_cast<bm::bf16*>(smem4);   // [kRows][D]
+  bm::bf16* sK = sQ + kRows * D;                       // [2][kKeys][D]
+  bm::bf16* sV = sK + 2 * kKeys * D;                   // [2][kKeys][D]
+  uint8_t* sPad = reinterpret_cast<uint8_t*>(sV + 2 * kKeys * D);   // [chunk]
+  uint8_t* sLive = sPad + round16(chunk);                           // [chunk / kKeys]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = blockIdx.x * kRows;
+  const int h = blockIdx.y % H;
+  const int split = blockIdx.y / H;
+  const int b = blockIdx.z;
+  const int k_begin = split * chunk;
+  const int k_end = min(Nk, k_begin + chunk);
+
+  const bm::bf16* qb = Qm + (long long)b * Nq * E + h * D;
+  const bm::bf16* kb = Km + (long long)b * Nk * E + h * D;
+  const bm::bf16* vb = Vm + (long long)b * Nk * E + h * D;
+  const uint8_t* padb = key_pad + (long long)b * Nk;
+
+  bm::load_tile<kRows, kThreads>(sQ, qb, E, r0, Nq, tid);
+  stage_pads(sPad, sLive, padb, k_begin, k_end, chunk, kKeys, tid, kThreads);
+  int c0 = next_live(sLive, k_begin, k_begin, k_end);
+  if (c0 < k_end) {
+    bm::load_tile<kKeys, kThreads>(sK, kb, E, c0, k_end, tid);
+    bm::load_tile<kKeys, kThreads>(sV, vb, E, c0, k_end, tid);
+  }
+  cp_async_commit();
+
+  const int m0 = warp * 16;
+  float o[kNT][4];
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.f, 0.f};
+
+  int stage = 0;
+  while (c0 < k_end) {
+    cp_async_wait<0>();   // this stage (and the query tile) have landed
+    __syncthreads();      // every warp is past the previous tile: its stage is free
+    const int c1 = next_live(sLive, c0 + kKeys, k_begin, k_end);
+    if (c1 < k_end) {     // the next tile loads while this one computes
+      bm::load_tile<kKeys, kThreads>(sK + (stage ^ 1) * kKeys * D, kb, E, c1, k_end, tid);
+      bm::load_tile<kKeys, kThreads>(sV + (stage ^ 1) * kKeys * D, vb, E, c1, k_end, tid);
+    }
+    cp_async_commit();
+    const bm::bf16* K = sK + stage * kKeys * D;
+    const bm::bf16* V = sV + stage * kKeys * D;
+
+    // S = Q . K^T: this warp's 16 rows x 16 keys (two 8-key tiles j)
+    float s[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll 4
+    for (int k0 = 0; k0 < D; k0 += 16) {
+      uint32_t a[4], bk[2][2];
+      bm::load_a(a, sQ, m0, k0, lane);
+      bm::load_b_key(bk, K, k0, lane);
+      bm::mma(s[0], a, bk[0]);
+      bm::mma(s[1], a, bk[1]);
+    }
+
+    // online softmax over this tile's live keys (element e of n-tile j is key
+    // c0 + 8j + 2t + (e & 1), row g for e < 2 and g + 8 for e >= 2)
+    bool valid[2][2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) valid[j][e] = sPad[c0 - k_begin + 8 * j + 2 * t + e] == 0;
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = -FLT_MAX;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (valid[j][e]) mx = fmaxf(mx, s[j][2 * i + e]);
+        }
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = __expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = valid[j][e] ? __expf(s[j][2 * i + e] - m_new) : 0.f;
+          s[j][2 * i + e] = p;
+          sum += p;
+        }
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l[i] = l[i] * alpha + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        o[n][2 * i] *= alpha;
+        o[n][2 * i + 1] *= alpha;
+      }
+    }
+
+    // O += P . V over the tile's 16 keys, P rounded to bf16
+    uint32_t p[4];
+    bm::a_from_acc(p, s[0], s[1]);
+#pragma unroll
+    for (int n = 0; n < kNT; n += 2) {
+      uint32_t bv[2][2];
+      bm::load_b_val(bv, V, 8 * n, lane);
+      bm::mma(o[n], p, bv[0]);
+      bm::mma(o[n + 1], p, bv[1]);
+    }
+    c0 = c1;
+    stage ^= 1;
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + m0 + g + 8 * i;
+    if (r >= Nq) continue;
+    if (n_splits == 1) {
+      const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+      bm::bf16* orow = out + ((long long)b * Nq + r) * E + h * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        *reinterpret_cast<uint32_t*>(orow + 8 * n) =
+            bm::pack(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
+      }
+      if (t == 0) lse[((long long)b * H + h) * Nq + r] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
+    } else {
+      const long long idx = (((long long)b * H + h) * n_splits + split) * Nq + r;
+      float* prow = part_acc + idx * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        *reinterpret_cast<float2*>(prow + 8 * n) = make_float2(o[n][2 * i], o[n][2 * i + 1]);
+      }
+      if (t == 0) {
+        part_m[idx] = m[i];
+        part_s[idx] = l[i];
+      }
+    }
+  }
+}
+
+// combine_kernel's merge, the output rounded to bf16
+__global__ void combine_bf16_kernel(const float* __restrict__ part_acc,
+                                    const float* __restrict__ part_m,
+                                    const float* __restrict__ part_s,
+                                    bm::bf16* __restrict__ out, float* __restrict__ lse,
+                                    int Nq, int E, int H, int n_splits) {
+  const int r = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const long long base = (((long long)b * H + h) * n_splits) * Nq + r;
+  float M = -FLT_MAX;
+  for (int s = 0; s < n_splits; ++s) M = fmaxf(M, part_m[base + (long long)s * Nq]);
+  float tot = 0.f;
+  for (int s = 0; s < n_splits; ++s) {
+    const long long idx = base + (long long)s * Nq;
+    tot += expf(part_m[idx] - M) * part_s[idx];
+  }
+  const float inv = tot > 0.f ? 1.f / tot : 0.f;
+  if (threadIdx.x == 0) lse[((long long)b * H + h) * Nq + r] = tot > 0.f ? M + logf(tot) : INFINITY;
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float acc = 0.f;
+    for (int s = 0; s < n_splits; ++s) {
+      const long long idx = base + (long long)s * Nq;
+      acc += expf(part_m[idx] - M) * part_acc[idx * D + d];
+    }
+    out[((long long)b * Nq + r) * E + h * D + d] = __float2bfloat16_rn(acc * inv);
+  }
+}
+
+cudaError_t attend_bf16(const bm::bf16* Qm, const bm::bf16* Km, const bm::bf16* Vm,
+                        const uint8_t* key_pad, int B, int Nq, int Nk, int E, int H, int n_splits,
+                        bm::bf16* out, float* lse, float* part_acc, float* part_m, float* part_s,
+                        cudaStream_t stream) {
+  const int chunk = split_chunk(Nk, n_splits);
+  const size_t smem = smem_bytes_bf16(chunk);
+  cudaError_t err = cudaFuncSetAttribute(attend_bf16_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Nq + kRows - 1) / kRows, H * n_splits, B);
+  attend_bf16_kernel<<<grid, kThreads, smem, stream>>>(Qm, Km, Vm, key_pad, Nq, Nk, E, H,
+                                                        n_splits, chunk, out, lse, part_acc,
+                                                        part_m, part_s);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -356,6 +576,38 @@ int fusion_fwd_f32(const void* q, const void* k, const void* val_v, const void* 
 // n_splits chunks (the image-row pass has Nk = Nl and one chunk).
 int fusion_fwd_smem_bytes(int Nk, int n_splits) {
   return (int)smem_bytes(split_chunk(Nk, n_splits));
+}
+
+
+// The bf16 entry: q, k, val_v, val_l, out_v, out_l bf16; lse_v, lse_l and the
+// scratch f32, shapes and n_splits as fusion_fwd_f32's.
+int fusion_fwd_bf16(const void* q, const void* k, const void* val_v, const void* val_l,
+                    const void* pad_v, const void* pad_l, void* out_v, void* out_l,
+                    void* lse_v, void* lse_l, void* part_acc, void* part_m, void* part_s,
+                    int B, int Nv, int Nl, int E, int H, int n_splits, void* stream) {
+  if (H * D != E || n_splits < 2) return (int)cudaErrorInvalidValue;
+  typedef bm::bf16 T;
+  cudaStream_t st = (cudaStream_t)stream;
+  // 1. image rows over text keys -> out_v, lse_v
+  cudaError_t err = attend_bf16((const T*)q, (const T*)k, (const T*)val_l, (const uint8_t*)pad_l,
+                                B, Nv, Nl, E, H, 1, (T*)out_v, (float*)lse_v,
+                                nullptr, nullptr, nullptr, st);
+  if (err != cudaSuccess) return (int)err;
+  // 2. text rows over image keys, image axis in n_splits chunks -> partials
+  err = attend_bf16((const T*)k, (const T*)q, (const T*)val_v, (const uint8_t*)pad_v,
+                    B, Nl, Nv, E, H, n_splits, nullptr, nullptr,
+                    (float*)part_acc, (float*)part_m, (float*)part_s, st);
+  if (err != cudaSuccess) return (int)err;
+  // 3. merge the partials -> out_l, lse_l
+  combine_bf16_kernel<<<dim3(Nl, H, B), 256, 0, st>>>((const float*)part_acc,
+                                                      (const float*)part_m, (const float*)part_s,
+                                                      (T*)out_l, (float*)lse_l, Nl, E, H, n_splits);
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory (bytes) of attend_bf16_kernel, as fusion_fwd_smem_bytes.
+int fusion_fwd_bf16_smem_bytes(int Nk, int n_splits) {
+  return (int)smem_bytes_bf16(split_chunk(Nk, n_splits));
 }
 
 }  // extern "C"

@@ -48,10 +48,25 @@
 //   - ops/msda.py plans the tile, the shared-memory levels and the dynamic
 //     shared-memory bytes (msda_bwd_plan) and passes them in.
 // The order of the f32 sums changes from run to run (atomics).
+// The bf16 entry (msda_bwd_bf16: bf16 value, upstream gradient and
+// grad_value) is the JAX package's default, MSDA_BWD_GV_BF16=1
+// (msda_banded.py:693-709): value rows of 64 B (8 B a lane), the products
+// and grad_locs / grad_attn in f32, grad_value accumulated in bf16 with
+// bf16x2 reductions (red.global.add.noftz.bf16x2, two a lane a corner row),
+// each add rounding, but for the shared-memory levels: their tile sums add in
+// f32 to a scratch copy of their rows, rounded into grad_value once at the
+// end (round_rows_kernel).  The error grows with the bf16 adds a row takes,
+// so its plan (ops/msda.py BWD_SMEM_BUDGET_BF16) gives shared memory levels 2
+// and 3 at the 800x1216 bucket (1 CTA an SM): the f32 entry's plan, level 3
+// alone, leaves level 2's ~340 bf16 adds a row (chip_smoke.py phase 20
+// records that plan's error beside this one's).  The JAX package bounds its
+// bf16 accumulation at 3e-2 (tests/test_msda_banded.py:133).
 // ptxas -v (-O3, sm_90a, CUDA 12.8): 60 registers, no spills; dynamic shared
 // memory 44,160 B at the 800x1216 bucket (slots 12,288 + level 3's 31,616 +
 // flags 256).  Its SASS holds 19 vector global reductions (RED F32x4), no
 // scalar ones, and 64 shared-memory compare-and-swap loops (ATOMS.CAST.SPIN).
+#include <type_traits>
+
 #include "msda_common.cuh"
 
 namespace {
@@ -61,11 +76,41 @@ using namespace msda;
 constexpr int kWarps = 16;
 constexpr int kThreads = kWarps * 32;
 
+// The bf16 entry's flush: each touched shared-memory row added to the
+// (b, h)'s f32 scratch rows (one float4 atomic a 16 B), which round_rows
+// rounds to bf16 once, after every tile has added its sums
+__device__ __forceinline__ void flush_scratch(const float* acc, const unsigned char* touched,
+                                              int smem_rows, float* scratch, int n_threads) {
+  for (int i = threadIdx.x; i < smem_rows * (kD / 4); i += n_threads) {
+    if (!touched[i / (kD / 4)]) continue;
+    atomicAdd(reinterpret_cast<float4*>(scratch) + i, reinterpret_cast<const float4*>(acc)[i]);
+  }
+}
+
+// grad_value's shared-memory-level rows from the f32 scratch (B*H rows of
+// smem_rows x kD), rounded to bf16: 4 channels a thread; those rows take
+// no other add
+__global__ void round_rows_kernel(const float* __restrict__ scratch,
+                                  __nv_bfloat16* __restrict__ grad_value, long long n4, int L,
+                                  int H, int NL, int smem_rows, Levels lv) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  const int sub = (int)(i % (kD / 4));
+  const long long row = i / (kD / 4);
+  const int r = (int)(row % smem_rows);
+  const long long bh = row / smem_rows;
+  const long long b = bh / H, h = bh % H;
+  const int pos = smem_row_position(r, NL, lv);
+  store4(grad_value + ((b * L + pos) * H + h) * kD, sub,
+         reinterpret_cast<const float4*>(scratch)[i]);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-msda_bwd_kernel(const float* __restrict__ value, const float* __restrict__ locs,
-                const float* __restrict__ attn, const float* __restrict__ grad_out,
-                float* __restrict__ grad_value, float* __restrict__ grad_locs,
-                float* __restrict__ grad_attn,
+msda_bwd_kernel(const T* __restrict__ value, const float* __restrict__ locs,
+                const float* __restrict__ attn, const T* __restrict__ grad_out,
+                T* __restrict__ grad_value, float* __restrict__ grad_locs,
+                float* __restrict__ grad_attn, float* __restrict__ gv_scratch,
                 int L, int H, int Q, int NL, int tile_q, int n_tiles, int smem_rows, Levels lv) {
   // dynamic shared memory: the warps' sample slots, then smem_rows
   // accumulator rows of kD f32, then a touched flag a row
@@ -133,30 +178,34 @@ msda_bwd_kernel(const float* __restrict__ value, const float* __restrict__ locs,
   }
 
   __syncthreads();
-  flush_rows(acc, touched, smem_rows, NL, lv, grad_value + vbase, row_stride, kThreads);
+  if constexpr (std::is_same<T, float>::value)
+    flush_rows(acc, touched, smem_rows, NL, lv, grad_value + vbase, row_stride, kThreads);
+  else
+    flush_scratch(acc, touched, smem_rows, gv_scratch + (long long)bh * smem_rows * kD, kThreads);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of msda_bwd_f32 with smem_rows accumulator rows.
+// Dynamic shared memory of msda_bwd_f32 and msda_bwd_bf16 with smem_rows
+// accumulator rows.
 int msda_bwd_smem_bytes(int smem_rows) {
   return (int)(kWarps * kSamples * sizeof(Slot)) + smem_rows * kD * 4 + ((smem_rows + 15) / 16) * 16;
 }
 
-// All f32 contiguous; value, grad_out and grad_value 16-byte aligned.
-// grad_value must be zeroed by the caller (the kernel accumulates into it);
-// grad_locs and grad_attn are written whole.  The plan (ops/msda.py
-// msda_bwd_plan): tile_q queries a CTA; smem_row[l] the first accumulator
-// row of level l in shared memory, or -1 for a level scattered to global
-// memory; smem_rows rows in all, in smem_bytes of dynamic shared memory.
-// Returns a cudaError_t (0 = launched).
-int msda_bwd_f32(const void* value, const void* locs, const void* attn, const void* grad_out,
-                 void* grad_value, void* grad_locs, void* grad_attn,
-                 int B, int L, int H, int D, int Q, int NL, int P,
-                 const int* shapes_hw, const int* level_start, int tile_q,
-                 const int* smem_row, int smem_rows, int smem_bytes, void* stream) {
+}  // extern "C"
+
+namespace {
+
+using namespace msda;
+
+template <typename T>
+int launch(const void* value, const void* locs, const void* attn, const void* grad_out,
+           void* grad_value, void* grad_locs, void* grad_attn, void* gv_scratch,
+           int B, int L, int H, int D, int Q, int NL, int P,
+           const int* shapes_hw, const int* level_start, int tile_q,
+           const int* smem_row, int smem_rows, int smem_bytes, void* stream) {
   if (D != kD || P != kP || NL <= 0 || NL > kMaxLevels || tile_q <= 0 || smem_rows < 0
       || smem_bytes < msda_bwd_smem_bytes(smem_rows))
     return (int)cudaErrorInvalidValue;
@@ -173,14 +222,57 @@ int msda_bwd_f32(const void* value, const void* locs, const void* attn, const vo
   const int n_tiles = (Q + tile_q - 1) / tile_q;
   const long long blocks = (long long)B * H * n_tiles;
   if (blocks == 0) return (int)cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(msda_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         smem_bytes);
+  cudaError_t err = cudaFuncSetAttribute(msda_bwd_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  msda_bwd_kernel<<<(unsigned)blocks, kThreads, smem_bytes, (cudaStream_t)stream>>>(
-      (const float*)value, (const float*)locs, (const float*)attn, (const float*)grad_out,
-      (float*)grad_value, (float*)grad_locs, (float*)grad_attn,
+  msda_bwd_kernel<T><<<(unsigned)blocks, kThreads, smem_bytes, (cudaStream_t)stream>>>(
+      (const T*)value, (const float*)locs, (const float*)attn, (const T*)grad_out,
+      (T*)grad_value, (float*)grad_locs, (float*)grad_attn, (float*)gv_scratch,
       L, H, Q, NL, tile_q, n_tiles, smem_rows, lv);
+  err = cudaGetLastError();
+  if (std::is_same<T, float>::value || err != cudaSuccess || smem_rows == 0) return (int)err;
+  const long long n4 = (long long)B * H * smem_rows * (kD / 4);
+  round_rows_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
+      (const float*)gv_scratch, (__nv_bfloat16*)grad_value, n4, L, H, NL, smem_rows, lv);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// All f32 contiguous; value, grad_out and grad_value 16-byte aligned.
+// grad_value must be zeroed by the caller (the kernel accumulates into it);
+// grad_locs and grad_attn are written whole.  The plan (ops/msda.py
+// msda_bwd_plan): tile_q queries a CTA; smem_row[l] the first accumulator
+// row of level l in shared memory, or -1 for a level scattered to global
+// memory; smem_rows rows in all, in smem_bytes of dynamic shared memory.
+// Returns a cudaError_t (0 = launched).
+int msda_bwd_f32(const void* value, const void* locs, const void* attn, const void* grad_out,
+                 void* grad_value, void* grad_locs, void* grad_attn,
+                 int B, int L, int H, int D, int Q, int NL, int P,
+                 const int* shapes_hw, const int* level_start, int tile_q,
+                 const int* smem_row, int smem_rows, int smem_bytes, void* stream) {
+  return launch<float>(value, locs, attn, grad_out, grad_value, grad_locs, grad_attn, nullptr,
+                       B, L, H, D, Q, NL, P, shapes_hw, level_start, tile_q,
+                       smem_row, smem_rows, smem_bytes, stream);
+}
+
+// value, grad_out and grad_value bf16 (8-byte aligned rows of 64 B), locs,
+// attn, grad_locs and grad_attn f32; a plan as msda_bwd_f32's (the slots
+// and the f32 accumulator rows do not depend on the value's type).
+// grad_value (zeroed by the caller) accumulates in bf16: the other levels'
+// corner rows add with bf16x2 reductions; the shared-memory levels' tile
+// sums add in f32 to gv_scratch (B*H*smem_rows*32 f32, zeroed by the caller),
+// which a second kernel rounds into grad_value once.
+int msda_bwd_bf16(const void* value, const void* locs, const void* attn, const void* grad_out,
+                  void* grad_value, void* grad_locs, void* grad_attn, void* gv_scratch,
+                  int B, int L, int H, int D, int Q, int NL, int P,
+                  const int* shapes_hw, const int* level_start, int tile_q,
+                  const int* smem_row, int smem_rows, int smem_bytes, void* stream) {
+  return launch<__nv_bfloat16>(value, locs, attn, grad_out, grad_value, grad_locs, grad_attn,
+                               gv_scratch, B, L, H, D, Q, NL, P, shapes_hw, level_start, tile_q,
+                               smem_row, smem_rows, smem_bytes, stream);
 }
 
 }  // extern "C"

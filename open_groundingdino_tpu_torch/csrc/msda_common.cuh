@@ -124,6 +124,23 @@ __device__ __forceinline__ void store4(__nv_bfloat16* row, int sub, float4 v) {
   reinterpret_cast<uint2*>(row)[sub] = u;
 }
 
+// 4 channels added to a global row with atomics: one float4 atomic
+// (red.global.add.v4.f32) into an f32 row; two bf16x2 atomics
+// (red.global.add.noftz.bf16x2) into a bf16 row, each add rounding to bf16
+__device__ __forceinline__ void atomic_add4(float* row, int sub, float4 v) {
+  atomicAdd(reinterpret_cast<float4*>(row) + sub, v);
+}
+__device__ __forceinline__ void red_bf16x2(__nv_bfloat16* p, float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  // a reduction, not atomicAdd's fetch-and-add: nothing waits for the old value
+  asm volatile("red.global.add.noftz.bf16x2 [%0], %1;\n" ::"l"(p),
+               "r"(*reinterpret_cast<const unsigned*>(&v)) : "memory");
+}
+__device__ __forceinline__ void atomic_add4(__nv_bfloat16* row, int sub, float4 v) {
+  red_bf16x2(row + 4 * sub, v.x, v.y);
+  red_bf16x2(row + 4 * sub + 2, v.z, v.w);
+}
+
 __device__ __forceinline__ float4 fma4(float a, float4 v, float4 acc) {
   return make_float4(fmaf(a, v.x, acc.x), fmaf(a, v.y, acc.y), fmaf(a, v.z, acc.z),
                      fmaf(a, v.w, acc.w));
@@ -212,9 +229,9 @@ __device__ __forceinline__ void zero_rows(float* acc, unsigned char* touched, in
 
 // this lane's 4 channels `add` of a corner row: into shared accumulator row
 // r with shared f32 atomics, the 4 groups' channels rotated onto 4
-// different banks, or, for r < 0, into the global row grow with one float4
-// atomic (red.global.add.v4.f32)
-__device__ __forceinline__ void add_row(float* acc, unsigned char* touched, int r, float* grow,
+// different banks, or, for r < 0, into the global row grow (atomic_add4)
+template <typename GV>
+__device__ __forceinline__ void add_row(float* acc, unsigned char* touched, int r, GV* grow,
                                         int group, int sub, float4 add) {
   if (r >= 0) {
     float* row = acc + (long long)r * kD + 4 * sub;
@@ -225,7 +242,7 @@ __device__ __forceinline__ void add_row(float* acc, unsigned char* touched, int 
     }
     if (sub == 0) touched[r] = 1;
   } else {
-    atomicAdd(reinterpret_cast<float4*>(grow) + sub, add);
+    atomic_add4(grow, sub, add);
   }
 }
 
@@ -242,17 +259,17 @@ __device__ __forceinline__ int smem_row_position(int r, int NL, const Levels& lv
 }
 
 // every touched accumulator row added to grad_value (gv_base: the (b, h)
-// map's position 0, rows row_stride apart), one float4 atomic a 16 B; after
-// a barrier
+// map's position 0, rows row_stride apart), atomic_add4 a 4 channels (a bf16
+// grad_value rounds each f32 row sum once here); after a barrier
+template <typename GV>
 __device__ __forceinline__ void flush_rows(const float* acc, const unsigned char* touched,
                                            int smem_rows, int NL, const Levels& lv,
-                                           float* gv_base, long long row_stride, int n_threads) {
+                                           GV* gv_base, long long row_stride, int n_threads) {
   for (int i = threadIdx.x; i < smem_rows * (kD / 4); i += n_threads) {
     const int r = i / (kD / 4);
     if (!touched[r]) continue;
     const int pos = smem_row_position(r, NL, lv);
-    atomicAdd(reinterpret_cast<float4*>(gv_base + pos * row_stride) + i % (kD / 4),
-              reinterpret_cast<const float4*>(acc)[i]);
+    atomic_add4(gv_base + pos * row_stride, i % (kD / 4), reinterpret_cast<const float4*>(acc)[i]);
   }
 }
 

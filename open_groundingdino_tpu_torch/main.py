@@ -102,7 +102,7 @@ def main(cli) -> Dict:
     for key in ("lr", "lr_backbone", "weight_decay", "clip_max_norm"):
         float(args.get(key))
     train_step = make_train_step(
-        build_criterion(args), compute_dtype=str(args.get("compute_dtype", "float32")),
+        build_criterion(args), compute_dtype=args.compute_dtype,
         ema_decay=float(args.get("ema_decay", 0.9997)) if args.get("use_ema", False) else 0.0)
 
     os.makedirs(cli.output_dir, exist_ok=True)

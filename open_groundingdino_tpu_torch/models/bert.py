@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .precision import LayerNorm, Linear, einsum
+
 _MASK_NEG = -1e9
 
 
@@ -36,7 +38,7 @@ class BertEmbeddings(nn.Module):
         self.word_embeddings = nn.Embedding(c.vocab_size, c.hidden_size)
         self.position_embeddings = nn.Embedding(c.max_position_embeddings, c.hidden_size)
         self.token_type_embeddings = nn.Embedding(c.type_vocab_size, c.hidden_size)
-        self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+        self.LayerNorm = LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
 
     def forward(self, input_ids, token_type_ids, position_ids):
         x = (
@@ -51,9 +53,9 @@ class BertSelfAttention(nn.Module):
     def __init__(self, c: BertConfig):
         super().__init__()
         self.num_heads = c.num_attention_heads
-        self.query = nn.Linear(c.hidden_size, c.hidden_size)
-        self.key = nn.Linear(c.hidden_size, c.hidden_size)
-        self.value = nn.Linear(c.hidden_size, c.hidden_size)
+        self.query = Linear(c.hidden_size, c.hidden_size)
+        self.key = Linear(c.hidden_size, c.hidden_size)
+        self.value = Linear(c.hidden_size, c.hidden_size)
 
     def forward(self, x, attn_bias):
         B, T, C = x.shape
@@ -64,7 +66,7 @@ class BertSelfAttention(nn.Module):
         v = self.value(x).view(B, T, H, D)
         scores = torch.einsum("bfhd,bthd->bhft", q, k) / D ** 0.5 + attn_bias
         probs = torch.softmax(scores, dim=-1)
-        return torch.einsum("bhft,bthd->bfhd", probs, v).reshape(B, T, C)
+        return einsum("bhft,bthd->bfhd", probs, v).reshape(B, T, C)
 
 
 class BertDenseNorm(nn.Module):
@@ -72,8 +74,8 @@ class BertDenseNorm(nn.Module):
 
     def __init__(self, d_in: int, d_out: int, eps: float):
         super().__init__()
-        self.dense = nn.Linear(d_in, d_out)
-        self.LayerNorm = nn.LayerNorm(d_out, eps=eps)
+        self.dense = Linear(d_in, d_out)
+        self.LayerNorm = LayerNorm(d_out, eps=eps)
 
     def forward(self, h, residual):
         return self.LayerNorm(residual + self.dense(h))
@@ -89,7 +91,7 @@ class BertAttention(nn.Module):
 class BertIntermediate(nn.Module):
     def __init__(self, c: BertConfig):
         super().__init__()
-        self.dense = nn.Linear(c.hidden_size, c.intermediate_size)
+        self.dense = Linear(c.hidden_size, c.intermediate_size)
 
 
 class BertLayer(nn.Module):

@@ -29,6 +29,7 @@ from torch import nn
 from ..ops.msda import level_starts, ms_deform_attn
 from ..ops.msda_banded import ms_deform_attn_banded
 from ..ops.msda_sweep import SWEEP_BWD, ms_deform_attn_sweep
+from .precision import Linear
 
 KERNELS = ("gather", "sweep", "banded_point")
 
@@ -55,10 +56,10 @@ class MSDeformAttn(nn.Module):
             raise ValueError(f"msda sweep backward must be one of {SWEEP_BWD}, got {sweep_bwd!r}")
         self.kernel, self.sweep_bwd, self.dec_fused = kernel, sweep_bwd, bool(dec_fused)
         self.num_heads, self.num_levels, self.num_points = num_heads, num_levels, num_points
-        self.value_proj = nn.Linear(embed_dim, embed_dim)
-        self.sampling_offsets = nn.Linear(embed_dim, num_heads * num_levels * num_points * 2)
-        self.attention_weights = nn.Linear(embed_dim, num_heads * num_levels * num_points)
-        self.output_proj = nn.Linear(embed_dim, embed_dim)
+        self.value_proj = Linear(embed_dim, embed_dim)
+        self.sampling_offsets = Linear(embed_dim, num_heads * num_levels * num_points * 2)
+        self.attention_weights = Linear(embed_dim, num_heads * num_levels * num_points)
+        self.output_proj = Linear(embed_dim, embed_dim)
 
     def init_weights_(self, g: torch.Generator) -> None:
         bias = sampling_offsets_bias(self.num_heads, self.num_levels, self.num_points)
@@ -82,13 +83,18 @@ class MSDeformAttn(nn.Module):
         D = C // H
 
         v = self.value_proj(value)
+        if v.dtype == torch.bfloat16 and self.kernel != "gather":
+            raise ValueError(f"msda kernel {self.kernel!r} has no bf16 entry yet (ROADMAP.md "
+                             "section 2): train it with compute_dtype=float32")
         if key_padding_mask is not None:
             v = v.masked_fill(key_padding_mask[..., None], 0.0)
         v = v.view(B, L, H, D)
 
         offsets = self.sampling_offsets(query).view(B, Q, H, NL, P, 2)
         attn = self.attention_weights(query).view(B, Q, H, NL * P)
-        attn = torch.softmax(attn.float(), dim=-1).view(B, Q, H, NL, P)
+        # softmax in f32, then the query's dtype (the JAX package's
+        # deformable.py:134); the kernels take it in f32, exactly
+        attn = torch.softmax(attn.float(), dim=-1).to(query.dtype).float().view(B, Q, H, NL, P)
 
         rp = reference_points.float()
         if rp.shape[-1] == 2:

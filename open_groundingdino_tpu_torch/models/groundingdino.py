@@ -28,6 +28,7 @@ from torch import nn
 from .bert import BertConfig, BertModel
 from .layers import MLP, contrastive_embed, default_init_
 from .position_encoding import position_embedding_sine_hw
+from .precision import GroupNorm, Linear
 from .registry import MODULE_BUILD_FUNCS
 from .swin import SwinConfig, SwinTransformer
 from .transformer import Transformer, make_level_masks
@@ -54,15 +55,15 @@ class GroundingDINO(nn.Module):
         C = hidden_dim
 
         self.bert = BertModel(bert_cfg)
-        self.feat_map = nn.Linear(bert_cfg.hidden_size, C)
+        self.feat_map = Linear(bert_cfg.hidden_size, C)
         self.backbone = nn.ModuleList([SwinTransformer(swin_cfg)])
         feat_dims = [swin_cfg.num_features[i] for i in swin_cfg.out_indices]
-        projs = [nn.Sequential(nn.Conv2d(d, C, 1), nn.GroupNorm(32, C, eps=1e-5))
+        projs = [nn.Sequential(nn.Conv2d(d, C, 1), GroupNorm(32, C, eps=1e-5))
                  for d in feat_dims]
         in_dim = feat_dims[-1]
         for _ in range(len(feat_dims), num_feature_levels):
             projs.append(nn.Sequential(nn.Conv2d(in_dim, C, 3, stride=2, padding=1),
-                                       nn.GroupNorm(32, C, eps=1e-5)))
+                                       GroupNorm(32, C, eps=1e-5)))
             in_dim = C
         self.input_proj = nn.ModuleList(projs)
 

@@ -20,6 +20,7 @@ from torch import nn
 
 from ..ops.fusion import fused_bi_attention
 from .position_encoding import get_sine_pos_embed
+from .precision import LayerNorm, Linear, einsum, promote
 
 MASK_NEG = -1e9
 
@@ -35,7 +36,7 @@ class MultiHeadAttention(nn.Module):
         self.embed_dim, self.num_heads = embed_dim, num_heads
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * embed_dim))
-        self.out_proj = nn.Linear(embed_dim, embed_dim)
+        self.out_proj = Linear(embed_dim, embed_dim)
 
     def init_weights_(self, g: torch.Generator) -> None:
         bound = (6.0 / (4 * self.embed_dim)) ** 0.5  # xavier_uniform on (3E, E)
@@ -49,18 +50,18 @@ class MultiHeadAttention(nn.Module):
         B, Tq, _ = q.shape
         Tk = k.shape[1]
         w, b = self.in_proj_weight, self.in_proj_bias
-        qp = F.linear(q, w[:E], b[:E]).view(B, Tq, H, D)
-        kp = F.linear(k, w[E : 2 * E], b[E : 2 * E]).view(B, Tk, H, D)
-        vp = F.linear(v, w[2 * E :], b[2 * E :]).view(B, Tk, H, D)
+        qp = F.linear(*promote(q, w[:E], b[:E])).view(B, Tq, H, D)
+        kp = F.linear(*promote(k, w[E : 2 * E], b[E : 2 * E])).view(B, Tk, H, D)
+        vp = F.linear(*promote(v, w[2 * E :], b[2 * E :])).view(B, Tk, H, D)
 
-        logits = torch.einsum("bqhd,bkhd->bhqk", qp * D ** -0.5, kp)
+        logits = einsum("bqhd,bkhd->bhqk", qp * D ** -0.5, kp)
         if attn_mask is not None:
             bias = attn_mask.to(logits.dtype) * MASK_NEG
             logits = logits + (bias[None, None] if bias.dim() == 2 else bias[:, None])
         if key_padding_mask is not None:
             logits = logits.masked_fill(key_padding_mask[:, None, None, :], MASK_NEG)
         probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
-        out = torch.einsum("bhqk,bkhd->bqhd", probs, vp).reshape(B, Tq, E)
+        out = einsum("bhqk,bkhd->bqhd", probs, vp).reshape(B, Tq, E)
         return self.out_proj(out)
 
 
@@ -73,12 +74,12 @@ class BiMultiHeadAttention(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.scale = (embed_dim // num_heads) ** -0.5
-        self.v_proj = nn.Linear(v_dim, embed_dim)
-        self.l_proj = nn.Linear(l_dim, embed_dim)
-        self.values_v_proj = nn.Linear(v_dim, embed_dim)
-        self.values_l_proj = nn.Linear(l_dim, embed_dim)
-        self.out_v_proj = nn.Linear(embed_dim, v_dim)
-        self.out_l_proj = nn.Linear(embed_dim, l_dim)
+        self.v_proj = Linear(v_dim, embed_dim)
+        self.l_proj = Linear(l_dim, embed_dim)
+        self.values_v_proj = Linear(v_dim, embed_dim)
+        self.values_l_proj = Linear(l_dim, embed_dim)
+        self.out_v_proj = Linear(embed_dim, v_dim)
+        self.out_l_proj = Linear(embed_dim, l_dim)
 
     def forward(self, v, l, attention_mask_v=None, attention_mask_l=None):
         """v: (B, Nv, v_dim); l: (B, Nl, l_dim); masks (B, N) bool, True = pad."""
@@ -88,10 +89,13 @@ class BiMultiHeadAttention(nn.Module):
             attention_mask_v = torch.zeros(B, Nv, dtype=torch.bool, device=v.device)
         if attention_mask_l is None:
             attention_mask_l = torch.zeros(B, Nl, dtype=torch.bool, device=l.device)
+        # the kernels take one dtype, the image side's: under bf16 compute
+        # the text side's f32 projections are rounded to bf16 for them
+        q = self.v_proj(v) * self.scale
         out_v, out_l = fused_bi_attention(
-            self.v_proj(v) * self.scale, self.l_proj(l),
-            self.values_v_proj(v), self.values_l_proj(l),
-            attention_mask_v, attention_mask_l, self.num_heads,
+            q, self.l_proj(l).to(q.dtype), self.values_v_proj(v),
+            self.values_l_proj(l).to(q.dtype), attention_mask_v, attention_mask_l,
+            self.num_heads,
         )
         return self.out_v_proj(out_v), self.out_l_proj(out_l)
 
@@ -118,8 +122,8 @@ class BiAttentionBlock(nn.Module):
                  init_values: float = 1e-4, droppath: float = 0.0):
         super().__init__()
         self.init_values, self.droppath = init_values, droppath
-        self.layer_norm_v = nn.LayerNorm(v_dim, eps=1e-5)
-        self.layer_norm_l = nn.LayerNorm(l_dim, eps=1e-5)
+        self.layer_norm_v = LayerNorm(v_dim, eps=1e-5)
+        self.layer_norm_l = LayerNorm(l_dim, eps=1e-5)
         self.attn = BiMultiHeadAttention(v_dim, l_dim, embed_dim, num_heads)
         self.gamma_v = nn.Parameter(torch.empty(v_dim))
         self.gamma_l = nn.Parameter(torch.empty(l_dim))
@@ -161,10 +165,10 @@ class TextEnhancerLayer(nn.Module):
         super().__init__()
         self.d_model = d_model
         self.self_attn = MultiHeadAttention(d_model, nhead)
-        self.linear1 = nn.Linear(d_model, dim_feedforward)
-        self.linear2 = nn.Linear(dim_feedforward, d_model)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.linear1 = Linear(d_model, dim_feedforward)
+        self.linear2 = Linear(dim_feedforward, d_model)
+        self.norm1 = LayerNorm(d_model, eps=1e-5)
+        self.norm2 = LayerNorm(d_model, eps=1e-5)
 
     def forward(self, text, text_self_attention_masks, position_ids):
         """text (B, T, C); text_self_attention_masks (B, T, T) bool,
@@ -187,7 +191,7 @@ class MLP(nn.Module):
         super().__init__()
         dims = [input_dim] + [hidden_dim] * (num_layers - 1) + [output_dim]
         self.layers = nn.ModuleList(
-            nn.Linear(dims[i], dims[i + 1]) for i in range(num_layers)
+            Linear(dims[i], dims[i + 1]) for i in range(num_layers)
         )
 
     def forward(self, x):
@@ -206,7 +210,7 @@ def contrastive_embed(
 ) -> torch.Tensor:
     """Token-level contrastive logits, padded to max_text_len with -inf on
     pad/overflow positions (reference GroundingDINO/utils.py:233-273)."""
-    res = torch.einsum("bqc,btc->bqt", queries, encoded_text)
+    res = einsum("bqc,btc->bqt", queries, encoded_text)
     res = res.masked_fill(~text_token_mask[:, None, :], float("-inf"))
     T = res.shape[-1]
     if T < max_text_len:

@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .precision import LayerNorm, Linear
+
 SWIN_VARIANTS = {
     # nano variant for tests only (no published checkpoint)
     "swin_nano_test": dict(embed_dim=8, depths=(1, 1, 1, 1), num_heads=(1, 2, 2, 4), window_size=4),
@@ -102,8 +104,8 @@ class WindowAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int):
         super().__init__()
         self.num_heads, self.window_size = num_heads, window_size
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Linear(dim, 3 * dim)
+        self.proj = Linear(dim, dim)
         self.relative_position_bias_table = nn.Parameter(
             torch.empty((2 * window_size - 1) ** 2, num_heads)
         )
@@ -136,8 +138,8 @@ class WindowAttention(nn.Module):
 class SwinMlp(nn.Module):
     def __init__(self, dim: int, hidden: int):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, dim)
+        self.fc1 = Linear(dim, hidden)
+        self.fc2 = Linear(hidden, dim)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x)))
@@ -148,9 +150,9 @@ class SwinBlock(nn.Module):
                  mlp_ratio: float):
         super().__init__()
         self.window_size, self.shift_size = window_size, shift_size
-        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm1 = LayerNorm(dim, eps=1e-5)
         self.attn = WindowAttention(dim, num_heads, window_size)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm2 = LayerNorm(dim, eps=1e-5)
         self.mlp = SwinMlp(dim, int(dim * mlp_ratio))
 
     def forward(self, x: torch.Tensor, H: int, W: int) -> torch.Tensor:
@@ -181,8 +183,8 @@ class SwinBlock(nn.Module):
 class PatchMerging(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
-        self.norm = nn.LayerNorm(4 * dim, eps=1e-5)
-        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+        self.norm = LayerNorm(4 * dim, eps=1e-5)
+        self.reduction = Linear(4 * dim, 2 * dim, bias=False)
 
     def forward(self, x: torch.Tensor, H: int, W: int) -> torch.Tensor:
         B, L, C = x.shape
@@ -211,7 +213,7 @@ class PatchEmbed(nn.Module):
     def __init__(self, patch_size: int, embed_dim: int):
         super().__init__()
         self.proj = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size)
-        self.norm = nn.LayerNorm(embed_dim, eps=1e-5)
+        self.norm = LayerNorm(embed_dim, eps=1e-5)
 
 
 class SwinTransformer(nn.Module):
@@ -228,7 +230,7 @@ class SwinTransformer(nn.Module):
             for i in range(n)
         )
         for i in cfg.out_indices:
-            self.add_module(f"norm{i}", nn.LayerNorm(cfg.num_features[i], eps=1e-5))
+            self.add_module(f"norm{i}", LayerNorm(cfg.num_features[i], eps=1e-5))
 
     def forward(self, images: torch.Tensor) -> List[torch.Tensor]:
         """images: (B, H, W, 3), H/W multiples of patch_size (bucketed)."""

@@ -44,6 +44,7 @@ from .layers import (
     contrastive_embed,
 )
 from .position_encoding import gen_sineembed_for_position
+from .precision import LayerNorm, Linear
 
 Shapes = Sequence[Tuple[int, int]]
 
@@ -142,10 +143,10 @@ class DeformableEncoderLayer(nn.Module):
                  msda: Optional[Dict] = None):
         super().__init__()
         self.self_attn = MSDeformAttn(d_model, n_heads, n_levels, n_points, **(msda or {}))
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
-        self.linear1 = nn.Linear(d_model, d_ffn)
-        self.linear2 = nn.Linear(d_ffn, d_model)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm1 = LayerNorm(d_model, eps=1e-5)
+        self.linear1 = Linear(d_model, d_ffn)
+        self.linear2 = Linear(d_ffn, d_model)
+        self.norm2 = LayerNorm(d_model, eps=1e-5)
 
     def forward(self, src, pos, reference_points, spatial_shapes, key_padding_mask):
         src2 = self.self_attn(src + pos, src, reference_points, spatial_shapes, key_padding_mask)
@@ -159,17 +160,17 @@ class DeformableDecoderLayer(nn.Module):
                  use_text_cross_attention: bool = True, msda: Optional[Dict] = None):
         super().__init__()
         self.cross_attn = MSDeformAttn(d_model, n_heads, n_levels, n_points, **(msda or {}))
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm1 = LayerNorm(d_model, eps=1e-5)
         if use_text_cross_attention:
             self.ca_text = MultiHeadAttention(d_model, n_heads)
-            self.catext_norm = nn.LayerNorm(d_model, eps=1e-5)
+            self.catext_norm = LayerNorm(d_model, eps=1e-5)
         else:
             self.ca_text = None
         self.self_attn = MultiHeadAttention(d_model, n_heads)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
-        self.linear1 = nn.Linear(d_model, d_ffn)
-        self.linear2 = nn.Linear(d_ffn, d_model)
-        self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm2 = LayerNorm(d_model, eps=1e-5)
+        self.linear1 = Linear(d_model, d_ffn)
+        self.linear2 = Linear(d_ffn, d_model)
+        self.norm3 = LayerNorm(d_model, eps=1e-5)
 
     def forward(self, tgt, query_pos, reference_points, memory, memory_key_padding_mask,
                 spatial_shapes, memory_text, text_attention_mask):
@@ -182,8 +183,12 @@ class DeformableDecoderLayer(nn.Module):
         ca2 = self.cross_attn(tgt + query_pos, memory, reference_points, spatial_shapes,
                               memory_key_padding_mask)
         tgt = self.norm1(tgt + ca2)
-        h = self.linear2(F.relu(self.linear1(tgt)))
-        return self.norm3(tgt + h)
+        # the FFN in f32 on the (possibly bf16) weights, as the JAX package
+        # forces it (models/transformer.py:389-394; reference
+        # transformer.py:871)
+        t32 = tgt.float()
+        h = self.linear2(F.relu(self.linear1(t32)))
+        return self.norm3(t32 + h).to(tgt.dtype)
 
 
 class TransformerEncoder(nn.Module):
@@ -246,7 +251,7 @@ class TransformerDecoder(nn.Module):
                                    use_text_cross_attention, msda)
             for _ in range(num_layers)
         )
-        self.norm = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm = LayerNorm(d_model, eps=1e-5)
         # input: gen_sineembed_for_position of 4-d boxes, 128 feats per coordinate
         self.ref_point_head = MLP(4 * 128, d_model, d_model, 2)
         self.bbox_embed = None
@@ -266,14 +271,17 @@ class TransformerDecoder(nn.Module):
         for i, layer in enumerate(self.layers):
             ref_before = reference_points
             ref_input = ref_before[:, :, None] * vr4                   # (B, Q, NL, 4)
-            query_pos = self.ref_point_head(gen_sineembed_for_position(ref_input[:, :, 0, :]))
+            query_sine = gen_sineembed_for_position(ref_input[:, :, 0, :]).to(output.dtype)
+            query_pos = self.ref_point_head(query_sine)
             output = layer(output, query_pos, ref_input, memory, memory_mask, spatial_shapes,
                            memory_text, text_pad)
             bbox_embed = self.bbox_embed[i]
-            new_ref = (bbox_embed(output) + inverse_sigmoid(ref_before)).sigmoid()
+            # the box head and the norm on the output in f32 (the JAX
+            # package's models/transformer.py:788-794)
+            new_ref = (bbox_embed(output.float()) + inverse_sigmoid(ref_before)).sigmoid()
             reference_points = new_ref.detach()
             ref_points.append(new_ref)
-            hs_i = self.norm(output)
+            hs_i = self.norm(output.float())
             hs.append(hs_i)
             outputs_coord.append((bbox_embed(hs_i) + inverse_sigmoid(ref_points[i])).sigmoid())
         return hs, outputs_coord, ref_points
@@ -300,8 +308,8 @@ class Transformer(nn.Module):
             d_model, nhead, num_decoder_layers, dim_feedforward, num_feature_levels,
             dec_n_points, use_text_cross_attention, msda)
         self.tgt_embed = nn.Embedding(num_queries, d_model)
-        self.enc_output = nn.Linear(d_model, d_model)
-        self.enc_output_norm = nn.LayerNorm(d_model, eps=1e-5)
+        self.enc_output = Linear(d_model, d_model)
+        self.enc_output_norm = LayerNorm(d_model, eps=1e-5)
         self.enc_out_bbox_embed = MLP(d_model, d_model, 4, 3)
 
     def init_weights_(self, g: torch.Generator) -> None:
@@ -336,7 +344,7 @@ class Transformer(nn.Module):
         refpoint_undetach, init_box_proposal, tgt_undetach = two_stage_select(
             output_memory, output_proposals, enc_delta, enc_logits, self.num_queries)
 
-        tgt = self.tgt_embed.weight[None].expand(B, -1, -1)
+        tgt = self.tgt_embed.weight[None].expand(B, -1, -1).to(memory.dtype)
         hs, outputs_coord, references = self.decoder(
             tgt, refpoint_undetach.detach(), memory, mask_flat, valid_ratios, shapes,
             memory_text, text_dict)

@@ -17,7 +17,15 @@ out_l (B, Nl, E)) before the output projections.
 `FusedBiAttentionFunction`: K2 forward, K4 backward.
 `fused_bi_attention_bwd` is K4's wrapper and takes CUDA tensors only;
 `fused_bi_attention_bwd_plain` is its reference.  `fused_bi_attention.launches`
-and `fused_bi_attention_bwd.launches` count the kernels' launches.
+and `fused_bi_attention_bwd.launches` count the kernels' f32 launches,
+`.launches_bf16` their bf16 ones.
+
+The operands are all f32 or all bf16.  In bf16 the kernels compute what the
+TPU kernels compute on bf16 operands (ops/fusion_pallas.py): logits and
+softmax statistics in f32, each product on bf16 operands with f32
+accumulation, the probabilities (and K4's dL) rounded to bf16 as the TPU
+kernel casts them, outputs in bf16; K4's text-side gradients are summed in
+f32 over the image axis and rounded once.
 """
 from __future__ import annotations
 
@@ -35,13 +43,17 @@ def fused_bi_attention_plain(q, k, val_v, val_l, mask_v, mask_l, num_heads):
     """The literal formulation of the JAX package's models/layers.py:166-200:
     materialized logits, global-max shift, +-50000 clamps, masked softmaxes.
     Both max shifts are constants to autograd, as `stop_gradient` makes them
-    in the JAX package."""
+    in the JAX package.  For bf16 operands, the TPU kernel's arithmetic
+    (ops/fusion_pallas.py:85-120): f32 logits and softmaxes, the image-side
+    probabilities rounded to bf16 ahead of P_v . val_l, the text side's
+    val_v^T . P_l in f32, the outputs rounded to bf16."""
     B, Nv, E = q.shape
     Nl = k.shape[1]
     H = num_heads
     D = E // H
+    dt = q.dtype
     logits = torch.einsum(
-        "bvhd,blhd->bhvl", q.reshape(B, Nv, H, D), k.reshape(B, Nl, H, D)
+        "bvhd,blhd->bhvl", q.float().reshape(B, Nv, H, D), k.float().reshape(B, Nl, H, D)
     )
     logits = logits - logits.max().detach()
     logits = logits.clamp(-50000.0, 50000.0)
@@ -50,22 +62,55 @@ def fused_bi_attention_plain(q, k, val_v, val_l, mask_v, mask_l, num_heads):
     logits_l = logits_t - logits_t.amax(dim=-1, keepdim=True).detach()
     logits_l = logits_l.clamp(-50000.0, 50000.0)
     logits_l = logits_l.masked_fill(mask_v[:, None, None, :], -1e9)
-    attn_l = torch.softmax(logits_l.float(), dim=-1).to(q.dtype)
+    attn_l = torch.softmax(logits_l, dim=-1)
 
     logits = logits.masked_fill(mask_l[:, None, None, :], -1e9)
-    attn_v = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    attn_v = torch.softmax(logits, dim=-1).to(dt).float()
 
-    out_v = torch.einsum("bhvl,blhd->bvhd", attn_v, val_l.reshape(B, Nl, H, D))
-    out_l = torch.einsum("bhlv,bvhd->blhd", attn_l, val_v.reshape(B, Nv, H, D))
-    return out_v.reshape(B, Nv, E), out_l.reshape(B, Nl, E)
+    out_v = torch.einsum("bhvl,blhd->bvhd", attn_v, val_l.float().reshape(B, Nl, H, D))
+    out_l = torch.einsum("bhlv,bvhd->blhd", attn_l, val_v.float().reshape(B, Nv, H, D))
+    return out_v.reshape(B, Nv, E).to(dt), out_l.reshape(B, Nl, E).to(dt)
 
 
 def fused_bi_attention_bwd_plain(q, k, val_v, val_l, mask_v, mask_l, g_ov, g_ol, num_heads):
-    """(gq, gk, gvv, gvl) of the plain version by autograd."""
+    """(gq, gk, gvv, gvl): for f32 operands, the plain version's gradient by
+    autograd; for bf16 ones, the TPU backward kernel's arithmetic
+    (ops/fusion_pallas.py:_fused_bwd_kernel :198-280, wrapper :291-320,
+    :395-396): P_v and P_l in f32, the four products G1, G2, then gq, gk,
+    gvv, gvl on bf16 operands (g_ov, g_ol, dL, P_l and P_v rounded to bf16)
+    with f32 sums, rounded to bf16 at the end.  Padded text columns take
+    their column softmax on their raw logits, as the plain forward does."""
+    if q.dtype == torch.bfloat16:
+        return _fusion_bwd_bf16_plain(q, k, val_v, val_l, mask_v, mask_l, g_ov, g_ol, num_heads)
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(True) for t in (q, k, val_v, val_l)]
         outs = fused_bi_attention_plain(*leaves, mask_v, mask_l, num_heads)
         return torch.autograd.grad(outs, leaves, (g_ov, g_ol))
+
+
+def _fusion_bwd_bf16_plain(q, k, val_v, val_l, mask_v, mask_l, g_ov, g_ol, num_heads):
+    B, Nv, E = q.shape
+    Nl = k.shape[1]
+    H = num_heads
+    D = E // H
+    bf = torch.bfloat16
+    heads = lambda t, n: t.float().reshape(B, n, H, D)
+    qh, kh, vv, vl = heads(q, Nv), heads(k, Nl), heads(val_v, Nv), heads(val_l, Nl)
+    gov, gol = heads(g_ov, Nv), heads(g_ol, Nl)
+    out_v, out_l = fused_bi_attention_plain(q, k, val_v, val_l, mask_v, mask_l, num_heads)
+    logits = torch.einsum("bvhd,blhd->bhvl", qh, kh)
+    p_v = torch.softmax(logits.masked_fill(mask_l[:, None, None, :], -1e9), dim=-1)
+    p_l = torch.softmax(logits.masked_fill(mask_v[:, None, :, None], -1e9), dim=2)
+    g1 = torch.einsum("bvhd,blhd->bhvl", gov, vl)
+    g2 = torch.einsum("bvhd,blhd->bhvl", vv, gol)
+    rv = (gov * heads(out_v, Nv)).sum(-1).transpose(1, 2)[..., None]    # (B, H, Nv, 1)
+    cl = (gol * heads(out_l, Nl)).sum(-1).transpose(1, 2)[:, :, None]   # (B, H, 1, Nl)
+    dl = (p_v * (g1 - rv) + p_l * (g2 - cl)).to(bf).float()
+    gq = torch.einsum("bhvl,blhd->bvhd", dl, kh)
+    gk = torch.einsum("bhvl,bvhd->blhd", dl, qh)
+    gvv = torch.einsum("bhvl,blhd->bvhd", p_l.to(bf).float(), gol)
+    gvl = torch.einsum("bhvl,bvhd->blhd", p_v.to(bf).float(), gov)
+    return tuple(t.reshape(t.shape[0], t.shape[1], E).to(bf) for t in (gq, gk, gvv, gvl))
 
 
 _FWD_CTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -73,6 +118,8 @@ _BWD_CTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def _check(name: str, t: torch.Tensor, shape, like: torch.Tensor) -> None:
+    """Shape, device and (but for the bool masks) q's dtype, f32 or bf16,
+    contiguous and 16-byte aligned."""
     if tuple(t.shape) != shape:
         raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
     if t.device != like.device:
@@ -80,8 +127,10 @@ def _check(name: str, t: torch.Tensor, shape, like: torch.Tensor) -> None:
     if name.startswith("mask"):
         if t.dtype != torch.bool:
             raise TypeError(f"{name} must be bool")
-    elif t.dtype != torch.float32 or not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"{name} must be float32, contiguous and 16-byte aligned")
+    elif (like.dtype not in (torch.float32, torch.bfloat16) or t.dtype != like.dtype
+          or not t.is_contiguous() or t.data_ptr() % 16):
+        raise ValueError(f"{name} must be float32 or bfloat16 as q is, contiguous and 16-byte "
+                         f"aligned; got {t.dtype} (q {like.dtype})")
 
 
 def _geometry(q, k, num_heads: int, what: str):
@@ -119,7 +168,9 @@ def _fusion_fwd_cuda(q, k, val_v, val_l, mask_v, mask_l, num_heads: int):
     part_s = torch.empty_like(part_m)
     pad_v, pad_l = _pads(mask_v, mask_l)
 
-    fn = build.load("fusion_fwd").fusion_fwd_f32
+    bf16 = q.dtype == torch.bfloat16
+    lib = build.load("fusion_fwd")
+    fn = lib.fusion_fwd_bf16 if bf16 else lib.fusion_fwd_f32
     fn.argtypes = _FWD_CTYPES
     fn.restype = ctypes.c_int
     err = fn(
@@ -130,35 +181,42 @@ def _fusion_fwd_cuda(q, k, val_v, val_l, mask_v, mask_l, num_heads: int):
         B, Nv, Nl, E, H, n_splits, torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, "fusion_fwd")
-    fused_bi_attention.launches += 1
+    if bf16:
+        fused_bi_attention.launches_bf16 += 1
+    else:
+        fused_bi_attention.launches += 1
     return out_v, out_l, lse_v, lse_l
 
 
 def fused_bi_attention_bwd(q, k, val_v, val_l, mask_v, mask_l, out_v, out_l, lse_v, lse_l,
                            g_ov, g_ol, num_heads: int):
-    """K4 on CUDA tensors (f32, contiguous; out_* and lse_* from K2); raises
-    for any other.  Returns (gq, gk, gvv, gvl)."""
+    """K4 on CUDA tensors (all f32 or all bf16 but the f32 lse_*, contiguous;
+    out_* and lse_* from K2); raises for any other.  Returns (gq, gk, gvv,
+    gvl) in the operands' dtype."""
     B, Nv, Nl, E, H, n_splits = _geometry(q, k, num_heads, "fused_bi_attention_bwd")
     for name, t, shape in (("q", q, (B, Nv, E)), ("k", k, (B, Nl, E)),
                            ("val_v", val_v, (B, Nv, E)), ("val_l", val_l, (B, Nl, E)),
                            ("mask_v", mask_v, (B, Nv)), ("mask_l", mask_l, (B, Nl)),
                            ("out_v", out_v, (B, Nv, E)), ("out_l", out_l, (B, Nl, E)),
-                           ("lse_v", lse_v, (B, H, Nv)), ("lse_l", lse_l, (B, H, Nl)),
                            ("g_ov", g_ov, (B, Nv, E)), ("g_ol", g_ol, (B, Nl, E))):
         _check(name, t, shape, q)
+    for name, t, shape in (("lse_v", lse_v, (B, H, Nv)), ("lse_l", lse_l, (B, H, Nl))):
+        _check(name, t, shape, lse_v)
     D = E // H
     dev = q.device
     # the row-softmax and column-softmax correction terms, as the JAX package
     # computes them outside its kernel (ops/fusion_pallas.py:291-320)
-    rv = (g_ov * out_v).view(B, Nv, H, D).sum(-1).transpose(1, 2).contiguous()
-    cl = (g_ol * out_l).view(B, Nl, H, D).sum(-1).transpose(1, 2).contiguous()
+    rv = (g_ov.float() * out_v.float()).view(B, Nv, H, D).sum(-1).transpose(1, 2).contiguous()
+    cl = (g_ol.float() * out_l.float()).view(B, Nl, H, D).sum(-1).transpose(1, 2).contiguous()
     gq, gvv = torch.empty_like(q), torch.empty_like(val_v)
     gk, gvl = torch.empty_like(k), torch.empty_like(val_l)
     part_k = torch.empty(B, H, n_splits, Nl, D, dtype=torch.float32, device=dev)
     part_vl = torch.empty_like(part_k)
     pad_v, pad_l = _pads(mask_v, mask_l)
 
-    fn = build.load("fusion_bwd").fusion_bwd_f32
+    bf16 = q.dtype == torch.bfloat16
+    lib = build.load("fusion_bwd")
+    fn = lib.fusion_bwd_bf16 if bf16 else lib.fusion_bwd_f32
     fn.argtypes = _BWD_CTYPES
     fn.restype = ctypes.c_int
     err = fn(
@@ -170,7 +228,10 @@ def fused_bi_attention_bwd(q, k, val_v, val_l, mask_v, mask_l, out_v, out_l, lse
         B, Nv, Nl, E, H, n_splits, torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, "fusion_bwd")
-    fused_bi_attention_bwd.launches += 1
+    if bf16:
+        fused_bi_attention_bwd.launches_bf16 += 1
+    else:
+        fused_bi_attention_bwd.launches += 1
     return gq, gk, gvv, gvl
 
 
@@ -196,8 +257,8 @@ class FusedBiAttentionFunction(torch.autograd.Function):
 
 
 def fused_bi_attention(q, k, val_v, val_l, mask_v, mask_l, num_heads: int):
-    """K2 (K4 for its gradient) for CUDA tensors (f32, contiguous), the plain
-    version for CPU tensors."""
+    """K2 (K4 for its gradient) for CUDA tensors (all f32 or all bf16,
+    contiguous), the plain version for CPU tensors."""
     if q.device.type == "cpu":
         return fused_bi_attention_plain(q, k, val_v, val_l, mask_v, mask_l, num_heads)
     if q.device.type != "cuda":
@@ -205,5 +266,5 @@ def fused_bi_attention(q, k, val_v, val_l, mask_v, mask_l, num_heads: int):
     return FusedBiAttentionFunction.apply(q, k, val_v, val_l, mask_v, mask_l, num_heads)
 
 
-fused_bi_attention.launches = 0
-fused_bi_attention_bwd.launches = 0
+fused_bi_attention.launches = fused_bi_attention.launches_bf16 = 0
+fused_bi_attention_bwd.launches = fused_bi_attention_bwd.launches_bf16 = 0

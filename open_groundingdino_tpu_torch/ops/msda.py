@@ -19,7 +19,15 @@ differentiates it) and, for CUDA tensors, `MSDeformAttnFunction`: K1 forward,
 K3 backward.  `ms_deform_attn_bwd` is K3's wrapper and takes CUDA tensors
 only; `ms_deform_attn_bwd_plain` is its reference.  Nothing else reaches a
 plain version; `ms_deform_attn.launches` and `ms_deform_attn_bwd.launches`
-count the kernels' launches.
+count the kernels' f32 launches, `.launches_bf16` their bf16 ones.
+
+bf16 (the value and the upstream gradient; locations and weights stay f32):
+K1 sums in f32 and rounds its output once.  K3 returns grad_value in bf16,
+accumulated in bf16 as the JAX package's default MSDA_BWD_GV_BF16=1 does
+(ops/msda_banded.py:693-709): the levels outside shared memory add with
+bf16 atomics, the shared-memory levels sum in f32 and are rounded once;
+grad_locs and grad_attn are f32.  The plain backward sums grad_value in f32 and rounds it
+once, the exact result the kernel's bf16 sums are held against.
 
 The kernels are built for the flagship's geometry (`check_geometry`: D = 32
 channels a head, P = 4 points, at most 4 levels) and take a launch plan
@@ -100,7 +108,8 @@ def ms_deform_attn_plain(
 
 def ms_deform_attn_bwd_plain(value, spatial_shapes, level_start, locs, attn, grad_out):
     """(grad_value, grad_locs, grad_attn) of the plain version by autograd
-    (torch.gather's backward is the scatter-add)."""
+    (torch.gather's backward is the scatter-add, in f32; grad_value comes
+    back in value's dtype, rounded once)."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(True) for t in (value, locs, attn)]
         out = ms_deform_attn_plain(leaves[0], spatial_shapes, level_start, leaves[1], leaves[2])
@@ -122,6 +131,11 @@ BWD_MIN_CTAS = 4 * 132
 # reserved a CTA; a CTA alone could have 232,448 B): at 1 CTA an SM K3 loses
 # more to idle warps than the shared-memory levels save
 BWD_SMEM_BUDGET = 233_472 // 2 - 1024
+# K3's bf16 entry may take a CTA's most (1 CTA an SM): each global bf16 add
+# rounds, and the levels whose rows take the most adds (at the 800x1216
+# bucket level 2, ~340 a row at B = 4, and level 3) then sum in f32 and are
+# rounded once
+BWD_SMEM_BUDGET_BF16 = 232_448
 SLOT_BYTES = 48                       # one staged sample (msda_common.cuh Slot)
 SAMPLES = MAX_LEVELS * POINTS
 
@@ -161,19 +175,20 @@ def bwd_smem_bytes(smem_rows: int) -> int:
     return BWD_WARPS * SAMPLES * SLOT_BYTES + smem_rows * HEAD_DIM * 4 + -(-smem_rows // 16) * 16
 
 
-def smem_levels(spatial_shapes: Shapes, tile: int, smem_bytes) -> Tuple[Tuple[int, ...], int]:
+def smem_levels(spatial_shapes: Shapes, tile: int, smem_bytes,
+                budget: int = BWD_SMEM_BUDGET) -> Tuple[Tuple[int, ...], int]:
     """The levels that accumulate their grad_value in shared memory at
     `tile` queries a CTA: those a tile scatters at least as many corner rows
     into as they have rows (tile * P * 4 >= h * w: zeroing and flushing them
     costs no more than the scatter would) and that fit with smem_bytes(rows)
-    within BWD_SMEM_BUDGET, taken from the smallest up.  Returns (the first
+    within `budget`, taken from the smallest up.  Returns (the first
     accumulator row of each level in level order, -1 for a level scattered
     to global memory; the rows in all)."""
     rows = [h * w for h, w in spatial_shapes]
     smem_row = [-1] * len(rows)
     used = 0
     for lvl in sorted(range(len(rows)), key=lambda i: rows[i]):
-        if tile * POINTS * 4 >= rows[lvl] and smem_bytes(used + rows[lvl]) <= BWD_SMEM_BUDGET:
+        if tile * POINTS * 4 >= rows[lvl] and smem_bytes(used + rows[lvl]) <= budget:
             smem_row[lvl] = -2                # placed below, in level order
             used += rows[lvl]
     used = 0
@@ -183,12 +198,15 @@ def smem_levels(spatial_shapes: Shapes, tile: int, smem_bytes) -> Tuple[Tuple[in
     return tuple(smem_row), used
 
 
-def msda_bwd_plan(spatial_shapes: Shapes, B: int, Q: int, H: int) -> BwdPlan:
+def msda_bwd_plan(spatial_shapes: Shapes, B: int, Q: int, H: int,
+                  budget: int = BWD_SMEM_BUDGET) -> BwdPlan:
     """K3's launch plan: the tile (the fewest CTAs BWD_MIN_CTAS) and its
-    shared-memory levels (`smem_levels`); the other levels scatter straight
-    to global memory."""
+    shared-memory levels within `budget` (`smem_levels`; the bf16 entry's
+    is BWD_SMEM_BUDGET_BF16); the other levels scatter straight to global
+    memory.  The shared memory does not depend on the value's type: the
+    slots and the accumulator rows are f32 either way."""
     tile = _tile(B, Q, H, BWD_MIN_CTAS, BWD_WARPS)
-    smem_row, used = smem_levels(spatial_shapes, tile, bwd_smem_bytes)
+    smem_row, used = smem_levels(spatial_shapes, tile, bwd_smem_bytes, budget)
     return BwdPlan(tile, smem_row, used, bwd_smem_bytes(used))
 
 
@@ -201,6 +219,7 @@ _BWD_CTYPES = (
     + [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 )
+_BWD_BF16_CTYPES = [ctypes.c_void_p] + _BWD_CTYPES    # and the f32 scratch after grad_attn
 
 
 def _check_operands(value, spatial_shapes, level_start, locs, attn, what: str):
@@ -257,39 +276,54 @@ def _msda_fwd_cuda(value, spatial_shapes, level_start, locs, attn):
         msda_fwd_tile(B, Q, H), torch.cuda.current_stream(value.device).cuda_stream,
     )
     build.check(err, "msda_fwd")
-    ms_deform_attn.launches += 1
+    if value.dtype == torch.bfloat16:
+        ms_deform_attn.launches_bf16 += 1
+    else:
+        ms_deform_attn.launches += 1
     return out
 
 
 def ms_deform_attn_bwd(value, spatial_shapes, level_start, locs, attn, grad_out):
-    """K3 on CUDA tensors (all f32 and contiguous); raises for any other.
-    grad_out: (B, Q, H*D).  Returns (grad_value (B, L, H, D), grad_locs
-    (B, Q, H, NL, P, 2), grad_attn (B, Q, H, NL, P)), all f32."""
+    """K3 on CUDA tensors (value and grad_out both f32 or both bf16, locs and
+    attn f32, all contiguous); raises for any other.  grad_out: (B, Q, H*D).
+    Returns (grad_value (B, L, H, D) in value's dtype, grad_locs
+    (B, Q, H, NL, P, 2), grad_attn (B, Q, H, NL, P) in f32)."""
     B, L, H, D, Q, NL, P = _check_operands(value, spatial_shapes, level_start, locs, attn,
                                            "ms_deform_attn_bwd")
-    if value.dtype != torch.float32:
-        raise TypeError(f"the backward takes float32 values only, got {value.dtype}")
-    if (tuple(grad_out.shape) != (B, Q, H * D) or grad_out.dtype != torch.float32
+    if value.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"value must be float32 or bfloat16, got {value.dtype}")
+    if (tuple(grad_out.shape) != (B, Q, H * D) or grad_out.dtype != value.dtype
             or grad_out.device != value.device or not grad_out.is_contiguous()
             or grad_out.data_ptr() % 16):
-        raise ValueError(f"grad_out must be contiguous, 16-byte aligned float32 {(B, Q, H * D)} "
-                         f"on {value.device}")
+        raise ValueError(f"grad_out must be contiguous, 16-byte aligned {value.dtype} "
+                         f"{(B, Q, H * D)} on {value.device}")
     grad_value = torch.zeros_like(value)
     grad_locs = torch.empty_like(locs)
     grad_attn = torch.empty_like(attn)
-    plan = msda_bwd_plan(spatial_shapes, B, Q, H)
-    fn = build.load("msda_bwd").msda_bwd_f32
-    fn.argtypes = _BWD_CTYPES
+    bf16 = value.dtype == torch.bfloat16
+    plan = msda_bwd_plan(spatial_shapes, B, Q, H, BWD_SMEM_BUDGET_BF16 if bf16 else BWD_SMEM_BUDGET)
+    lib = build.load("msda_bwd")
+    pointers = [value.data_ptr(), locs.data_ptr(), attn.data_ptr(), grad_out.data_ptr(),
+                grad_value.data_ptr(), grad_locs.data_ptr(), grad_attn.data_ptr()]
+    if bf16:
+        # the shared-memory levels' f32 sums, rounded into grad_value once
+        scratch = torch.zeros(B * H * plan.smem_rows * D, dtype=torch.float32, device=value.device)
+        fn, pointers = lib.msda_bwd_bf16, pointers + [scratch.data_ptr()]
+        fn.argtypes = _BWD_BF16_CTYPES
+    else:
+        fn = lib.msda_bwd_f32
+        fn.argtypes = _BWD_CTYPES
     fn.restype = ctypes.c_int
     err = fn(
-        value.data_ptr(), locs.data_ptr(), attn.data_ptr(), grad_out.data_ptr(),
-        grad_value.data_ptr(), grad_locs.data_ptr(), grad_attn.data_ptr(),
-        B, L, H, D, Q, NL, P, *_level_arrays(spatial_shapes, level_start),
+        *pointers, B, L, H, D, Q, NL, P, *_level_arrays(spatial_shapes, level_start),
         plan.tile_q, (ctypes.c_int * NL)(*plan.smem_row), plan.smem_rows, plan.smem_bytes,
         torch.cuda.current_stream(value.device).cuda_stream,
     )
     build.check(err, "msda_bwd")
-    ms_deform_attn_bwd.launches += 1
+    if bf16:
+        ms_deform_attn_bwd.launches_bf16 += 1
+    else:
+        ms_deform_attn_bwd.launches += 1
     return grad_value, grad_locs, grad_attn
 
 
@@ -319,8 +353,8 @@ def ms_deform_attn(
     attn: torch.Tensor,
 ) -> torch.Tensor:
     """K1 (K3 for its gradient) for CUDA tensors (f32 or bf16 value, f32
-    locs/attn, all contiguous; the gradient takes f32 only), the plain
-    version for CPU tensors.  Returns (B, Q, H*D) in value's dtype."""
+    locs/attn, all contiguous), the plain version for CPU tensors.  Returns
+    (B, Q, H*D) in value's dtype."""
     if value.device.type == "cpu":
         return ms_deform_attn_plain(value, spatial_shapes, level_start, locs, attn)
     if value.device.type != "cuda":
@@ -329,5 +363,5 @@ def ms_deform_attn(
                                       tuple(level_start))
 
 
-ms_deform_attn.launches = 0
-ms_deform_attn_bwd.launches = 0
+ms_deform_attn.launches = ms_deform_attn.launches_bf16 = 0
+ms_deform_attn_bwd.launches = ms_deform_attn_bwd.launches_bf16 = 0

@@ -1,5 +1,5 @@
-"""Train state and train step (the port of the JAX package's
-parallel/train_state.py::make_train_step).
+"""Train state, train step and eval step (the port of the JAX package's
+parallel/train_state.py::make_train_step and make_eval_step).
 
 One step = forward in training mode, criterion (host Hungarian matching),
 backward, overflow-safe global-norm clip, grouped AdamW, optional EMA.  A
@@ -8,14 +8,19 @@ AdamW moments and count, EMA) and adds one to `nonfinite_count`; the JAX
 package masks the update on the device, the port decides on the host, which
 the matcher synchronises with every step anyway.
 
-The slice trains in float32 (`compute_dtype` None or "float32"): the fusion
-kernels are f32-only, so bf16 autocast waits for a later slice and asking for
-it raises.
+Mixed precision (`compute_dtype="bfloat16"`, the configs' default, as the
+JAX package's): the forward runs on every floating parameter cast to bf16 by
+a differentiable `.to` and on bf16 images, so the gradients reach the f32
+master parameters in f32, and the clip, AdamW and the EMA stay f32.  No loss
+scaling: bf16 has f32's exponent range.  No torch.autocast: the model runs
+on what it is given, with the JAX package's casts and promotions
+(models/precision.py).  None or "float32" runs the f32 step unchanged.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -48,11 +53,12 @@ class TrainState:
                    generator=torch.Generator().manual_seed(seed), ema=ema)
 
 
-def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """The model inputs and targets of a Collator batch as tensors on
-    `device` (integer arrays as int64)."""
+def to_device(batch: Dict[str, np.ndarray], device,
+              keys=MODEL_INPUT_KEYS + TARGET_KEYS) -> Dict[str, torch.Tensor]:
+    """The model inputs and targets (`keys`) of a Collator batch as tensors
+    on `device` (integer arrays as int64)."""
     out = {}
-    for k in MODEL_INPUT_KEYS + TARGET_KEYS:
+    for k in keys:
         v = np.asarray(batch[k])
         if v.dtype.kind in "iu" and v.dtype != np.uint8:
             v = v.astype(np.int64)
@@ -76,13 +82,55 @@ def maybe_device_normalize(images: torch.Tensor, image_sizes: torch.Tensor) -> t
     return torch.where(rows & cols, x, torch.zeros_like(x))
 
 
+_DTYPES = {None: None, "float32": None, "fp32": None, torch.float32: None,
+           "bfloat16": torch.bfloat16, torch.bfloat16: torch.bfloat16}
+
+
+def resolve_compute_dtype(compute_dtype) -> Optional[torch.dtype]:
+    """None for the f32 step (None, "float32"), torch.bfloat16 for mixed
+    precision; anything else raises."""
+    try:
+        return _DTYPES[compute_dtype]
+    except (KeyError, TypeError):
+        raise ValueError(f"compute_dtype {compute_dtype!r}: the port computes in float32 or "
+                         "bfloat16") from None
+
+
+def cast_floating(params: Dict[str, torch.Tensor], dtype) -> Dict[str, torch.Tensor]:
+    """Floating tensors cast to `dtype` by a differentiable `.to` (the JAX
+    package's cast_floating): gradients reach the originals in their own
+    dtype.  Already-cast tensors come back as they are."""
+    return {k: v.to(dtype) if v.is_floating_point() else v for k, v in params.items()}
+
+
+@contextlib.contextmanager
+def swapped_parameters(model: torch.nn.Module, values: Dict[str, torch.Tensor]) -> Iterator[None]:
+    """Within the block each parameter named in `values` (by
+    model.named_parameters()) reads as its value there, under every name it
+    has: a tied parameter (the shared box head) is swapped by identity, so
+    its aliases stay tied.  Unlike torch.func.functional_call, the swap
+    lasts past the forward, through the backward, where torch.utils.checkpoint
+    replays the fusion and encoder blocks on the same cast weights."""
+    by_id = {id(p): values[n] for n, p in model.named_parameters() if n in values}
+    saved = []
+    for m in model.modules():
+        for name, p in m._parameters.items():
+            if p is not None and id(p) in by_id:
+                saved.append((m, name, p))
+                m._parameters[name] = by_id[id(p)]
+    try:
+        yield
+    finally:
+        for m, name, p in saved:
+            m._parameters[name] = p
+
+
 def make_train_step(criterion, compute_dtype=None, ema_decay: float = 0.0
                     ) -> Callable[[TrainState, Dict], Dict[str, float]]:
     """Returns train_step(state, batch) -> metrics (host floats); it updates
-    `state` in place.  `batch` is a Collator batch (numpy)."""
-    if compute_dtype not in (None, "float32", "fp32", torch.float32):
-        raise ValueError(f"compute_dtype {compute_dtype!r}: the port trains in float32 only "
-                         "(bf16 training is queued in ROADMAP.md)")
+    `state` in place.  `batch` is a Collator batch (numpy).  compute_dtype:
+    None / "float32" (f32) or "bfloat16" (mixed precision, see above)."""
+    dtype = resolve_compute_dtype(compute_dtype)
 
     def train_step(state: TrainState, batch: Dict) -> Dict[str, float]:
         model, opt = state.model, state.optimizer
@@ -93,9 +141,16 @@ def make_train_step(criterion, compute_dtype=None, ema_decay: float = 0.0
         model.train()
         for p in opt.params:
             p.grad = None
-        out = model(**inputs, generator=state.generator)
-        total, losses = criterion(out, t["gt_boxes"], t["gt_pos_maps"], t["gt_valid"])
-        total.backward()
+        if dtype is None:
+            out = model(**inputs, generator=state.generator)
+            total, losses = criterion(out, t["gt_boxes"], t["gt_pos_maps"], t["gt_valid"])
+            total.backward()
+        else:
+            inputs["images"] = inputs["images"].to(dtype)
+            with swapped_parameters(model, cast_floating(dict(model.named_parameters()), dtype)):
+                out = model(**inputs, generator=state.generator)
+                total, losses = criterion(out, t["gt_boxes"], t["gt_pos_maps"], t["gt_valid"])
+                total.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in opt.params]
         norm = safe_global_norm(grads)
         names = list(losses)
@@ -115,4 +170,37 @@ def make_train_step(criterion, compute_dtype=None, ema_decay: float = 0.0
         metrics["nonfinite_count"] = state.nonfinite_count
         return metrics
 
+    train_step.compute_dtype = "float32" if dtype is None else "bfloat16"
     return train_step
+
+
+def make_eval_step(model: torch.nn.Module, criterion=None, compute_dtype=None) -> Callable:
+    """Returns eval_step(batch, params=None) -> {"pred_logits", "pred_boxes"}
+    (plus "loss" and "losses" with a criterion and GT in the batch), the JAX
+    package's make_eval_step: the model in eval mode, no gradients.  `params`
+    (name -> tensor, e.g. a copy cast once ahead of an evaluation) stands in
+    for the model's parameters; under bf16 they are cast, which leaves
+    already-cast ones as they are."""
+    dtype = resolve_compute_dtype(compute_dtype)
+
+    @torch.no_grad()
+    def eval_step(batch: Dict, params: Optional[Dict[str, torch.Tensor]] = None) -> Dict:
+        device = next(model.parameters()).device
+        has_gt = criterion is not None and "gt_boxes" in batch
+        t = to_device(batch, device, MODEL_INPUT_KEYS + (TARGET_KEYS if has_gt else ()))
+        inputs = {k: t[k] for k in MODEL_INPUT_KEYS}
+        inputs["images"] = maybe_device_normalize(inputs["images"], inputs["image_sizes"])
+        values = dict(model.named_parameters()) if params is None else params
+        if dtype is not None:
+            inputs["images"] = inputs["images"].to(dtype)
+            values = cast_floating(values, dtype)
+        model.eval()
+        with swapped_parameters(model, values):
+            out = model(**inputs)
+        result = {"pred_logits": out["pred_logits"], "pred_boxes": out["pred_boxes"]}
+        if has_gt:
+            total, losses = criterion(out, t["gt_boxes"], t["gt_pos_maps"], t["gt_valid"])
+            result["loss"], result["losses"] = total, losses
+        return result
+
+    return eval_step
