@@ -66,6 +66,7 @@ focal_gamma = 2.0
 matcher_type = "HungarianMatcher"
 num_select = 300
 nms_iou_threshold = -1
+label_list = None           # eval categories when the val set has no cat_list
 
 # ---- optimisation -------------------------------------------------------------
 lr = 1e-4

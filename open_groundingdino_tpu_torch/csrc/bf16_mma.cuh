@@ -110,6 +110,26 @@ __device__ __forceinline__ void a_from_acc(uint32_t (&a)[4], const float (&c0)[4
   a[3] = pack(c1[2], c1[3]);
 }
 
+// a_from_acc with each value split in two bf16 parts: hi, the value rounded
+// to bf16, and lo, what that rounding left (x - hi) rounded to bf16.  hi + lo
+// holds 16 of the value's 24 significant bits, so the two products P_hi . V
+// and P_lo . V into one f32 accumulator take P . V at nearly f32 for a V that
+// bf16 holds exactly
+__device__ __forceinline__ void split_pack(uint32_t& hi, uint32_t& lo, float x, float y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack(x - hf.x, y - hf.y);
+}
+
+__device__ __forceinline__ void a_from_acc_split(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                                 const float (&c0)[4], const float (&c1)[4]) {
+  split_pack(hi[0], lo[0], c0[0], c0[1]);
+  split_pack(hi[1], lo[1], c0[2], c0[3]);
+  split_pack(hi[2], lo[2], c1[0], c1[1]);
+  split_pack(hi[3], lo[3], c1[2], c1[3]);
+}
+
 // Issue the copy of rows r0 .. r0+ROWS-1 of a (rows, ld) bf16 matrix's head
 // slice `g` (g points at its row 0, lane 0) into the swizzled tile s; rows at
 // or past `limit` are zero-filled.  Every thread of the block takes part.

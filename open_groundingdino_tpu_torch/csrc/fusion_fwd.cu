@@ -331,14 +331,16 @@ int fusion_fwd(const float* q, const float* k, const float* val_v, const float* 
 
 // ---------------------------------------------------------------- bf16 entry
 // The same two passes and combine on bf16 operands (bf16_mma.cuh): S = Q.K^T
-// on bf16 operands with f32 sums, the online softmax in f32, P rounded to
-// bf16 for P.V, f32 sums, outputs rounded to bf16 once.  The TPU kernel
-// rounds the image side's P_v the same way (fusion_pallas.py:98-102); its
-// text side sums val_v^T.P_l in f32 (:116-120), where this pass rounds P_l
-// to bf16 as well (chip_smoke.py holds the difference against the plain
-// version's f32 sum).  A block is 8 warps of 16 query rows, each holding its
-// rows' 256-lane f32 output (128 registers a thread); key tiles of 16 keys
-// in two cp.async stages; S takes 16 MMAs a 16-key tile a warp, P.V 32.
+// on bf16 operands with f32 sums, the online softmax in f32, P.V with f32
+// sums, outputs rounded to bf16 once.  As in the TPU kernel, the image side
+// (image rows over text keys) rounds its P_v to bf16 for P.V
+// (fusion_pallas.py:98-102), and the text side sums val_v^T.P_l in f32
+// (:116-120): there (kSplitP) P_l is split into a bf16 high and low part and
+// P.V is two MMAs into the same f32 accumulator, exact in val_v (bf16) and
+// within ~2^-16 of P_l.  A block is 8 warps of 16 query rows, each holding
+// its rows' 256-lane f32 output (128 registers a thread); key tiles of 16
+// keys in two cp.async stages; S takes 16 MMAs a 16-key tile a warp, P.V 32
+// (64 with kSplitP).
 namespace bm = bf16mma;
 
 // the query tile and two stages of key and value tiles (bf16); then the
@@ -349,6 +351,7 @@ size_t smem_bytes_bf16(int chunk) {
   return kSmemTilesBf16 + round16(chunk) + round16(chunk / kKeys);
 }
 
+template <bool kSplitP>
 __global__ void __launch_bounds__(kThreads, 1)
 attend_bf16_kernel(const bm::bf16* __restrict__ Qm, const bm::bf16* __restrict__ Km,
                    const bm::bf16* __restrict__ Vm, const uint8_t* __restrict__ key_pad,
@@ -461,13 +464,22 @@ attend_bf16_kernel(const bm::bf16* __restrict__ Qm, const bm::bf16* __restrict__
       }
     }
 
-    // O += P . V over the tile's 16 keys, P rounded to bf16
-    uint32_t p[4];
-    bm::a_from_acc(p, s[0], s[1]);
+    // O += P . V over the tile's 16 keys: P rounded to bf16, or under
+    // kSplitP its high and low bf16 parts, two products
+    uint32_t p[4], p_lo[4];
+    if constexpr (kSplitP) {
+      bm::a_from_acc_split(p, p_lo, s[0], s[1]);
+    } else {
+      bm::a_from_acc(p, s[0], s[1]);
+    }
 #pragma unroll
     for (int n = 0; n < kNT; n += 2) {
       uint32_t bv[2][2];
       bm::load_b_val(bv, V, 8 * n, lane);
+      if constexpr (kSplitP) {
+        bm::mma(o[n], p_lo, bv[0]);
+        bm::mma(o[n + 1], p_lo, bv[1]);
+      }
       bm::mma(o[n], p, bv[0]);
       bm::mma(o[n + 1], p, bv[1]);
     }
@@ -535,15 +547,17 @@ cudaError_t attend_bf16(const bm::bf16* Qm, const bm::bf16* Km, const bm::bf16* 
                         const uint8_t* key_pad, int B, int Nq, int Nk, int E, int H, int n_splits,
                         bm::bf16* out, float* lse, float* part_acc, float* part_m, float* part_s,
                         cudaStream_t stream) {
+  // the text-row pass (split partials) keeps P's precision; the image-row
+  // pass rounds it to bf16
   const int chunk = split_chunk(Nk, n_splits);
   const size_t smem = smem_bytes_bf16(chunk);
-  cudaError_t err = cudaFuncSetAttribute(attend_bf16_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel = n_splits > 1 ? attend_bf16_kernel<true> : attend_bf16_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Nq + kRows - 1) / kRows, H * n_splits, B);
-  attend_bf16_kernel<<<grid, kThreads, smem, stream>>>(Qm, Km, Vm, key_pad, Nq, Nk, E, H,
-                                                        n_splits, chunk, out, lse, part_acc,
-                                                        part_m, part_s);
+  kernel<<<grid, kThreads, smem, stream>>>(Qm, Km, Vm, key_pad, Nq, Nk, E, H, n_splits, chunk,
+                                           out, lse, part_acc, part_m, part_s);
   return cudaGetLastError();
 }
 

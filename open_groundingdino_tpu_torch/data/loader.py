@@ -82,7 +82,10 @@ class Collator:
             "gt_boxes": gt_boxes,
             "gt_pos_maps": gt_pos_maps,
             "gt_valid": gt_valid,
+            # eval metadata, host only: each image's (h, w) before the
+            # transform, which the postprocess scales boxes to
             "image_ids": np.asarray([s.image_id for s in samples], np.int64),
+            "orig_sizes": np.asarray([s.orig_size for s in samples], np.int64),
         }
 
 

@@ -1,10 +1,16 @@
-"""The training loop (the port of the JAX package's engine.py::train_one_epoch;
-reference engine_multi.py:353-593).
+"""The training and evaluation loops (the port of the JAX package's
+engine.py::train_one_epoch and evaluate_coco; reference
+engine_multi.py:353-949).
 
-One train step per batch.  The loss and gradient norm reach the host every
-step (the matcher synchronises anyway), so the abort on a non-finite loss or
-a growing `nonfinite_count` (reference engine_multi.py:544-547) is checked
-every step.  Evaluation is not ported yet.
+train_one_epoch: one train step per batch.  The loss and gradient norm reach
+the host every step (the matcher synchronises anyway), so the abort on a
+non-finite loss or a growing `nonfinite_count` (reference
+engine_multi.py:544-547) is checked every step.
+
+evaluate_coco: forward -> PostProcess -> numpy COCO mAP, pipelined one deep
+as the JAX loop is: batch i+1's forward and device postprocess are launched
+before batch i's host half runs.  The multi-host merge of the JAX package's
+evaluator records is not ported (ROADMAP).
 """
 from __future__ import annotations
 
@@ -15,6 +21,9 @@ import sys
 import time
 from collections import defaultdict
 from typing import Dict, List, Optional
+
+import numpy as np
+import torch
 
 LOGGED_KEYS = ("loss", "loss_ce", "loss_bbox", "loss_giou", "grad_norm")
 
@@ -85,3 +94,68 @@ def train_one_epoch(train_step, state, loader, epoch: int,
     emit(f"Epoch [{epoch}] done in "
          f"{datetime.timedelta(seconds=int(time.perf_counter() - t_epoch))}")
     return state, {k: m.global_avg for k, m in meters.items()}
+
+
+def evaluate_coco(eval_step, params: Dict, loader, postprocessor, coco_index,
+                  contiguous_to_catid: Dict[int, int], logger: Optional[logging.Logger] = None,
+                  print_freq: int = 50, max_steps: Optional[int] = None,
+                  precast_dtype=None) -> Dict[str, float]:
+    """COCO bbox eval of `params` (name -> tensor, as make_eval_step's
+    eval_step takes them); returns the 12 COCO stats.
+
+    Pipelined one deep: batch i+1's eval_step and PostProcess.device are
+    launched, and their copy to the host started, before batch i's host half
+    (NMS, the label map, evaluator.update) runs, so on CUDA the host half
+    overlaps the card's work.  `precast_dtype` casts the parameters once
+    ahead of the pass (the JAX package's EVAL_PRECAST), which eval_step's own
+    cast then leaves as they are.  The padded tail of the last batch
+    (`n_real`) is not scored; labels go back to the dataset's category ids
+    unless the postprocessor emits COCO ids.  A step with a criterion logs
+    its mean loss."""
+    from .eval.coco_eval import CocoBboxEvaluator
+    from .parallel.train_state import cast_floating
+
+    if precast_dtype is not None:
+        with torch.no_grad():
+            params = cast_floating(params, precast_dtype)
+    evaluator = CocoBboxEvaluator(coco_index)
+    loss_meter = SmoothedValue()
+    emit = logger.info if logger else print
+    remap = not getattr(postprocessor, "emits_coco_ids", False)
+
+    def finish(pending) -> None:
+        batch, staged, loss = pending
+        results = postprocessor.host(staged)
+        n_real = batch.get("n_real", len(results))
+        preds = {}
+        for img_id, res in list(zip(batch["image_ids"].tolist(), results))[:n_real]:
+            labels = res["labels"]
+            if remap:
+                labels = np.asarray([contiguous_to_catid.get(int(c), int(c)) for c in labels])
+            preds[img_id] = {"scores": res["scores"], "labels": labels, "boxes": res["boxes"]}
+        evaluator.update(preds)
+        if loss is not None:
+            loss_meter.update(float(loss))
+
+    total = len(loader)
+    t0 = time.perf_counter()
+    pending = None
+    for i, batch in enumerate(loader):
+        out = eval_step(batch, params)
+        staged = postprocessor.copy_to_host(postprocessor.device(out, batch["orig_sizes"]))
+        if pending is not None:
+            finish(pending)
+        pending = (batch, staged, out.get("loss"))
+        if i % print_freq == 0 or i == total - 1:
+            emit(f"Eval [{i}/{total}]"
+                 + (f"  loss: {loss_meter.median:.4f}" if loss_meter.count else ""))
+        if max_steps is not None and i + 1 >= max_steps:
+            break
+    if pending is not None:
+        finish(pending)
+    evaluator.accumulate()
+    stats = evaluator.summarize()
+    emit(f"Eval done in {time.perf_counter() - t0:.1f} s"
+         + (f", loss {loss_meter.global_avg:.4f}" if loss_meter.count else "")
+         + "; COCO bbox: " + " ".join(f"{k}={v:.4f}" for k, v in stats.items()))
+    return stats

@@ -54,13 +54,24 @@ def _box_head_source(key: str) -> str:
     return key
 
 
-def load_reference_state_dict(model: GroundingDINO, path: str) -> None:
+def load_reference_state_dict(model: GroundingDINO, path: str, ignore=()) -> None:
     """Load a reference-keyed .pth ({"model": state_dict} or a bare state
     dict) into `model` with strict=True, after dropping the non-parameter
-    keys and filling absent box-head aliases from `bbox_embed.0`."""
+    keys and filling absent box-head aliases from `bbox_embed.0`.
+
+    `ignore` (keywords): the reference's finetune_ignore (main.py:343-358
+    check_keep, then load_state_dict(strict=False)): a key that contains a
+    keyword is not loaded, so its tensor keeps the model's own (fresh) value;
+    every other key of the file must name a tensor of the model."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = clean_state_dict(ckpt.get("model", ckpt))
     sd = {k: v for k, v in sd.items() if not _ignored(k)}
+    if ignore:
+        sd = {k: v for k, v in sd.items() if not any(kw in k for kw in ignore)}
+        unexpected = model.load_state_dict(sd, strict=False).unexpected_keys
+        if unexpected:
+            raise KeyError(f"{path}: keys the model does not have: {unexpected}")
+        return
     for key in model.state_dict():
         if key not in sd and _box_head_source(key) in sd:
             sd[key] = sd[_box_head_source(key)]

@@ -1,18 +1,28 @@
-"""Training entry point of the port (the training branch of the JAX package's
+"""Training and evaluation entry point of the port (the JAX package's
 main.py; reference main.py CLI surface).
 
     python -m open_groundingdino_tpu_torch.main -c CFG --datasets MANIFEST \\
-        --output_dir OUT --vocab VOCAB [--max_steps N] [--device cuda] \\
-        [--pretrain_model_path ckpt.pth] [--options key=value ...]
+        --output_dir OUT --vocab VOCAB [--eval] [--resume ckpt.pth] \\
+        [--pretrain_model_path ckpt.pth] [--finetune_ignore KW ...] \\
+        [--frozen_weights ckpt.pth] [--max_steps N] [--device cuda] \\
+        [--options key=value ...]
 
-MANIFEST is the JAX package's datasets.json shape; the train split's
-entries must be ODVG:
-    {"train": [{"root": ..., "anno": ..., "label_map": ..., "dataset_mode": "odvg"}]}
+MANIFEST is the JAX package's datasets.json shape; each split lists COCO or
+ODVG entries:
+    {"train": [{"root": ..., "anno": ..., "label_map": ..., "dataset_mode": "odvg"}],
+     "val":   [{"root": ..., "anno": ..., "dataset_mode": "coco"}]}
 
-Each epoch appends one JSON line of training stats to OUT/log.txt, as the
-JAX package's main.py does.  Evaluation, checkpoint saving and resuming are
-not ported yet (ROADMAP.md).  The model trains on CUDA unless --device says
-otherwise.
+--eval evaluates the val split (COCO bbox mAP) and writes OUT/eval_stats.json.
+Training resumes from --resume, or else from the newest OUT/checkpoint_N.pth,
+at epoch N + 1; it saves OUT/checkpoint_{epoch}.pth every
+save_checkpoint_interval epochs and at the last; after each epoch it
+evaluates the model, and its EMA under use_ema, keeps the best in OUT/best/
+and OUT/best_ema/, and appends one JSON line to OUT/log.txt.  Unlike the JAX
+package's main, a manifest without a "val" split trains without evaluating.
+Evaluation runs in the config's compute_dtype (bf16 by default, as the JAX
+package's); bf16 with msda_kernel sweep or banded_point raises (those
+kernels have no bf16 entry yet).  The model runs on CUDA unless --device
+says otherwise.
 """
 from __future__ import annotations
 
@@ -24,23 +34,40 @@ import sys
 import time
 from typing import Dict
 
+# what --frozen_weights freezes on top of freeze_keywords: every part a
+# pretrained checkpoint provides, so only the heads train (the JAX package's
+# main.py:285-292, reference main.py:338-341)
+FROZEN_WEIGHTS_KEYS = ("backbone", "bert", "transformer", "feat_map", "input_proj")
+
 
 def get_args_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser("GroundingDINO port: training", add_help=False)
+    p = argparse.ArgumentParser("GroundingDINO port: training and eval", add_help=False)
     p.add_argument("--config_file", "-c", type=str, required=True)
     p.add_argument("--options", nargs="+", default=None,
                    help="override config keys: key=value ...")
     p.add_argument("--datasets", type=str, required=True, help="dataset manifest json")
     p.add_argument("--output_dir", default="output")
+    p.add_argument("--eval", action="store_true",
+                   help="evaluate the val split and write eval_stats.json, in the config's "
+                        "compute_dtype (bf16 by default; bf16 with msda_kernel sweep or "
+                        "banded_point raises: those kernels have no bf16 entry yet)")
+    p.add_argument("--resume", default="",
+                   help="checkpoint_N.pth to resume from (default: the newest in output_dir)")
     p.add_argument("--vocab", required=True, help="bert vocab.txt path")
     p.add_argument("--pretrain_model_path", default="",
                    help="reference-keyed .pth to initialize from (default: seeded random init)")
+    p.add_argument("--finetune_ignore", type=str, nargs="+", default=None,
+                   help="pretrain keys containing any of these keywords keep their fresh init "
+                        "(reference main.py:343-358, e.g. label_enc.weight class_embed)")
+    p.add_argument("--frozen_weights", type=str, default=None,
+                   help="checkpoint loaded as a pretrain whose parts (backbone, bert, "
+                        "transformer, feat_map, input_proj) are then frozen")
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--num_workers", type=int, default=2,
-                   help="loader threads (0: collate in the training thread)")
+                   help="loader threads (0: collate in the calling thread)")
     p.add_argument("--max_steps", type=int, default=None,
-                   help="stop each epoch after this many steps")
+                   help="stop each epoch (and each evaluation) after this many batches")
     p.add_argument("--print_freq", type=int, default=50)
     return p
 
@@ -60,50 +87,66 @@ def setup_logger(output_dir: str) -> logging.Logger:
     return logger
 
 
-def build_train_dataset(manifest: Dict, args):
+def build_datasets(manifest: Dict, split: str, args, tokenizer=None):
+    """The `split` entries of the manifest ("train": TrainTransform, else
+    EvalTransform), COCO or ODVG, concatenated when there are several (the
+    JAX package's main.build_datasets; the tokenizer is not used)."""
+    from .data.coco import CocoDetection
     from .data.odvg import ConcatDataset, ODVGDataset
-    from .data.transforms import TrainTransform
+    from .data.transforms import EvalTransform, TrainTransform
 
-    tf = TrainTransform(scales=args.data_aug_scales, max_size=args.data_aug_max_size,
-                        scales2_resize=args.data_aug_scales2_resize,
-                        scales2_crop=args.data_aug_scales2_crop)
+    if split == "train":
+        tf = TrainTransform(scales=args.data_aug_scales, max_size=args.data_aug_max_size,
+                            scales2_resize=args.data_aug_scales2_resize,
+                            scales2_crop=args.data_aug_scales2_crop)
+    else:
+        tf = EvalTransform(args.eval_shortest_edge, args.eval_max_size)
     parts = []
-    for entry in manifest["train"]:
+    for entry in manifest[split]:
         mode = entry.get("dataset_mode", "coco")
-        if mode != "odvg":
-            raise ValueError(f"dataset_mode {mode!r}: the port trains on ODVG only so far")
-        parts.append(ODVGDataset(entry["root"], entry["anno"], entry.get("label_map"),
-                                 max_labels=args.max_labels, transform=tf))
+        if mode == "coco":
+            parts.append(CocoDetection(entry["root"], entry["anno"], transform=tf))
+        elif mode == "odvg":
+            parts.append(ODVGDataset(entry["root"], entry["anno"], entry.get("label_map"),
+                                     max_labels=args.max_labels, transform=tf))
+        else:
+            raise ValueError(f"unknown dataset_mode {mode!r}")
     return parts[0] if len(parts) == 1 else ConcatDataset(parts)
 
 
 def main(cli) -> Dict:
-    """Train; returns {"state", "train_step", "loader", "records"} (the
-    per-step metrics and host seconds of the run)."""
+    """Evaluate (--eval) or train.  Returns, after --eval, {"stats", "model",
+    "run_eval"} (run_eval(params, max_steps) evaluates again); after training
+    {"state", "train_step", "loader", "records" (the per-step metrics and host
+    seconds), "eval" (each epoch's eval stats), "best"}."""
     import torch
 
     from .config import SLConfig
     from .config.slconfig import parse_override_value
     from .data.loader import Collator, DataLoader
     from .data.tokenization import build_tokenizer
-    from .engine import train_one_epoch
+    from .engine import evaluate_coco, train_one_epoch
     from .inference import load_reference_state_dict
     from .models.criterion import build_criterion
     from .models.groundingdino import build_groundingdino, init_weights_
+    from .models.postprocess import PostProcess
     from .parallel.optim import make_lr_schedule, make_optimizer
-    from .parallel.train_state import TrainState, make_train_step
+    from .parallel.train_state import (TrainState, make_eval_step, make_train_step,
+                                       resolve_compute_dtype)
+    from .utils import checkpoint as ckpt
+    from .utils.ema import BestMetricHolder
 
     args = SLConfig.fromfile(cli.config_file)
     if cli.options:
         args.merge_from_dict({kv.split("=", 1)[0]: parse_override_value(kv.split("=", 1)[1])
                               for kv in cli.options})
-    for key in ("epochs", "batch_size", "num_queries", "max_text_len", "max_gt_boxes"):
+    for key in ("epochs", "batch_size", "num_queries", "max_text_len", "max_gt_boxes",
+                "save_checkpoint_interval"):
         int(args.get(key))
     for key in ("lr", "lr_backbone", "weight_decay", "clip_max_norm"):
         float(args.get(key))
-    train_step = make_train_step(
-        build_criterion(args), compute_dtype=args.compute_dtype,
-        ema_decay=float(args.get("ema_decay", 0.9997)) if args.get("use_ema", False) else 0.0)
+    compute_dtype = resolve_compute_dtype(args.compute_dtype)
+    use_ema = bool(args.get("use_ema", False))
 
     os.makedirs(cli.output_dir, exist_ok=True)
     args.dump(os.path.join(cli.output_dir, "config_cfg.py"))
@@ -116,42 +159,118 @@ def main(cli) -> Dict:
     tokenizer = build_tokenizer(cli.vocab)
     with open(cli.datasets) as f:
         manifest = json.load(f)
-    dataset = build_train_dataset(manifest, args)
     collator = Collator(tokenizer, args.image_buckets, int(args.max_text_len),
                         int(args.max_gt_boxes), u8_images=bool(args.get("u8_images", False)))
-    loader = DataLoader(dataset, collator, batch_size=int(args.batch_size), shuffle=True,
-                        seed=cli.seed, num_threads=cli.num_workers)
+    batch_size = int(args.batch_size)
 
     model = build_groundingdino(args, device="cpu")
-    if cli.pretrain_model_path:
-        load_reference_state_dict(model, cli.pretrain_model_path)
-        logger.info(f"loaded {cli.pretrain_model_path}")
+    pretrain_path = cli.frozen_weights or cli.pretrain_model_path
+    if pretrain_path:
+        if cli.finetune_ignore:
+            init_weights_(model, cli.seed)   # the fresh init the ignored keys keep
+            logger.info(f"finetune_ignore: {cli.finetune_ignore}")
+        load_reference_state_dict(model, pretrain_path, ignore=tuple(cli.finetune_ignore or ()))
+        logger.info(f"loaded {pretrain_path}")
     else:
         init_weights_(model, cli.seed)
-    model = model.to(device).train()
+    model = model.to(device)
 
+    # ---- eval: the val split, when the manifest has one ----------------------
+    run_eval = None
+    if manifest.get("val"):
+        val_dataset = build_datasets(manifest, "val", args, tokenizer)
+        if not hasattr(val_dataset, "coco"):
+            raise ValueError("the val split must be one COCO-format dataset (dataset_mode coco)")
+        postprocessor = PostProcess(
+            tokenizer, getattr(val_dataset, "cat_list", None) or args.label_list,
+            num_select=int(args.num_select), max_text_len=int(args.max_text_len),
+            nms_iou_threshold=float(args.nms_iou_threshold))
+        eval_loader = DataLoader(val_dataset, collator, batch_size=batch_size,
+                                 num_threads=cli.num_workers)
+        # no criterion: its host matching would wait for every batch's
+        # forward and undo the pipelining (the JAX package's runs on device)
+        eval_step = make_eval_step(model, compute_dtype=compute_dtype)
+
+        def run_eval(params, max_steps=cli.max_steps):
+            return evaluate_coco(eval_step, params, eval_loader, postprocessor, val_dataset.coco,
+                                 val_dataset.contiguous_to_catid, logger,
+                                 print_freq=cli.print_freq, max_steps=max_steps,
+                                 precast_dtype=compute_dtype)
+
+    if cli.eval:
+        if run_eval is None:
+            raise SystemExit("--eval needs a 'val' split in the dataset manifest")
+        stats = run_eval(dict(model.named_parameters()))
+        with open(os.path.join(cli.output_dir, "eval_stats.json"), "w") as f:
+            json.dump(stats, f, indent=2)
+        return {"stats": stats, "model": model, "run_eval": run_eval}
+
+    # ---- train ---------------------------------------------------------------
+    train_step = make_train_step(build_criterion(args), compute_dtype=compute_dtype,
+                                 ema_decay=float(args.get("ema_decay", 0.9997)) if use_ema else 0.0)
+    dataset = build_datasets(manifest, "train", args, tokenizer)
+    loader = DataLoader(dataset, collator, batch_size=batch_size, shuffle=True,
+                        seed=cli.seed, num_threads=cli.num_workers)
     steps_per_epoch = max(len(loader), 1)
+    frozen_keys = tuple(args.freeze_keywords or ())
+    if cli.frozen_weights:
+        frozen_keys += FROZEN_WEIGHTS_KEYS
+        logger.info(f"frozen_weights: {FROZEN_WEIGHTS_KEYS} frozen")
     optimizer = make_optimizer(
         model, lr=make_lr_schedule(args, steps_per_epoch), base_lr=float(args.lr),
         lr_backbone=float(args.lr_backbone), lr_linear_proj_mult=float(args.lr_linear_proj_mult),
         weight_decay=float(args.weight_decay), clip_max_norm=float(args.clip_max_norm),
-        frozen_keys=tuple(args.freeze_keywords or ()))
-    state = TrainState.create(model, optimizer, seed=cli.seed,
-                              use_ema=bool(args.get("use_ema", False)))
+        frozen_keys=frozen_keys)
+    state = TrainState.create(model, optimizer, seed=cli.seed, use_ema=use_ema)
 
-    records = []
-    for epoch in range(int(args.epochs)):
+    start_epoch = 0
+    resume_path = cli.resume or ckpt.latest_checkpoint(cli.output_dir)
+    if resume_path:
+        restored = ckpt.restore_checkpoint(resume_path)
+        state.load_state_dict(restored)
+        start_epoch = int(restored["epoch"]) + 1
+        logger.info(f"resumed from {resume_path} at epoch {start_epoch}")
+
+    def save(ckpt_dir: str, epoch: int, tag: int) -> None:
+        ckpt.save_checkpoint(ckpt_dir, tag, {**state.state_dict(), "epoch": epoch})
+
+    best = BestMetricHolder(use_ema=use_ema)
+    records, evals = [], []
+    epochs = int(args.epochs)
+    for epoch in range(start_epoch, epochs):
         loader.set_epoch(epoch)
         t0 = time.time()
         state, stats = train_one_epoch(train_step, state, loader, epoch, logger,
                                        print_freq=cli.print_freq, max_steps=cli.max_steps,
                                        step_records=records)
         logger.info(f"epoch {epoch} train stats: {stats} ({time.time() - t0:.1f}s)")
+        if (epoch + 1) % int(args.save_checkpoint_interval) == 0 or epoch == epochs - 1:
+            save(cli.output_dir, epoch, epoch)
+
+        eval_stats, ema_stats = {}, {}
+        if run_eval is not None:
+            eval_stats = run_eval(dict(model.named_parameters()))
+            if best.update(float(eval_stats.get("AP", -1.0)), epoch):
+                save(os.path.join(cli.output_dir, "best"), epoch, 0)
+                logger.info(f"new best AP {best.best_all:.4f} at epoch {epoch}")
+            if state.ema is not None:
+                # the second pass, on the EMA weights (reference main.py:481-494)
+                ema_raw = run_eval(dict(zip(optimizer.names, state.ema)))
+                ema_stats = {f"ema_{k}": v for k, v in ema_raw.items()}
+                if best.update(float(ema_raw.get("AP", -1.0)), epoch, is_ema=True):
+                    save(os.path.join(cli.output_dir, "best_ema"), epoch, 0)
+                    logger.info(f"new best EMA AP {best.best_ema:.4f}")
+            evals.append({**eval_stats, **ema_stats})
+        line = {"epoch": epoch, **stats, **eval_stats, **ema_stats}
+        if run_eval is not None:
+            line["best_AP"] = best.best_all
         with open(os.path.join(cli.output_dir, "log.txt"), "a") as f:
-            f.write(json.dumps({"epoch": epoch, **stats}) + "\n")
-    return {"state": state, "train_step": train_step, "loader": loader, "records": records}
+            f.write(json.dumps(line) + "\n")
+    return {"state": state, "train_step": train_step, "loader": loader, "records": records,
+            "eval": evals, "best": best.summary()}
 
 
 if __name__ == "__main__":
-    parser = argparse.ArgumentParser("GroundingDINO port: training", parents=[get_args_parser()])
+    parser = argparse.ArgumentParser("GroundingDINO port: training and eval",
+                                     parents=[get_args_parser()])
     main(parser.parse_args())

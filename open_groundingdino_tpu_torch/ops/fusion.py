@@ -23,9 +23,11 @@ and `fused_bi_attention_bwd.launches` count the kernels' f32 launches,
 The operands are all f32 or all bf16.  In bf16 the kernels compute what the
 TPU kernels compute on bf16 operands (ops/fusion_pallas.py): logits and
 softmax statistics in f32, each product on bf16 operands with f32
-accumulation, the probabilities (and K4's dL) rounded to bf16 as the TPU
-kernel casts them, outputs in bf16; K4's text-side gradients are summed in
-f32 over the image axis and rounded once.
+accumulation, the image side's probabilities P_v (and K4's dL) rounded to
+bf16 as the TPU kernel casts them, outputs in bf16.  K2's text side sums
+val_v^T . P_l in f32 as the TPU kernel does: P_l is split into a bf16 high
+and low part, two tensor-core products into one f32 sum.  K4's text-side
+gradients are summed in f32 over the image axis and rounded once.
 """
 from __future__ import annotations
 

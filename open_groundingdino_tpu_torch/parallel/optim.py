@@ -23,6 +23,12 @@ BACKBONE_KEYS = ("backbone", "bert")
 LINEAR_PROJ_KEYS = ("ref_point_head", "sampling_offsets")
 
 
+def host_copy(t: torch.Tensor) -> torch.Tensor:
+    """A copy of `t` on the host, which later in-place updates of `t` leave
+    as it is (also where `t` already lies on the host)."""
+    return t.detach().to("cpu", copy=True)
+
+
 @torch.no_grad()
 def safe_global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """Overflow-safe global L2 norm: rescale by the global max |x| before the
@@ -87,6 +93,24 @@ class GroupedAdamW:
         self.m = [torch.zeros_like(p) for p in self.params]
         self.v = [torch.zeros_like(p) for p in self.params]
         self.count = 0
+
+    def state_dict(self) -> Dict:
+        """{"m": {name: first moment}, "v": {name: second moment}, "count"}:
+        host copies by parameter name."""
+        return {"m": {n: host_copy(t) for n, t in zip(self.names, self.m)},
+                "v": {n: host_copy(t) for n, t in zip(self.names, self.v)},
+                "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict) -> None:
+        """Copy a state_dict() into the moments in place (on their device);
+        the names must be this optimizer's."""
+        for key, moments in (("m", self.m), ("v", self.v)):
+            if set(state[key]) != set(self.names):
+                raise KeyError(f"optimizer state {key!r} names other parameters than the model's")
+            for n, t in zip(self.names, moments):
+                t.copy_(state[key][n])
+        self.count = int(state["count"])
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor], norm: float) -> None:

@@ -27,7 +27,7 @@ import torch
 
 from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from ..utils.ema import ema_update
-from .optim import GroupedAdamW, safe_global_norm
+from .optim import GroupedAdamW, host_copy, safe_global_norm
 
 MODEL_INPUT_KEYS = (
     "images", "image_sizes", "input_ids", "text_token_mask",
@@ -52,17 +52,53 @@ class TrainState:
         return cls(model=model, optimizer=optimizer,
                    generator=torch.Generator().manual_seed(seed), ema=ema)
 
+    def state_dict(self) -> Dict:
+        """Host copies of everything a resumed run needs: "model" (the
+        model's reference-keyed state dict, so the dict reads as a reference
+        .pth), "optimizer", "ema" (by parameter name, or None), "step",
+        "nonfinite_count" and "generator" (the stochastic-depth generator's
+        state)."""
+        names = self.optimizer.names
+        return {
+            "model": {k: host_copy(v) for k, v in self.model.state_dict().items()},
+            "optimizer": self.optimizer.state_dict(),
+            "ema": None if self.ema is None else {n: host_copy(e) for n, e in zip(names, self.ema)},
+            "step": self.step,
+            "nonfinite_count": self.nonfinite_count,
+            "generator": self.generator.get_state(),
+        }
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict) -> None:
+        """Restore a state_dict() in place: the model strictly, the moments,
+        the EMA (when both sides keep one), the counters and the generator."""
+        self.model.load_state_dict(state["model"], strict=True)
+        self.optimizer.load_state_dict(state["optimizer"])
+        if (self.ema is None) != (state["ema"] is None):
+            raise ValueError("the checkpoint and the run disagree on use_ema")
+        if self.ema is not None:
+            for n, e in zip(self.optimizer.names, self.ema):
+                e.copy_(state["ema"][n])
+        self.step = int(state["step"])
+        self.nonfinite_count = int(state["nonfinite_count"])
+        self.generator.set_state(state["generator"])
+
 
 def to_device(batch: Dict[str, np.ndarray], device,
               keys=MODEL_INPUT_KEYS + TARGET_KEYS) -> Dict[str, torch.Tensor]:
     """The model inputs and targets (`keys`) of a Collator batch as tensors
-    on `device` (integer arrays as int64)."""
+    on `device` (integer arrays as int64).  For a CUDA device each array is
+    staged in page-locked memory, so that its copy queues behind the work
+    already launched instead of waiting for it (the eval loop launches a
+    batch while the card still runs the one before)."""
     out = {}
+    pin = torch.device(device).type == "cuda"
     for k in keys:
         v = np.asarray(batch[k])
         if v.dtype.kind in "iu" and v.dtype != np.uint8:
             v = v.astype(np.int64)
-        out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(device, non_blocking=True)
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        out[k] = (t.pin_memory() if pin else t).to(device, non_blocking=True)
     return out
 
 

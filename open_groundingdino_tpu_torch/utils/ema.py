@@ -1,8 +1,8 @@
-"""Model EMA (the port of the JAX package's utils/ema.py; reference
-util/utils.py:373-396 ModelEma)."""
+"""Model EMA and best-metric tracking (the port of the JAX package's
+utils/ema.py; reference util/utils.py:373-470 ModelEma, BestMetricHolder)."""
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, Sequence
 
 import torch
 
@@ -15,3 +15,35 @@ def ema_update(ema: Sequence[torch.Tensor], params: Sequence[torch.Tensor],
     ema = list(ema)
     torch._foreach_mul_(ema, decay)
     torch._foreach_add_(ema, [p.to(e.dtype) for e, p in zip(ema, params)], alpha=1.0 - decay)
+
+
+class BestMetricHolder:
+    """The best mAP across epochs, with and without the EMA's slot
+    (reference util/utils.py:433-470, used at main.py:400)."""
+
+    def __init__(self, use_ema: bool = False):
+        self.best_all: float = -1.0
+        self.best_regular: float = -1.0
+        self.best_ema: float = -1.0
+        self.use_ema = use_ema
+
+    def update(self, new_res: float, epoch: int, is_ema: bool = False) -> bool:
+        """True if new_res is the new overall best."""
+        if not self.use_ema:
+            is_best = new_res > self.best_regular
+            if is_best:
+                self.best_regular = new_res
+                self.best_all = new_res
+            return is_best
+        if is_ema:
+            self.best_ema = max(self.best_ema, new_res)
+        else:
+            self.best_regular = max(self.best_regular, new_res)
+        if new_res > self.best_all:
+            self.best_all = new_res
+            return True
+        return False
+
+    def summary(self) -> Dict[str, float]:
+        return {"best_all": self.best_all, "best_regular": self.best_regular,
+                "best_ema": self.best_ema}

@@ -30,14 +30,16 @@ def _imported_roots(path):
     return roots
 
 
-# every module of the serving, training, sweep and banded slices and the tools: the
-# walk below must find them all, and importing them must load nothing of JAX
+# every module of the serving, training, sweep, banded and eval slices and the
+# tools: the walk below must find them all, and importing them must load
+# nothing of JAX
 EXPECTED = (
     "inference", "main", "engine", "ops.msda", "ops.msda_sweep", "ops.msda_banded", "ops.fusion",
     "ops.build", "tools", "tools.msda_microbench",
     "models.matcher", "models.criterion", "models.layers", "models.transformer",
-    "parallel.optim", "parallel.train_state", "utils.ema", "utils.box_ops",
-    "data.odvg", "data.loader", "data.transforms", "data.tokenization",
+    "models.postprocess", "eval", "eval.coco_eval",
+    "parallel.optim", "parallel.train_state", "utils.ema", "utils.box_ops", "utils.checkpoint",
+    "data.odvg", "data.loader", "data.transforms", "data.tokenization", "data.coco",
 )
 
 
