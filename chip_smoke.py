@@ -133,8 +133,31 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                relative, best/ and best_ema/ exist, every log.txt line holds
                the JAX package's keys, and load_model on checkpoint_2.pth
                answers a request
-then the {"kernels": [...]} line (K1-K10, then the bf16 entries of K1-K4)
-and, last, {"ok": true, "device": {...}}.
+ 24. bf16 sweep kernels - the bf16 entries of K6 and K7 (phase 8's B = 4
+               and phase 3's B = 1 shapes, K7 on the decoder's sorted query
+               set) and of K9 and K10 (B = 4) against their bf16 plain
+               versions on phase 12's operands (forwards and grad_value within
+               1e-2 of each output's largest |reference|, gw and gpx within
+               1e-3), by CUDA events and torch.profiler's device time, against
+               bounds at bf16 value and g bytes and f32 grad_value bytes;
+               ptxas's report of the four bf16 instances (K6 and K7 without
+               spills), and K9's and K10's bf16 SASS must hold f32 global
+               reductions and no bf16x2 one
+ 25. bf16 sweep train - main --options msda_kernel=sweep in the config's
+               default bf16 at B = 4, full width and depth: 1 warm-up + 3
+               timed steps, each loss finite, 18 K6 + 12 K9 + 12 K2 + 6 K4
+               bf16 launches a step and no other; a profiled step; 1 step
+               with msda_sweep_bwd=rowtap (12 K10 bf16) and 1 with
+               msda_dec_fused=True (12 K6 + 6 K7 bf16); phase 15's step in
+               bf16 through the sweep (corner and row-tap backward) against
+               phase 15's f32 sweep steps on the card: loss within 2e-2 and
+               each MSDA-fed gradient within 0.75, relative, beside its
+               distance from phase 21's bf16 gather step; with K9 bf16's, and
+               apart K10 bf16's, gw negated each must fail; then main --eval
+               through the sweep in bf16 on phase 22's val split: 12 finite
+               stats, 12 K6 + 6 K2 bf16 launches a batch, images/s
+then the {"kernels": [...]} line (K1-K10, then the bf16 entries of K1-K4,
+K6, K7, K9 and K10) and, last, {"ok": true, "device": {...}}.
 
 Exits nonzero when no CUDA device is present.  Scratch files (checkpoint,
 vocab, the ODVG set and its COCO val splits, the runs' outputs and
@@ -475,13 +498,18 @@ def ptxas_kernels(name: str, kernel_names) -> dict:
     return kernels
 
 
-def sass_atomics(name: str) -> dict:
-    """The atomics in the SASS of csrc/<name>.cu: vector global reductions
-    (RED ... F32x4), scalar ones, and shared-memory f32 atomics, which Hopper
-    runs as compare-and-swap loops (ATOMS.CAST.SPIN)."""
+def sass_atomics(name: str, function: str = None) -> dict:
+    """The atomics in the SASS of csrc/<name>.cu (of its kernels whose
+    mangled names hold `function`, where one is given): vector global
+    reductions (RED ... F32x4), scalar ones, bf16 ones, and shared-memory
+    f32 atomics, which Hopper runs as compare-and-swap loops
+    (ATOMS.CAST.SPIN)."""
     import re
 
     sass = library_sass(name)
+    if function is not None:
+        sass = "".join(part for part in sass.split("Function : ")[1:]
+                       if function in part.split("\n", 1)[0])
     return {"red_global_f32x4": len(re.findall(r"RED\S*F32x4", sass)),
             "red_global_f32": len(re.findall(r"RED\S*\.F32\b(?!x)", sass)),
             "red_global_bf16x2": len(re.findall(r"RED\S*BF16", sass)),
@@ -554,10 +582,14 @@ def msda_kernel_report(plans: dict) -> dict:
                          ("msda_corner_fwd", {"K8": "corner_fwd_kernel"}),
                          ("msda_corner_bwd", {"K9": "corner_bwd_kernel"}),
                          ("msda_rowtap_bwd", {"K10": "rowtap_bwd_kernel"})):
-        report[lib] = ptxas_kernels(lib, [(k, k) for k in kernels.values()])
+        # K6, K7, K9 and K10 are templates on the value type: their bf16
+        # instances under "<kernel><bf16>", the f32 ones under the kernel's name
+        report[lib] = ptxas_kernels(lib, [(f"{k}{BF16_MANGLED}", f"{k}<bf16>")
+                                          for k in kernels.values()]
+                                    + [(k, k) for k in kernels.values()])
         bwd = any(kname in bwd_plans for kname in kernels)
-        if bwd:
-            report[f"{lib}_atomics"] = sass_atomics(lib)
+        if bwd:   # the f32 instance's (phase 24 reads the bf16 one's)
+            report[f"{lib}_atomics"] = sass_atomics(lib, f"{next(iter(kernels.values()))}If")
         for kname in kernels:
             report[f"{kname}_plans"] = found[kname]
         log("sass", f"lib{lib}.so ({', '.join(kernels)}): ptxas {report[lib]}"
@@ -622,17 +654,18 @@ def check_fusion(g, device):
 
 
 # ---------------------------------------------------------------- K3 (MSDA backward)
-def msda_bwd_bound_ms(value, shapes, locs, attn) -> tuple:
+def msda_bwd_bound_ms(value, shapes, locs, attn, grad_value_size: int = None) -> tuple:
     """(least ms, "bytes"|"operations"): the touched value rows, locations,
-    weights and upstream gradient read once; grad_value (whole), grad_locs
-    and grad_attn written once; against 8 FLOP per channel for every in-map
+    weights and upstream gradient read once; grad_value (whole; of
+    `grad_value_size` bytes an element, by default value's), grad_locs and
+    grad_attn written once; against 8 FLOP per channel for every in-map
     corner (the value product, the scatter and the two location derivatives)
     plus ~16 FLOP of index math per sample."""
     B, Q, H, NL, P, _ = locs.shape
     D = value.shape[-1]
     rows, corners = msda_traffic(value, shapes, locs)
-    es = value.element_size()   # value, upstream gradient and grad_value
-    nbytes = (es * (rows * D + B * Q * H * D + value.numel())
+    es = value.element_size()   # value and upstream gradient
+    nbytes = (es * (rows * D + B * Q * H * D) + (grad_value_size or es) * value.numel()
               + 4 * (2 * locs.numel() + 2 * attn.numel()))
     ops = 8 * D * corners + 16 * B * Q * H * NL * P
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
@@ -789,7 +822,8 @@ def check_fusion_bwd(device):
 # zero)
 SWEEP_TOL = 1e-4
 SWEEP_RTOL = 1e-4
-# the kernels' names as torch.profiler sees them, for kernel_device_ms
+# the kernels' names as torch.profiler sees them, for kernel_device_ms (the
+# f32 instances of the templated K6, K7, K9 and K10 by their f32 launches)
 DEVICE_NAMES = {"K5": "banded_fwd_kernel", "K6": "rowtap_fwd_kernel", "K7": "allq_fwd_kernel",
                 "K8": "corner_fwd_kernel", "K9": "corner_bwd_kernel", "K10": "rowtap_bwd_kernel"}
 
@@ -1370,7 +1404,9 @@ def write_coco_val(work: str, indices=tuple(range(len(TRAIN_IMAGE_SIZES))), anno
 
 
 # the kernels with a bf16 entry, whose wrappers count its launches apart
-BF16_KERNELS = ("msda_fwd", "fusion_fwd", "msda_bwd", "fusion_bwd")
+BF16_KERNELS = ("msda_fwd", "fusion_fwd", "msda_bwd", "fusion_bwd", "sweep_fwd", "sweep_fwd_allq",
+                "sweep_bwd_corner", "sweep_bwd_rowtap")
+DEC_LAYERS = 6             # the config's decoder layers: the decoder's MSDA launches a forward
 
 
 def kernel_counters():
@@ -1402,22 +1438,22 @@ def read_counts() -> dict:
 
 def train_launches_per_step(msda_keys: dict, bf16: bool = False) -> dict:
     """TRAIN_LAUNCHES_PER_STEP with the MSDA kernels the config selects: the
-    sweep runs K6 where the gather runs K1 (the decoder's B = 4 query sets
-    too: msda_dec_fused is off), and K9 or K10 where it runs K3; banded_point
-    runs K5 where the gather runs K1, and K3.  In bf16 (the gather only) the
-    same launches go to the bf16 entries."""
-    want = dict.fromkeys(kernel_counters(), 0)
-    if bf16:
-        return want | {f"{k}_bf16": v for k, v in TRAIN_LAUNCHES_PER_STEP.items()}
-    want |= TRAIN_LAUNCHES_PER_STEP
+    sweep runs K6 where the gather runs K1 (under msda_dec_fused the
+    decoder's DEC_LAYERS sorted query sets on K7, the encoder's forwards and
+    replays on K6), and K9 or K10 where it runs K3; banded_point runs K5
+    where the gather runs K1, and K3.  In bf16 the same launches go to the
+    bf16 entries."""
+    per = dict(TRAIN_LAUNCHES_PER_STEP)
     if msda_keys.get("msda_kernel") == "banded_point":
-        want["banded_fwd"], want["msda_fwd"] = want["msda_fwd"], 0
+        per["banded_fwd"] = per.pop("msda_fwd")
     elif msda_keys.get("msda_kernel") == "sweep":
-        want["sweep_fwd"] = want.pop("msda_fwd")
-        bwd = "sweep_bwd_" + msda_keys.get("msda_sweep_bwd", "corner")
-        want[bwd] = want.pop("msda_bwd")
-        want["msda_fwd"] = want["msda_bwd"] = 0
-    return want
+        per["sweep_fwd"] = per.pop("msda_fwd")
+        if msda_keys.get("msda_dec_fused"):
+            per["sweep_fwd"] -= DEC_LAYERS
+            per["sweep_fwd_allq"] = DEC_LAYERS
+        per["sweep_bwd_" + msda_keys.get("msda_sweep_bwd", "corner")] = per.pop("msda_bwd")
+    suffix = "_bf16" if bf16 else ""
+    return dict.fromkeys(kernel_counters(), 0) | {k + suffix: v for k, v in per.items()}
 
 
 def train(cfg: str, work: str, files, device: str, msda_keys=None, epochs: int = TRAIN_EPOCHS,
@@ -1490,16 +1526,29 @@ def train(cfg: str, work: str, files, device: str, msda_keys=None, epochs: int =
                 median_step_s=median_s, peak_bytes=peak, wall_s=wall)
 
 
-# K1's and K3's bf16 instances by name, demangled or not (the f32 and bf16
-# entries are one template)
-K1_BF16_NAMES = ("msda_fwd_kernel<__nv_bfloat16", "msda_fwd_kernelI13__nv_bfloat16")
-K3_BF16_NAMES = ("msda_bwd_kernel<__nv_bfloat16", "msda_bwd_kernelI13__nv_bfloat16")
+# the bf16 instances of the MSDA kernels by name, demangled or not (each
+# kernel's f32 and bf16 entries are one template)
+BF16_MANGLED = "I13__nv_bfloat16"
+
+
+def bf16_names(kernel: str) -> tuple:
+    return (f"{kernel}<__nv_bfloat16", f"{kernel}{BF16_MANGLED}")
+
+
+K1_BF16_NAMES = bf16_names("msda_fwd_kernel")
+K3_BF16_NAMES = bf16_names("msda_bwd_kernel")
+SWEEP_BF16_NAMES = {"K6": bf16_names("rowtap_fwd_kernel"), "K7": bf16_names("allq_fwd_kernel"),
+                    "K9": bf16_names("corner_bwd_kernel"), "K10": bf16_names("rowtap_bwd_kernel")}
 # the port's kernels by the names torch.profiler shows, first match wins
 # (K4's bwd_kernel after the MSDA backwards, whose names hold it too)
 KERNEL_GROUPS = (("K1 msda_fwd bf16", K1_BF16_NAMES),
                  ("K3 msda_bwd bf16", K3_BF16_NAMES),
                  ("K2 fusion_fwd bf16", ("attend_bf16_kernel", "combine_bf16_kernel")),
                  ("K4 fusion_bwd bf16", ("bwd_bf16_kernel", "sum_splits_bf16_kernel")),
+                 ("K6 rowtap_fwd bf16", SWEEP_BF16_NAMES["K6"]),
+                 ("K7 allq_fwd bf16", SWEEP_BF16_NAMES["K7"]),
+                 ("K9 corner_bwd bf16", SWEEP_BF16_NAMES["K9"]),
+                 ("K10 rowtap_bwd bf16", SWEEP_BF16_NAMES["K10"]),
                  ("K5 banded_fwd", ("banded_fwd_kernel",)),
                  ("K6 rowtap_fwd", ("rowtap_fwd_kernel",)),
                  ("K7 allq_fwd", ("allq_fwd_kernel",)),
@@ -1741,17 +1790,19 @@ def check_train_parity(harness) -> dict:
                 planted=planted), card
 
 
-def check_sweep_train_parity(harness, gather_card) -> dict:
+def check_sweep_train_parity(harness, gather_card) -> tuple:
     """One training step through the sweep (K6 forward, K9 backward) and one
     with the row-tap backward (K10) against the gather's step on the card
     (phase 11's) from the same weights and batch: loss within
     PARITY_LOSS_RTOL, module gradient norms within PARITY_GRAD_RTOL, and
     each parameter that the MSDA kernels feed within PARITY_LEAF_RTOL.  Then
-    each with its backward's gw negated, which must fail."""
+    each with its backward's gw negated, which must fail.  Returns the
+    comparisons and the two sweep steps (phase 25 holds its bf16 steps
+    against them)."""
     from open_groundingdino_tpu_torch.ops import msda_sweep as sw
 
     step, gaps, within = harness
-    res = {}
+    res, cards = {}, {}
     for bwd, fault in (("corner", ("K9 gw negated", sw, "sweep_bwd_corner", 1)),
                        ("rowtap", ("K10 gw negated", sw, "sweep_bwd_rowtap", 2))):
         sweep = {"kernel": "sweep", "sweep_bwd": bwd}
@@ -1773,7 +1824,8 @@ def check_sweep_train_parity(harness, gather_card) -> dict:
                                  "sweep-train-parity", msda=sweep)
         res[bwd] = dict(loss_rel=loss_rel, norm_rel=norm_rel,
                         leaf_rel_max=max(leaf_rel.values()), planted=planted)
-    return res
+        cards[bwd] = run
+    return res, cards
 
 
 def profile_request(im, image, caption, top: int = 8, tag: str = "profile") -> dict:
@@ -2053,6 +2105,7 @@ def train_bf16(cfg, work, train_files, harness, f32_card) -> dict:
                               ("bf16 K4 gvl negated", fusion, "fused_bi_attention_bwd", 3)),
                              "bf16-parity", compute_dtype="bfloat16")
     run["parity"] = dict(loss_rel=loss_rel, leaf_rel_max=max(leaf_rel.values()), planted=planted)
+    run["parity_card"] = card   # phase 25 reads the bf16 sweep step's distance from it
     return run
 
 
@@ -2103,12 +2156,229 @@ def run_main(cfg: str, manifest: str, files, out_dir: str, *flags: str, options=
     return train_main.main(cli)
 
 
-def eval_launches(n_batches: int, bf16: bool) -> dict:
-    """An eval pass's launches: a forward's 12 K1 and 6 K2 a batch, in the
-    compute dtype's entries, and nothing else."""
+# ---------------------------------------------------------------- bf16 sweep (phases 24, 25)
+# phase 24: the bf16 entries of K6, K7, K9 and K10 against their bf16 plain
+# versions (the plain versions on the same bf16 operands, summed in f32 and
+# rounded to bf16 once), relative to each output's largest |reference|.  The
+# forwards' outputs and grad_value sum in f32 on both sides and are rounded
+# once, so they part where a sum's order moves a rounding across a bf16 step:
+# at most 2^-8 of the largest element (grad_value's sums are f32 atomics in a
+# run-dependent order, as in the f32 entries); gw and gpx are f32 on both
+# sides, sums of the same bf16 rows' products in another order
+BF16_SWEEP_GV_RTOL = 1e-2
+BF16_SWEEP_TAP_RTOL = 1e-3
+
+
+def check_bf16_sweep(device) -> dict:
+    """Phase 24: the bf16 entries of K6 (and K7 on the decoder's sorted query
+    set) at phase 8's B = 4 encoder and decoder shapes, each image with its
+    own valid region, and at phase 3's B = 1 shapes; of K9 (corner taps) and
+    K10 (row taps) at the B = 4 shapes; each against its bf16 plain version
+    on the operands the model path gives it (phase 12's), timed by CUDA
+    events and by torch.profiler's device time, against bounds at bf16 value
+    and g bytes (the backwards' grad_value at f32 bytes); then ptxas's
+    registers, shared memory and spills of the four bf16 instances (K6's and
+    K7's without spills) and the global reductions in K9's and K10's bf16
+    SASS: f32 ones, no bf16x2."""
+    import torch
+
+    from open_groundingdino_tpu_torch.ops import msda_sweep as sw
+
+    bf = torch.bfloat16
+    shapes = level_shapes(*BUCKET)
+    L = sum(h * w for h, w in shapes)
+    g = torch.Generator(device=device).manual_seed(SEED + 24)
+    rows = {}
+    for batch, valid in (("B=4", BATCH_VALID), ("B=1", (BUCKET,))):
+        B = len(valid)
+        for name, q, ref_dim in (("encoder", L, 2), ("decoder", 900, 4)):
+            value, locs, attn = msda_inputs(shapes, q, ref_dim, g, device, valid)
+            value = value.to(bf)
+            grad_out = torch.randn(B, q, HEADS * HEAD_DIM, generator=g, device=device).to(bf)
+            ops = sweep_operands(value, shapes, locs, attn, grad_out)
+            row, px, w, idx, wc, g_k = (ops[k] for k in ("row", "px", "w", "idx", "wc", "g"))
+            fwd_plain = lambda: sw.sweep_fwd_plain(value, row, px, w).to(bf)   # noqa: E731
+            out_p = fwd_plain()
+            fwd_bound = msda_bound_ms(value, shapes, locs, attn)
+            fwd_plain_ms = event_ms(fwd_plain, 3)
+            fwds = [("K6", sw.sweep_fwd)] + ([("K7", sw.sweep_fwd_allq)] if q != L else [])
+            for kname, fn in fwds:
+                call = lambda: fn(value, shapes, row, px, w)   # noqa: E731
+                out = call()
+                err, rel = rel_err(out, out_p)
+                if out.dtype != bf or not rel <= BF16_FWD_RTOL:
+                    raise AssertionError(f"{kname} bf16 {batch} {name}: {out.dtype}, error {rel} "
+                                         f"of max|ref| (limit {BF16_FWD_RTOL})")
+                rows[kname, batch, name] = dict(
+                    B=B, Q=q, max_abs_err=err, rel_errs={"out": rel}, ms=event_ms(call, 10),
+                    device_ms=kernel_device_ms(call, 10, SWEEP_BF16_NAMES[kname]),
+                    plain_ms=fwd_plain_ms, bound_ms=fwd_bound[0], bound_by=fwd_bound[1])
+            del out_p
+            if batch == "B=1":
+                continue
+            bwd_bound = msda_bwd_bound_ms(value, shapes, locs, attn, grad_value_size=4)
+            for kname, fn, plain, args, keys, masks in (
+                    ("K9", sw.sweep_bwd_corner, sw.sweep_bwd_corner_plain, (idx, wc),
+                     ("grad_value", "gw"), {"gw": wc != 0}),
+                    ("K10", sw.sweep_bwd_rowtap, sw.sweep_bwd_rowtap_plain, (row, px, w),
+                     ("grad_value", "gpx", "gw"), {})):
+                got = dict(zip(keys, fn(value, shapes, *args, g_k)))
+                ref = dict(zip(keys, plain(value, *args, g_k)))
+                ref["grad_value"] = ref["grad_value"].to(bf)
+                dtypes = [got[k].dtype for k in keys]
+                if dtypes != [bf] + [torch.float32] * (len(keys) - 1):
+                    raise AssertionError(f"{kname} bf16 returned {dtypes}")
+                abs_errs, errs = {}, {}
+                for key in keys:
+                    m = masks.get(key)
+                    abs_errs[key], errs[key] = rel_err(got[key] if m is None else got[key][m],
+                                                       ref[key] if m is None else ref[key][m])
+                del got, ref
+                limits = {k: BF16_SWEEP_GV_RTOL if k == "grad_value" else BF16_SWEEP_TAP_RTOL
+                          for k in keys}
+                if any(errs[k] > limits[k] for k in keys):
+                    raise AssertionError(f"{kname} bf16 {name}: errors of max|ref| {errs} > "
+                                         f"{limits}")
+                call = lambda: fn(value, shapes, *args, g_k)   # noqa: E731
+                rows[kname, batch, name] = dict(
+                    B=B, Q=q, max_abs_err=max(abs_errs.values()), rel_errs=errs,
+                    ms=event_ms(call, 5),
+                    device_ms=kernel_device_ms(call, 5, SWEEP_BF16_NAMES[kname]),
+                    plain_ms=event_ms(lambda: plain(value, *args, g_k), 2),
+                    bound_ms=bwd_bound[0], bound_by=bwd_bound[1])
+    for (kname, batch, name), r in rows.items():
+        log("bf16-sweep-kernels",
+            f"{kname} {batch} {name} Q={r['Q']}: error of max|ref| "
+            f"{ {k: f'{v:.3e}' for k, v in r['rel_errs'].items()} } (limits fwd {BF16_FWD_RTOL}, "
+            f"grad_value {BF16_SWEEP_GV_RTOL}, gw/gpx {BF16_SWEEP_TAP_RTOL}"
+            f"{', gw where w != 0' if kname == 'K9' else ''}); kernel {r['ms']:.4f} ms (device "
+            f"time {r['device_ms']:.4f} ms), plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    sass = {}
+    for lib, kernels in (("msda_rowtap_fwd", {"K6": "rowtap_fwd_kernel", "K7": "allq_fwd_kernel"}),
+                         ("msda_corner_bwd", {"K9": "corner_bwd_kernel"}),
+                         ("msda_rowtap_bwd", {"K10": "rowtap_bwd_kernel"})):
+        ptxas = ptxas_kernels(lib, [(f"{k}{BF16_MANGLED}", f"{k}<bf16>") for k in kernels.values()])
+        for kname, kernel in kernels.items():
+            sass[kname] = {"ptxas": ptxas[f"{kernel}<bf16>"]}
+            if kname in ("K9", "K10"):
+                sass[kname]["atomics"] = sass_atomics(lib, f"{kernel}{BF16_MANGLED}")
+            log("sass", f"lib{lib}.so {kname} bf16 ({kernel}<__nv_bfloat16>): {sass[kname]}")
+        for kname in kernels:
+            atomics = sass[kname].get("atomics")
+            if kname in ("K6", "K7") and sass[kname]["ptxas"]["spill_bytes"]:
+                raise AssertionError(f"{kname} bf16 spills under its launch bounds: {sass[kname]}")
+            if atomics and (atomics["red_global_bf16x2"] or not atomics["red_global_f32x4"]):
+                raise AssertionError(f"{kname} bf16's grad_value reductions are not the f32 "
+                                     f"entry's float4 f32 ones: {atomics}")
+    return {"rows": rows, "sass": sass}
+
+
+def train_bf16_sweep(cfg, work, train_files, eval_files, harness, sweep_f32_cards,
+                     gather_bf16_card) -> dict:
+    """Phase 25: main --options msda_kernel=sweep in the config's default
+    bf16 at B = 4, full width and depth: 1 warm-up + 3 timed steps (each a
+    18 K6 + 12 K9 + 12 K2 + 6 K4 bf16 launches, no f32 entry and no K1, K3)
+    and a profiled step; 1 step with msda_sweep_bwd=rowtap (12 K10 bf16, no
+    K9) and 1 with msda_dec_fused=True (the decoder's 6 on K7 bf16, the
+    encoder's 12 on K6 bf16).  Then phase 15's B = 1 step in bf16 through the
+    sweep, with the corner and the row-tap backward, against phase 15's f32
+    sweep steps on the card (loss within BF16_LOSS_RTOL, each MSDA-fed
+    gradient within BF16_LEAF_RTOL), its distance from phase 21's bf16
+    gather step recorded; with K9 bf16's, and apart K10 bf16's, gw negated
+    each must fail.  Last, main --eval through the sweep in bf16 on phase
+    22's val split: 12 finite stats, 12 K6 + 6 K2 bf16 launches a batch and
+    nothing else, images/s over a second pass."""
+    import torch
+
+    from open_groundingdino_tpu_torch.ops import msda_sweep as sw
+
+    sweep = {"msda_kernel": "sweep"}
+    runs = {}
+    for tag, keys, kw in (("bf16-sweep-train", sweep, dict(epochs=2)),
+                          ("bf16-sweep-train-rowtap", sweep | {"msda_sweep_bwd": "rowtap"},
+                           dict(epochs=1, max_steps=1)),
+                          ("bf16-sweep-train-fused", sweep | {"msda_dec_fused": True},
+                           dict(epochs=1, max_steps=1))):
+        run = train(cfg, work, train_files, "cuda", keys, tag=tag, compute_dtype=None, **kw)
+        if run["run"]["train_step"].compute_dtype != "bfloat16":
+            raise AssertionError("main's default compute_dtype is not bf16")
+        if tag == "bf16-sweep-train":
+            run["profile"] = profile_train_step(run["run"], tag=f"{tag}-profile")
+        del run["run"]
+        runs[tag] = run
+
+    step, gaps, _ = harness
+
+    def within(gap):
+        return gap[0] < BF16_LOSS_RTOL and all(v < BF16_LEAF_RTOL for v in gap[2].values())
+
+    parity = {}
+    for bwd, fault in (("corner", ("K9 bf16 gw negated", sw, "sweep_bwd_corner", 1)),
+                       ("rowtap", ("K10 bf16 gw negated", sw, "sweep_bwd_rowtap", 2))):
+        msda = {"kernel": "sweep", "sweep_bwd": bwd}
+        card = step("cuda", msda=msda, compute_dtype="bfloat16")
+        gap = gaps(card, sweep_f32_cards[bwd], MSDA_FED)
+        to_gather = gaps(card, gather_bf16_card, MSDA_FED)
+        loss_rel, norm_rel, leaf_rel = gap
+        worst = sorted(leaf_rel.items(), key=lambda kv: -kv[1])[:3]
+        log("bf16-sweep-parity",
+            f"B=1 {BUCKET} bucket, sweep ({bwd} backward): loss bf16 {card['loss']:.6f} f32 "
+            f"{sweep_f32_cards[bwd]['loss']:.6f} (rel {loss_rel:.2e}, limit {BF16_LOSS_RTOL}); "
+            f"grad-norm rel by module { {k: f'{v:.2e}' for k, v in norm_rel.items()} }; "
+            f"{len(leaf_rel)} MSDA-fed leaves ||dg||/||g|| max {max(leaf_rel.values()):.2e} "
+            f"(limit {BF16_LEAF_RTOL}), worst {[(n, f'{v:.2e}') for n, v in worst]}; against "
+            f"phase 21's bf16 gather step: loss rel {to_gather[0]:.2e}, leaves max "
+            f"{max(to_gather[2].values()):.2e}; step s {card['seconds']:.1f}")
+        if not within(gap):
+            raise AssertionError(f"the bf16 sweep step ({bwd}) disagrees with the f32 sweep step")
+        planted = planted_faults(step, gaps, within, sweep_f32_cards[bwd], MSDA_FED, (fault,),
+                                 "bf16-sweep-parity", msda=msda, compute_dtype="bfloat16")
+        parity[bwd] = dict(loss_rel=loss_rel, leaf_rel_max=max(leaf_rel.values()),
+                           vs_gather_bf16=dict(loss_rel=to_gather[0],
+                                               leaf_rel_max=max(to_gather[2].values())),
+                           planted=planted)
+
+    write_odvg(work)
+    manifest = write_coco_val(work)
+    n_images = len(TRAIN_IMAGE_SIZES)
+    n_batches = -(-n_images // 4)
+    tag = "eval-bf16-sweep"
+    out_dir = os.path.join(work, f"{tag}_out")
+    reset_counts()
+    t0 = time.perf_counter()
+    run = run_main(cfg, manifest, eval_files, out_dir, "--eval", options=("msda_kernel=sweep",))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = read_counts()
+    with open(os.path.join(out_dir, "eval_stats.json")) as f:
+        stats = json.load(f)
+    want = eval_launches(n_batches, True, "sweep_fwd")
+    if counts != want:
+        raise AssertionError(f"{tag}: kernel launches {counts}, expected {want}")
+    if set(stats) != set(STAT_KEYS) or not all(map(math.isfinite, stats.values())):
+        raise AssertionError(f"{tag}: eval_stats.json {stats}")
+    params = dict(run["model"].named_parameters())
+    t0 = time.perf_counter()
+    run["run_eval"](params)
+    torch.cuda.synchronize()
+    pass_s = time.perf_counter() - t0
+    log(tag, f"main --eval --options msda_kernel=sweep on {n_images} images (B=4, {n_batches} "
+             f"batches, bfloat16): {first_s:.1f} s with set-up; stats {stats}; launches "
+             f"{ {k: v for k, v in counts.items() if v} }; a second pass {pass_s:.3f} s, "
+             f"{n_images / pass_s:.2f} images/s")
+    runs[tag] = dict(counts=counts, stats=stats, pass_s=pass_s, images_per_s=n_images / pass_s)
+    del run, params
+    return {"runs": runs, "parity": parity}
+
+
+def eval_launches(n_batches: int, bf16: bool, msda_fwd: str = "msda_fwd") -> dict:
+    """An eval pass's launches: a forward's 12 MSDA forwards (K1, or the
+    sweep's K6: msda_fwd="sweep_fwd") and 6 K2 a batch, in the compute
+    dtype's entries, and nothing else."""
     want = dict.fromkeys(kernel_counters(), 0)
     suffix = "_bf16" if bf16 else ""
-    want[f"msda_fwd{suffix}"], want[f"fusion_fwd{suffix}"] = 12 * n_batches, 6 * n_batches
+    want[f"{msda_fwd}{suffix}"], want[f"fusion_fwd{suffix}"] = 12 * n_batches, 6 * n_batches
     return want
 
 
@@ -2480,7 +2750,7 @@ def main() -> int:
             train_counts_sweep[tag] = run["counts"]
             profile_train_step(run.pop("run"), tag=f"{tag}-profile")
             del run
-        check_sweep_train_parity(harness, gather_card)                 # 15
+        _, sweep_cards = check_sweep_train_parity(harness, gather_card)   # 15
 
         banded = check_banded_corner("cuda")                           # 16
         banded_files = (msda_config(cfg, work, "banded-serve", msda_kernel="banded_point"),
@@ -2499,12 +2769,17 @@ def main() -> int:
         _, bench_counts = run_microbench()                              # 19
         bf16 = check_bf16_kernels("cuda")                               # 20
         bf16_train = train_bf16(cfg, work, train_files, harness, gather_card)   # 21
-        del harness, gather_card
+        gather_bf16_card = bf16_train.pop("parity_card")
+        del gather_card
         eval_files = (cfg, os.path.join(work, "eval_ckpt.pth"), files[2])
         write_checkpoint(cfg, eval_files[1], random_biases=True, anchor_boxes=True)
         evals = check_eval_main(cfg, work, eval_files, "cuda")          # 22
         parity = check_eval_parity(cfg, work, eval_files, "cuda")
         check_resume(cfg, work, eval_files, parity["manifest"], "cuda")    # 23
+        bf16_sweep = check_bf16_sweep("cuda")                           # 24
+        bf16_sweep_train = train_bf16_sweep(cfg, work, train_files, eval_files,   # 25
+                                            harness, sweep_cards, gather_bf16_card)
+        del harness, sweep_cards, gather_bf16_card
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2620,6 +2895,36 @@ def main() -> int:
         kernels.append({"name": f"{counter}_bf16", "route": "cuda", "source": src + source,
                         "replaces": tpu + line, "launches": bf16_counts[f"{counter}_bf16"],
                         "launches_by_path": by_path, **row})
+        if kernels[-1]["launches"] <= 0:
+            raise AssertionError(f"{kname}'s bf16 entry was not launched on its path")
+    # the sweep kernels' bf16 entries (phase 24; the row is phase 8's B = 4
+    # shapes, K6's and K7's per_shape add B = 1); launches from the bf16
+    # sweep runs of phase 25: K6 and K9 from its training run, K10 from the
+    # row-tap step, K7 from the dec_fused step; every run's under
+    # launches_by_path
+    sweep_rows = bf16_sweep["rows"]
+    sweep_counts = {tag: r["counts"] for tag, r in bf16_sweep_train["runs"].items()}
+    for kname, counter, launches_from, source, line, parts in (
+            ("K6", "sweep_fwd", "bf16-sweep-train", "msda_rowtap_fwd.cu", "msda_pallas.py:484",
+             ("encoder", "decoder")),
+            ("K7", "sweep_fwd_allq", "bf16-sweep-train-fused", "msda_rowtap_fwd.cu",
+             "msda_pallas.py:634", ("decoder",)),
+            ("K9", "sweep_bwd_corner", "bf16-sweep-train", "msda_corner_bwd.cu",
+             "msda_pallas.py:955", ("encoder", "decoder")),
+            ("K10", "sweep_bwd_rowtap", "bf16-sweep-train-rowtap", "msda_rowtap_bwd.cu",
+             "msda_pallas.py:1200", ("encoder", "decoder"))):
+        shapes = {n: sweep_rows[kname, "B=4", n] for n in parts}
+        row = mean_row(shapes) if len(parts) == 2 else single_row(shapes["decoder"])
+        row["per_shape"] = {f"{batch} {n}": r for (k, batch, n), r in sweep_rows.items()
+                            if k == kname}
+        row["max_abs_err"] = max(r["max_abs_err"] for r in row["per_shape"].values())
+        row["device_ms"] = sum(r["device_ms"] for r in shapes.values()) / len(shapes)
+        row["sass"] = bf16_sweep["sass"][kname]
+        kernels.append({"name": f"{counter}_bf16", "route": "cuda", "source": src + source,
+                        "replaces": tpu + line,
+                        "launches": sweep_counts[launches_from][f"{counter}_bf16"],
+                        "launches_by_path": {tag: c[f"{counter}_bf16"]
+                                             for tag, c in sweep_counts.items()}, **row})
         if kernels[-1]["launches"] <= 0:
             raise AssertionError(f"{kname}'s bf16 entry was not launched on its path")
     print(json.dumps({"kernels": json_safe(kernels)}), flush=True)

@@ -173,11 +173,13 @@ __device__ __forceinline__ float pick(float4 v, int j) {
 // groups on the points (level i, point g), each lane on 4 channels, loops
 // unrolled: 32 corner rows in flight a warp; the groups' sums meet in two
 // shuffle levels and the tile's nq outputs go to out_tile (nq rows of kD).
-template <int kWarps>
+// T is the value's and the output's type (f32, or bf16 rows summed in f32
+// and rounded once at the store).
+template <int kWarps, typename T>
 __device__ __forceinline__ void gather_staged_corners(const int4* cpos, const float4* cw,
                                                       int stride, int nq, int NL,
-                                                      const float* vbase, long long row_stride,
-                                                      float* out_tile) {
+                                                      const T* vbase, long long row_stride,
+                                                      T* out_tile) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int group = lane / kGroupLanes, sub = lane % kGroupLanes;
   for (int qq = warp; qq < nq; qq += 2 * kWarps) {

@@ -43,6 +43,17 @@
 //     with float4 global atomics; the other levels add w * g straight to
 //     global memory with one float4 atomic a lane (red.global.add.v4.f32).
 // gw is deterministic; grad_value's f32 sums come in a run-dependent order.
+//
+// The bf16 entry (msda_corner_bwd_bf16; the TPU kernel's bf16 branch,
+// msda_pallas.py:998-1001, 1046-1052) takes value and g in bf16, read
+// through msda_common.cuh's load4 (64-B rows, 8 B a lane), and computes in
+// f32 as above: gw f32, and grad_value on the f32 entry's path unchanged
+// (the same plan's shared-memory levels, float4 f32 reductions for the
+// rest) into an f32 buffer, which the caller rounds to bf16 once.  The TPU
+// kernel writes its grad_value in f32 too (msda_pallas.py:1093) and casts
+// it once (:1517); K3's bf16 entry, whose banded TPU kernel accumulates in
+// bf16, is the one that adds bf16x2.  The TPU kernel also rounds the tap
+// weights and g to bf16 for its MXU products; the weights here stay f32.
 #include "msda_common.cuh"
 
 namespace {
@@ -55,9 +66,11 @@ constexpr int kChunk = 2 * kWarps;          // queries staged at a time
 constexpr int kTaps = kSamples * 4;         // corner taps a query, at most
 constexpr int kStride = kChunk + 1;         // a tap's row of staged queries
 
+// V: the value's and g's type (f32 or bf16); grad_value and gw are f32
+template <typename V>
 __global__ void __launch_bounds__(kThreads, 2)
-corner_bwd_kernel(const float* __restrict__ value, const int* __restrict__ idx,
-                  const float* __restrict__ w, const float* __restrict__ g,
+corner_bwd_kernel(const V* __restrict__ value, const int* __restrict__ idx,
+                  const float* __restrict__ w, const V* __restrict__ g,
                   float* __restrict__ grad_value, float* __restrict__ gw,
                   int L, int H, int Qp, int NL, int tile_q, int n_tiles, int smem_rows,
                   Levels lv) {
@@ -139,28 +152,17 @@ corner_bwd_kernel(const float* __restrict__ value, const int* __restrict__ idx,
   flush_rows(acc, touched, smem_rows, NL, lv, grad_value + vbase, row_stride, kThreads);
 }
 
-}  // namespace
-
-extern "C" {
-
-// Dynamic shared memory of msda_corner_bwd_f32 with smem_rows accumulator
-// rows.
-int msda_corner_bwd_smem_bytes(int smem_rows) {
+int smem_bytes_for(int smem_rows) {
   return 3 * kTaps * kStride * 4 + smem_rows * kD * 4 + ((smem_rows + 15) / 16) * 16;
 }
 
-// value, g, grad_value 16-byte aligned; idx int32, the rest f32, all
-// contiguous.  grad_value must be zeroed by the caller; gw is written whole.
-// The plan (ops/msda_sweep.py corner_bwd_plan): tile_q queries a CTA;
-// smem_row[l] the first accumulator row of level l in shared memory, or -1
-// for a level scattered to global memory; smem_rows rows in all, in
-// smem_bytes of dynamic shared memory.  Returns a cudaError_t (0 = launched).
-int msda_corner_bwd_f32(const void* value, const void* idx, const void* w, const void* g,
-                        void* grad_value, void* gw, int B, int L, int H, int Qp, int NL, int P,
-                        const int* shapes_hw, const int* level_start, int tile_q,
-                        const int* smem_row, int smem_rows, int smem_bytes, void* stream) {
+template <typename V>
+int launch(const void* value, const void* idx, const void* w, const void* g, void* grad_value,
+           void* gw, int B, int L, int H, int Qp, int NL, int P, const int* shapes_hw,
+           const int* level_start, int tile_q, const int* smem_row, int smem_rows,
+           int smem_bytes, void* stream) {
   if (B <= 0 || L <= 0 || H <= 0 || Qp <= 0 || P != kP || NL <= 0 || NL > kMaxLevels ||
-      tile_q <= 0 || smem_rows < 0 || smem_bytes < msda_corner_bwd_smem_bytes(smem_rows))
+      tile_q <= 0 || smem_rows < 0 || smem_bytes < smem_bytes_for(smem_rows))
     return (int)cudaErrorInvalidValue;
   Levels lv;
   for (int l = 0; l < kMaxLevels; ++l) {
@@ -173,14 +175,46 @@ int msda_corner_bwd_f32(const void* value, const void* idx, const void* w, const
       return (int)cudaErrorInvalidValue;
   }
   const int n_tiles = (Qp + tile_q - 1) / tile_q;
-  cudaError_t err = cudaFuncSetAttribute(corner_bwd_kernel,
+  cudaError_t err = cudaFuncSetAttribute(corner_bwd_kernel<V>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  corner_bwd_kernel<<<(unsigned)((long long)B * H * n_tiles), kThreads, smem_bytes,
-                      (cudaStream_t)stream>>>(
-      (const float*)value, (const int*)idx, (const float*)w, (const float*)g, (float*)grad_value,
+  corner_bwd_kernel<V><<<(unsigned)((long long)B * H * n_tiles), kThreads, smem_bytes,
+                         (cudaStream_t)stream>>>(
+      (const V*)value, (const int*)idx, (const float*)w, (const V*)g, (float*)grad_value,
       (float*)gw, L, H, Qp, NL, tile_q, n_tiles, smem_rows, lv);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Dynamic shared memory of the K9 entries with smem_rows accumulator rows
+// (either value type).
+int msda_corner_bwd_smem_bytes(int smem_rows) { return smem_bytes_for(smem_rows); }
+
+// value, g, grad_value 16-byte aligned; idx int32, the rest f32, all
+// contiguous.  grad_value must be zeroed by the caller; gw is written whole.
+// The plan (ops/msda_sweep.py corner_bwd_plan): tile_q queries a CTA;
+// smem_row[l] the first accumulator row of level l in shared memory, or -1
+// for a level scattered to global memory; smem_rows rows in all, in
+// smem_bytes of dynamic shared memory.  Returns a cudaError_t (0 = launched).
+int msda_corner_bwd_f32(const void* value, const void* idx, const void* w, const void* g,
+                        void* grad_value, void* gw, int B, int L, int H, int Qp, int NL, int P,
+                        const int* shapes_hw, const int* level_start, int tile_q,
+                        const int* smem_row, int smem_rows, int smem_bytes, void* stream) {
+  return launch<float>(value, idx, w, g, grad_value, gw, B, L, H, Qp, NL, P, shapes_hw,
+                       level_start, tile_q, smem_row, smem_rows, smem_bytes, stream);
+}
+
+// The bf16 entry: value and g bf16, everything else as msda_corner_bwd_f32
+// (grad_value an f32 buffer, rounded to bf16 by the caller).
+int msda_corner_bwd_bf16(const void* value, const void* idx, const void* w, const void* g,
+                         void* grad_value, void* gw, int B, int L, int H, int Qp, int NL, int P,
+                         const int* shapes_hw, const int* level_start, int tile_q,
+                         const int* smem_row, int smem_rows, int smem_bytes, void* stream) {
+  return launch<__nv_bfloat16>(value, idx, w, g, grad_value, gw, B, L, H, Qp, NL, P, shapes_hw,
+                               level_start, tile_q, smem_row, smem_rows, smem_bytes, stream);
 }
 
 }  // extern "C"

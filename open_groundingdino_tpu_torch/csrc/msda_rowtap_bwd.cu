@@ -53,10 +53,20 @@
 //     (red.global.add.v4.f32).
 // gw and gpx are deterministic; grad_value's f32 sums come in a
 // run-dependent order.
-// ptxas -v (-O3, sm_90a, CUDA 12.8): 56 registers, no spills; dynamic shared
-// memory 52,992 B at the 800x1216 bucket (staging 21,120 + level 3's 31,616
-// + flags 256).  Its SASS holds 19 vector global reductions (RED F32x4), no
-// scalar ones, and 64 shared-memory compare-and-swap loops (ATOMS.CAST.SPIN).
+//
+// The bf16 entry (msda_rowtap_bwd_bf16; the TPU kernel's bf16 branch,
+// msda_pallas.py:1220-1242) takes value and g in bf16, read through
+// msda_common.cuh's load4 (64-B rows, 8 B a lane), and computes in f32 as
+// above: gw and gpx f32, and grad_value on the f32 entry's path unchanged
+// (the same plan's shared-memory levels, float4 f32 reductions for the
+// rest) into an f32 buffer, which the caller rounds to bf16 once, as the
+// TPU kernel writes its grad_value in f32 (msda_pallas.py:1315) and casts
+// it once (:1463).  The tap weights stay f32.
+// ptxas -v (-O3, sm_90a, CUDA 12.8): 56 registers for either value type, no
+// spills; dynamic shared memory 52,992 B at the 800x1216 bucket (staging
+// 21,120 + level 3's 31,616 + flags 256).  Each instance's SASS holds 19
+// vector global reductions (RED F32x4), no scalar or bf16 ones, and 64
+// shared-memory compare-and-swap loops (ATOMS.CAST.SPIN).
 #include "msda_common.cuh"
 
 namespace {
@@ -69,10 +79,12 @@ constexpr int kChunk = 2 * kWarps;          // queries staged at a time
 constexpr int kTaps = kSamples * 2;         // row taps a query, at most
 constexpr int kStride = kChunk + 1;         // a tap's row of staged queries
 
+// V: the value's and g's type (f32 or bf16); grad_value, gw and gpx are f32
+template <typename V>
 __global__ void __launch_bounds__(kThreads, 2)
-rowtap_bwd_kernel(const float* __restrict__ value, const int* __restrict__ row,
+rowtap_bwd_kernel(const V* __restrict__ value, const int* __restrict__ row,
                   const float* __restrict__ px, const float* __restrict__ w,
-                  const float* __restrict__ g, float* __restrict__ grad_value,
+                  const V* __restrict__ g, float* __restrict__ grad_value,
                   float* __restrict__ gw, float* __restrict__ gpx,
                   int L, int H, int Qp, int NL, int tile_q, int n_tiles, int smem_rows,
                   Levels lv) {
@@ -178,15 +190,46 @@ rowtap_bwd_kernel(const float* __restrict__ value, const int* __restrict__ row,
   flush_rows(acc, touched, smem_rows, NL, lv, grad_value + vbase, row_stride, kThreads);
 }
 
+int smem_bytes_for(int smem_rows) {
+  return 5 * kTaps * kStride * 4 + smem_rows * kD * 4 + ((smem_rows + 15) / 16) * 16;
+}
+
+template <typename V>
+int launch(const void* value, const void* row, const void* px, const void* w, const void* g,
+           void* grad_value, void* gw, void* gpx, int B, int L, int H, int Qp, int NL, int P,
+           const int* shapes_hw, const int* level_start, int tile_q, const int* smem_row,
+           int smem_rows, int smem_bytes, void* stream) {
+  if (B <= 0 || L <= 0 || H <= 0 || Qp <= 0 || P != kP || NL <= 0 || NL > kMaxLevels ||
+      tile_q <= 0 || smem_rows < 0 || smem_bytes < smem_bytes_for(smem_rows))
+    return (int)cudaErrorInvalidValue;
+  Levels lv;
+  for (int l = 0; l < kMaxLevels; ++l) {
+    const bool live = l < NL;
+    lv.h[l] = live ? shapes_hw[2 * l] : 0;
+    lv.w[l] = live ? shapes_hw[2 * l + 1] : 0;
+    lv.start[l] = live ? level_start[l] : 0;
+    lv.smem_row[l] = live ? smem_row[l] : -1;
+    if (live && lv.smem_row[l] >= 0 && lv.smem_row[l] + lv.h[l] * lv.w[l] > smem_rows)
+      return (int)cudaErrorInvalidValue;
+  }
+  const int n_tiles = (Qp + tile_q - 1) / tile_q;
+  cudaError_t err = cudaFuncSetAttribute(rowtap_bwd_kernel<V>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  rowtap_bwd_kernel<V><<<(unsigned)((long long)B * H * n_tiles), kThreads, smem_bytes,
+                         (cudaStream_t)stream>>>(
+      (const V*)value, (const int*)row, (const float*)px, (const float*)w, (const V*)g,
+      (float*)grad_value, (float*)gw, (float*)gpx, L, H, Qp, NL, tile_q, n_tiles, smem_rows, lv);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of msda_rowtap_bwd_f32 with smem_rows accumulator
-// rows.
-int msda_rowtap_bwd_smem_bytes(int smem_rows) {
-  return 5 * kTaps * kStride * 4 + smem_rows * kD * 4 + ((smem_rows + 15) / 16) * 16;
-}
+// Dynamic shared memory of the K10 entries with smem_rows accumulator rows
+// (either value type).
+int msda_rowtap_bwd_smem_bytes(int smem_rows) { return smem_bytes_for(smem_rows); }
 
 // value, g, grad_value 16-byte aligned; row int32, the rest f32, all
 // contiguous.  grad_value must be zeroed by the caller; gw and gpx are
@@ -200,28 +243,20 @@ int msda_rowtap_bwd_f32(const void* value, const void* row, const void* px, cons
                         int H, int Qp, int NL, int P, const int* shapes_hw,
                         const int* level_start, int tile_q, const int* smem_row, int smem_rows,
                         int smem_bytes, void* stream) {
-  if (B <= 0 || L <= 0 || H <= 0 || Qp <= 0 || P != kP || NL <= 0 || NL > kMaxLevels ||
-      tile_q <= 0 || smem_rows < 0 || smem_bytes < msda_rowtap_bwd_smem_bytes(smem_rows))
-    return (int)cudaErrorInvalidValue;
-  Levels lv;
-  for (int l = 0; l < kMaxLevels; ++l) {
-    const bool live = l < NL;
-    lv.h[l] = live ? shapes_hw[2 * l] : 0;
-    lv.w[l] = live ? shapes_hw[2 * l + 1] : 0;
-    lv.start[l] = live ? level_start[l] : 0;
-    lv.smem_row[l] = live ? smem_row[l] : -1;
-    if (live && lv.smem_row[l] >= 0 && lv.smem_row[l] + lv.h[l] * lv.w[l] > smem_rows)
-      return (int)cudaErrorInvalidValue;
-  }
-  const int n_tiles = (Qp + tile_q - 1) / tile_q;
-  cudaError_t err = cudaFuncSetAttribute(rowtap_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  rowtap_bwd_kernel<<<(unsigned)((long long)B * H * n_tiles), kThreads, smem_bytes,
-                      (cudaStream_t)stream>>>(
-      (const float*)value, (const int*)row, (const float*)px, (const float*)w, (const float*)g,
-      (float*)grad_value, (float*)gw, (float*)gpx, L, H, Qp, NL, tile_q, n_tiles, smem_rows, lv);
-  return (int)cudaGetLastError();
+  return launch<float>(value, row, px, w, g, grad_value, gw, gpx, B, L, H, Qp, NL, P, shapes_hw,
+                       level_start, tile_q, smem_row, smem_rows, smem_bytes, stream);
+}
+
+// The bf16 entry: value and g bf16, everything else as msda_rowtap_bwd_f32
+// (grad_value an f32 buffer, rounded to bf16 by the caller).
+int msda_rowtap_bwd_bf16(const void* value, const void* row, const void* px, const void* w,
+                         const void* g, void* grad_value, void* gw, void* gpx, int B, int L,
+                         int H, int Qp, int NL, int P, const int* shapes_hw,
+                         const int* level_start, int tile_q, const int* smem_row, int smem_rows,
+                         int smem_bytes, void* stream) {
+  return launch<__nv_bfloat16>(value, row, px, w, g, grad_value, gw, gpx, B, L, H, Qp, NL, P,
+                               shapes_hw, level_start, tile_q, smem_row, smem_rows, smem_bytes,
+                               stream);
 }
 
 }  // extern "C"

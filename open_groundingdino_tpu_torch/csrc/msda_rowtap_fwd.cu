@@ -17,6 +17,14 @@
 //          level l's taps are l*2P + p (row y0 of point p) and l*2P + P + p
 //          (row y0 + 1)
 //   out    (B*H, Qp, 32) f32
+// or, in the bf16 entries (msda_rowtap_fwd_bf16, msda_sweep_fwd_allq_bf16;
+// the TPU kernels' bf16 branch, msda_pallas.py:520, 538-544 and :651, 675),
+// value and out bf16: a value row is 64 B, 8 B a lane (msda_common.cuh
+// load4), the tap weights r0 * w, r1 * w and every sum stay f32, and each
+// output is rounded to bf16 once (store4).  The TPU kernel rounds its
+// combined weight matrix S to bf16 for the MXU product; the weights here
+// stay f32, as K1's bf16 entry keeps them (msda_fwd.cu), so the bf16 entry
+// computes the f32 function of the bf16 value rows, rounded once.
 // K7 takes the decoder's query set, sorted by the first row tap's position
 // (ops/msda_sweep.py query_order), so consecutive queries read neighbouring
 // rows.  A tap touches at most two positions: i0 = row + floor(px), weight
@@ -57,8 +65,12 @@
 // so a tile's other taps spread, and the CTAs that replace a finished one
 // keep the SMs fuller.  At B = 1 the decoder has 512 tiles, fewer than the
 // card holds, and the two launches are one.
-// ptxas -v (-O3, sm_90a, CUDA 12.8): K6 and K7 48 registers each, no
-// spills; dynamic shared memory 8,704 B at 16 queries a CTA, 33,280 B at 64.
+// ptxas -v (-O3, sm_90a, CUDA 12.8): K6 and K7 48 registers each (f32), 40
+// (bf16), no spills; dynamic shared memory 8,704 B at 16 queries a CTA,
+// 33,280 B at 64, for either value type.  The bf16 entries run ~1.2-1.3x
+// the f32 ones (PERF.md): a bf16 row is one 8-B load a lane and four
+// unpacking instructions where f32 is one 16-B load, and the gather is
+// bound by the instructions its warps can start, not by bytes.
 #include "msda_common.cuh"
 
 namespace {
@@ -70,12 +82,14 @@ constexpr int kThreads = kWarps * 32;
 
 // One tile, queries q0 .. q0 + tile_q - 1 of b*h = bh: its corners staged
 // into cpos / cw (a row of tile_q + 1 per point: the pad puts the four
-// groups' points on different banks), then gathered into out.
-__device__ __forceinline__ void rowtap_tile(const float* __restrict__ value,
+// groups' points on different banks), then gathered into out.  T: the
+// value's and the output's type.
+template <typename T>
+__device__ __forceinline__ void rowtap_tile(const T* __restrict__ value,
                                             const int* __restrict__ row,
                                             const float* __restrict__ px,
                                             const float* __restrict__ w,
-                                            float* __restrict__ out, int L, int H, int Qp,
+                                            T* __restrict__ out, int L, int H, int Qp,
                                             int NL, int tile_q, int bh, int q0, int4* cpos,
                                             float4* cw) {
   const int stride = tile_q + 1;
@@ -121,22 +135,22 @@ __device__ __forceinline__ void rowtap_tile(const float* __restrict__ value,
 // the sweep's K6 from the fused decoder's K7.
 // 5 CTAs an SM: without the bound ptxas took 44 registers and the kernel
 // ran ~3% slower (PERF.md)
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 5)
-rowtap_fwd_kernel(const float* __restrict__ value, const int* __restrict__ row,
+rowtap_fwd_kernel(const T* __restrict__ value, const int* __restrict__ row,
                   const float* __restrict__ px, const float* __restrict__ w,
-                  float* __restrict__ out, int L, int H, int Qp, int NL, int tile_q,
-                  int n_tiles) {
+                  T* __restrict__ out, int L, int H, int Qp, int NL, int tile_q, int n_tiles) {
   extern __shared__ int4 smem[];   // the staged corners, positions then weights
   rowtap_tile(value, row, px, w, out, L, H, Qp, NL, tile_q, blockIdx.x / n_tiles,
               (blockIdx.x % n_tiles) * tile_q, smem,
               reinterpret_cast<float4*>(smem + NL * kP * (tile_q + 1)));
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 5)
-allq_fwd_kernel(const float* __restrict__ value, const int* __restrict__ row,
+allq_fwd_kernel(const T* __restrict__ value, const int* __restrict__ row,
                 const float* __restrict__ px, const float* __restrict__ w,
-                float* __restrict__ out, int L, int H, int Qp, int NL, int tile_q,
-                int n_tiles) {
+                T* __restrict__ out, int L, int H, int Qp, int NL, int tile_q, int n_tiles) {
   extern __shared__ int4 smem[];
   rowtap_tile(value, row, px, w, out, L, H, Qp, NL, tile_q, blockIdx.x / n_tiles,
               (blockIdx.x % n_tiles) * tile_q, smem,
@@ -147,7 +161,8 @@ int smem_bytes(int NL, int tile_q) {
   return NL * kP * (tile_q + 1) * (int)(sizeof(int4) + sizeof(float4));
 }
 
-int launch(decltype(&rowtap_fwd_kernel) kernel, const void* value, const void* row,
+template <typename T>
+int launch(decltype(&rowtap_fwd_kernel<T>) kernel, const void* value, const void* row,
            const void* px, const void* w, void* out, int B, int L, int H, int Qp, int NL, int P,
            int tile_q, void* stream) {
   if (B <= 0 || L <= 0 || H <= 0 || Qp <= 0 || NL <= 0 || NL > kMaxLevels || P != kP ||
@@ -159,8 +174,8 @@ int launch(decltype(&rowtap_fwd_kernel) kernel, const void* value, const void* r
   if (err != cudaSuccess) return (int)err;
   const int n_tiles = (Qp + tile_q - 1) / tile_q;
   kernel<<<(unsigned)((long long)B * H * n_tiles), kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)value, (const int*)row, (const float*)px, (const float*)w, (float*)out, L, H,
-      Qp, NL, tile_q, n_tiles);
+      (const T*)value, (const int*)row, (const float*)px, (const float*)w, (T*)out, L, H, Qp, NL,
+      tile_q, n_tiles);
   return (int)cudaGetLastError();
 }
 
@@ -168,8 +183,8 @@ int launch(decltype(&rowtap_fwd_kernel) kernel, const void* value, const void* r
 
 extern "C" {
 
-// Dynamic shared memory of msda_rowtap_fwd_f32 and msda_sweep_fwd_allq_f32
-// at tile_q queries a CTA.
+// Dynamic shared memory of the K6 and K7 entries at tile_q queries a CTA
+// (either value type).
 int msda_rowtap_fwd_smem_bytes(int NL, int tile_q) { return smem_bytes(NL, tile_q); }
 
 // K6 (msda_rowtap_fwd_f32) and K7 (msda_sweep_fwd_allq_f32, the decoder's
@@ -180,13 +195,31 @@ int msda_rowtap_fwd_smem_bytes(int NL, int tile_q) { return smem_bytes(NL, tile_
 int msda_rowtap_fwd_f32(const void* value, const void* row, const void* px, const void* w,
                         void* out, int B, int L, int H, int Qp, int NL, int P, int tile_q,
                         void* stream) {
-  return launch(rowtap_fwd_kernel, value, row, px, w, out, B, L, H, Qp, NL, P, tile_q, stream);
+  return launch<float>(rowtap_fwd_kernel<float>, value, row, px, w, out, B, L, H, Qp, NL, P,
+                       tile_q, stream);
 }
 
 int msda_sweep_fwd_allq_f32(const void* value, const void* row, const void* px, const void* w,
                             void* out, int B, int L, int H, int Qp, int NL, int P, int tile_q,
                             void* stream) {
-  return launch(allq_fwd_kernel, value, row, px, w, out, B, L, H, Qp, NL, P, tile_q, stream);
+  return launch<float>(allq_fwd_kernel<float>, value, row, px, w, out, B, L, H, Qp, NL, P,
+                       tile_q, stream);
+}
+
+// The bf16 entries of K6 and K7: value and out bf16, row, px, w as above;
+// f32 weights and sums, each output rounded to bf16 once.
+int msda_rowtap_fwd_bf16(const void* value, const void* row, const void* px, const void* w,
+                         void* out, int B, int L, int H, int Qp, int NL, int P, int tile_q,
+                         void* stream) {
+  return launch<__nv_bfloat16>(rowtap_fwd_kernel<__nv_bfloat16>, value, row, px, w, out, B, L,
+                               H, Qp, NL, P, tile_q, stream);
+}
+
+int msda_sweep_fwd_allq_bf16(const void* value, const void* row, const void* px, const void* w,
+                             void* out, int B, int L, int H, int Qp, int NL, int P, int tile_q,
+                             void* stream) {
+  return launch<__nv_bfloat16>(allq_fwd_kernel<__nv_bfloat16>, value, row, px, w, out, B, L,
+                               H, Qp, NL, P, tile_q, stream);
 }
 
 }  // extern "C"

@@ -15,7 +15,9 @@ forward, K3 backward, ops/msda_banded.py; the banded path with
 `MSDA_BANDED_MP=0`, one band sweep per sample point, window height 4).  All
 take the same projections and parameters: the JAX package's
 `_transposed_path` keeps the nn.Dense parameter tree (deformable.py:165-167),
-so one checkpoint serves every kernel.
+so one checkpoint serves every kernel.  In bf16 (the default compute
+dtype) the gather and the sweep take a bf16 value; banded_point raises (K5
+has no bf16 entry yet).
 """
 from __future__ import annotations
 
@@ -83,18 +85,24 @@ class MSDeformAttn(nn.Module):
         D = C // H
 
         v = self.value_proj(value)
-        if v.dtype == torch.bfloat16 and self.kernel != "gather":
-            raise ValueError(f"msda kernel {self.kernel!r} has no bf16 entry yet (ROADMAP.md "
-                             "section 2): train it with compute_dtype=float32")
+        if v.dtype == torch.bfloat16 and self.kernel == "banded_point":
+            raise ValueError("msda kernel 'banded_point' has no bf16 entry yet: K5 bf16 is still "
+                             "to port (ROADMAP.md section 2); train it with "
+                             "compute_dtype=float32")
         if key_padding_mask is not None:
             v = v.masked_fill(key_padding_mask[..., None], 0.0)
         v = v.view(B, L, H, D)
 
         offsets = self.sampling_offsets(query).view(B, Q, H, NL, P, 2)
         attn = self.attention_weights(query).view(B, Q, H, NL * P)
-        # softmax in f32, then the query's dtype (the JAX package's
-        # deformable.py:134); the kernels take it in f32, exactly
-        attn = torch.softmax(attn.float(), dim=-1).to(query.dtype).float().view(B, Q, H, NL, P)
+        # softmax in f32 (the kernels take f32 weights); the gather rounds
+        # it to the query's dtype as the JAX package's XLA path does
+        # (deformable.py:134), the sweep and banded_point keep it f32 as its
+        # Pallas path does (_transposed_path, deformable.py:251-256)
+        attn = torch.softmax(attn.float(), dim=-1)
+        if self.kernel == "gather":
+            attn = attn.to(query.dtype).float()
+        attn = attn.view(B, Q, H, NL, P)
 
         rp = reference_points.float()
         if rp.shape[-1] == 2:

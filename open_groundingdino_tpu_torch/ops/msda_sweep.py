@@ -31,21 +31,33 @@ the flagship forward's logits by up to 4.9e-2 against the gather path (H100
 smoke).  Split, px keeps its fraction to 2^-16 (rows are at most 152 wide
 there) and the sweep computes the gather's function.
 
-Kernel operands: value in the reference layout (B, L, H, D) f32, D = 32,
-taps (BH, R, Q_pad) with Q_pad a multiple of QBLOCK (padded queries have
-w == 0), upstream gradient and output (BH, Q_pad, D) f32, grad_value
-(B, L, H, D) f32.  Query sets with Q != L (the decoder) are sorted by their
-first row tap's position (K8: their first corner tap's, as
-msda_pallas.py:937-943 sorts), so that a block's taps are local; the output
-and the per-tap gradients are un-sorted afterwards.  Every kernel gathers
-(the backwards also scatter) the rows of its taps' corners (K1's and K3's
-design, ops/msda.py), with K1's and K3's launch plans; K7 is K6's kernel
-under its own name.
+Kernel operands: value in the reference layout (B, L, H, D) f32 (or bf16,
+below), D = 32, taps (BH, R, Q_pad) with Q_pad a multiple of QBLOCK (padded
+queries have w == 0), upstream gradient and output (BH, Q_pad, D) in
+value's dtype, grad_value (B, L, H, D).  Query sets with Q != L (the
+decoder) are sorted by their first row tap's position (K8: their first
+corner tap's, as msda_pallas.py:937-943 sorts), so that a block's taps are
+local; the output and the per-tap gradients are un-sorted afterwards.
+Every kernel gathers (the backwards also scatter) the rows of its taps'
+corners (K1's and K3's design, ops/msda.py), with K1's and K3's launch
+plans; K7 is K6's kernel under its own name.
+
+bf16 (the JAX package's default mixed precision; value and upstream
+gradient bf16, taps f32): K6, K7, K9 and K10 have bf16 entries, as the TPU
+kernels have bf16 branches (msda_pallas.py:520, 651, 998-1001, 1220-1242).
+Each reads bf16 value (and g) rows and sums in f32: the forwards round
+their output to bf16 once; the backwards write gw (and gpx) in f32 and
+grad_value into an f32 buffer on the f32 entry's path, which the wrapper
+rounds to bf16 once, as the TPU kernels write grad_value in f32
+(msda_pallas.py:1093, 1315) and cast it once.  The tap weights stay f32
+(the TPU kernels round them to bf16 for the MXU).  K8 has no bf16 entry
+yet (ROADMAP.md section 2) and raises on bf16.
 
 `ms_deform_attn_sweep` takes the plain version for CPU tensors (autograd
 differentiates it) and `MSDASweepFunction` for CUDA tensors.  The five
 kernel wrappers take CUDA tensors only and count their launches
-(`sweep_fwd.launches`, ...); nothing on the card reaches a plain version.
+(`sweep_fwd.launches`, ...; the bf16 entries' apart, in `.launches_bf16`);
+nothing on the card reaches a plain version.
 """
 from __future__ import annotations
 
@@ -143,7 +155,7 @@ def corner_indices_and_weights(locs_t: torch.Tensor, attn_t: torch.Tensor,
 
 # ---------------------------------------------------------------- plain versions
 def _value_bh(value: torch.Tensor) -> torch.Tensor:
-    """(B, L, H, D) -> (B*H, L, D) f32."""
+    """(B, L, H, D) -> (B*H, L, D) f32 (a bf16 value upcast exactly)."""
     B, L, H, D = value.shape
     return value.float().permute(0, 2, 1, 3).reshape(B * H, L, D)
 
@@ -169,7 +181,9 @@ def sweep_fwd_plain(value, row, px, w):
     """K6's and K7's function: out[bh, q] = sum_r w[r, q] * sum_x
     relu(1 - |px[r, q] - x|) * V[bh, row[r, q] + x].  value (B, L, H, D);
     row, px, w (BH, R, Q) -> (BH, Q, D) f32.  Each row touches two
-    positions, gathered; rows are summed in order."""
+    positions, gathered; rows are summed in order.  A bf16 value is upcast
+    and summed in f32: rounded to bf16 once, the result is the bf16
+    entries' plain version."""
     v = _value_bh(value)
     L = v.shape[1]
     i0, i1, r0, r1 = _rowtap_corners(row, px, L)
@@ -210,7 +224,9 @@ def sweep_bwd_rowtap_plain(value, row, px, w, g):
                   row weight: the caller multiplies by w)
       grad_value[row + x] = sum_{r, q} relu(1 - |px - x|) * w * g[q].
     value (B, L, H, D); row, px, w (BH, R, Q); g (BH, Q, D) -> (grad_value
-    (B, L, H, D), gpx, gw (BH, R, Q)), all f32."""
+    (B, L, H, D), gpx, gw (BH, R, Q)), all f32.  A bf16 value and g are
+    upcast and summed in f32: with grad_value rounded to bf16 once, this is
+    the bf16 entry's plain version."""
     v = _value_bh(value)
     L = v.shape[1]
     i0, i1, r0, r1 = _rowtap_corners(row, px, L)
@@ -228,7 +244,9 @@ def sweep_bwd_rowtap_plain(value, row, px, w, g):
 def sweep_bwd_corner_plain(value, idx, w, g):
     """K9's function: gw[t, q] = V[idx[t, q]] . g[q] and grad_value[s] =
     sum_{t, q: idx == s} w[t, q] * g[q].  value (B, L, H, D); idx, w
-    (BH, T, Q); g (BH, Q, D) -> (grad_value (B, L, H, D), gw (BH, T, Q)), f32."""
+    (BH, T, Q); g (BH, Q, D) -> (grad_value (B, L, H, D), gw (BH, T, Q)), f32.
+    A bf16 value and g are upcast and summed in f32: with grad_value
+    rounded to bf16 once, this is the bf16 entry's plain version."""
     v = _value_bh(value)
     g = g.float()
     idx = idx.long()
@@ -251,8 +269,8 @@ ROWTAP_TAPS = msda.SAMPLES * 2     # row taps a query, at most
 
 
 def _check(value, taps, w, what, g=None, row=None):
-    """Raise unless the operands are what the sweep kernels take; returns
-    (B, L, H, R, Q_pad)."""
+    """Raise unless the operands are what the sweep kernels take (value f32
+    or bf16, g in value's dtype, the taps f32); returns (B, L, H, R, Q_pad)."""
     for name, t in (("value", value), ("taps", taps), ("w", w), ("g", g), ("row", row)):
         if t is None:
             continue
@@ -262,8 +280,9 @@ def _check(value, taps, w, what, g=None, row=None):
             raise ValueError(f"{what}: {name} is on {t.device}, value on {value.device}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
-    if value.dim() != 4 or value.shape[-1] != HEAD_DIM or value.dtype != torch.float32:
-        raise ValueError(f"{what}: value must be float32 (B, L, H, {HEAD_DIM}), got "
+    if (value.dim() != 4 or value.shape[-1] != HEAD_DIM
+            or value.dtype not in (torch.float32, torch.bfloat16)):
+        raise ValueError(f"{what}: value must be float32 or bfloat16 (B, L, H, {HEAD_DIM}), got "
                          f"{value.dtype} {tuple(value.shape)}")
     B, L, H, _ = value.shape
     BH, R, Q_pad = taps.shape
@@ -272,8 +291,8 @@ def _check(value, taps, w, what, g=None, row=None):
                          f"do not fit value {tuple(value.shape)}")
     if Q_pad % QBLOCK:
         raise ValueError(f"{what}: the query axis ({Q_pad}) must be a multiple of {QBLOCK}")
-    if g is not None and (tuple(g.shape) != (BH, Q_pad, HEAD_DIM) or g.dtype != torch.float32):
-        raise ValueError(f"{what}: g must be float32 {(BH, Q_pad, HEAD_DIM)}")
+    if g is not None and (tuple(g.shape) != (BH, Q_pad, HEAD_DIM) or g.dtype != value.dtype):
+        raise ValueError(f"{what}: g must be {value.dtype} {(BH, Q_pad, HEAD_DIM)}, as value")
     if row is not None and (row.shape != taps.shape or row.dtype != torch.int32
                             or taps.dtype != torch.float32):
         raise ValueError(f"{what}: row taps are int32 rows and float32 positions of one shape")
@@ -309,13 +328,28 @@ def rowtap_fwd_smem_bytes(NL: int, tile_q: int) -> int:
 corner_fwd_smem_bytes = rowtap_fwd_smem_bytes
 
 
+def _entry(name: str, value: torch.Tensor) -> str:
+    """The C entry of `name` for value's dtype."""
+    return f"{name}_{'bf16' if value.dtype == torch.bfloat16 else 'f32'}"
+
+
+def _count(wrapper, value: torch.Tensor) -> None:
+    """One launch on wrapper's count for value's dtype."""
+    if value.dtype == torch.bfloat16:
+        wrapper.launches_bf16 += 1
+    else:
+        wrapper.launches += 1
+
+
 def _rowtap_fwd(entry, what, value, spatial_shapes, row, px, w):
-    """Launch K6 or K7 (the C entry `entry` of csrc/msda_rowtap_fwd.cu) on
-    the row taps: one kernel block per (b*h, tile of queries), the tile
-    chosen as K1's (msda.msda_fwd_tile)."""
+    """Launch K6 or K7 (the C entry `entry` of csrc/msda_rowtap_fwd.cu, its
+    f32 or bf16 one by value's dtype) on the row taps: one kernel block per
+    (b*h, tile of queries), the tile chosen as K1's (msda.msda_fwd_tile).
+    The output is in value's dtype."""
     B, L, H, R, Q_pad = _check(value, px, w, what, row=row)
     NL, P = _check_gather(value, None, spatial_shapes, R, 2, what)
-    out = torch.empty(B * H, Q_pad, HEAD_DIM, dtype=torch.float32, device=value.device)
+    out = torch.empty(B * H, Q_pad, HEAD_DIM, dtype=value.dtype, device=value.device)
+    entry = _entry(entry, value)
     fn = getattr(build.load("msda_rowtap_fwd"), entry)
     fn.argtypes = _ROWTAP_FWD_CTYPES
     fn.restype = ctypes.c_int
@@ -328,10 +362,11 @@ def _rowtap_fwd(entry, what, value, spatial_shapes, row, px, w):
 
 def sweep_fwd(value, spatial_shapes, row, px, w):
     """K6 on CUDA tensors: each live tap reads its at most two rows.  value
-    (B, L, H, 32) f32, 16-byte aligned; row int32, px, w (BH, NL*2*P, Q_pad)
-    -> (BH, Q_pad, D) f32."""
-    out = _rowtap_fwd("msda_rowtap_fwd_f32", "sweep_fwd", value, spatial_shapes, row, px, w)
-    sweep_fwd.launches += 1
+    (B, L, H, 32) f32 or bf16, 16-byte aligned; row int32, px, w f32
+    (BH, NL*2*P, Q_pad) -> (BH, Q_pad, D) in value's dtype (bf16: f32 sums,
+    rounded once)."""
+    out = _rowtap_fwd("msda_rowtap_fwd", "sweep_fwd", value, spatial_shapes, row, px, w)
+    _count(sweep_fwd, value)
     return out
 
 
@@ -339,9 +374,8 @@ def sweep_fwd_allq(value, spatial_shapes, row, px, w):
     """K7 on CUDA tensors: K6's function, operands and launch, for the
     decoder's sorted query set under dec_fused, as a kernel of its own (its
     own name in a profile, its own count)."""
-    out = _rowtap_fwd("msda_sweep_fwd_allq_f32", "sweep_fwd_allq", value, spatial_shapes, row,
-                      px, w)
-    sweep_fwd_allq.launches += 1
+    out = _rowtap_fwd("msda_sweep_fwd_allq", "sweep_fwd_allq", value, spatial_shapes, row, px, w)
+    _count(sweep_fwd_allq, value)
     return out
 
 
@@ -350,6 +384,9 @@ def sweep_fwd_corner(value, spatial_shapes, idx, w):
     tile chosen as K1's (msda.msda_fwd_tile); each live corner tap reads its
     row.  value (B, L, H, 32) f32, 16-byte aligned; idx int32 and w
     (BH, NL*P*4, Q_pad) -> (BH, Q_pad, D) f32."""
+    if value.dtype != torch.float32:
+        raise ValueError(f"sweep_fwd_corner: K8 has no {value.dtype} entry yet (ROADMAP.md "
+                         "section 2): run the corner forward in float32")
     B, L, H, R, Q_pad = _check(value, idx, w, "sweep_fwd_corner")
     if idx.dtype != torch.int32:
         raise ValueError("sweep_fwd_corner: idx must be int32")
@@ -415,23 +452,26 @@ def sweep_bwd_corner(value, spatial_shapes, idx, w, g):
     (BH, Q_pad, D) -> (grad_value (B, L, H, D), gw).  One kernel block per
     (b*h, tile of queries) gathers and scatters the rows of the live taps;
     gw is 0 for every dead tap (w == 0), which the chain rule multiplies by
-    zero.  value and g 16-byte aligned; built for D = 32, P = 4, NL <= 4."""
+    zero.  value and g both f32 or both bf16, 16-byte aligned; built for
+    D = 32, P = 4, NL <= 4.  grad_value in value's dtype (bf16: summed in
+    f32, rounded once), gw f32."""
     B, L, H, R, Q_pad = _check(value, idx, w, "sweep_bwd_corner", g)
     if idx.dtype != torch.int32:
         raise ValueError("sweep_bwd_corner: idx must be int32")
     NL, P = _check_gather(value, g, spatial_shapes, R, 4, "sweep_bwd_corner")
     plan = corner_bwd_plan(spatial_shapes, B, Q_pad, H)
-    gv = torch.zeros_like(value)
+    gv = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
     gw = torch.empty_like(w)
-    fn = build.load("msda_corner_bwd").msda_corner_bwd_f32
+    entry = _entry("msda_corner_bwd", value)
+    fn = getattr(build.load("msda_corner_bwd"), entry)
     fn.argtypes = _CORNER_BWD_CTYPES
     fn.restype = ctypes.c_int
     err = fn(value.data_ptr(), idx.data_ptr(), w.data_ptr(), g.data_ptr(), gv.data_ptr(),
              gw.data_ptr(), B, L, H, Q_pad, NL, P, *_plan_args(spatial_shapes, plan),
              torch.cuda.current_stream(value.device).cuda_stream)
-    build.check(err, "msda_corner_bwd")
-    sweep_bwd_corner.launches += 1
-    return gv, gw
+    build.check(err, entry)
+    _count(sweep_bwd_corner, value)
+    return gv.to(value.dtype), gw
 
 
 def sweep_bwd_rowtap(value, spatial_shapes, row, px, w, g):
@@ -440,23 +480,26 @@ def sweep_bwd_rowtap(value, spatial_shapes, row, px, w, g):
     row weight.  One kernel block per (b*h, tile of queries,
     rowtap_bwd_plan) gathers its taps' corner rows and scatters the live
     ones; gw and gpx are given on every tap, dead ones too.  value and g
-    16-byte aligned; built for D = 32, P = 4, NL <= 4."""
+    both f32 or both bf16, 16-byte aligned; built for D = 32, P = 4,
+    NL <= 4.  grad_value in value's dtype (bf16: summed in f32, rounded
+    once), gpx and gw f32."""
     B, L, H, R, Q_pad = _check(value, px, w, "sweep_bwd_rowtap", g, row)
     NL, P = _check_gather(value, g, spatial_shapes, R, 2, "sweep_bwd_rowtap")
     plan = rowtap_bwd_plan(spatial_shapes, B, Q_pad, H)
-    gv = torch.zeros_like(value)
+    gv = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
     gw = torch.empty_like(w)
     gpx = torch.empty_like(w)
-    fn = build.load("msda_rowtap_bwd").msda_rowtap_bwd_f32
+    entry = _entry("msda_rowtap_bwd", value)
+    fn = getattr(build.load("msda_rowtap_bwd"), entry)
     fn.argtypes = _ROWTAP_BWD_CTYPES
     fn.restype = ctypes.c_int
     err = fn(value.data_ptr(), row.data_ptr(), px.data_ptr(), w.data_ptr(), g.data_ptr(),
              gv.data_ptr(), gw.data_ptr(), gpx.data_ptr(), B, L, H, Q_pad, NL, P,
              *_plan_args(spatial_shapes, plan),
              torch.cuda.current_stream(value.device).cuda_stream)
-    build.check(err, "msda_rowtap_bwd")
-    sweep_bwd_rowtap.launches += 1
-    return gv, gpx, gw
+    build.check(err, entry)
+    _count(sweep_bwd_rowtap, value)
+    return gv.to(value.dtype), gpx, gw
 
 
 # ---------------------------------------------------------------- the op
@@ -521,7 +564,9 @@ class MSDASweepFunction(torch.autograd.Function):
     MSDA_FWD_VARIANT=corner (K8 on corner taps); the backward re-expands the
     taps it needs, launches K9 (corner taps) or K10 (row taps), and chains
     the tap gradients to the locations and weights with autograd of the
-    expansion (the JAX package's jax.vjp)."""
+    expansion (the JAX package's jax.vjp).  The output and grad_value are in
+    value's dtype (the TPU kernels' out_ref.dtype), the upstream gradient
+    reaches the kernels in it; the taps, grad_locs and grad_attn are f32."""
 
     @staticmethod
     def forward(ctx, value, locs, attn, spatial_shapes, bwd, dec_fused, fwd="rowtap"):
@@ -546,7 +591,7 @@ class MSDASweepFunction(torch.autograd.Function):
         shapes = ctx.spatial_shapes
         B, L, H, D = value.shape
         Q = locs.shape[1]
-        g = grad_out.float().reshape(B, Q, H, D).permute(0, 2, 1, 3).reshape(B * H, Q, D)
+        g = grad_out.to(value.dtype).reshape(B, Q, H, D).permute(0, 2, 1, 3).reshape(B * H, Q, D)
         with torch.enable_grad():
             locs_t, attn_t = (t.detach().requires_grad_(True) for t in kernel_layout(locs, attn))
             row, px, w = rowtap_positions_and_weights(locs_t, attn_t, shapes)
@@ -589,11 +634,12 @@ def ms_deform_attn_sweep(value: torch.Tensor, spatial_shapes: Shapes, level_star
                          dec_fused: bool = False, fwd: str = "rowtap") -> torch.Tensor:
     """ms_deform_attn's contract (ops/msda.py) through the sweep kernels:
     value (B, L, H, D), locs (B, Q, H, NL, P, 2), attn (B, Q, H, NL, P) ->
-    (B, Q, H*D).  On CUDA tensors (value f32, D = 32, P <= 4): K6 forward, or
-    K7 for Q != L under `dec_fused`, or K8 with `fwd="corner"`; K9 backward
-    (`bwd="corner"`) or K10 (`bwd="rowtap"`).  The corner forward is the JAX
-    op-level path, which has neither a fused decoder nor the row-tap
-    backward: with it, both raise.  On CPU tensors the plain version.
+    (B, Q, H*D) in value's dtype.  On CUDA tensors (value f32 or bf16, D = 32,
+    P <= 4): K6 forward, or K7 for Q != L under `dec_fused`, or K8 with
+    `fwd="corner"` (f32 only); K9 backward (`bwd="corner"`) or K10
+    (`bwd="rowtap"`).  The corner forward is the JAX op-level path, which has
+    neither a fused decoder nor the row-tap backward: with it, both raise.
+    On CPU tensors the plain version.
     `level_start` is the raster offsets of the levels, checked against
     spatial_shapes."""
     if bwd not in SWEEP_BWD:
@@ -612,8 +658,8 @@ def ms_deform_attn_sweep(value: torch.Tensor, spatial_shapes: Shapes, level_star
                                    bool(dec_fused), fwd)
 
 
-sweep_fwd.launches = 0
-sweep_fwd_allq.launches = 0
+sweep_fwd.launches = sweep_fwd.launches_bf16 = 0
+sweep_fwd_allq.launches = sweep_fwd_allq.launches_bf16 = 0
 sweep_fwd_corner.launches = 0
-sweep_bwd_corner.launches = 0
-sweep_bwd_rowtap.launches = 0
+sweep_bwd_corner.launches = sweep_bwd_corner.launches_bf16 = 0
+sweep_bwd_rowtap.launches = sweep_bwd_rowtap.launches_bf16 = 0

@@ -212,12 +212,12 @@ def test_nonfinite_batch_changes_nothing():
 
 
 def test_unsupported_compute_dtypes_raise():
-    """float16 is no compute dtype of the port; bf16 runs the gather MSDA
-    kernels only (the sweep's and banded_point's bf16 entries are queued in
+    """float16 is no compute dtype of the port; bf16 runs the gather and the
+    sweep MSDA kernels, not banded_point (K5's bf16 entry is queued in
     ROADMAP.md)."""
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         make_train_step(SetCriterion(num_queries=QN), compute_dtype="float16")
-    model = _port_model(msda={"kernel": "sweep"})
+    model = _port_model(msda={"kernel": "banded_point"})
     step = make_train_step(SetCriterion(num_queries=QN), compute_dtype="bfloat16")
     with pytest.raises(ValueError, match="ROADMAP"):
         step(_port_state(model), _batch())
