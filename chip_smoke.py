@@ -88,7 +88,8 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                loss within 5e-3, each MSDA-fed gradient within 1e-2
  19. microbench - open_groundingdino_tpu_torch.tools.msda_microbench with
                --sweep --fwd_variant corner --banded_mp 0 --bwd --xla: K5 and
-               K8 (K3 and K9 under --bwd) at the flagship B = 4 encoder shape
+               K8 (K3 and K9 under --bwd) at the flagship B = 4 encoder shape;
+               then with --dtype bf16 (no --xla): their bf16 entries only
  20. bf16 kernels - the bf16 entries of K1 and K3 (phase 3's B = 1 and phase
                8's B = 4 encoder and decoder shapes) and of K2 and K4 (phase
                4's B = 1 and phase 9's B = 4 fusion shapes) against their bf16
@@ -147,8 +148,9 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                default bf16 at B = 4, full width and depth: 1 warm-up + 3
                timed steps, each loss finite, 18 K6 + 12 K9 + 12 K2 + 6 K4
                bf16 launches a step and no other; a profiled step; 1 step
-               with msda_sweep_bwd=rowtap (12 K10 bf16) and 1 with
-               msda_dec_fused=True (12 K6 + 6 K7 bf16); phase 15's step in
+               with msda_sweep_bwd=rowtap (12 K10 bf16) and a profiled one,
+               and 1 with msda_dec_fused=True (12 K6 + 6 K7 bf16); phase 15's
+               step in
                bf16 through the sweep (corner and row-tap backward) against
                phase 15's f32 sweep steps on the card: loss within 2e-2 and
                each MSDA-fed gradient within 0.75, relative, beside its
@@ -156,8 +158,24 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                apart K10 bf16's, gw negated each must fail; then main --eval
                through the sweep in bf16 on phase 22's val split: 12 finite
                stats, 12 K6 + 6 K2 bf16 launches a batch, images/s
-then the {"kernels": [...]} line (K1-K10, then the bf16 entries of K1-K4,
-K6, K7, K9 and K10) and, last, {"ok": true, "device": {...}}.
+ 26. bf16 K5, K8 - the bf16 entries of K5 and K8 against their bf16 plain
+               versions on phase 16's operands (B = 1 and B = 4, encoder and
+               decoder), and the ops that launch them against K1 bf16, each
+               within 1e-2 of the output's largest |reference| (a negated
+               output must fail), by CUDA events and torch.profiler's device
+               time, against the bound at bf16 value rows; ptxas's report of
+               both bf16 instances (no spills)
+ 27. bf16 banded train - main --options msda_kernel=banded_point in the
+               config's default bf16 at B = 4, full width and depth: one
+               epoch of 2 steps with its eval of the 8 images as a COCO val
+               split, 18 K5 + 12 K3 + 12 K2 + 6 K4 bf16 launches a step and
+               12 K5 + 6 K2 bf16 an eval batch, no other; a profiled step;
+               phase 18's step in bf16 against phase 18's f32 banded_point
+               step on the card (phase 21's limits), beside its distance from
+               phase 21's bf16 gather step; with K5 bf16's output negated it
+               must fail
+then the {"kernels": [...]} line (K1-K10, then the bf16 entries of all ten)
+and, last, {"ok": true, "device": {...}}.
 
 Exits nonzero when no CUDA device is present.  Scratch files (checkpoint,
 vocab, the ODVG set and its COCO val splits, the runs' outputs and
@@ -1066,7 +1084,8 @@ def check_banded_train_parity(harness, gather_card) -> dict:
     against the gather's step on the card (phase 11's) from the same weights
     and batch: loss within PARITY_LOSS_RTOL, module gradient norms within
     PARITY_GRAD_RTOL, each parameter that the MSDA kernels feed within
-    PARITY_LEAF_RTOL."""
+    PARITY_LEAF_RTOL.  Returns the comparison and the banded_point step
+    (phase 27 holds its bf16 step against it)."""
     step, gaps, within = harness
     run = step("cuda", msda={"kernel": "banded_point"})
     gap = gaps(run, gather_card, MSDA_FED)
@@ -1081,26 +1100,32 @@ def check_banded_train_parity(harness, gather_card) -> dict:
                                f"{[(n, f'{v:.2e}') for n, v in worst]}; step s {run['seconds']:.1f}")
     if not (math.isfinite(run["loss"]) and within(gap)):
         raise AssertionError("the banded_point training step disagrees with the gather's")
-    return dict(loss_rel=loss_rel, norm_rel=norm_rel, leaf_rel_max=max(leaf_rel.values()))
+    return dict(loss_rel=loss_rel, norm_rel=norm_rel, leaf_rel_max=max(leaf_rel.values())), run
 
 
-def run_microbench() -> tuple:
+def run_microbench(dtype: str = "f32") -> tuple:
     """The port's MSDA microbench in this process, K5 and K8 paths with
-    their backwards and the plain op, a few iterations; returns (its
+    their backwards (in f32 also the plain op; with dtype "bf16" a bf16
+    value through the bf16 entries), a few iterations; returns (its
     results, the kernels' launches in the run)."""
     from open_groundingdino_tpu_torch.tools import msda_microbench
 
     reset_counts()
-    argv = ["--sweep", "--fwd_variant", "corner", "--banded_mp", "0", "--bwd", "--xla",
-            "--iters", "3", "--repeats", "2"]
+    argv = ["--sweep", "--fwd_variant", "corner", "--banded_mp", "0", "--bwd",
+            *(["--xla"] if dtype == "f32" else ["--dtype", dtype]), "--iters", "3",
+            "--repeats", "2"]
     res = msda_microbench.main(argv)
     counts = read_counts()
     log("microbench", f"msda_microbench {' '.join(argv)}: ms a layer "
-                      f"{ {k: round(v, 3) for k, v in res.items() if k != 'max_abs_diff'} }, "
-                      f"max|banded - plain| {res['max_abs_diff']:.2e}; launches "
-                      f"{ {k: v for k, v in counts.items() if v} }")
-    if not all(counts[k] > 0 for k in ("banded_fwd", "sweep_fwd_corner", "sweep_bwd_corner",
-                                       "msda_bwd")) or not res["max_abs_diff"] <= K5_K8_TOL:
+                      f"{ {k: round(v, 3) for k, v in res.items() if k != 'max_abs_diff'} }"
+                      + (f", max|banded - plain| {res['max_abs_diff']:.2e}" if dtype == "f32"
+                         else "") + f"; launches { {k: v for k, v in counts.items() if v} }")
+    kernels = ("banded_fwd", "sweep_fwd_corner", "sweep_bwd_corner", "msda_bwd")
+    suffix = "" if dtype == "f32" else "_bf16"
+    launched = all(counts[k + suffix] > 0 for k in kernels)
+    if dtype != "f32":   # and none of the f32 entries
+        launched = launched and not any(counts[k] for k in kernels)
+    if not launched or (dtype == "f32" and not res["max_abs_diff"] <= K5_K8_TOL):
         raise AssertionError(f"the microbench missed a kernel or disagrees: {counts} {res}")
     return res, counts
 
@@ -1404,14 +1429,14 @@ def write_coco_val(work: str, indices=tuple(range(len(TRAIN_IMAGE_SIZES))), anno
 
 
 # the kernels with a bf16 entry, whose wrappers count its launches apart
-BF16_KERNELS = ("msda_fwd", "fusion_fwd", "msda_bwd", "fusion_bwd", "sweep_fwd", "sweep_fwd_allq",
-                "sweep_bwd_corner", "sweep_bwd_rowtap")
+BF16_KERNELS = ("msda_fwd", "fusion_fwd", "msda_bwd", "fusion_bwd", "banded_fwd", "sweep_fwd",
+                "sweep_fwd_allq", "sweep_fwd_corner", "sweep_bwd_corner", "sweep_bwd_rowtap")
 DEC_LAYERS = 6             # the config's decoder layers: the decoder's MSDA launches a forward
 
 
 def kernel_counters():
     """{count name: (wrapper, attribute)}: each wrapper's f32 launches, and
-    as "<name>_bf16" the bf16 launches of the four that have a bf16 entry."""
+    as "<name>_bf16" its bf16 entry's launches."""
     from open_groundingdino_tpu_torch.ops import fusion, msda
     from open_groundingdino_tpu_torch.ops import msda_banded as mb
     from open_groundingdino_tpu_torch.ops import msda_sweep as sw
@@ -1457,18 +1482,22 @@ def train_launches_per_step(msda_keys: dict, bf16: bool = False) -> dict:
 
 
 def train(cfg: str, work: str, files, device: str, msda_keys=None, epochs: int = TRAIN_EPOCHS,
-          max_steps: int = None, tag: str = "train", compute_dtype="float32") -> dict:
+          max_steps: int = None, tag: str = "train", compute_dtype="float32",
+          val: bool = False) -> dict:
     """The port's training entry (main.main) on the synthetic ODVG set at
     the config's full width and depth: B = 4, `compute_dtype` (None: the
     config's default, bf16), two steps an epoch (at most max_steps) from the
     smoke's seeded checkpoint (random biases), with the MSDA config keys
-    `msda_keys` given as --options; counts the kernels' launches of the
-    run."""
+    `msda_keys` given as --options; with `val`, the 8 images also as a COCO
+    val split, which main evaluates after each epoch; counts the kernels'
+    launches of the run."""
     import torch
 
     from open_groundingdino_tpu_torch import main as train_main
 
     manifest = write_odvg(work)
+    if val:
+        manifest = write_coco_val(work)
     _, ckpt, vocab = files
     msda_keys = msda_keys or {}
     out_dir = os.path.join(work, f"{tag}_out")
@@ -1520,6 +1549,12 @@ def train(cfg: str, work: str, files, device: str, msda_keys=None, epochs: int =
         raise AssertionError(f"log.txt has {epochs_logged} lines, expected {epochs}")
     want = {k: v * steps
             for k, v in train_launches_per_step(msda_keys, dtype == "bfloat16").items()}
+    if val:   # each epoch's eval pass over the 8 images, B = 4
+        msda_fwd = {"banded_point": "banded_fwd", "sweep": "sweep_fwd"}.get(
+            msda_keys.get("msda_kernel"), "msda_fwd")
+        evals = eval_launches(-(-len(TRAIN_IMAGE_SIZES) // 4) * epochs, dtype == "bfloat16",
+                              msda_fwd)
+        want = {k: v + evals[k] for k, v in want.items()}
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, expected {want}")
     return dict(run=run, counts=counts, losses=losses, step_seconds=step_s,
@@ -1538,7 +1573,8 @@ def bf16_names(kernel: str) -> tuple:
 K1_BF16_NAMES = bf16_names("msda_fwd_kernel")
 K3_BF16_NAMES = bf16_names("msda_bwd_kernel")
 SWEEP_BF16_NAMES = {"K6": bf16_names("rowtap_fwd_kernel"), "K7": bf16_names("allq_fwd_kernel"),
-                    "K9": bf16_names("corner_bwd_kernel"), "K10": bf16_names("rowtap_bwd_kernel")}
+                    "K9": bf16_names("corner_bwd_kernel"), "K10": bf16_names("rowtap_bwd_kernel"),
+                    "K5": bf16_names("banded_fwd_kernel"), "K8": bf16_names("corner_fwd_kernel")}
 # the port's kernels by the names torch.profiler shows, first match wins
 # (K4's bwd_kernel after the MSDA backwards, whose names hold it too)
 KERNEL_GROUPS = (("K1 msda_fwd bf16", K1_BF16_NAMES),
@@ -1549,6 +1585,8 @@ KERNEL_GROUPS = (("K1 msda_fwd bf16", K1_BF16_NAMES),
                  ("K7 allq_fwd bf16", SWEEP_BF16_NAMES["K7"]),
                  ("K9 corner_bwd bf16", SWEEP_BF16_NAMES["K9"]),
                  ("K10 rowtap_bwd bf16", SWEEP_BF16_NAMES["K10"]),
+                 ("K5 banded_fwd bf16", SWEEP_BF16_NAMES["K5"]),
+                 ("K8 corner_fwd bf16", SWEEP_BF16_NAMES["K8"]),
                  ("K5 banded_fwd", ("banded_fwd_kernel",)),
                  ("K6 rowtap_fwd", ("rowtap_fwd_kernel",)),
                  ("K7 allq_fwd", ("allq_fwd_kernel",)),
@@ -2280,8 +2318,8 @@ def train_bf16_sweep(cfg, work, train_files, eval_files, harness, sweep_f32_card
     bf16 at B = 4, full width and depth: 1 warm-up + 3 timed steps (each a
     18 K6 + 12 K9 + 12 K2 + 6 K4 bf16 launches, no f32 entry and no K1, K3)
     and a profiled step; 1 step with msda_sweep_bwd=rowtap (12 K10 bf16, no
-    K9) and 1 with msda_dec_fused=True (the decoder's 6 on K7 bf16, the
-    encoder's 12 on K6 bf16).  Then phase 15's B = 1 step in bf16 through the
+    K9) and a profiled one, and 1 with msda_dec_fused=True (the decoder's 6
+    on K7 bf16, the encoder's 12 on K6 bf16).  Then phase 15's B = 1 step in bf16 through the
     sweep, with the corner and the row-tap backward, against phase 15's f32
     sweep steps on the card (loss within BF16_LOSS_RTOL, each MSDA-fed
     gradient within BF16_LEAF_RTOL), its distance from phase 21's bf16
@@ -2303,7 +2341,7 @@ def train_bf16_sweep(cfg, work, train_files, eval_files, harness, sweep_f32_card
         run = train(cfg, work, train_files, "cuda", keys, tag=tag, compute_dtype=None, **kw)
         if run["run"]["train_step"].compute_dtype != "bfloat16":
             raise AssertionError("main's default compute_dtype is not bf16")
-        if tag == "bf16-sweep-train":
+        if tag in ("bf16-sweep-train", "bf16-sweep-train-rowtap"):   # K10 bf16's on its path
             run["profile"] = profile_train_step(run["run"], tag=f"{tag}-profile")
         del run["run"]
         runs[tag] = run
@@ -2374,8 +2412,8 @@ def train_bf16_sweep(cfg, work, train_files, eval_files, harness, sweep_f32_card
 
 def eval_launches(n_batches: int, bf16: bool, msda_fwd: str = "msda_fwd") -> dict:
     """An eval pass's launches: a forward's 12 MSDA forwards (K1, or the
-    sweep's K6: msda_fwd="sweep_fwd") and 6 K2 a batch, in the compute
-    dtype's entries, and nothing else."""
+    sweep's K6: msda_fwd="sweep_fwd", or banded_point's K5: "banded_fwd")
+    and 6 K2 a batch, in the compute dtype's entries, and nothing else."""
     want = dict.fromkeys(kernel_counters(), 0)
     suffix = "_bf16" if bf16 else ""
     want[f"{msda_fwd}{suffix}"], want[f"fusion_fwd{suffix}"] = 12 * n_batches, 6 * n_batches
@@ -2684,6 +2722,133 @@ def check_resume(cfg: str, work: str, files, manifest: str, device: str = "cuda"
                 res_log=res_log, checkpoint_bytes=size, seconds=(cont_s, first_s, resumed_s))
 
 
+# ---------------------------------------------------------------- bf16 K5, K8 (phases 26, 27)
+def check_bf16_banded_corner(device) -> dict:
+    """Phase 26: the bf16 entries of K5 (on banded_operands) and K8 (on the
+    corner taps) against their bf16 plain versions (the plain versions on
+    the same bf16 value, summed in f32 and rounded to bf16 once) on phase
+    16's operands (its generator: phase 3's B = 1 and phase 8's B = 4
+    encoder and decoder shapes, each image with its own valid region), and
+    the ops that launch them against K1 bf16 on the same reference
+    operands, all within BF16_FWD_RTOL of each output's largest |reference|;
+    each negated output must fail its check.  Timed by CUDA events and by
+    torch.profiler's device time, against the bound at bf16 value rows;
+    ptxas's registers and spills of the two bf16 instances (none may
+    spill)."""
+    import torch
+
+    from open_groundingdino_tpu_torch.ops import msda
+    from open_groundingdino_tpu_torch.ops import msda_banded as mb
+    from open_groundingdino_tpu_torch.ops import msda_sweep as sw
+
+    bf = torch.bfloat16
+    shapes = level_shapes(*BUCKET)
+    L = sum(h * w for h, w in shapes)
+    starts = msda.level_starts(shapes)
+    g = torch.Generator(device=device).manual_seed(SEED + 16)   # phase 16's draws
+    rows = {}
+    for batch, valid in (("B=1", (BUCKET,)), ("B=4", BATCH_VALID)):
+        for name, q, ref_dim in (("encoder", L, 2), ("decoder", 900, 4)):
+            value, locs, attn = msda_inputs(shapes, q, ref_dim, g, device, valid)
+            value = value.to(bf)
+            k1 = msda.ms_deform_attn(value, shapes, starts, locs, attn)   # K1 bf16
+            bound = msda_bound_ms(value, shapes, locs, attn)
+            _, locs_t, px, py, wa = mb.banded_operands(locs, attn, shapes, L)
+            ranges = mb.band_ranges(locs_t, shapes, px.shape[-1] // sw.QBLOCK,
+                                    mb.level_bands(shapes, mb.BAND))
+            idx, w = corner_operands(value, shapes, locs, attn)
+            for kname, kernel, plain, op in (
+                    ("K5", lambda: mb.banded_fwd(value, shapes, px, py, wa),
+                     lambda: mb.banded_fwd_plain(value, shapes, px, py, wa, ranges).to(bf),
+                     lambda: mb.ms_deform_attn_banded(value, shapes, starts, locs, attn)),
+                    ("K8", lambda: sw.sweep_fwd_corner(value, shapes, idx, w),
+                     lambda: sw.sweep_fwd_corner_plain(value, idx, w).to(bf),
+                     lambda: sw.ms_deform_attn_sweep(value, shapes, starts, locs, attn,
+                                                     fwd="corner"))):
+                out, ref, out_op = kernel(), plain(), op()
+                err, rel = rel_err(out, ref)
+                op_err, op_rel = rel_err(out_op, k1)
+                planted = rel_err(-out, ref)[1]
+                if out.dtype != bf or out_op.dtype != bf:
+                    raise AssertionError(f"{kname} bf16 returned {out.dtype} / {out_op.dtype}")
+                del out, ref, out_op
+                rows[kname, batch, name] = dict(
+                    B=len(valid), Q=q, max_abs_err=err, k1_max_abs_err=op_err,
+                    rel_errs={"out": rel, "op_vs_k1": op_rel}, planted_rel_err=planted,
+                    ms=event_ms(kernel, 10),
+                    device_ms=kernel_device_ms(kernel, 10, SWEEP_BF16_NAMES[kname]),
+                    plain_ms=event_ms(plain, 2), bound_ms=bound[0], bound_by=bound[1])
+                r = rows[kname, batch, name]
+                log("bf16-banded-corner",
+                    f"{kname} bf16 {batch} {name} Q={q}: error of max|ref| {rel:.3e}, the op "
+                    f"against K1 bf16 {op_rel:.3e} (limit {BF16_FWD_RTOL}); negated output "
+                    f"{planted:.3e}; kernel {r['ms']:.4f} ms (device time {r['device_ms']:.4f} "
+                    f"ms), plain {r['plain_ms']:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+                if not (rel <= BF16_FWD_RTOL and op_rel <= BF16_FWD_RTOL):
+                    raise AssertionError(f"{kname} bf16 {batch} {name}: {r}")
+                if planted <= BF16_FWD_RTOL:
+                    raise AssertionError(f"{kname} bf16 {batch} {name}: a negated output passes")
+    sass = {}
+    for kname, lib, kernel in (("K5", "msda_banded_fwd", "banded_fwd_kernel"),
+                               ("K8", "msda_corner_fwd", "corner_fwd_kernel")):
+        ptxas = ptxas_kernels(lib, [(f"{kernel}{BF16_MANGLED}", f"{kernel}<bf16>")])
+        sass[kname] = {"ptxas": ptxas[f"{kernel}<bf16>"]}
+        log("sass", f"lib{lib}.so {kname} bf16 ({kernel}<__nv_bfloat16>): {sass[kname]}")
+        if sass[kname]["ptxas"]["spill_bytes"]:
+            raise AssertionError(f"{kname} bf16 spills under its launch bounds: {sass[kname]}")
+    return {"rows": rows, "sass": sass}
+
+
+def train_bf16_banded(cfg, work, train_files, harness, banded_f32_card,
+                      gather_bf16_card) -> dict:
+    """Phase 27: main --options msda_kernel=banded_point in the config's
+    default bf16 at B = 4, full width and depth, one epoch of 2 steps with
+    its eval of the 8 images as a COCO val split (18 K5 + 12 K3 + 12 K2 +
+    6 K4 bf16 launches a step, 12 K5 + 6 K2 bf16 an eval batch, no f32
+    entry) and a profiled step; then phase 18's B = 1 step in bf16 through
+    banded_point against phase 18's f32 banded_point step on the card (loss
+    within BF16_LOSS_RTOL, each MSDA-fed gradient within BF16_LEAF_RTOL),
+    its distance from phase 21's bf16 gather step recorded; with K5 bf16's
+    output negated it must fail."""
+    from open_groundingdino_tpu_torch.ops import msda_banded as mb
+
+    run = train(cfg, work, train_files, "cuda", {"msda_kernel": "banded_point"},
+                epochs=1, tag="bf16-banded-train", compute_dtype=None, val=True)
+    if run["run"]["train_step"].compute_dtype != "bfloat16":
+        raise AssertionError("main's default compute_dtype is not bf16")
+    run["profile"] = profile_train_step(run.pop("run"), tag="bf16-banded-train-profile")
+
+    step, gaps, _ = harness
+
+    def within(gap):
+        return gap[0] < BF16_LOSS_RTOL and all(v < BF16_LEAF_RTOL for v in gap[2].values())
+
+    banded = {"kernel": "banded_point"}
+    card = step("cuda", msda=banded, compute_dtype="bfloat16")
+    gap = gaps(card, banded_f32_card, MSDA_FED)
+    to_gather = gaps(card, gather_bf16_card, MSDA_FED)
+    loss_rel, norm_rel, leaf_rel = gap
+    worst = sorted(leaf_rel.items(), key=lambda kv: -kv[1])[:3]
+    log("bf16-banded-parity",
+        f"B=1 {BUCKET} bucket, banded_point: loss bf16 {card['loss']:.6f} f32 "
+        f"{banded_f32_card['loss']:.6f} (rel {loss_rel:.2e}, limit {BF16_LOSS_RTOL}); grad-norm "
+        f"rel by module { {k: f'{v:.2e}' for k, v in norm_rel.items()} }; {len(leaf_rel)} "
+        f"MSDA-fed leaves ||dg||/||g|| max {max(leaf_rel.values()):.2e} (limit "
+        f"{BF16_LEAF_RTOL}), worst {[(n, f'{v:.2e}') for n, v in worst]}; against phase 21's "
+        f"bf16 gather step: loss rel {to_gather[0]:.2e}, leaves max "
+        f"{max(to_gather[2].values()):.2e}; step s {card['seconds']:.1f}")
+    if not within(gap):
+        raise AssertionError("the bf16 banded_point step disagrees with the f32 banded_point step")
+    planted = planted_faults(step, gaps, within, banded_f32_card, MSDA_FED,
+                             (("K5 bf16 output negated", mb, "banded_fwd", None),),
+                             "bf16-banded-parity", msda=banded, compute_dtype="bfloat16")
+    run["parity"] = dict(loss_rel=loss_rel, leaf_rel_max=max(leaf_rel.values()),
+                         vs_gather_bf16=dict(loss_rel=to_gather[0],
+                                             leaf_rel_max=max(to_gather[2].values())),
+                         planted=planted)
+    return run
+
+
 def main() -> int:
     import torch
 
@@ -2765,8 +2930,9 @@ def main() -> int:
         train_counts_sweep["banded-train"] = run["counts"]
         profile_train_step(run.pop("run"), tag="banded-train-profile")
         del run
-        check_banded_train_parity(harness, gather_card)
+        _, banded_card = check_banded_train_parity(harness, gather_card)
         _, bench_counts = run_microbench()                              # 19
+        _, bench_counts_bf16 = run_microbench("bf16")
         bf16 = check_bf16_kernels("cuda")                               # 20
         bf16_train = train_bf16(cfg, work, train_files, harness, gather_card)   # 21
         gather_bf16_card = bf16_train.pop("parity_card")
@@ -2779,7 +2945,11 @@ def main() -> int:
         bf16_sweep = check_bf16_sweep("cuda")                           # 24
         bf16_sweep_train = train_bf16_sweep(cfg, work, train_files, eval_files,   # 25
                                             harness, sweep_cards, gather_bf16_card)
-        del harness, sweep_cards, gather_bf16_card
+        del sweep_cards
+        bf16_banded = check_bf16_banded_corner("cuda")                  # 26
+        bf16_banded_train = train_bf16_banded(cfg, work, train_files, harness,   # 27
+                                              banded_card, gather_bf16_card)
+        del harness, banded_card, gather_bf16_card
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2920,11 +3090,42 @@ def main() -> int:
         row["max_abs_err"] = max(r["max_abs_err"] for r in row["per_shape"].values())
         row["device_ms"] = sum(r["device_ms"] for r in shapes.values()) / len(shapes)
         row["sass"] = bf16_sweep["sass"][kname]
+        if kname == "K10":   # its device time in the profiled rowtap step (phase 25)
+            row["step_profile_ms"] = bf16_sweep_train["runs"]["bf16-sweep-train-rowtap"][
+                "profile"]["groups_ms"]["K10 rowtap_bwd bf16"]
         kernels.append({"name": f"{counter}_bf16", "route": "cuda", "source": src + source,
                         "replaces": tpu + line,
                         "launches": sweep_counts[launches_from][f"{counter}_bf16"],
                         "launches_by_path": {tag: c[f"{counter}_bf16"]
                                              for tag, c in sweep_counts.items()}, **row})
+        if kernels[-1]["launches"] <= 0:
+            raise AssertionError(f"{kname}'s bf16 entry was not launched on its path")
+    # the bf16 entries of K5 and K8 (phase 26; the row is phase 8's B = 4
+    # shapes, per_shape adds B = 1); launches: K5 bf16's from the bf16
+    # banded_point training run with its eval (phase 27), K8 bf16's from the
+    # bf16 microbench (phase 19); both runs' counts under launches_by_path
+    by_path = {"bf16-banded-train": bf16_banded_train["counts"],
+               "bf16-microbench": bench_counts_bf16}
+    for kname, counter, launches_from, source, line in (
+            ("K5", "banded_fwd", "bf16-banded-train", "msda_banded_fwd.cu", "msda_banded.py:152"),
+            ("K8", "sweep_fwd_corner", "bf16-microbench", "msda_corner_fwd.cu",
+             "msda_pallas.py:169")):
+        rows = bf16_banded["rows"]
+        shapes = {n: rows[kname, "B=4", n] for n in ("encoder", "decoder")}
+        row = mean_row(shapes)
+        row["per_shape"] = {f"{batch} {n}": r for (k, batch, n), r in rows.items() if k == kname}
+        row["max_abs_err"] = max(max(r["max_abs_err"], r["k1_max_abs_err"])
+                                 for r in row["per_shape"].values())
+        row["device_ms"] = sum(r["device_ms"] for r in shapes.values()) / len(shapes)
+        row["sass"] = bf16_banded["sass"][kname]
+        if kname == "K5":   # its device time in the profiled step (phase 27)
+            row["step_profile_ms"] = bf16_banded_train["profile"]["groups_ms"][
+                "K5 banded_fwd bf16"]
+        kernels.append({"name": f"{counter}_bf16", "route": "cuda", "source": src + source,
+                        "replaces": tpu + line,
+                        "launches": by_path[launches_from][f"{counter}_bf16"],
+                        "launches_by_path": {k: v[f"{counter}_bf16"] for k, v in by_path.items()},
+                        **row})
         if kernels[-1]["launches"] <= 0:
             raise AssertionError(f"{kname}'s bf16 entry was not launched on its path")
     print(json.dumps({"kernels": json_safe(kernels)}), flush=True)

@@ -13,6 +13,14 @@
 //          row, py clipped to [-1, H_l], wa == 0 marks a dead point (outside
 //          the map, or a padded query)
 //   out    (B*H, Qp, 32) f32
+// or, in the bf16 entry (msda_banded_fwd_bf16; the TPU kernel's bf16 branch,
+// msda_banded.py:175, 190, 199-204), value and out bf16: a value row is 64 B,
+// 8 B a lane (msda_common.cuh load4), px, py, wa, the corner weights and
+// every sum stay f32, and each output is rounded to bf16 once (store4).
+// Departure: the TPU kernel rounds its x-tap matrix sx to bf16 for the MXU
+// (:190); the port keeps the tap weights f32, as K1's, K6's and K7's bf16
+// entries do, so the bf16 entry computes the f32 function of the bf16 value
+// rows, rounded once.
 // A live point has at most two rows with a non-zero y-weight, y0 = floor(py)
 // and y0 + 1 (those inside the level), and in each at most two columns,
 // x0 = floor(px) (weight 1 - (px - x0)) and x0 + 1 (weight
@@ -51,12 +59,14 @@ using namespace msda;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 
-// 5 CTAs an SM: ptxas then takes 48 registers, no spills; without the bound
-// it took 40 with 12 B of spills, and the kernel ran ~3% slower (PERF.md)
+// 5 CTAs an SM: ptxas then takes 48 registers (f32) and 40 (bf16), no
+// spills; without the bound the f32 kernel took 40 with 12 B of spills, and
+// ran ~3% slower (PERF.md).  T: the value's and the output's type.
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 5)
-banded_fwd_kernel(const float* __restrict__ value, const float* __restrict__ px,
+banded_fwd_kernel(const T* __restrict__ value, const float* __restrict__ px,
                   const float* __restrict__ py, const float* __restrict__ wa,
-                  float* __restrict__ out, int L, int H, int Qp, int NL, int tile_q,
+                  T* __restrict__ out, int L, int H, int Qp, int NL, int tile_q,
                   int n_tiles, Levels lv) {
   // dynamic shared memory: the corners of every (point, query) of the tile,
   // positions then weights, a row of tile_q + 1 per point (the pad puts the
@@ -117,22 +127,14 @@ banded_fwd_kernel(const float* __restrict__ value, const float* __restrict__ px,
                                 out + ((long long)bh * Qp + q0) * kD);
 }
 
-}  // namespace
-
-extern "C" {
-
-// Dynamic shared memory of msda_banded_fwd_f32 at tile_q queries a CTA.
-int msda_banded_fwd_smem_bytes(int NL, int tile_q) {
+int smem_bytes(int NL, int tile_q) {
   return NL * kP * (tile_q + 1) * (int)(sizeof(int4) + sizeof(float4));
 }
 
-// value, px, py, wa, out f32, contiguous; value and out 16-byte aligned.
-// Built for D = 32 and P = 4 (msda_common.cuh); shapes_hw: (h, w) per level;
-// level_start: each level's offset in L; tile_q queries a CTA (ops/msda.py
-// msda_fwd_tile).  Returns a cudaError_t (0 = launched).
-int msda_banded_fwd_f32(const void* value, const void* px, const void* py, const void* wa,
-                        void* out, int B, int L, int H, int Qp, int NL, int P,
-                        const int* shapes_hw, const int* level_start, int tile_q, void* stream) {
+template <typename T>
+int launch(const void* value, const void* px, const void* py, const void* wa, void* out, int B,
+           int L, int H, int Qp, int NL, int P, const int* shapes_hw, const int* level_start,
+           int tile_q, void* stream) {
   if (B <= 0 || L <= 0 || H <= 0 || Qp <= 0 || NL <= 0 || NL > kMaxLevels || P != kP ||
       tile_q <= 0)
     return (int)cudaErrorInvalidValue;
@@ -144,16 +146,44 @@ int msda_banded_fwd_f32(const void* value, const void* px, const void* py, const
     lv.start[l] = live ? level_start[l] : 0;
     lv.smem_row[l] = -1;
   }
-  const int smem = msda_banded_fwd_smem_bytes(NL, tile_q);
-  cudaError_t err = cudaFuncSetAttribute(banded_fwd_kernel,
+  const int smem = smem_bytes(NL, tile_q);
+  cudaError_t err = cudaFuncSetAttribute(banded_fwd_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int n_tiles = (Qp + tile_q - 1) / tile_q;
-  banded_fwd_kernel<<<(unsigned)((long long)B * H * n_tiles), kThreads, smem,
-                      (cudaStream_t)stream>>>(
-      (const float*)value, (const float*)px, (const float*)py, (const float*)wa, (float*)out, L,
-      H, Qp, NL, tile_q, n_tiles, lv);
+  banded_fwd_kernel<T><<<(unsigned)((long long)B * H * n_tiles), kThreads, smem,
+                         (cudaStream_t)stream>>>(
+      (const T*)value, (const float*)px, (const float*)py, (const float*)wa, (T*)out, L, H, Qp,
+      NL, tile_q, n_tiles, lv);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Dynamic shared memory of msda_banded_fwd_f32 and _bf16 at tile_q queries a
+// CTA.
+int msda_banded_fwd_smem_bytes(int NL, int tile_q) { return smem_bytes(NL, tile_q); }
+
+// value, px, py, wa, out f32, contiguous; value and out 16-byte aligned.
+// Built for D = 32 and P = 4 (msda_common.cuh); shapes_hw: (h, w) per level;
+// level_start: each level's offset in L; tile_q queries a CTA (ops/msda.py
+// msda_fwd_tile).  Returns a cudaError_t (0 = launched).
+int msda_banded_fwd_f32(const void* value, const void* px, const void* py, const void* wa,
+                        void* out, int B, int L, int H, int Qp, int NL, int P,
+                        const int* shapes_hw, const int* level_start, int tile_q, void* stream) {
+  return launch<float>(value, px, py, wa, out, B, L, H, Qp, NL, P, shapes_hw, level_start,
+                       tile_q, stream);
+}
+
+// The bf16 entry: value and out bf16, px, py, wa f32 as above; f32 weights
+// and sums, each output rounded to bf16 once.
+int msda_banded_fwd_bf16(const void* value, const void* px, const void* py, const void* wa,
+                         void* out, int B, int L, int H, int Qp, int NL, int P,
+                         const int* shapes_hw, const int* level_start, int tile_q, void* stream) {
+  return launch<__nv_bfloat16>(value, px, py, wa, out, B, L, H, Qp, NL, P, shapes_hw,
+                               level_start, tile_q, stream);
 }
 
 }  // extern "C"

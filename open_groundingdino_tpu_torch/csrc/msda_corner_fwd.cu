@@ -16,6 +16,14 @@
 //          whose idx is clamped into its level; point p of level l has its
 //          four corners at taps l*4P + 4p + c, c = x0y0, x1y0, x0y1, x1y1
 //   out    (B*H, Qp, 32) f32
+// or, in the bf16 entry (msda_sweep_fwd_corner_bf16; the TPU kernel's bf16
+// branch, msda_pallas.py:244-246, its output in the value's dtype, :299),
+// value and out bf16: a value row is 64 B, 8 B a lane (msda_common.cuh
+// load4), idx stays int32, w and every sum f32, and each output is rounded
+// to bf16 once (store4).  The TPU kernel rounds its weight matrix S to bf16
+// for the MXU (:246); the port keeps the weights f32, as K1's, K5's, K6's
+// and K7's bf16 entries do, so the bf16 entry computes the f32 function of
+// the bf16 value rows, rounded once.
 // For Q != L the queries arrive sorted by their first corner tap's position
 // (ops/msda_sweep.py query_order), as msda_pallas.py sorts them.
 //
@@ -38,8 +46,8 @@
 //   - gather_staged_corners then takes two queries a warp at a time, 4 lane
 //     groups of 8 lanes on point g of each level, a float4 a lane, the
 //     groups' sums meeting in shuffles.
-// ptxas -v (-O3, sm_90a, CUDA 12.8): 48 registers, no spills; dynamic shared
-// memory 8,704 B at 16 queries a CTA, 33,280 B at 64.
+// ptxas -v (-O3, sm_90a, CUDA 12.8): 48 registers for either value type, no
+// spills; dynamic shared memory 8,704 B at 16 queries a CTA, 33,280 B at 64.
 #include "msda_common.cuh"
 
 namespace {
@@ -49,10 +57,11 @@ using namespace msda;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 
-// 5 CTAs an SM, as K5 and K6
+// 5 CTAs an SM, as K5 and K6.  T: the value's and the output's type.
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 5)
-corner_fwd_kernel(const float* __restrict__ value, const int* __restrict__ idx,
-                  const float* __restrict__ w, float* __restrict__ out, int L, int H, int Qp,
+corner_fwd_kernel(const T* __restrict__ value, const int* __restrict__ idx,
+                  const float* __restrict__ w, T* __restrict__ out, int L, int H, int Qp,
                   int NL, int tile_q, int n_tiles) {
   // dynamic shared memory: the corners of every (point, query) of the tile,
   // positions then weights, a row of tile_q + 1 per point (the pad puts the
@@ -93,14 +102,34 @@ corner_fwd_kernel(const float* __restrict__ value, const int* __restrict__ idx,
                                 out + ((long long)bh * Qp + q0) * kD);
 }
 
+int smem_bytes(int NL, int tile_q) {
+  return NL * kP * (tile_q + 1) * (int)(sizeof(int4) + sizeof(float4));
+}
+
+template <typename T>
+int launch(const void* value, const void* idx, const void* w, void* out, int B, int L, int H,
+           int Qp, int NL, int P, int tile_q, void* stream) {
+  if (B <= 0 || L <= 0 || H <= 0 || Qp <= 0 || NL <= 0 || NL > kMaxLevels || P != kP ||
+      tile_q <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int smem = smem_bytes(NL, tile_q);
+  cudaError_t err = cudaFuncSetAttribute(corner_fwd_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_tiles = (Qp + tile_q - 1) / tile_q;
+  corner_fwd_kernel<T><<<(unsigned)((long long)B * H * n_tiles), kThreads, smem,
+                         (cudaStream_t)stream>>>(
+      (const T*)value, (const int*)idx, (const float*)w, (T*)out, L, H, Qp, NL, tile_q, n_tiles);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of msda_sweep_fwd_corner_f32 at tile_q queries a CTA.
-int msda_corner_fwd_smem_bytes(int NL, int tile_q) {
-  return NL * kP * (tile_q + 1) * (int)(sizeof(int4) + sizeof(float4));
-}
+// Dynamic shared memory of msda_sweep_fwd_corner_f32 and _bf16 at tile_q
+// queries a CTA.
+int msda_corner_fwd_smem_bytes(int NL, int tile_q) { return smem_bytes(NL, tile_q); }
 
 // value, w, out f32, idx int32, all contiguous; value and out 16-byte
 // aligned.  Built for D = 32 and P = 4 (msda_common.cuh): 4 * P corner taps
@@ -109,19 +138,15 @@ int msda_corner_fwd_smem_bytes(int NL, int tile_q) {
 int msda_sweep_fwd_corner_f32(const void* value, const void* idx, const void* w, void* out,
                               int B, int L, int H, int Qp, int NL, int P, int tile_q,
                               void* stream) {
-  if (B <= 0 || L <= 0 || H <= 0 || Qp <= 0 || NL <= 0 || NL > kMaxLevels || P != kP ||
-      tile_q <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int smem = msda_corner_fwd_smem_bytes(NL, tile_q);
-  cudaError_t err = cudaFuncSetAttribute(corner_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int n_tiles = (Qp + tile_q - 1) / tile_q;
-  corner_fwd_kernel<<<(unsigned)((long long)B * H * n_tiles), kThreads, smem,
-                      (cudaStream_t)stream>>>(
-      (const float*)value, (const int*)idx, (const float*)w, (float*)out, L, H, Qp, NL, tile_q,
-      n_tiles);
-  return (int)cudaGetLastError();
+  return launch<float>(value, idx, w, out, B, L, H, Qp, NL, P, tile_q, stream);
+}
+
+// The bf16 entry: value and out bf16, idx int32 and w f32 as above; f32
+// weights and sums, each output rounded to bf16 once.
+int msda_sweep_fwd_corner_bf16(const void* value, const void* idx, const void* w, void* out,
+                               int B, int L, int H, int Qp, int NL, int P, int tile_q,
+                               void* stream) {
+  return launch<__nv_bfloat16>(value, idx, w, out, B, L, H, Qp, NL, P, tile_q, stream);
 }
 
 }  // extern "C"

@@ -20,8 +20,7 @@ evaluates the model, and its EMA under use_ema, keeps the best in OUT/best/
 and OUT/best_ema/, and appends one JSON line to OUT/log.txt.  Unlike the JAX
 package's main, a manifest without a "val" split trains without evaluating.
 Evaluation runs in the config's compute_dtype (bf16 by default, as the JAX
-package's); bf16 with msda_kernel banded_point raises (K5 has no bf16
-entry yet).  The model runs on CUDA unless --device
+package's), on every msda_kernel.  The model runs on CUDA unless --device
 says otherwise.
 """
 from __future__ import annotations
@@ -49,8 +48,7 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--output_dir", default="output")
     p.add_argument("--eval", action="store_true",
                    help="evaluate the val split and write eval_stats.json, in the config's "
-                        "compute_dtype (bf16 by default; bf16 with msda_kernel "
-                        "banded_point raises: K5 has no bf16 entry yet)")
+                        "compute_dtype (bf16 by default)")
     p.add_argument("--resume", default="",
                    help="checkpoint_N.pth to resume from (default: the newest in output_dir)")
     p.add_argument("--vocab", required=True, help="bert vocab.txt path")

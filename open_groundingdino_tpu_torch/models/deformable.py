@@ -16,8 +16,9 @@ forward, K3 backward, ops/msda_banded.py; the banded path with
 take the same projections and parameters: the JAX package's
 `_transposed_path` keeps the nn.Dense parameter tree (deformable.py:165-167),
 so one checkpoint serves every kernel.  In bf16 (the default compute
-dtype) the gather and the sweep take a bf16 value; banded_point raises (K5
-has no bf16 entry yet).
+dtype) every kernel takes a bf16 value; the gather rounds the softmax
+weights to bf16 (the JAX package's XLA path), the sweep and banded_point
+keep them f32 (its Pallas path).
 """
 from __future__ import annotations
 
@@ -85,10 +86,6 @@ class MSDeformAttn(nn.Module):
         D = C // H
 
         v = self.value_proj(value)
-        if v.dtype == torch.bfloat16 and self.kernel == "banded_point":
-            raise ValueError("msda kernel 'banded_point' has no bf16 entry yet: K5 bf16 is still "
-                             "to port (ROADMAP.md section 2); train it with "
-                             "compute_dtype=float32")
         if key_padding_mask is not None:
             v = v.masked_fill(key_padding_mask[..., None], 0.0)
         v = v.view(B, L, H, D)

@@ -27,12 +27,21 @@ first finest-level point (`query_order`, ms_deform_attn_banded_sorted's
 key), so that a block's points stay local, and un-sorted afterwards; the JAX
 decoder's sort-once across layers is a TPU trick the port does not take.
 
+bf16 (the JAX package's default mixed precision; value and upstream
+gradient bf16, px, py, wa f32): K5 has a bf16 entry, as the TPU kernel has a
+bf16 branch (msda_banded.py:175, 190, 199-204).  It reads bf16 value rows,
+keeps the corner weights and every sum f32 and rounds its output to bf16
+once (the TPU kernel rounds its x-tap matrix to bf16 for the MXU; the port
+keeps it f32, as K1's bf16 entry does).  The backward is K3's bf16 entry,
+which adds grad_value in bf16 as the JAX banded backward does
+(`MSDA_BWD_GV_BF16`, msda_banded.py:693-709).
+
 `ms_deform_attn_banded` takes the plain version for CPU tensors (autograd
 differentiates it) and `MSDABandedFunction` for CUDA tensors, whose backward
 is K3 on the reference operands (ops/msda.ms_deform_attn_bwd), as the JAX
 custom VJP runs the native banded backward (`_banded_bwd`).  `banded_fwd` is
-K5's launcher: CUDA tensors only, counting `banded_fwd.launches`; nothing on
-the card reaches a plain version.
+K5's launcher: CUDA tensors only, counting `banded_fwd.launches` (f32) and
+`banded_fwd.launches_bf16`; nothing on the card reaches a plain version.
 """
 from __future__ import annotations
 
@@ -43,8 +52,8 @@ import torch
 
 from . import build, msda
 from .msda import level_starts
-from .msda_sweep import (HEAD_DIM, QBLOCK, _gather_rows, _to_reference, _value_bh, kernel_layout,
-                         sort_and_pad, unsort)
+from .msda_sweep import (HEAD_DIM, QBLOCK, _count, _entry, _gather_rows, _to_reference, _value_bh,
+                         kernel_layout, sort_and_pad, unsort)
 
 Shapes = Sequence[Tuple[int, int]]
 
@@ -142,7 +151,9 @@ def banded_fwd_plain(value, spatial_shapes: Shapes, px, py, wa, ranges, band: in
     r0 * V[y, x0] + r1 * V[y, x0 + 1] (the two non-zeros of
     relu(1 - |px - x|)), accumulated in that order; rows at or past H_l read
     zero.  value (B, L, H, D); px, py, wa (BH, NL*P, Q_pad); ranges
-    (BH, nqb*NL*P*2) from band_ranges -> (BH, Q_pad, D) f32."""
+    (BH, nqb*NL*P*2) from band_ranges -> (BH, Q_pad, D) f32.  A bf16 value
+    is upcast and summed in f32: rounded to bf16 once, the result is K5's
+    bf16 entry's plain version."""
     v = _value_bh(value)
     BH, R, Qp = px.shape
     NL = len(spatial_shapes)
@@ -189,15 +200,20 @@ def fwd_smem_bytes(NL: int, tile_q: int) -> int:
 def banded_fwd(value, spatial_shapes: Shapes, px, py, wa, band: int = BAND):
     """K5 on CUDA tensors: one kernel block per (b*h, tile of queries), the
     tile chosen as K1's (msda.msda_fwd_tile); each live point (wa != 0)
-    reads its at most four corner rows.  value (B, L, H, 32) f32, 16-byte
-    aligned; px, py, wa (BH, NL*P, Q_pad) f32, contiguous -> (BH, Q_pad, 32)
-    f32.  `band` does not change the result (the module's docstring) and is
-    not used here."""
+    reads its at most four corner rows.  value (B, L, H, 32) f32 or bf16,
+    16-byte aligned; px, py, wa (BH, NL*P, Q_pad) f32, contiguous ->
+    (BH, Q_pad, 32) in value's dtype (bf16: f32 sums, rounded once).  `band`
+    does not change the result (the module's docstring) and is not used
+    here."""
     for name, t in (("value", value), ("px", px), ("py", py), ("wa", wa)):
         if t.device.type != "cuda":
             raise ValueError(f"banded_fwd: unsupported device {t.device} for {name}")
-        if t.device != value.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"banded_fwd: {name} must be contiguous float32 on {value.device}")
+        if t.device != value.device or not t.is_contiguous():
+            raise ValueError(f"banded_fwd: {name} must be contiguous on {value.device}")
+    if value.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"banded_fwd: value must be float32 or bfloat16, got {value.dtype}")
+    if any(t.dtype != torch.float32 for t in (px, py, wa)):
+        raise ValueError("banded_fwd: px, py and wa must be float32")
     if value.dim() != 4 or value.data_ptr() % 16:
         raise ValueError(f"banded_fwd: value must be a 16-byte aligned (B, L, H, D), got "
                          f"{tuple(value.shape)}")
@@ -211,23 +227,26 @@ def banded_fwd(value, spatial_shapes: Shapes, px, py, wa, band: int = BAND):
         raise ValueError(f"banded_fwd: {R} taps over levels {tuple(spatial_shapes)} do not fit "
                          f"L = {L}")
     msda.check_geometry(D, NL, R // NL)
-    out = torch.empty(BH, Qp, HEAD_DIM, dtype=torch.float32, device=value.device)
-    fn = build.load("msda_banded_fwd").msda_banded_fwd_f32
+    out = torch.empty(BH, Qp, HEAD_DIM, dtype=value.dtype, device=value.device)
+    entry = _entry("msda_banded_fwd", value)
+    fn = getattr(build.load("msda_banded_fwd"), entry)
     fn.argtypes = _FWD_CTYPES
     fn.restype = ctypes.c_int
     err = fn(value.data_ptr(), px.data_ptr(), py.data_ptr(), wa.data_ptr(), out.data_ptr(),
              B, L, H, Qp, NL, R // NL,
              *msda._level_arrays(spatial_shapes, level_starts(spatial_shapes)),
              msda.msda_fwd_tile(B, Qp, H), torch.cuda.current_stream(value.device).cuda_stream)
-    build.check(err, "msda_banded_fwd")
-    banded_fwd.launches += 1
+    build.check(err, entry)
+    _count(banded_fwd, value)
     return out
 
 
 class MSDABandedFunction(torch.autograd.Function):
     """K5 forward; K3 backward on the reference operands (the JAX package's
     custom VJP of `_banded_core`: its native banded backward, which
-    ops/msda.py's K3 ports)."""
+    ops/msda.py's K3 ports).  The output and grad_value are in value's dtype
+    and the upstream gradient reaches K3 in it; grad_locs and grad_attn are
+    f32."""
 
     @staticmethod
     def forward(ctx, value, locs, attn, spatial_shapes, level_start, band):
@@ -241,15 +260,18 @@ class MSDABandedFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         value, locs, attn = ctx.saved_tensors
-        grads = msda.ms_deform_attn_bwd(value, ctx.spatial_shapes, ctx.level_start, locs, attn,
-                                        grad_out.contiguous())
+        g = grad_out.to(value.dtype).contiguous()
+        if g.data_ptr() % 16:   # K3 reads 16-byte rows: a view at an offset is copied
+            g = g.clone()
+        grads = msda.ms_deform_attn_bwd(value, ctx.spatial_shapes, ctx.level_start, locs, attn, g)
         return (*grads, None, None, None)
 
 
 def ms_deform_attn_banded_plain(value, spatial_shapes: Shapes, locs, attn, band: int = BAND):
     """The banded op's function for CPU tensors: the operands K5 takes,
     band_ranges and banded_fwd_plain, differentiable by autograd.  Returns
-    (B, Q, H*D) in value's dtype."""
+    (B, Q, H*D) in value's dtype: on a bf16 value, f32 sums rounded once,
+    K5 bf16's plain version."""
     B, L, H, _ = value.shape
     order, locs_t, px, py, wa = banded_operands(locs, attn, spatial_shapes, L)
     ranges = band_ranges(locs_t, spatial_shapes, px.shape[-1] // QBLOCK,
@@ -262,10 +284,10 @@ def ms_deform_attn_banded(value: torch.Tensor, spatial_shapes: Shapes, level_sta
                           locs: torch.Tensor, attn: torch.Tensor, band: int = BAND) -> torch.Tensor:
     """ms_deform_attn's contract (ops/msda.py) through the per-point banded
     forward: value (B, L, H, D), locs (B, Q, H, NL, P, 2), attn
-    (B, Q, H, NL, P) -> (B, Q, H*D).  On CUDA tensors (value f32, D = 32) K5
-    forward and K3 backward; on CPU tensors the plain version.  `band` is
-    the window height in rows; `level_start` must be the raster offsets of
-    the levels."""
+    (B, Q, H, NL, P) -> (B, Q, H*D) in value's dtype.  On CUDA tensors
+    (value f32 or bf16, D = 32) K5 forward and K3 backward; on CPU tensors
+    the plain version.  `band` is the window height in rows; `level_start`
+    must be the raster offsets of the levels."""
     if tuple(level_start) != level_starts(spatial_shapes):
         raise ValueError("the banded op takes the raster level order (level_start of spatial_shapes)")
     if value.device.type == "cpu":
@@ -276,4 +298,4 @@ def ms_deform_attn_banded(value: torch.Tensor, spatial_shapes: Shapes, level_sta
     return MSDABandedFunction.apply(value, locs, attn, shapes, level_starts(shapes), int(band))
 
 
-banded_fwd.launches = 0
+banded_fwd.launches = banded_fwd.launches_bf16 = 0

@@ -43,15 +43,14 @@ corners (K1's and K3's design, ops/msda.py), with K1's and K3's launch
 plans; K7 is K6's kernel under its own name.
 
 bf16 (the JAX package's default mixed precision; value and upstream
-gradient bf16, taps f32): K6, K7, K9 and K10 have bf16 entries, as the TPU
-kernels have bf16 branches (msda_pallas.py:520, 651, 998-1001, 1220-1242).
-Each reads bf16 value (and g) rows and sums in f32: the forwards round
-their output to bf16 once; the backwards write gw (and gpx) in f32 and
-grad_value into an f32 buffer on the f32 entry's path, which the wrapper
-rounds to bf16 once, as the TPU kernels write grad_value in f32
-(msda_pallas.py:1093, 1315) and cast it once.  The tap weights stay f32
-(the TPU kernels round them to bf16 for the MXU).  K8 has no bf16 entry
-yet (ROADMAP.md section 2) and raises on bf16.
+gradient bf16, taps f32): every kernel here has a bf16 entry, as the TPU
+kernels have bf16 branches (msda_pallas.py:244-246, 520, 651, 998-1001,
+1220-1242).  Each reads bf16 value (and g) rows and sums in f32: the
+forwards (K6, K7, K8) round their output to bf16 once; the backwards write
+gw (and gpx) in f32 and grad_value into an f32 buffer on the f32 entry's
+path, which the wrapper rounds to bf16 once, as the TPU kernels write
+grad_value in f32 (msda_pallas.py:1093, 1315) and cast it once.  The tap
+weights stay f32 (the TPU kernels round them to bf16 for the MXU).
 
 `ms_deform_attn_sweep` takes the plain version for CPU tensors (autograd
 differentiates it) and `MSDASweepFunction` for CUDA tensors.  The five
@@ -382,24 +381,23 @@ def sweep_fwd_allq(value, spatial_shapes, row, px, w):
 def sweep_fwd_corner(value, spatial_shapes, idx, w):
     """K8 on CUDA tensors: one kernel block per (b*h, tile of queries), the
     tile chosen as K1's (msda.msda_fwd_tile); each live corner tap reads its
-    row.  value (B, L, H, 32) f32, 16-byte aligned; idx int32 and w
-    (BH, NL*P*4, Q_pad) -> (BH, Q_pad, D) f32."""
-    if value.dtype != torch.float32:
-        raise ValueError(f"sweep_fwd_corner: K8 has no {value.dtype} entry yet (ROADMAP.md "
-                         "section 2): run the corner forward in float32")
+    row.  value (B, L, H, 32) f32 or bf16, 16-byte aligned; idx int32 and w
+    f32 (BH, NL*P*4, Q_pad) -> (BH, Q_pad, D) in value's dtype (bf16: f32
+    sums, rounded once)."""
     B, L, H, R, Q_pad = _check(value, idx, w, "sweep_fwd_corner")
     if idx.dtype != torch.int32:
         raise ValueError("sweep_fwd_corner: idx must be int32")
     NL, P = _check_gather(value, None, spatial_shapes, R, 4, "sweep_fwd_corner")
-    out = torch.empty(B * H, Q_pad, HEAD_DIM, dtype=torch.float32, device=value.device)
-    fn = build.load("msda_corner_fwd").msda_sweep_fwd_corner_f32
+    out = torch.empty(B * H, Q_pad, HEAD_DIM, dtype=value.dtype, device=value.device)
+    entry = _entry("msda_sweep_fwd_corner", value)
+    fn = getattr(build.load("msda_corner_fwd"), entry)
     fn.argtypes = _FWD_CORNER_CTYPES
     fn.restype = ctypes.c_int
     err = fn(value.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(),
              B, L, H, Q_pad, NL, P, msda.msda_fwd_tile(B, Q_pad, H),
              torch.cuda.current_stream(value.device).cuda_stream)
-    build.check(err, "msda_sweep_fwd_corner_f32")
-    sweep_fwd_corner.launches += 1
+    build.check(err, entry)
+    _count(sweep_fwd_corner, value)
     return out
 
 
@@ -636,7 +634,7 @@ def ms_deform_attn_sweep(value: torch.Tensor, spatial_shapes: Shapes, level_star
     value (B, L, H, D), locs (B, Q, H, NL, P, 2), attn (B, Q, H, NL, P) ->
     (B, Q, H*D) in value's dtype.  On CUDA tensors (value f32 or bf16, D = 32,
     P <= 4): K6 forward, or K7 for Q != L under `dec_fused`, or K8 with
-    `fwd="corner"` (f32 only); K9 backward (`bwd="corner"`) or K10
+    `fwd="corner"`; K9 backward (`bwd="corner"`) or K10
     (`bwd="rowtap"`).  The corner forward is the JAX op-level path, which has
     neither a fused decoder nor the row-tap backward: with it, both raise.
     On CPU tensors the plain version.
@@ -660,6 +658,6 @@ def ms_deform_attn_sweep(value: torch.Tensor, spatial_shapes: Shapes, level_star
 
 sweep_fwd.launches = sweep_fwd.launches_bf16 = 0
 sweep_fwd_allq.launches = sweep_fwd_allq.launches_bf16 = 0
-sweep_fwd_corner.launches = 0
+sweep_fwd_corner.launches = sweep_fwd_corner.launches_bf16 = 0
 sweep_bwd_corner.launches = sweep_bwd_corner.launches_bf16 = 0
 sweep_bwd_rowtap.launches = sweep_bwd_rowtap.launches_bf16 = 0

@@ -22,8 +22,9 @@ the least, over `--repeats`, of the mean milliseconds a call over `--iters`
 calls (CUDA events; the host clock on the CPU); `--profile` adds
 torch.profiler's device time by kernel.  Queries stay in raster order (the
 JAX tool's interleaved order is a TPU layout trick).  Locations and
-weights stay f32; `--dtype bf16` casts the value, which K1 and K3 (the
-gather path) and K6 and K9 (the row-tap sweep) take, with `--bwd` too.
+weights stay f32; `--dtype bf16` casts the value, which every path takes
+through its kernels' bf16 entries (K1 or K5, K6 or K8; with `--bwd` K3 and
+K9).
 """
 from __future__ import annotations
 
@@ -150,9 +151,6 @@ def run(args, shapes=SHAPES, batch: int = BATCH) -> Dict[str, object]:
     by default); prints one line a path and returns {name: ms a layer},
     with "max_abs_diff" under --xla and "profiles" under --profile."""
     device = torch.device(args.device)
-    corner = args.sweep and args.fwd_variant == "corner"
-    if args.dtype == "bf16" and (args.banded_mp == 0 or corner):
-        raise ValueError("--dtype bf16: K5 and K8 take f32 values only (ROADMAP.md section 2)")
     value, locs, attn = (torch.from_numpy(a).to(device) for a in make_operands(
         args.spread, args.jitter, shapes, batch))
     value = value.to(torch.bfloat16 if args.dtype == "bf16" else torch.float32)

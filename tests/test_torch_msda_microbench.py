@@ -5,11 +5,11 @@
     seeded numpy draws in the same order, so both tools time the same
     inputs.
   * One run of every path on CPU tensors at a tiny shape (the kernels'
-    plain versions): each path times, the banded op agrees with the plain
-    op, and a bf16 value is refused where the kernels take f32 only.
+    plain versions): each path times and the banded op agrees with the
+    plain op, in f32 and with a bf16 value (K5 and K8, K3 and K9 under
+    --bwd), there within one bf16 step of the plain op.
 """
 import numpy as np
-import pytest
 
 from open_groundingdino_tpu_torch.tools import msda_microbench as mm
 
@@ -62,6 +62,20 @@ def test_one_timed_run_on_the_cpu(capsys):
     assert res["max_abs_diff"] < 1e-5
     out = capsys.readouterr().out
     assert all(f"{n}: " in out for n in names) and "max abs diff banded vs plain" in out
-    with pytest.raises(ValueError, match="bf16"):
-        mm.run(mm.get_args_parser().parse_args(["--device", "cpu", "--dtype", "bf16",
-                                                "--banded_mp", "0"]), shapes=TINY, batch=1)
+
+
+def test_one_bf16_run_on_the_cpu():
+    """--dtype bf16 on the K5 and K8 paths with their backwards: finite
+    times, and the banded op (f32 sums rounded to bf16 once) within one bf16
+    step of the plain op (the same sums in another order, rounded once) on
+    the bf16 value: 2^-7 of the largest output, at most the value's largest
+    |element| (each output is a weighted mean of value rows)."""
+    args = mm.get_args_parser().parse_args(
+        ["--device", "cpu", "--iters", "1", "--repeats", "1", "--dtype", "bf16", "--sweep",
+         "--fwd_variant", "corner", "--banded_mp", "0", "--bwd", "--xla"])
+    res = mm.run(args, shapes=TINY, batch=1)
+    names = ["banded fwd (K5)", "banded fwd+bwd (K5)", "sweep fwd (K8)", "sweep fwd+bwd (K8)",
+             "xla fwd (plain)"]
+    assert all(np.isfinite(res[n]) and res[n] > 0 for n in names)
+    value = mm.make_operands(shapes=TINY, batch=1)[0]
+    assert res["max_abs_diff"] <= 2.0 ** -7 * float(np.abs(value).max())   # one bf16 step

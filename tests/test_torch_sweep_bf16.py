@@ -32,8 +32,10 @@ difference the anchor measures.
     flip-aware;
   * the CUDA path's plumbing (MSDASweepFunction with its launchers on the
     plain versions): a bf16 output, a bf16 upstream gradient handed to K9
-    and K10, grad_value in bf16 and grad_locs / grad_attn in f32; the
-    banded_point path and K8 in bf16 raise.
+    and K10, grad_value in bf16 and grad_locs / grad_attn in f32; a bf16
+    module returns bf16 on every kernel path, and K8's launcher takes a
+    bf16 value (tests/test_torch_banded_bf16.py holds banded_point and K8 in
+    bf16).
 No JAX training step is compiled here (tests/test_torch_bf16.py holds one).
 """
 import types
@@ -157,10 +159,10 @@ def _module_params(C, Hm, rng):
     return params
 
 
-def _jax_module_run(case, dt):
-    """The JAX MSDeformAttn(impl="pallas") forward and parameter gradients
-    on `case` in dtype dt (read the path's switches as set now)."""
-    jmod = JMSDeformAttn(case["C"], case["H"], 4, 4, impl="pallas")
+def _jax_module_run(case, dt, impl="pallas"):
+    """The JAX MSDeformAttn(impl=impl) forward and parameter gradients on
+    `case` in dtype dt (read the path's switches as set now)."""
+    jmod = JMSDeformAttn(case["C"], case["H"], 4, 4, impl=impl)
     p = jax.tree_util.tree_map(lambda a: jnp.asarray(a, dt), case["params"])
 
     def loss(p):
@@ -306,18 +308,19 @@ def test_bf16_function_dtypes(monkeypatch, Q, dec_fused, bwd):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-4)
 
 
-def test_bf16_raises_where_no_entry_exists():
-    """banded_point in bf16 (K5 has no bf16 entry) and K8 on a bf16 value
-    raise, each naming ROADMAP.md's queue; the sweep in bf16 runs."""
+def test_bf16_runs_where_entries_exist():
+    """A bf16 module returns bf16 through banded_point (K5 bf16), the sweep
+    and the gather on the CPU, and K8's launcher no longer rejects a bf16
+    value for its dtype: on a CPU tensor it refuses the device only."""
     C, Hm = 32, 4
     rng = np.random.RandomState(3)
     query = _t(rng.randn(1, 30, C).astype(np.float32), BF)
     value = _t(rng.randn(1, L4, C).astype(np.float32), BF)
     refs = _t(rng.uniform(0.1, 0.9, (1, 30, 4, 2)).astype(np.float32))
-    with pytest.raises(ValueError, match="K5 bf16 is still to port"):
-        MSDeformAttn(C, Hm, 4, 4, kernel="banded_point").to(BF)(query, value, refs, SHAPES4)
-    assert MSDeformAttn(C, Hm, 4, 4, kernel="sweep").to(BF)(query, value, refs,
-                                                          SHAPES4).dtype == BF
+    for kernel in ("banded_point", "sweep", "gather"):
+        out = MSDeformAttn(C, Hm, 4, 4, kernel=kernel).to(BF)(query, value, refs, SHAPES4)
+        assert out.dtype == BF and torch.isfinite(out.float()).all(), kernel
     taps = torch.zeros(Hm, 4 * 4 * 4, 128)
-    with pytest.raises(ValueError, match="K8 has no torch.bfloat16 entry yet .ROADMAP"):
+    with pytest.raises(ValueError, match="unsupported device"):
         sw.sweep_fwd_corner(torch.zeros(1, L4, Hm, 32, dtype=BF), SHAPES4, taps.int(), taps)
+    assert sw.sweep_fwd_corner.launches_bf16 == 0

@@ -212,15 +212,19 @@ def test_nonfinite_batch_changes_nothing():
 
 
 def test_unsupported_compute_dtypes_raise():
-    """float16 is no compute dtype of the port; bf16 runs the gather and the
-    sweep MSDA kernels, not banded_point (K5's bf16 entry is queued in
-    ROADMAP.md)."""
+    """float16 is no compute dtype of the port; bf16 runs every MSDA path,
+    banded_point (K5 and K3 bf16) included: its step is finite and moves
+    the deformable attentions' parameters."""
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         make_train_step(SetCriterion(num_queries=QN), compute_dtype="float16")
     model = _port_model(msda={"kernel": "banded_point"})
+    state = _port_state(model)
+    before = model.transformer.encoder.layers[0].self_attn.sampling_offsets.weight.detach().clone()
     step = make_train_step(SetCriterion(num_queries=QN), compute_dtype="bfloat16")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        step(_port_state(model), _batch())
+    metrics = step(state, _batch())
+    assert np.isfinite(metrics["loss"]) and state.nonfinite_count == 0
+    after = model.transformer.encoder.layers[0].self_attn.sampling_offsets.weight
+    assert after.dtype == torch.float32 and not torch.equal(after.detach(), before)
 
 
 def test_drop_path_keeps_rows_at_rate():
