@@ -174,6 +174,45 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                step on the card (phase 21's limits), beside its distance from
                phase 21's bf16 gather step; with K5 bf16's output negated it
                must fail
+ 28. backbones serve - the JAX package's other published geometries at full
+               width: cfg_swinb (swin_B_384_22k), cfg_swinl (swin_L_384_22k),
+               cfg_resnet50 and cfg_resnet50 with dilation=True (seeded
+               weights with random biases; ResNet's FrozenBN terms drawn near
+               the identity, draw_frozen_bn), each
+               through inference.Model on the card: a warm-up and one
+               predict_with_classes request on each of phase 5's three
+               images, 12 K1 + 6 K2 f32 launches a request and no other,
+               median latency, peak memory, a profiled request; one forward
+               against the same checkpoint on the CPU: as served, fewer than
+               10% of the queries flipped (and how many queries the two
+               devices give other encoder tokens); then on the CPU's
+               two-stage selection (TwoStageSelection: near-tied scores swap
+               places, and a swap moves every query through the decoder's
+               per-index embeddings and self-attention), flip-aware with
+               phase 6's limits; for
+               Swin-B the card's forward with K1's output negated must fail
+               it; the dilated model (levels 100x152,
+               50x76, 50x76, 25x38, L = 23750) holds K1 and K3, f32 and bf16,
+               against their plain versions on its encoder operands; annotate
+               draws one Swin-B request's boxes into an image
+ 29. backbones train - main with cfg_swinl in the default bf16 at B = 4:
+               2 steps (18 K1 + 12 K3 + 12 K2 + 6 K4 bf16 a step, no other),
+               a profiled one, then 1 more step of that model with
+               use_checkpoint off (no per-block recompute and no fusion
+               replays: 6 K2 a step) for the peak memory the recompute
+               saves; phase 11's f32 B = 1 step on ResNet-50 on the card
+               against the CPU with main's freeze policy (phase 11's limits,
+               on the CPU's two-stage selection as in phase 28; the stem,
+               layer1 and every FrozenBN buffer bit-exact after it, every
+               other trunk tensor moved); phase 11's step on the dilated
+               ResNet-50 on the card (exact f32 launches), whose K1 and K3
+               (f32 and bf16) are held against their plain versions on its
+               encoder operands
+Each main training run saves one checkpoint, after its last epoch (the
+card's machine takes at most 45 GiB of disk writes a run).
+Every training phase runs with the config's use_checkpoint (True): Swin
+recomputes each block in the backward, as the JAX package
+does.  A [time] line after each phase gives its seconds.
 then the {"kernels": [...]} line (K1-K10, then the bf16 entries of all ten)
 and, last, {"ok": true, "device": {...}}.
 
@@ -226,6 +265,18 @@ IMAGE_SIZES = ((480, 640), (720, 1280), (700, 500))   # (h, w): three buckets
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+class PhaseClock:
+    """Logs the seconds since the previous mark as each phase ends."""
+
+    def __init__(self):
+        self.t0 = self.last = time.perf_counter()
+
+    def __call__(self, phase: str) -> None:
+        now = time.perf_counter()
+        log("time", f"phase {phase}: {now - self.last:.1f} s ({now - self.t0:.1f} s in all)")
+        self.last = now
 
 
 def level_shapes(h: int, w: int):
@@ -1149,9 +1200,38 @@ def write_vocab(path: str, size: int = 30522) -> None:
         f.write("\n".join(toks) + "\n")
 
 
+def draw_frozen_bn(model, g) -> list:
+    """A ResNet backbone's FrozenBN terms drawn near the identity, as a
+    trained network's are away from it: weight and running_var U(0.5, 1.5),
+    bias and running_mean N(0, 0.1).  (At the port's lecun-normal init the
+    identity keeps the stage outputs O(1); statistics calibrated to each
+    input's mean and variance cancel a large mean in the fold and amplify
+    f32 rounding, on the CPU and the card alike.)  Returns the
+    largest |activation| of each output stage in one forward of the trunk on
+    the CPU, on a seeded ImageNet-normalized 256x384 image."""
+    import numpy as np
+    import torch
+
+    from open_groundingdino_tpu_torch.data.transforms import normalize_image
+    from open_groundingdino_tpu_torch.models.resnet import FrozenBatchNorm2d
+
+    with torch.no_grad():
+        for bn in model.modules():
+            if isinstance(bn, FrozenBatchNorm2d):
+                bn.weight.uniform_(0.5, 1.5, generator=g)
+                bn.running_var.uniform_(0.5, 1.5, generator=g)
+                bn.bias.normal_(0.0, 0.1, generator=g)
+                bn.running_mean.normal_(0.0, 0.1, generator=g)
+        image = normalize_image(synthetic_image(256, 384, SEED)).astype(np.float32)
+        outs = model.backbone[0](torch.from_numpy(image)[None])
+    return [float(o.abs().max()) for o in outs]
+
+
 def write_checkpoint(cfg_path: str, path: str, random_biases: bool = False,
                      anchor_boxes: bool = False) -> None:
-    """Seeded random flagship weights with the reference state-dict keys.
+    """Seeded random weights of the config's model with the reference
+    state-dict keys; a ResNet backbone's FrozenBN terms drawn near the
+    identity (`draw_frozen_bn`).
     The deformable-attention offset and weight projections get small random
     kernels (zero at init) so that every sampling point is query-dependent
     and off the pixel lattice, as in a trained model.  With `random_biases`
@@ -1174,9 +1254,15 @@ def write_checkpoint(cfg_path: str, path: str, random_biases: bool = False,
     from open_groundingdino_tpu_torch.config import SLConfig
     from open_groundingdino_tpu_torch.models.deformable import MSDeformAttn
     from open_groundingdino_tpu_torch.models.groundingdino import build_groundingdino, init_weights_
+    from open_groundingdino_tpu_torch.models.resnet import ResNetConfig
 
-    model = init_weights_(build_groundingdino(SLConfig.fromfile(cfg_path), device="cpu"), SEED)
+    args = SLConfig.fromfile(cfg_path)
+    model = init_weights_(build_groundingdino(args, device="cpu"), SEED)
     g = torch.Generator().manual_seed(SEED + 1)
+    if isinstance(model.backbone_cfg, ResNetConfig):
+        peaks = draw_frozen_bn(model, g)
+        log("checkpoint", f"{args.backbone}: FrozenBN terms drawn near the identity; max "
+                          f"|output| by stage {[f'{v:.3g}' for v in peaks]} (a 256x384 image)")
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, MSDeformAttn):
@@ -1215,7 +1301,8 @@ def write_serving_files(cfg: str, work: str):
 
 
 def msda_config(cfg: str, work: str, name: str, **keys) -> str:
-    """A config file that takes `cfg` and sets the given MSDA keys."""
+    """A config file that takes `cfg` and sets the given keys (MSDA keys,
+    dilation)."""
     path = os.path.join(work, f"cfg_{name}.py")
     with open(path, "w") as f:
         f.write(f"_base_ = {cfg!r}\n" + "".join(f"{k} = {v!r}\n" for k, v in keys.items()))
@@ -1306,12 +1393,13 @@ def check_forward(im_gpu, files, image, caption, tag="forward"):
     return cpu
 
 
-def compare_forward(card, cpu, tag, note=""):
-    """The card's (logits, boxes) against the CPU's: fewer than 10% of the
-    queries flipped, and on the rest |dlogit| < 5e-2, |dbox| < 5e-3."""
+def forward_gap(card, cpu) -> tuple:
+    """(share of the queries flipped, bulk max |dlogit|, bulk max |dbox|,
+    within the limits: fewer than 10% flipped, on the rest |dlogit| < 5e-2,
+    |dbox| < 5e-3) of the card's (logits, boxes) against the CPU's."""
     import numpy as np
 
-    lg_g, bx_g, shape = card
+    lg_g, bx_g, _ = card
     lg_c, bx_c, _ = cpu
     flip = np.max(np.abs(bx_g - bx_c), axis=-1) > 1e-2
     keep = ~flip
@@ -1319,13 +1407,22 @@ def compare_forward(card, cpu, tag, note=""):
     same_inf = bool(np.array_equal(np.isfinite(lg_g), np.isfinite(lg_c)))
     lg_err = float(np.max(np.abs(lg_g[fin] - lg_c[fin]))) if fin.any() else 0.0
     bx_err = float(np.max(np.abs(bx_g[keep] - bx_c[keep]))) if keep.any() else 0.0
-    log(tag, f"image {shape} pred_logits {lg_g.shape} pred_boxes {bx_g.shape}: "
-             f"flipped {flip.mean():.1%}, bulk max|dlogit| {lg_err:.3e}, "
-             f"bulk max|dbox| {bx_err:.3e}" + (f" ({note})" if note else ""))
-    ok = (same_inf and np.isfinite(bx_g).all() and flip.mean() < 0.10
+    ok = (same_inf and bool(np.isfinite(bx_g).all()) and flip.mean() < 0.10
           and lg_err < 5e-2 and bx_err < 5e-3)
+    return float(flip.mean()), lg_err, bx_err, ok
+
+
+def compare_forward(card, cpu, tag, note=""):
+    """The card's (logits, boxes) against the CPU's: fewer than 10% of the
+    queries flipped, and on the rest |dlogit| < 5e-2, |dbox| < 5e-3
+    (forward_gap)."""
+    flip, lg_err, bx_err, ok = forward_gap(card, cpu)
+    log(tag, f"image {card[2]} pred_logits {card[0].shape} pred_boxes {card[1].shape}: "
+             f"flipped {flip:.1%}, bulk max|dlogit| {lg_err:.3e}, "
+             f"bulk max|dbox| {bx_err:.3e}" + (f" ({note})" if note else ""))
     if not ok:
         raise AssertionError(f"{tag}: the card's forward disagrees with the CPU forward")
+    return flip, lg_err, bx_err
 
 
 # ---------------------------------------------------------------- training
@@ -1431,6 +1528,7 @@ def write_coco_val(work: str, indices=tuple(range(len(TRAIN_IMAGE_SIZES))), anno
 # the kernels with a bf16 entry, whose wrappers count its launches apart
 BF16_KERNELS = ("msda_fwd", "fusion_fwd", "msda_bwd", "fusion_bwd", "banded_fwd", "sweep_fwd",
                 "sweep_fwd_allq", "sweep_fwd_corner", "sweep_bwd_corner", "sweep_bwd_rowtap")
+ENC_LAYERS = 6             # the config's encoder layers: its fusion blocks' K2 launches a forward
 DEC_LAYERS = 6             # the config's decoder layers: the decoder's MSDA launches a forward
 
 
@@ -1466,9 +1564,12 @@ def train_launches_per_step(msda_keys: dict, bf16: bool = False) -> dict:
     sweep runs K6 where the gather runs K1 (under msda_dec_fused the
     decoder's DEC_LAYERS sorted query sets on K7, the encoder's forwards and
     replays on K6), and K9 or K10 where it runs K3; banded_point runs K5
-    where the gather runs K1, and K3.  In bf16 the same launches go to the
-    bf16 entries."""
+    where the gather runs K1, and K3.  With use_checkpoint False the fusion
+    blocks are not replayed: ENC_LAYERS fewer K2.  In bf16 the same
+    launches go to the bf16 entries."""
     per = dict(TRAIN_LAUNCHES_PER_STEP)
+    if msda_keys.get("use_checkpoint") is False:
+        per["fusion_fwd"] -= ENC_LAYERS
     if msda_keys.get("msda_kernel") == "banded_point":
         per["banded_fwd"] = per.pop("msda_fwd")
     elif msda_keys.get("msda_kernel") == "sweep":
@@ -1489,8 +1590,9 @@ def train(cfg: str, work: str, files, device: str, msda_keys=None, epochs: int =
     config's default, bf16), two steps an epoch (at most max_steps) from the
     smoke's seeded checkpoint (random biases), with the MSDA config keys
     `msda_keys` given as --options; with `val`, the 8 images also as a COCO
-    val split, which main evaluates after each epoch; counts the kernels'
-    launches of the run."""
+    val split, which main evaluates after each epoch; main saves one
+    checkpoint, after the last epoch; counts the kernels' launches of the
+    run."""
     import torch
 
     from open_groundingdino_tpu_torch import main as train_main
@@ -1507,7 +1609,9 @@ def train(cfg: str, work: str, files, device: str, msda_keys=None, epochs: int =
         "--vocab", vocab, "--pretrain_model_path", ckpt, "--device", device,
         "--seed", str(SEED), "--num_workers", "2", "--print_freq", "1",
         *(["--max_steps", str(max_steps)] if max_steps else []),
-        "--options", f"epochs={epochs}", "batch_size=4",
+        # one checkpoint a run, at its end: each weighs 2-4 GB, and the card's
+        # machine takes at most 45 GiB of writes a run
+        "--options", f"epochs={epochs}", "batch_size=4", f"save_checkpoint_interval={epochs}",
         *([f"compute_dtype={compute_dtype}"] if compute_dtype else []),
         *(f"{k}={v}" for k, v in msda_keys.items()),
     ])
@@ -1680,10 +1784,12 @@ def parity_harness(cfg: str, files):
     """The one-step comparisons' common ground: the same seeded weights, the
     same batch (B = 1, an 800x1216-bucket image), fusion droppath 0, the
     config's full depth.  Returns (step, gaps, within):
-      step(device, msda=None, compute_dtype=None) - one training step of a
-          fresh copy of the weights (MSDeformAttn attributes `msda` set on
-          every deformable attention; f32 unless compute_dtype says bf16):
-          loss, every parameter's gradient on the host, seconds;
+      step(device, msda=None, compute_dtype=None, frozen_keys=(), snapshot=None)
+          - one training step of a fresh copy of the weights (MSDeformAttn
+          attributes `msda` set on every deformable attention; f32 unless
+          compute_dtype says bf16; the optimizer's frozen_keys): loss, every
+          parameter's gradient on the host, seconds, and with `snapshot` the
+          state-dict entries under that prefix after the step, on the host;
       gaps(run, ref, fed) - (loss rel, {module: gradient-norm rel}, {leaf
           whose name holds one of `fed`: ||g_run - g_ref|| / ||g_ref||});
       within(gaps) - all three inside the PARITY_* limits."""
@@ -1723,7 +1829,7 @@ def parity_harness(cfg: str, files):
     if tuple(batch["images"].shape[1:3]) != BUCKET:
         raise AssertionError(f"parity batch landed in {batch['images'].shape}, not {BUCKET}")
 
-    def step(device, msda=None, compute_dtype=None):
+    def step(device, msda=None, compute_dtype=None, frozen_keys=(), snapshot=None):
         model = copy.deepcopy(base).to(device)
         for m in model.modules():
             if isinstance(m, MSDeformAttn):
@@ -1733,7 +1839,7 @@ def parity_harness(cfg: str, files):
                              lr_backbone=float(args.lr_backbone),
                              lr_linear_proj_mult=float(args.lr_linear_proj_mult),
                              weight_decay=float(args.weight_decay),
-                             clip_max_norm=float(args.clip_max_norm))
+                             clip_max_norm=float(args.clip_max_norm), frozen_keys=frozen_keys)
         grads = {}
         step_fn = opt.step
 
@@ -1747,7 +1853,11 @@ def parity_harness(cfg: str, files):
             TrainState.create(model, opt, seed=SEED), batch)
         if device == "cuda":
             torch.cuda.synchronize()
-        return dict(loss=metrics["loss"], grads=grads, seconds=time.perf_counter() - t0)
+        run = dict(loss=metrics["loss"], grads=grads, seconds=time.perf_counter() - t0)
+        if snapshot:
+            run["snapshot"] = {k: v.detach().to("cpu", copy=True)
+                               for k, v in model.state_dict().items() if k.startswith(snapshot)}
+        return run
 
     def gaps(run, ref, fed):
         sq = {}
@@ -2849,6 +2959,424 @@ def train_bf16_banded(cfg, work, train_files, harness, banded_f32_card,
     return run
 
 
+# ---------------------------------------------------------------- other backbones (phases 28, 29)
+# the JAX package's other published geometries at full width: (tag, config of
+# the port, config keys set on top); the dilated ResNet-50 shares ResNet-50's
+# checkpoint
+BACKBONES = (("swinb", "cfg_swinb.py", {}), ("swinl", "cfg_swinl.py", {}),
+             ("resnet50", "cfg_resnet50.py", {}),
+             ("resnet50-dilated", "cfg_resnet50.py", {"dilation": True}))
+CLASSES = list(CATEGORIES[:4])   # predict_with_classes' caption: "cat. dog. person. bicycle"
+
+
+def backbone_files(work: str, vocab: str) -> dict:
+    """{tag: (config, checkpoint, vocab)} for BACKBONES: seeded checkpoints
+    with random biases (the Swin-L and ResNet-50 ones also train, phase 29)."""
+    cfg_dir = os.path.join(REPO, "open_groundingdino_tpu_torch", "config")
+    files, ckpts = {}, {}
+    for tag, cfg_name, keys in BACKBONES:
+        cfg = os.path.join(cfg_dir, cfg_name)
+        if cfg_name not in ckpts:
+            t0 = time.perf_counter()
+            ckpts[cfg_name] = os.path.join(work, f"ckpt_{tag}.pth")
+            write_checkpoint(cfg, ckpts[cfg_name], random_biases=True)
+            log("checkpoint", f"{cfg_name}: {os.path.getsize(ckpts[cfg_name]) / 2**20:.0f} MiB in "
+                              f"{time.perf_counter() - t0:.1f} s")
+        files[tag] = (msda_config(cfg, work, tag, **keys) if keys else cfg, ckpts[cfg_name], vocab)
+    return files
+
+
+class EncoderMSDA:
+    """Within the block, keeps a copy of the operands of the first K1 launch
+    whose queries are the value's tokens (an encoder layer's
+    self-attention): its launches and counts are the kernel's own.  The copy
+    is made outside inference mode, so that autograd of the plain version
+    can take it."""
+
+    def __init__(self):
+        self.operands = None
+
+    def __enter__(self):
+        import torch
+
+        from open_groundingdino_tpu_torch.ops import msda
+
+        self.module, self.kernel = msda, msda._msda_fwd_cuda
+
+        def spy(value, shapes, starts, locs, attn):
+            if self.operands is None and locs.shape[1] == value.shape[1]:
+                with torch.inference_mode(False):
+                    self.operands = tuple(t.detach().clone() if torch.is_tensor(t) else t
+                                          for t in (value, shapes, starts, locs, attn))
+            return self.kernel(value, shapes, starts, locs, attn)
+
+        msda._msda_fwd_cuda = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module._msda_fwd_cuda = self.kernel
+
+
+class TwoStageSelection:
+    """Within the block, the model's two-stage query selection
+    (models/transformer.py two_stage_select: the top num_queries encoder
+    tokens by score, in score order) is recorded (`order`, `scores`), or,
+    given an `order`, takes that order's tokens instead.  At random weights
+    two tokens' scores can tie to within the card's and the CPU's rounding
+    and swap places in the order (or at the cut).  Each query index has its
+    own learned content embedding (tgt_embed), so a swap changes both
+    queries, and the decoder's self-attention spreads it over every query:
+    the forwards are compared on one selection."""
+
+    def __init__(self, order=None):
+        self.order, self.scores = order, None
+
+    def __enter__(self):
+        import torch
+
+        from open_groundingdino_tpu_torch.models import transformer
+
+        self.module, self.select = transformer, transformer.two_stage_select
+
+        def select(output_memory, output_proposals, enc_delta, enc_logits, num_queries):
+            if self.order is not None:   # rank the given order first, in that order
+                rank = torch.full(enc_logits.shape[:2], float(-enc_logits.shape[1]),
+                                  device=enc_logits.device)
+                order = self.order.to(enc_logits.device)
+                rank.scatter_(1, order, -torch.arange(order.shape[1], device=rank.device,
+                                                      dtype=rank.dtype).expand_as(order))
+                enc_logits = rank[..., None]
+            else:
+                self.scores = enc_logits.max(-1).values.float().cpu()
+                self.order = torch.sort(self.scores, dim=1, descending=True,
+                                        stable=True).indices[:, :num_queries]
+            return self.select(output_memory, output_proposals, enc_delta, enc_logits,
+                               num_queries)
+
+        transformer.two_stage_select = select
+        return self
+
+    def __exit__(self, *exc):
+        self.module.two_stage_select = self.select
+
+    def compare(self, other) -> dict:
+        """How many query indices hold another token in the other selection,
+        how many of this selection's tokens it misses, and this side's score
+        margin between its last kept token and the best token it left out."""
+        queries = self.order.shape[1]
+        reordered = int((self.order != other.order).sum())
+        swapped = sum(len(set(a.tolist()) - set(b.tolist()))
+                      for a, b in zip(self.order, other.order))
+        ranked = self.scores.sort(dim=1, descending=True).values
+        margin = float((ranked[:, queries - 1] - ranked[:, queries]).min())
+        return dict(queries=queries, reordered=reordered, swapped=swapped, margin=margin)
+
+
+def check_msda_on(operands, tag: str) -> dict:
+    """K1 against its plain version on f32 operands a model run gave it, and
+    K3 against autograd of the plain version on the same operands with a
+    seeded upstream gradient (K1_TOL; K3_RTOL of each gradient's largest
+    |reference|); then both bf16 entries on the value and gradient rounded to
+    bf16 (phase 20's limits).  K3's launch plans for these shapes are logged:
+    the f32 entry's and the bf16 entry's shared-memory levels differ."""
+    import torch
+
+    from open_groundingdino_tpu_torch.ops import msda
+
+    value, shapes, starts, locs, attn = operands
+    B, Q, H = locs.shape[:3]
+    g = torch.Generator(device=value.device).manual_seed(SEED + 28)
+    grad_out = torch.randn(B, Q, H * value.shape[3], generator=g, device=value.device)
+    res = dict(B=B, L=Q, shapes=[list(hw) for hw in shapes])
+    for dtype, fwd_tol, bwd_tols, budget in (
+            (torch.float32, None, (K3_RTOL,) * 3, msda.BWD_SMEM_BUDGET),
+            (torch.bfloat16, BF16_FWD_RTOL, (BF16_K3_GV_RTOL, BF16_K3_RTOL, BF16_K3_RTOL),
+             msda.BWD_SMEM_BUDGET_BF16)):
+        v, go = value.to(dtype), grad_out.to(dtype)
+        k1_abs, k1_rel = rel_err(msda.ms_deform_attn(v, shapes, starts, locs, attn),
+                                 msda.ms_deform_attn_plain(v, shapes, starts, locs, attn))
+        args = (v, shapes, starts, locs, attn, go)
+        errs = {key: rel_err(a, b)[1] for key, a, b in zip(
+            ("grad_value", "grad_locs", "grad_attn"), msda.ms_deform_attn_bwd(*args),
+            msda.ms_deform_attn_bwd_plain(*args))}
+        plan = msda.msda_bwd_plan(shapes, B, Q, H, budget)._asdict()
+        name = "f32" if dtype == torch.float32 else "bf16"
+        k1_ok = k1_abs <= K1_TOL if fwd_tol is None else k1_rel <= fwd_tol
+        log(tag, f"{name} K1 and K3 on the model's encoder operands: B={B} Q=L={Q} shapes "
+                 f"{list(shapes)}; K1 max|kernel-plain| {k1_abs:.3e} ({k1_rel:.2e} of max|ref|; "
+                 f"limit {K1_TOL if fwd_tol is None else f'{fwd_tol} of max|ref|'}); K3 "
+                 f"max|kernel-plain| / max|ref| { {k: f'{e:.2e}' for k, e in errs.items()} } "
+                 f"(limits {bwd_tols}); K3 plan {plan}")
+        if not k1_ok or not all(e <= t for e, t in zip(errs.values(), bwd_tols)):
+            raise AssertionError(f"{tag}: {name} K1 or K3 disagrees with its plain version at "
+                                 f"{list(shapes)}")
+        res[name] = dict(k1_max_abs_err=k1_abs, k1_rel_err=k1_rel, k3_rel_errs=errs, k3_plan=plan)
+    return res
+
+
+def serve_backbone(files, tag: str, plant_k1: bool = False, device: str = "cuda") -> dict:
+    """Phase 28 for one model: Model(...) on the card, a warm-up and one
+    request on each of the three IMAGE_SIZES through predict_with_classes
+    (12 K1 + 6 K2 f32 launches a request, no other), median latency and peak
+    memory; a profiled request; one forward against the CPU's: as served
+    with fewer than 10% of the queries flipped, and on the CPU's two-stage
+    selection flip-aware with phase 6's limits; with `plant_k1` the card's
+    forward with K1's output negated must fail that comparison.  A dilated
+    ResNet's K1 and K3 are held against their plain versions on its encoder
+    operands."""
+    import numpy as np
+    import torch
+
+    from open_groundingdino_tpu_torch import inference
+    from open_groundingdino_tpu_torch.ops import msda
+
+    cfg, ckpt, vocab = files
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = inference.Model(cfg, ckpt, vocab, device=device)
+    load_s = time.perf_counter() - t0
+    pil = [synthetic_image(h, w, i) for i, (h, w) in enumerate(IMAGE_SIZES)]
+    images = [np.asarray(im) for im in pil]
+    reset_counts()
+    with EncoderMSDA() as encoder:
+        model.predict_with_classes(images[0], CLASSES)              # warm-up
+    torch.cuda.synchronize()
+    lat, found = [], []
+    for img in images:
+        t0 = time.perf_counter()
+        det = model.predict_with_classes(img, CLASSES)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        ids = [c for c in det.class_id.tolist() if c is not None]
+        if not (len(det.xyxy) == len(det.confidence) == len(det.class_id)
+                and np.isfinite(det.xyxy).all() and (det.confidence > 0.35).all()
+                and all(0 <= c < len(CLASSES) for c in ids)):
+            raise AssertionError(f"{tag}: malformed Detections for an image of {img.shape}")
+        found.append(len(det))
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = serving_launches(model.im.args, len(images) + 1)
+    median = sorted(lat)[len(lat) // 2]
+    log(tag, f"Model on {device} in {load_s:.1f} s; predict_with_classes({CLASSES}) on "
+             f"{[im.shape[:2] for im in images]} after 1 warm-up: latency ms "
+             f"{[round(t * 1e3, 1) for t in lat]} (median {median * 1e3:.1f}), detections "
+             f"{found}; max_memory_allocated {peak / 2**30:.2f} GiB; launches over "
+             f"{len(images) + 1} requests { {k: v for k, v in counts.items() if v} }")
+    if counts != want:
+        raise AssertionError(f"{tag}: kernel launches {counts}, expected {want}")
+    res = dict(load_s=load_s, latency_s=lat, median_s=median, peak_bytes=peak, counts=counts,
+               detections=found)
+    res["profile"] = profile_request(model.im, pil[0], CAPTIONS[0], tag=f"{tag}-profile")
+
+    t0 = time.perf_counter()
+    cpu_im = inference.load_model(cfg, ckpt, vocab, device="cpu")
+    with TwoStageSelection() as cpu_sel:
+        cpu = forward_outputs(cpu_im, pil[0], CAPTIONS[0])
+    del cpu_im
+    cpu_s = time.perf_counter() - t0
+    with TwoStageSelection() as card_sel:
+        free = forward_outputs(model.im, pil[0], CAPTIONS[0])
+    res["selection"] = cpu_sel.compare(card_sel)
+    flip, lg_err, bx_err, _ = forward_gap(free, cpu)
+    sel = res["selection"]
+    log(f"{tag}-forward", f"as served: {sel['reordered']} of {sel['queries']} queries took "
+                          f"another encoder token than on the CPU, {sel['swapped']} tokens of "
+                          f"the top {sel['queries']} differ (score margin {sel['margin']:.2e} "
+                          f"at the cut); "
+                          f"flipped {flip:.1%}, bulk max|dlogit| {lg_err:.3e}, bulk max|dbox| "
+                          f"{bx_err:.3e}")
+    if not flip < 0.10:
+        raise AssertionError(f"{tag}: {flip:.1%} of the queries flipped")
+    res["forward_as_served"] = (flip, lg_err, bx_err)
+    # the numerical check: the same forward with the CPU's two-stage selection
+    with TwoStageSelection(cpu_sel.order):
+        card = forward_outputs(model.im, pil[0], CAPTIONS[0])
+    res["forward"] = compare_forward(card, cpu, f"{tag}-forward",
+                                     f"with the CPU's two-stage selection; CPU forward "
+                                     f"{cpu_s:.1f} s")
+    if plant_k1:
+        fwd = msda._msda_fwd_cuda
+        msda._msda_fwd_cuda = negated_output(fwd)
+        try:
+            with TwoStageSelection(cpu_sel.order):
+                planted = forward_gap(forward_outputs(model.im, pil[0], CAPTIONS[0]), cpu)
+        finally:
+            msda._msda_fwd_cuda = fwd
+        log(f"{tag}-forward", f"planted fault, K1 output negated: flipped {planted[0]:.1%}, bulk "
+                              f"max|dlogit| {planted[1]:.3e}, bulk max|dbox| {planted[2]:.3e}")
+        if planted[3]:
+            raise AssertionError(f"{tag}: the forward comparison passes with K1's output negated")
+        res["planted_k1"] = planted[:3]
+    shapes = encoder.operands[1]
+    res["levels"] = [list(hw) for hw in shapes]
+    if model.im.args.get("dilation", False):
+        if shapes[1] != shapes[2]:
+            raise AssertionError(f"{tag}: a dilated stage 3 should keep stage 2's map: {shapes}")
+        res["msda_check"] = check_msda_on(encoder.operands, f"{tag}-msda")
+    return res
+
+
+def annotate_request(files, work: str, device: str = "cuda") -> str:
+    """annotate() on one Swin-B request's predict output: writes the drawn
+    image under `work` and returns its path."""
+    import numpy as np
+    from PIL import Image
+
+    from open_groundingdino_tpu_torch import inference
+
+    im = inference.load_model(*files, device=device)
+    image = synthetic_image(*IMAGE_SIZES[1], 1)
+    boxes, scores, phrases = inference.predict(im, image, CAPTIONS[1])
+    drawn = inference.annotate(np.asarray(image), boxes, scores, phrases)
+    path = os.path.join(work, "annotated.png")
+    Image.fromarray(drawn).save(path)
+    if drawn.shape != np.asarray(image).shape or (len(boxes) and np.array_equal(
+            drawn, np.asarray(image))):
+        raise AssertionError("annotate drew nothing")
+    log("annotate", f"{len(boxes)} boxes drawn into {os.path.basename(path)} "
+                    f"({os.path.getsize(path)} bytes)")
+    return path
+
+
+def serve_backbones(work: str, files: dict, device: str = "cuda") -> dict:
+    """Phase 28: serve_backbone for each of BACKBONES (K1 negated must fail
+    Swin-B's comparison), and annotate on Swin-B's predict."""
+    res = {tag: serve_backbone(files[tag], f"serve-{tag}", tag == "swinb", device)
+           for tag, _, _ in BACKBONES}
+    annotate_request(files["swinb"], work, device)
+    return res
+
+
+def check_resnet_train_parity(files, device: str = "cuda") -> dict:
+    """Phase 29 (c): phase 11's step (B = 1, f32, the 800x1216 bucket) on
+    the ResNet-50 model on the CPU and on the card, with main's freeze
+    policy.  The card's step on the CPU's two-stage selection
+    (TwoStageSelection) is held within phase 11's limits; its step on its
+    own selection is logged.  After it the stem, layer1 and every FrozenBN
+    buffer equal the checkpoint's bit for bit, and every other trunk
+    parameter has moved."""
+    import torch
+
+    from open_groundingdino_tpu_torch.models.resnet import BODY_PREFIX, frozen_param_keys
+
+    step, gaps, within = parity_harness(files[0], files)
+    frozen = frozen_param_keys(True)
+    with TwoStageSelection() as selection:
+        cpu = step("cpu", frozen_keys=frozen)
+    free = gaps(step(device, frozen_keys=frozen), cpu, KERNEL_FED)
+    log("resnet-train-parity", f"the card's step on its own two-stage selection: loss rel "
+                               f"{free[0]:.2e}, grad-norm rel max {max(free[1].values()):.2e}, "
+                               f"leaves max {max(free[2].values()):.2e} (not held: a query "
+                               f"order swapped at a near-tie changes the matching)")
+    with TwoStageSelection(selection.order):
+        card = step(device, frozen_keys=frozen, snapshot=BODY_PREFIX)
+    gap = gaps(card, cpu, KERNEL_FED)
+    loss_rel, norm_rel, leaf_rel = gap
+    before = torch.load(files[1], map_location="cpu", weights_only=True)["model"]
+    after = card["snapshot"]
+    # the stem, layer1, and the FrozenBN buffers (bn1-3, downsample.1) everywhere
+    fixed = [k for k in after if k.startswith((BODY_PREFIX + "conv1.", BODY_PREFIX + "bn1.",
+                                               BODY_PREFIX + "layer1."))
+             or ".bn" in k or ".downsample.1." in k]
+    moved = [k for k in after if not torch.equal(after[k], before[k])]
+    log("resnet-train-parity", f"ResNet-50, B=1 {BUCKET} bucket, f32, the CPU's two-stage "
+                               f"selection: loss card {card['loss']:.6f} CPU "
+                               f"{cpu['loss']:.6f} (rel {loss_rel:.2e}, limit "
+                               f"{PARITY_LOSS_RTOL}); grad-norm rel by module "
+                               f"{ {k: f'{v:.2e}' for k, v in norm_rel.items()} } (limit "
+                               f"{PARITY_GRAD_RTOL}); {len(leaf_rel)} K3/K4-fed leaves "
+                               f"||dg||/||g|| max {max(leaf_rel.values()):.2e} (limit "
+                               f"{PARITY_LEAF_RTOL}); trunk tensors {len(after)}: {len(fixed)} "
+                               f"frozen (stem, layer1, FrozenBN buffers), {len(moved)} moved; "
+                               f"step s card {card['seconds']:.1f}, CPU {cpu['seconds']:.1f}")
+    if not within(gap):
+        raise AssertionError("the card's ResNet-50 training step disagrees with the CPU's")
+    if set(moved) != set(after) - set(fixed):
+        raise AssertionError(f"frozen trunk tensors moved or trainable ones did not: "
+                             f"{sorted(set(moved) ^ (set(after) - set(fixed)))[:8]}")
+    return dict(loss_rel=loss_rel, norm_rel=norm_rel, leaf_rel_max=max(leaf_rel.values()),
+                frozen=len(fixed), moved=len(moved),
+                own_selection=dict(loss_rel=free[0], leaf_rel_max=max(free[2].values())))
+
+
+def step_without_recompute(run, device: str = "cuda") -> dict:
+    """Phase 29 (b): one more step of a main run's model and state with
+    use_checkpoint off, as the build sets it from use_checkpoint=False: the
+    Swin blocks keep their activations and the fusion blocks are not
+    replayed (ENC_LAYERS fewer K2).  On the batch the profiled step took
+    (main would save another checkpoint); peak memory over the step,
+    launches."""
+    import dataclasses
+
+    import torch
+
+    model = run["state"].model
+    model.backbone[0].cfg = dataclasses.replace(model.backbone[0].cfg, use_checkpoint=False)
+    model.transformer.encoder.use_checkpoint = False
+    batches = iter(run["loader"])
+    batch = next(batches)
+    batches.close()
+    reset_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics = run["train_step"](run["state"], batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak, counts = torch.cuda.max_memory_allocated(), read_counts()
+    want = train_launches_per_step({"use_checkpoint": False},
+                                   run["train_step"].compute_dtype == "bfloat16")
+    log("swinl-train-no-recompute", f"1 step (B=4, {run['train_step'].compute_dtype}, "
+                                    f"use_checkpoint off) in {seconds:.3f} s: loss "
+                                    f"{metrics['loss']:.4f}; max_memory_allocated "
+                                    f"{peak / 2**30:.2f} GiB, of it {base / 2**30:.2f} GiB "
+                                    f"allocated before the step; launches "
+                                    f"{ {k: v for k, v in counts.items() if v} }")
+    if not math.isfinite(metrics["loss"]) or counts != want:
+        raise AssertionError(f"the step without recompute: loss {metrics['loss']}, launches "
+                             f"{counts}, expected {want}")
+    return dict(counts=counts, peak_bytes=peak, base_bytes=base, step_seconds=seconds,
+                loss=metrics["loss"])
+
+
+def train_backbones(work: str, files: dict, device: str = "cuda") -> dict:
+    """Phase 29: main with cfg_swinl at B = 4 in the default bf16, 2 steps
+    (18 K1 + 12 K3 + 12 K2 + 6 K4 bf16 launches a step) and a profiled one,
+    then one step with use_checkpoint off (step_without_recompute); phase
+    11's f32 step on ResNet-50 against the CPU's with its frozen tensors;
+    and phase 11's f32 step on the dilated ResNet-50 on the card (its
+    launches exact), whose K1 and K3 are held against their plain versions
+    on its encoder operands."""
+    from open_groundingdino_tpu_torch.models.resnet import frozen_param_keys
+
+    cfg_l = files["swinl"][0]
+    res = {"swinl": train(cfg_l, work, files["swinl"], device, tag="swinl-train", epochs=1,
+                          compute_dtype=None)}
+    main_run = res["swinl"].pop("run")
+    res["swinl"]["profile"] = profile_train_step(main_run, tag="swinl-train-profile")
+    res["swinl-no-recompute"] = step_without_recompute(main_run, device)
+    del main_run
+    res["resnet50-parity"] = check_resnet_train_parity(files["resnet50"], device)
+    step, _, _ = parity_harness(files["resnet50-dilated"][0], files["resnet50-dilated"])
+    reset_counts()
+    with EncoderMSDA() as encoder:
+        run = step(device, frozen_keys=frozen_param_keys(True))
+    counts = read_counts()
+    log("resnet50-dilated-train", f"1 step (B=1, {BUCKET} bucket, f32) in {run['seconds']:.1f} "
+                                  f"s: loss {run['loss']:.4f}; launches "
+                                  f"{ {k: v for k, v in counts.items() if v} }")
+    if not math.isfinite(run["loss"]) or counts != train_launches_per_step({}):
+        raise AssertionError(f"the dilated step: loss {run['loss']}, launches {counts}")
+    res["resnet50-dilated"] = dict(counts=counts, loss=run["loss"],
+                                   msda_check=check_msda_on(encoder.operands,
+                                                            "resnet50-dilated-train-msda"))
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2868,13 +3396,18 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log("device", f"{name}, torch {torch.__version__}, CUDA {torch.version.cuda}; TF32 off")
 
+    clock = PhaseClock()
+    clock("1")
     # 2. build
     secs = build.build_all()
     log("build", f"nvcc of {', '.join(build.SOURCES)} in {secs:.1f} s; " + build.ptxas_summary())
+    clock("2")
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     k1 = check_msda(g, "cuda")        # 3
+    clock("3")
     k2 = check_fusion(g, "cuda")      # 4
+    clock("4")
 
     work = os.path.join(REPO, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
@@ -2882,20 +3415,28 @@ def main() -> int:
         cfg = os.path.join(REPO, "open_groundingdino_tpu_torch", "config", "cfg_coco.py")
         files = write_serving_files(cfg, work)
         im, lat, counts, images = serve(files, "cuda")                 # 5
+        clock("5")
         cpu_out = check_forward(im, files, images[0], CAPTIONS[0])     # 6
+        clock("6")
         profile_request(im, images[0], CAPTIONS[0])                    # 7
+        clock("7")
         del im
         k3 = check_msda_bwd("cuda")                                    # 8
         msda_sass = msda_kernel_report({n: k3[n]["plan"] for n in k3})
+        clock("8")
         k4 = check_fusion_bwd("cuda")                                  # 9
+        clock("9")
         train_files = (cfg, os.path.join(work, "train_ckpt.pth"), files[2])
         write_checkpoint(cfg, train_files[1], random_biases=True)
         tr = train(cfg, work, train_files, "cuda")                     # 10
         profile_train_step(tr.pop("run"))
+        clock("10")
         harness = parity_harness(cfg, train_files)
         _, gather_card = check_train_parity(harness)                   # 11
+        clock("11")
 
         sweep = check_sweep("cuda")                                    # 12
+        clock("12")
         serve_counts, sweep_profiles = {}, {}
         for tag, keys in (("sweep-serve", {"msda_kernel": "sweep"}),   # 13
                           ("sweep-serve-fused", {"msda_kernel": "sweep", "msda_dec_fused": True})):
@@ -2906,6 +3447,7 @@ def main() -> int:
             sweep_profiles[tag] = profile_request(im, images[0], CAPTIONS[0],
                                                   tag=tag.replace("serve", "profile"))
             del im
+        clock("13")
         train_counts_sweep = {}
         for tag, keys, kw in (                                          # 14
                 ("sweep-train", {"msda_kernel": "sweep"}, dict(epochs=1)),
@@ -2915,9 +3457,12 @@ def main() -> int:
             train_counts_sweep[tag] = run["counts"]
             profile_train_step(run.pop("run"), tag=f"{tag}-profile")
             del run
+        clock("14")
         _, sweep_cards = check_sweep_train_parity(harness, gather_card)   # 15
+        clock("15")
 
         banded = check_banded_corner("cuda")                           # 16
+        clock("16")
         banded_files = (msda_config(cfg, work, "banded-serve", msda_kernel="banded_point"),
                         *files[1:])
         im, _, serve_counts["banded-serve"], _ = serve(banded_files, "cuda", "banded-serve")  # 17
@@ -2925,31 +3470,47 @@ def main() -> int:
                         "banded-serve-forward", "against phase 6's CPU forward")
         profile_request(im, images[0], CAPTIONS[0], tag="banded-profile")
         del im
+        clock("17")
         run = train(cfg, work, train_files, "cuda", {"msda_kernel": "banded_point"},  # 18
                     tag="banded-train", epochs=1)
         train_counts_sweep["banded-train"] = run["counts"]
         profile_train_step(run.pop("run"), tag="banded-train-profile")
         del run
         _, banded_card = check_banded_train_parity(harness, gather_card)
+        clock("18")
         _, bench_counts = run_microbench()                              # 19
         _, bench_counts_bf16 = run_microbench("bf16")
+        clock("19")
         bf16 = check_bf16_kernels("cuda")                               # 20
+        clock("20")
         bf16_train = train_bf16(cfg, work, train_files, harness, gather_card)   # 21
         gather_bf16_card = bf16_train.pop("parity_card")
         del gather_card
+        clock("21")
         eval_files = (cfg, os.path.join(work, "eval_ckpt.pth"), files[2])
         write_checkpoint(cfg, eval_files[1], random_biases=True, anchor_boxes=True)
         evals = check_eval_main(cfg, work, eval_files, "cuda")          # 22
         parity = check_eval_parity(cfg, work, eval_files, "cuda")
+        clock("22")
         check_resume(cfg, work, eval_files, parity["manifest"], "cuda")    # 23
+        clock("23")
         bf16_sweep = check_bf16_sweep("cuda")                           # 24
+        clock("24")
         bf16_sweep_train = train_bf16_sweep(cfg, work, train_files, eval_files,   # 25
                                             harness, sweep_cards, gather_bf16_card)
         del sweep_cards
+        clock("25")
         bf16_banded = check_bf16_banded_corner("cuda")                  # 26
+        clock("26")
         bf16_banded_train = train_bf16_banded(cfg, work, train_files, harness,   # 27
                                               banded_card, gather_bf16_card)
         del harness, banded_card, gather_bf16_card
+        clock("27")
+        bb_files = backbone_files(work, files[2])
+        bb_serve = serve_backbones(work, bb_files)                     # 28
+        clock("28")
+        bb_train = train_backbones(work, bb_files)                     # 29
+        clock("29")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2977,29 +3538,41 @@ def main() -> int:
     k1_row = mean_row(k1)
     k1_row["per_shape"] = {f"{batch} {n}": r for batch, rows in (("B=1", k1), ("B=4", k1_b4))
                            for n, r in rows.items()}
+    # the other backbones' runs (phases 28, 29), by counter
+    bb_counts = {**{f"serve-{tag}": r["counts"] for tag, r in bb_serve.items()},
+                 **{f"train-{tag}": bb_train[tag]["counts"]
+                    for tag in ("swinl", "swinl-no-recompute", "resnet50-dilated")}}
+
+    def bb_launches(counter):
+        return {tag: c[counter] for tag, c in bb_counts.items() if c[counter]}
+
     kernels = [
         {"name": "msda_fwd", "route": "cuda", "source": src + "msda_fwd.cu",
          "replaces": tpu + "msda_banded.py:311", "launches": counts["msda_fwd"],
          "launches_by_path": {"serve": counts["msda_fwd"], "train": train_counts["msda_fwd"],
-                              "eval-f32": evals["float32"]["counts"]["msda_fwd"]},
+                              "eval-f32": evals["float32"]["counts"]["msda_fwd"],
+                              **bb_launches("msda_fwd")},
          **k1_row | {"max_abs_err": max(k1_row["max_abs_err"], k1_err)},
          "sass": msda_sass["msda_fwd"]},
         {"name": "fusion_fwd", "route": "cuda", "source": src + "fusion_fwd.cu",
          "replaces": tpu + "fusion_pallas.py:50", "launches": counts["fusion_fwd"],
          "launches_by_path": {"serve": counts["fusion_fwd"],
                               "train": train_counts["fusion_fwd"],
-                              "eval-f32": evals["float32"]["counts"]["fusion_fwd"]},
+                              "eval-f32": evals["float32"]["counts"]["fusion_fwd"],
+                              **bb_launches("fusion_fwd")},
          **single_row(k2) | {"max_abs_err": max(k2["max_abs_err"], k2_err)},
          "per_shape": {"B=1": single_row(k2), "B=4": single_row(k4["k2"])},
          "sass": k2["sass"]["fusion_fwd"]},
         {"name": "msda_bwd", "route": "cuda", "source": src + "msda_bwd.cu",
          "replaces": tpu + "msda_banded.py:524", "launches": train_counts["msda_bwd"],
-         "launches_by_path": {"serve": 0, "train": train_counts["msda_bwd"]},
+         "launches_by_path": {"serve": 0, "train": train_counts["msda_bwd"],
+                              **bb_launches("msda_bwd")},
          **mean_row(k3),
          "sass": {k: msda_sass[k] for k in ("msda_bwd", "msda_bwd_atomics", "msda_bwd_plans")}},
         {"name": "fusion_bwd", "route": "cuda", "source": src + "fusion_bwd.cu",
          "replaces": tpu + "fusion_pallas.py:198", "launches": train_counts["fusion_bwd"],
-         "launches_by_path": {"serve": 0, "train": train_counts["fusion_bwd"]},
+         "launches_by_path": {"serve": 0, "train": train_counts["fusion_bwd"],
+                              **bb_launches("fusion_bwd")},
          **single_row(k4), "sass": k4["sass"]["fusion_bwd"]},
     ]
     # K5 and K8 (phase 16; the row is phase 8's B = 4 shapes, per_shape adds
@@ -3062,6 +3635,7 @@ def main() -> int:
         by_path = {"bf16-train": bf16_counts[f"{counter}_bf16"]}
         if kname in ("K1", "K2"):   # and the bf16 eval (phase 22)
             by_path["eval-bf16"] = evals["bfloat16"]["counts"][f"{counter}_bf16"]
+        by_path.update(bb_launches(f"{counter}_bf16"))   # the Swin-L steps (phase 29)
         kernels.append({"name": f"{counter}_bf16", "route": "cuda", "source": src + source,
                         "replaces": tpu + line, "launches": bf16_counts[f"{counter}_bf16"],
                         "launches_by_path": by_path, **row})

@@ -5,15 +5,21 @@ reference groundingdino/util/inference.py:53-259).
     boxes, scores, phrases = predict(im, image, caption,
                                      box_threshold=0.35, text_threshold=0.25)
 
+    model = Model(cfg_path, checkpoint_path, vocab_path)    # device="cuda"
+    detections, phrases = model.predict_with_caption(image_rgb, "cat . dog .")
+    detections = model.predict_with_classes(image_rgb, ["cat", "dog"], 0.35, 0.25)
+
 Images are resized shortest-edge 800 / max 1333 and padded to a static
-bucket; boxes come back as normalized cxcywh, like the reference's predict.
-The model runs on the device given to load_model (CUDA by default); nothing
-moves to the CPU unless the caller asks for it.
+bucket; boxes come back as normalized cxcywh, like the reference's predict
+(`Model` returns absolute xyxy `Detections`).  The model runs on the device
+given to load_model (CUDA by default); nothing moves to the CPU unless the
+caller asks for it.  The config picks the backbone (cfg_coco.py Swin-T,
+cfg_swinb.py, cfg_swinl.py, cfg_resnet50.py).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,11 +37,12 @@ from .data.vl_utils import create_positive_map_from_span
 from .models.groundingdino import GroundingDINO, build_groundingdino
 from .utils.misc import clean_state_dict
 
-# keys of a reference checkpoint that are not parameters of the model: Swin's
+# keys of a reference checkpoint that are not tensors of the model: Swin's
 # recomputed index buffers, BERT's position-id buffer and its frozen, unused
-# pooler (the "ignored" section of the JAX package's
-# config/manifests/swint_keys.json)
-_IGNORED_SUFFIXES = (".relative_position_index", ".attn_mask")
+# pooler (the "ignored" sections of the JAX package's
+# config/manifests/*_keys.json), and torchvision's BatchNorm step counters,
+# which FrozenBatchNorm2d drops (reference backbone.py:50-56)
+_IGNORED_SUFFIXES = (".relative_position_index", ".attn_mask", ".num_batches_tracked")
 _IGNORED_PREFIXES = ("bert.pooler.", "bert.embeddings.position_ids")
 
 
@@ -209,3 +216,95 @@ def predict_with_spans(
     boxes_k = np.concatenate(all_boxes) if all_boxes else np.zeros((0, 4))
     scores_k = np.concatenate(all_scores) if all_scores else np.zeros((0,))
     return boxes_k, scores_k, all_phrases
+
+
+# ---------------------------------------------------------------------------
+# The reference's Model API (groundingdino/util/inference.py:124-259), as the
+# JAX package has it (inference.py:247-349): Detections stands in for
+# supervision's, and annotate draws with PIL instead of cv2 + supervision.
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Detections:
+    """Minimal stand-in for supervision.Detections: absolute-pixel xyxy
+    boxes, per-box confidence, optional class ids (None = unmatched, the
+    reference's phrases2classes sentinel)."""
+
+    xyxy: np.ndarray                      # (N, 4) float32, abs pixels
+    confidence: np.ndarray                # (N,) float32
+    class_id: Optional[np.ndarray] = None  # (N,) object/int, None entries ok
+
+    def __len__(self):
+        return len(self.xyxy)
+
+
+def annotate(image_source: np.ndarray, boxes: np.ndarray, logits: np.ndarray,
+             phrases: List[str]) -> np.ndarray:
+    """Normalized-cxcywh boxes drawn with "phrase score" labels on an RGB
+    uint8 array (reference inference.py:100-115; the result stays RGB)."""
+    from .utils.visualizer import draw_cxcywh_norm
+
+    img = Image.fromarray(np.asarray(image_source, np.uint8))
+    out = draw_cxcywh_norm(img, np.asarray(boxes, np.float32), labels=phrases,
+                           scores=np.asarray(logits))
+    return np.asarray(out)
+
+
+class Model:
+    """Reference groundingdino/util/inference.py:124-259.
+
+    model = Model(cfg_path, ckpt_path, vocab_path)          # device="cuda"
+    detections, phrases = model.predict_with_caption(image_rgb, "cat. dog.")
+    detections = model.predict_with_classes(image_rgb, ["cat", "dog"], .35, .25)
+    """
+
+    def __init__(self, model_config_path: str, model_checkpoint_path: str, vocab_path: str,
+                 device="cuda"):
+        self.im = load_model(model_config_path, model_checkpoint_path, vocab_path,
+                             device=device)
+
+    def predict_with_caption(self, image: np.ndarray, caption: str,
+                             box_threshold: float = 0.35, text_threshold: float = 0.25
+                             ) -> Tuple[Detections, List[str]]:
+        """image: RGB uint8 HWC array (the reference takes BGR from cv2.imread
+        and converts; this takes RGB, as the JAX package's does)."""
+        pil = Image.fromarray(np.asarray(image, np.uint8))
+        boxes, scores, phrases = predict(self.im, pil, caption, box_threshold=box_threshold,
+                                         text_threshold=text_threshold)
+        h, w = image.shape[:2]
+        return self.post_process_result(h, w, boxes, scores), phrases
+
+    def predict_with_classes(self, image: np.ndarray, classes: List[str],
+                             box_threshold: float = 0.35, text_threshold: float = 0.25
+                             ) -> Detections:
+        caption = ". ".join(classes)
+        detections, phrases = self.predict_with_caption(image, caption, box_threshold,
+                                                        text_threshold)
+        detections.class_id = self.phrases2classes(phrases, classes)
+        return detections
+
+    @staticmethod
+    def post_process_result(source_h: int, source_w: int, boxes: np.ndarray,
+                            logits: np.ndarray) -> Detections:
+        """Normalized cxcywh -> absolute xyxy Detections (reference
+        inference.py:242-252)."""
+        b = np.asarray(boxes, np.float32).reshape(-1, 4)
+        b = b * np.asarray([source_w, source_h, source_w, source_h], np.float32)
+        xyxy = np.stack([b[:, 0] - b[:, 2] / 2, b[:, 1] - b[:, 3] / 2,
+                         b[:, 0] + b[:, 2] / 2, b[:, 1] + b[:, 3] / 2], axis=1)
+        return Detections(xyxy=xyxy, confidence=np.asarray(logits, np.float32))
+
+    @staticmethod
+    def phrases2classes(phrases: List[str], classes: List[str]) -> np.ndarray:
+        """The first class whose name is a substring of the phrase; no match:
+        None (reference inference.py:254-259)."""
+        class_ids = []
+        for phrase in phrases:
+            for class_ in classes:
+                if class_ in phrase:
+                    class_ids.append(classes.index(class_))
+                    break
+            else:
+                class_ids.append(None)
+        return np.array(class_ids)

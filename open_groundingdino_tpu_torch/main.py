@@ -128,6 +128,8 @@ def main(cli) -> Dict:
     from .models.criterion import build_criterion
     from .models.groundingdino import build_groundingdino, init_weights_
     from .models.postprocess import PostProcess
+    from .models.resnet import ResNetConfig
+    from .models.resnet import frozen_param_keys as resnet_frozen_keys
     from .parallel.optim import make_lr_schedule, make_optimizer
     from .parallel.train_state import (TrainState, make_eval_step, make_train_step,
                                        resolve_compute_dtype)
@@ -211,6 +213,13 @@ def main(cli) -> Dict:
                         seed=cli.seed, num_threads=cli.num_workers)
     steps_per_epoch = max(len(loader), 1)
     frozen_keys = tuple(args.freeze_keywords or ())
+    if isinstance(model.backbone_cfg, ResNetConfig):
+        # the reference's requires_grad policy (backbone.py:82-89): the stem and
+        # layer1 always, the whole trunk at lr_backbone 0; the FrozenBN
+        # statistics are buffers and never reach the optimizer
+        trunk = resnet_frozen_keys(float(args.lr_backbone) > 0)
+        frozen_keys += trunk
+        logger.info(f"ResNet backbone: {trunk} frozen")
     if cli.frozen_weights:
         frozen_keys += FROZEN_WEIGHTS_KEYS
         logger.info(f"frozen_weights: {FROZEN_WEIGHTS_KEYS} frozen")

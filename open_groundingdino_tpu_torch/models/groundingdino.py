@@ -2,9 +2,10 @@
 models/groundingdino.py; reference models/GroundingDINO/groundingdino.py:55-402).
 
 BERT-encode the caption with sub-sentence masks, project it to d_model
-(feat_map), run the Swin backbone, project its levels (1x1 conv + GroupNorm,
-plus an extra stride-2 level), run the two-stage deformable transformer with
-image<->text fusion, and read out contrastive token logits and refined boxes.
+(feat_map), run the image backbone (Swin, or a frozen-BN ResNet when the
+config names one), project its levels (1x1 conv + GroupNorm, plus an extra
+stride-2 level), run the two-stage deformable transformer with image<->text
+fusion, and read out contrastive token logits and refined boxes.
 
 Inputs (the JAX package's contract):
   images         (B, Hb, Wb, 3) float   bucket-padded, ImageNet-normalized
@@ -15,12 +16,14 @@ Inputs (the JAX package's contract):
   text_self_attention_masks (B, T, T) bool  block-diagonal, True = attend
 
 Parameter names are the reference state-dict keys
-(open_groundingdino_tpu/config/manifests/swint_keys.json lists them); the
-shared decoder box head is registered under every alias the reference has.
+(open_groundingdino_tpu/config/manifests/swint_keys.json, swinb_keys.json and
+resnet50_keys.json list them): `backbone.0.*` for Swin, `backbone.0.body.*`
+for ResNet; the shared decoder box head is registered under every alias the
+reference has.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 from torch import nn
@@ -30,12 +33,14 @@ from .layers import MLP, contrastive_embed, default_init_
 from .position_encoding import position_embedding_sine_hw
 from .precision import GroupNorm, Linear
 from .registry import MODULE_BUILD_FUNCS
+from .resnet import ResNet, ResNetConfig
 from .swin import SwinConfig, SwinTransformer
 from .transformer import Transformer, make_level_masks
 
 
 class GroundingDINO(nn.Module):
-    def __init__(self, swin_cfg: SwinConfig, bert_cfg: BertConfig = BertConfig(),
+    def __init__(self, backbone_cfg: Union[SwinConfig, ResNetConfig],
+                 bert_cfg: BertConfig = BertConfig(),
                  hidden_dim: int = 256, num_queries: int = 900, nheads: int = 8,
                  num_feature_levels: int = 4, enc_layers: int = 6, dec_layers: int = 6,
                  dim_feedforward: int = 2048, enc_n_points: int = 4, dec_n_points: int = 4,
@@ -45,10 +50,12 @@ class GroundingDINO(nn.Module):
                  aux_loss: bool = True, fusion_droppath: float = 0.0,
                  use_checkpoint: bool = False, use_transformer_ckpt: bool = False,
                  msda: Optional[Dict] = None):
-        """`msda`: the deformable attentions' core-op keywords (MSDeformAttn's
-        kernel, sweep_bwd, dec_fused); None keeps the gather kernels."""
+        """`backbone_cfg`: a SwinConfig or a ResNetConfig, which picks the
+        image backbone.  `msda`: the deformable attentions' core-op keywords
+        (MSDeformAttn's kernel, sweep_bwd, dec_fused); None keeps the gather
+        kernels."""
         super().__init__()
-        self.swin_cfg = swin_cfg
+        self.backbone_cfg = backbone_cfg
         self.hidden_dim, self.num_feature_levels = hidden_dim, num_feature_levels
         self.max_text_len, self.aux_loss = max_text_len, aux_loss
         self.pe_temperature_h, self.pe_temperature_w = pe_temperature_h, pe_temperature_w
@@ -56,8 +63,9 @@ class GroundingDINO(nn.Module):
 
         self.bert = BertModel(bert_cfg)
         self.feat_map = Linear(bert_cfg.hidden_size, C)
-        self.backbone = nn.ModuleList([SwinTransformer(swin_cfg)])
-        feat_dims = [swin_cfg.num_features[i] for i in swin_cfg.out_indices]
+        backbone_cls = ResNet if isinstance(backbone_cfg, ResNetConfig) else SwinTransformer
+        self.backbone = nn.ModuleList([backbone_cls(backbone_cfg)])
+        feat_dims = [backbone_cfg.num_features[i] for i in backbone_cfg.out_indices]
         projs = [nn.Sequential(nn.Conv2d(d, C, 1), GroupNorm(32, C, eps=1e-5))
                  for d in feat_dims]
         in_dim = feat_dims[-1]
@@ -85,9 +93,9 @@ class GroundingDINO(nn.Module):
         self.transformer.decoder.bbox_embed = self.bbox_embed
 
     def level_strides(self):
-        """Per-level strides: stage i of Swin has stride 4*2^i; extra levels
-        halve again."""
-        strides = [4 * (2 ** i) for i in self.swin_cfg.out_indices]
+        """Per-level strides: the backbone's stage strides (4*2^i; a dilated
+        ResNet's stage 3 keeps 16); extra levels halve again."""
+        strides = [self.backbone_cfg.strides[i] for i in self.backbone_cfg.out_indices]
         while len(strides) < self.num_feature_levels:
             strides.append(strides[-1] * 2)
         return strides[: self.num_feature_levels]
@@ -170,12 +178,19 @@ def build_groundingdino(args, device="cuda") -> GroundingDINO:
     checkpoint is then loaded with `to_empty` + `load_state_dict`.  On any
     other device the parameters are uninitialized until a checkpoint is
     loaded or `init_weights_` runs."""
-    if str(args.backbone).startswith("resnet"):
-        raise ValueError("the ResNet backbone is not ported yet")
     for key in ("dropout", "text_dropout", "fusion_dropout"):
         if float(getattr(args, key, 0.0)) != 0.0:
             raise ValueError(f"{key} > 0 is not ported (the port has no dropout)")
-    swin_cfg = SwinConfig.from_name(args.backbone, tuple(args.return_interm_indices))
+    use_checkpoint = bool(getattr(args, "use_checkpoint", False))
+    if str(args.backbone).startswith("resnet"):
+        # reference backbone.py:182-196: the torchvision resnet50/101 trunk
+        backbone_cfg = ResNetConfig(name=str(args.backbone),
+                                    out_indices=tuple(args.return_interm_indices),
+                                    dilation=bool(getattr(args, "dilation", False)),
+                                    use_checkpoint=use_checkpoint)
+    else:
+        backbone_cfg = SwinConfig.from_name(args.backbone, tuple(args.return_interm_indices),
+                                            use_checkpoint=use_checkpoint)
     bert_cfg = BertConfig(
         vocab_size=int(getattr(args, "bert_vocab_size", 30522)),
         hidden_size=int(getattr(args, "bert_hidden_size", 768)),
@@ -187,7 +202,7 @@ def build_groundingdino(args, device="cuda") -> GroundingDINO:
     )
     with torch.device(device):
         return GroundingDINO(
-            swin_cfg=swin_cfg,
+            backbone_cfg=backbone_cfg,
             bert_cfg=bert_cfg,
             hidden_dim=args.hidden_dim,
             num_queries=args.num_queries,
@@ -206,7 +221,7 @@ def build_groundingdino(args, device="cuda") -> GroundingDINO:
             use_text_cross_attention=bool(args.use_text_cross_attention),
             aux_loss=bool(args.aux_loss),
             fusion_droppath=float(getattr(args, "fusion_droppath", 0.0)),
-            use_checkpoint=bool(getattr(args, "use_checkpoint", False)),
+            use_checkpoint=use_checkpoint,
             use_transformer_ckpt=bool(getattr(args, "use_transformer_ckpt", False)),
             msda=msda_options(args),
         ).eval()

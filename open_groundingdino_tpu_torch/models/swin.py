@@ -9,6 +9,9 @@ the reference state dict (`layers.{i}.blocks.{j}.attn.qkv`, `norm{i}`, ...).
 The shift mask and the relative-position index are computed in numpy from
 the static shapes and kept on the device once per shape (the reference's
 relative_position_index buffer is not a parameter and is not loaded).
+With `use_checkpoint`, a forward in training mode with gradients on keeps
+only each block's input and recomputes the block in the backward (the JAX
+package's `nn.remat(SwinBlock)`); eval and no-grad forwards run plainly.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .precision import LayerNorm, Linear
 
@@ -28,6 +32,14 @@ SWIN_VARIANTS = {
     "swin_nano_test": dict(embed_dim=8, depths=(1, 1, 1, 1), num_heads=(1, 2, 2, 4), window_size=4),
     "swin_T_224_1k": dict(embed_dim=96, depths=(2, 2, 6, 2), num_heads=(3, 6, 12, 24),
                           window_size=7),
+    "swin_B_224_22k": dict(embed_dim=128, depths=(2, 2, 18, 2), num_heads=(4, 8, 16, 32),
+                           window_size=7),
+    "swin_B_384_22k": dict(embed_dim=128, depths=(2, 2, 18, 2), num_heads=(4, 8, 16, 32),
+                           window_size=12),
+    "swin_L_224_22k": dict(embed_dim=192, depths=(2, 2, 18, 2), num_heads=(6, 12, 24, 48),
+                           window_size=7),
+    "swin_L_384_22k": dict(embed_dim=192, depths=(2, 2, 18, 2), num_heads=(6, 12, 24, 48),
+                           window_size=12),
 }
 
 
@@ -40,16 +52,23 @@ class SwinConfig:
     patch_size: int = 4
     mlp_ratio: float = 4.0
     out_indices: Tuple[int, ...] = (1, 2, 3)
+    use_checkpoint: bool = False
 
     @property
     def num_features(self) -> Tuple[int, ...]:
         return tuple(self.embed_dim * (2 ** i) for i in range(len(self.depths)))
 
+    @property
+    def strides(self) -> Tuple[int, ...]:
+        """Each stage's stride: patch 4, then a 2x merge a stage."""
+        return tuple(self.patch_size * 2 ** i for i in range(len(self.depths)))
+
     @classmethod
-    def from_name(cls, name: str, out_indices=(1, 2, 3)) -> "SwinConfig":
+    def from_name(cls, name: str, out_indices=(1, 2, 3), use_checkpoint=False) -> "SwinConfig":
         if name not in SWIN_VARIANTS:
-            raise ValueError(f"backbone {name!r} is not ported yet")
-        return cls(out_indices=tuple(out_indices), **SWIN_VARIANTS[name])
+            raise ValueError(f"unknown Swin backbone {name!r}")
+        return cls(out_indices=tuple(out_indices), use_checkpoint=bool(use_checkpoint),
+                   **SWIN_VARIANTS[name])
 
 
 def relative_position_index(ws: int) -> np.ndarray:
@@ -238,10 +257,11 @@ class SwinTransformer(nn.Module):
         x = self.patch_embed.proj(images.permute(0, 3, 1, 2))     # (B, C, Wh, Ww)
         Wh, Ww = x.shape[2], x.shape[3]
         x = self.patch_embed.norm(x.flatten(2).transpose(1, 2))   # (B, Wh*Ww, C)
+        remat = self.cfg.use_checkpoint and self.training and torch.is_grad_enabled()
         outs = []
         for i, stage in enumerate(self.layers):
             for blk in stage.blocks:
-                x = blk(x, Wh, Ww)
+                x = checkpoint(blk, x, Wh, Ww, use_reentrant=False) if remat else blk(x, Wh, Ww)
             if i in self.cfg.out_indices:
                 y = getattr(self, f"norm{i}")(x)
                 outs.append(y.view(B, Wh, Ww, -1))

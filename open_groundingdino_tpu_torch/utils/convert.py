@@ -1,7 +1,7 @@
 """JAX-package parameter tree -> reference-keyed torch state dict.
 
 The port's own copy of the mapping in the JAX package's
-utils/checkpoint.py::export_groundingdino_checkpoint (and the Swin/BERT
+utils/checkpoint.py::export_groundingdino_checkpoint (and the Swin/ResNet/BERT
 exporters of utils/torch_convert.py).  Input: the flax param tree of
 GroundingDINO (per-layer encoder layout) as nested mappings of numpy-
 convertible arrays.  Output: {reference key: float tensor}, which the port's
@@ -9,6 +9,9 @@ GroundingDINO loads with `load_state_dict(strict=True)`:
   * flax Dense kernels (in, out) become torch Linear weights (out, in);
   * flax Conv kernels HWIO become torch Conv2d weights OIHW;
   * LayerNorm / GroupNorm `scale` becomes `weight`;
+  * a Swin backbone goes under `backbone.0.`, a ResNet one under
+    `backbone.0.body.` (its `frozen_bn*` parameters become the FrozenBN
+    buffers of torchvision's `bn*` / `downsample.1`);
   * the shared decoder box head is emitted under every reference alias.
 """
 from __future__ import annotations
@@ -83,6 +86,37 @@ def _swin(sd: StateDict, pre: str, bb: Mapping) -> None:
         _norm(sd, f"{pre}norm{i}", bb[f"out_norm_{i}"])
 
 
+def _frozen_bn(sd: StateDict, key: str, tree: Mapping) -> None:
+    for name in ("weight", "bias", "running_mean", "running_var"):
+        sd[f"{key}.{name}"] = _a(tree[name])
+
+
+def _resnet(sd: StateDict, pre: str, bb: Mapping) -> None:
+    """The inverse of the JAX package's torch_convert.convert_resnet_state_dict:
+    `conv1` / `frozen_bn1` (the stem), `layer{i}_block{b}` with conv1-3,
+    frozen_bn1-3 and, in a stage's first block, downsample_conv /
+    downsample_frozen_bn."""
+    _conv(sd, f"{pre}conv1", bb["conv1"])
+    _frozen_bn(sd, f"{pre}bn1", bb["frozen_bn1"])
+    for name in sorted(k for k in bb if k.startswith("layer")):
+        stage, b = name.split("_block")
+        blk, bpre = bb[name], f"{pre}{stage}.{b}"
+        for j in (1, 2, 3):
+            _conv(sd, f"{bpre}.conv{j}", blk[f"conv{j}"])
+            _frozen_bn(sd, f"{bpre}.bn{j}", blk[f"frozen_bn{j}"])
+        if "downsample_conv" in blk:
+            _conv(sd, f"{bpre}.downsample.0", blk["downsample_conv"])
+            _frozen_bn(sd, f"{bpre}.downsample.1", blk["downsample_frozen_bn"])
+
+
+def resnet_state_dict_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX ResNet's param tree -> the port's ResNet state dict (the
+    reference trunk keys under `body.`)."""
+    sd: StateDict = {}
+    _resnet(sd, "body.", params)
+    return _tensors(sd)
+
+
 def swin_state_dict_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX SwinTransformer's param tree -> the port's SwinTransformer
     state dict (the reference backbone keys without the `backbone.0.`
@@ -113,7 +147,10 @@ def state_dict_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
         _norm(sd, f"{pre}.output.LayerNorm", lp["out_ln"])
     _linear(sd, "feat_map", params["feat_map"])
 
-    _swin(sd, "backbone.0.", params["backbone"])
+    if "patch_embed" in params["backbone"]:
+        _swin(sd, "backbone.0.", params["backbone"])
+    else:
+        _resnet(sd, "backbone.0.body.", params["backbone"])
 
     # --- input projections (Sequential: .0 conv, .1 GroupNorm) ---
     for name in sorted(k for k in params if k.startswith("input_proj_")):

@@ -30,12 +30,13 @@ def _imported_roots(path):
     return roots
 
 
-# every module of the serving, training, sweep, banded and eval slices and the
-# tools: the walk below must find them all, and importing them must load
-# nothing of JAX
+# every module of the serving, training, sweep, banded, eval and backbone
+# slices and the tools: the walk below must find them all, and importing them
+# must load nothing of JAX
 EXPECTED = (
     "inference", "main", "engine", "ops.msda", "ops.msda_sweep", "ops.msda_banded", "ops.fusion",
-    "ops.build", "tools", "tools.msda_microbench",
+    "ops.build", "tools", "tools.msda_microbench", "tools.inference_on_a_image",
+    "models.resnet", "models.swin", "utils.visualizer", "utils.convert",
     "models.matcher", "models.criterion", "models.layers", "models.transformer",
     "models.postprocess", "eval", "eval.coco_eval",
     "parallel.optim", "parallel.train_state", "utils.ema", "utils.box_ops", "utils.checkpoint",
