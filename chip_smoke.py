@@ -208,12 +208,36 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                ResNet-50 on the card (exact f32 launches), whose K1 and K3
                (f32 and bf16) are held against their plain versions on its
                encoder operands
+ 30. pave    - the PAVE vehicle-damage pipeline on phase 5's checkpoint and a
+               seeded 1080x1920 frame: (a) a seeded full-width M1.1 RepViT +
+               Semantic-FPN segmentor (classifier bias set so 30% of the
+               pixels are car), derive_car_bbox's logits on the card against
+               the CPU's within SEG_LOGIT_RTOL of max|logit|, the masks equal
+               where the CPU's margin clears it, its time and peak memory; (b)
+               tools/inference_pave.py end to end with --car_bbox (21 512x512
+               crops, each in the 608x928 bucket) and with
+               --car_seg_checkpoint, each run with n_crops x (12 K1 + 6 K2)
+               f32 launches and no other, the median frame and per-crop time,
+               a profiled crop, its first crop's forward against the CPU's on
+               its two-stage selection with phase 6's limits (a negated K1
+               must fail them); (c)
+               pave/batch_eval.run_batch_eval over a two-frame manifest at
+               batch_size 16 in the config's bf16 through make_eval_step +
+               PostProcess.device (batches of 16 and 5 a frame): 12 K1 + 6 K2
+               bf16 launches a batch and no other, crops/s and frames/s, peak
+               memory, a profiled B = 16 batch, a finite summary that
+               tools/get_metrics.py reads back from its CSV; (d) K1 (encoder,
+               decoder) and K2 on that B = 16 batch's own operands, f32 and
+               bf16, against their plain versions (K1_TOL / K2_TOL, phase 20's
+               bf16 limits), timed beside their bounds
 Each main training run saves one checkpoint, after its last epoch (the
 card's machine takes at most 45 GiB of disk writes a run).
 Every training phase runs with the config's use_checkpoint (True): Swin
 recomputes each block in the backward, as the JAX package
 does.  A [time] line after each phase gives its seconds.
-then the {"kernels": [...]} line (K1-K10, then the bf16 entries of all ten)
+then the {"kernels": [...]} line (K1-K10, then the bf16 entries of all ten;
+K1's and K2's rows hold phase 30 under launches_by_path "pave" and per_shape
+"pave B=16 ...")
 and, last, {"ok": true, "device": {...}}.
 
 Exits nonzero when no CUDA device is present.  Scratch files (checkpoint,
@@ -321,17 +345,19 @@ def json_safe(x):
     return x
 
 
-def kernel_device_ms(fn, iters: int, match, per_call: bool = False) -> float:
+def kernel_device_ms(fn, iters: int, match, per_call: int = 0) -> float:
     """torch.profiler's mean device time a launch of the kernels whose
     names hold `match` (a string, or a tuple of them: any), over `iters`
     calls of fn that each launch one: the kernel alone, without the host's
     launch cost, which sets event_ms's time where a kernel takes tens of
-    microseconds (`per_call`: the device time of every matching kernel a
-    call, for a call that launches several).  The calls run twice under the profiler, and only the
-    second pass is recorded (the schedule's warm-up step): launches right
-    after the profiler starts can go unrecorded.  The mean is over the
-    launches recorded (a line says when that is fewer than `iters`); a
-    profile that records none is taken again, twice at most, then NaN."""
+    microseconds (`per_call`: the number of matching launches a call makes,
+    for a call that launches several; then the device time of all of them a
+    call).  The calls run twice under the profiler, and only the second
+    pass is recorded (the schedule's warm-up step): launches right after the
+    profiler starts can go unrecorded.  A profile that records fewer than
+    the iters x per_call launches made is taken again, twice at most; the
+    one that recorded most gives the mean over the launches it recorded (a
+    line says when that is fewer than were made), NaN where none was."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -339,7 +365,9 @@ def kernel_device_ms(fn, iters: int, match, per_call: bool = False) -> float:
     fn()
     torch.cuda.synchronize()
     matches = (match,) if isinstance(match, str) else match
-    for _ in range(3):   # a pass that records no launch at all is taken again
+    made = iters * max(per_call, 1)
+    count, total = 0, 0.0
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
             for _ in range(2):
@@ -349,14 +377,14 @@ def kernel_device_ms(fn, iters: int, match, per_call: bool = False) -> float:
                 prof.step()
         events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA and any(m in e.key for m in matches)]
-        count = sum(e.count for e in events)
-        if per_call and count:
-            return sum(e.self_device_time_total for e in events) / 1e3 / iters
-        if count != iters:
-            log("profiler", f"{count} of {iters} launches of {matches} recorded")
-        if count:
-            return sum(e.self_device_time_total for e in events) / 1e3 / count
-    return float("nan")
+        seen = sum(e.count for e in events)
+        if seen > count:
+            count, total = seen, sum(e.self_device_time_total for e in events)
+        if count >= made:
+            break
+    if count != made:
+        log("profiler", f"{count} of {made} launches of {matches} recorded")
+    return total / 1e3 / count * max(per_call, 1) if count else float("nan")
 
 
 def padded_tokens(shapes, valid, device):
@@ -1183,7 +1211,8 @@ def run_microbench(dtype: str = "f32") -> tuple:
 
 # ---------------------------------------------------------------- serving
 VOCAB_WORDS = ("a", "the", "cat", "dog", "person", "bicycle", "car", "traffic", "light",
-               "on", "in", "bird", "chair", "table", "sofa", "tree")
+               "on", "in", "bird", "chair", "table", "sofa", "tree",
+               "dent", "scratch", "missing", "scraped", "broken")
 
 
 def write_vocab(path: str, size: int = 30522) -> None:
@@ -1367,13 +1396,14 @@ def serve(files, device: str, tag: str = "serve"):
     return im, lat, counts, images
 
 
-def forward_outputs(im, image, caption):
-    """(pred_logits, pred_boxes, image shape) of one request, on the host."""
+def forward_outputs(im, image, caption, **size):
+    """(pred_logits, pred_boxes, image shape) of one request (prepare_inputs'
+    `size` / `max_size`, if given), on the host."""
     import torch
 
     from open_groundingdino_tpu_torch import inference
 
-    inputs, _ = inference.prepare_inputs(im, image, inference.preprocess_caption(caption))
+    inputs, _ = inference.prepare_inputs(im, image, inference.preprocess_caption(caption), **size)
     with torch.inference_mode():
         out = im.model(**inputs)
     return (out["pred_logits"].float().cpu().numpy(), out["pred_boxes"].float().cpu().numpy(),
@@ -1976,16 +2006,18 @@ def check_sweep_train_parity(harness, gather_card) -> tuple:
     return res, cards
 
 
-def profile_request(im, image, caption, top: int = 8, tag: str = "profile") -> dict:
-    """torch.profiler over one warm request (after one under its warm-up):
-    device time and launches by kernel group (KERNEL_GROUPS, matrix
-    products, the rest) against the request's wall time (profiler on)."""
+def profile_request(im, image, caption, top: int = 8, tag: str = "profile",
+                    **predict_kw) -> dict:
+    """torch.profiler over one warm request (after one under its warm-up;
+    `predict_kw` go to predict): device time and launches by kernel group
+    (KERNEL_GROUPS, matrix products, the rest) against the request's wall
+    time (profiler on)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from open_groundingdino_tpu_torch import inference
 
-    inference.predict(im, image, caption)
+    inference.predict(im, image, caption, **predict_kw)
     torch.cuda.synchronize()
     # two requests, the second recorded (launches right after the profiler
     # starts can go unrecorded)
@@ -1993,7 +2025,7 @@ def profile_request(im, image, caption, top: int = 8, tag: str = "profile") -> d
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
         for _ in range(2):
             t0 = time.perf_counter()
-            inference.predict(im, image, caption)
+            inference.predict(im, image, caption, **predict_kw)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
             prof.step()
@@ -2172,7 +2204,7 @@ def check_bf16_kernels(device) -> dict:
         rows["K2", batch, "fusion"] = dict(
             max_abs_err=max(abs_errs), rel_errs=errs, mean_rel_errs_and_share_differing=mean_errs,
             ms=event_ms(fwd, 5),
-            device_ms=kernel_device_ms(fwd, 5, frags, per_call=True),
+            device_ms=kernel_device_ms(fwd, 5, frags, per_call=3),
             plain_ms=event_ms(lambda: fusion.fused_bi_attention_plain(*args, FUSION_HEADS), 3),
             bound_ms=bound[0], bound_by=bound[1])
         g_ov = torch.randn(q.shape, generator=g, device=device).to(bf)
@@ -2191,7 +2223,7 @@ def check_bf16_kernels(device) -> dict:
         rows["K4", batch, "fusion"] = dict(
             max_abs_err=max(abs_errs), rel_errs=errs, ms=event_ms(bwd, 5),
             device_ms=kernel_device_ms(bwd, 5, ("bwd_bf16_kernel", "sum_splits_bf16_kernel"),
-                                       per_call=True),
+                                       per_call=3),
             plain_ms=event_ms(
                 lambda: fusion.fused_bi_attention_bwd_plain(*args, g_ov, g_ol, FUSION_HEADS), 2),
             bound_ms=bound[0], bound_by=bound[1])
@@ -2986,35 +3018,46 @@ def backbone_files(work: str, vocab: str) -> dict:
     return files
 
 
-class EncoderMSDA:
-    """Within the block, keeps a copy of the operands of the first K1 launch
-    whose queries are the value's tokens (an encoder layer's
-    self-attention): its launches and counts are the kernel's own.  The copy
-    is made outside inference mode, so that autograd of the plain version
-    can take it."""
+class KernelOperands:
+    """Within the block, keeps copies of the operands of the first K1 launch
+    at an encoder (Q = L: `msda["encoder"]`), the first at a decoder
+    (`msda["decoder"]`) and the first K2 launch (`fusion`), in the dtype the
+    model gives them; the launches and counts are the kernels' own.  The
+    copies are detached and made outside inference mode, so that autograd of
+    the plain versions can take them."""
 
     def __init__(self):
-        self.operands = None
+        self.msda, self.fusion = {}, None
 
     def __enter__(self):
         import torch
 
-        from open_groundingdino_tpu_torch.ops import msda
+        from open_groundingdino_tpu_torch.ops import fusion, msda
 
-        self.module, self.kernel = msda, msda._msda_fwd_cuda
+        self.modules = msda, fusion
+        self.kernels = msda._msda_fwd_cuda, fusion._fusion_fwd_cuda
 
-        def spy(value, shapes, starts, locs, attn):
-            if self.operands is None and locs.shape[1] == value.shape[1]:
-                with torch.inference_mode(False):
-                    self.operands = tuple(t.detach().clone() if torch.is_tensor(t) else t
-                                          for t in (value, shapes, starts, locs, attn))
-            return self.kernel(value, shapes, starts, locs, attn)
+        def keep(args):
+            with torch.inference_mode(False):
+                return tuple(t.detach().clone() if torch.is_tensor(t) else t for t in args)
 
-        msda._msda_fwd_cuda = spy
+        def msda_spy(*args):
+            value, locs = args[0], args[3]
+            name = "encoder" if locs.shape[1] == value.shape[1] else "decoder"
+            if name not in self.msda:
+                self.msda[name] = keep(args)
+            return self.kernels[0](*args)
+
+        def fusion_spy(*args):
+            if self.fusion is None:
+                self.fusion = keep(args)
+            return self.kernels[1](*args)
+
+        msda._msda_fwd_cuda, fusion._fusion_fwd_cuda = msda_spy, fusion_spy
         return self
 
     def __exit__(self, *exc):
-        self.module._msda_fwd_cuda = self.kernel
+        self.modules[0]._msda_fwd_cuda, self.modules[1]._fusion_fwd_cuda = self.kernels
 
 
 class TwoStageSelection:
@@ -3140,7 +3183,7 @@ def serve_backbone(files, tag: str, plant_k1: bool = False, device: str = "cuda"
     pil = [synthetic_image(h, w, i) for i, (h, w) in enumerate(IMAGE_SIZES)]
     images = [np.asarray(im) for im in pil]
     reset_counts()
-    with EncoderMSDA() as encoder:
+    with KernelOperands() as encoder:
         model.predict_with_classes(images[0], CLASSES)              # warm-up
     torch.cuda.synchronize()
     lat, found = [], []
@@ -3209,12 +3252,12 @@ def serve_backbone(files, tag: str, plant_k1: bool = False, device: str = "cuda"
         if planted[3]:
             raise AssertionError(f"{tag}: the forward comparison passes with K1's output negated")
         res["planted_k1"] = planted[:3]
-    shapes = encoder.operands[1]
+    shapes = encoder.msda["encoder"][1]
     res["levels"] = [list(hw) for hw in shapes]
     if model.im.args.get("dilation", False):
         if shapes[1] != shapes[2]:
             raise AssertionError(f"{tag}: a dilated stage 3 should keep stage 2's map: {shapes}")
-        res["msda_check"] = check_msda_on(encoder.operands, f"{tag}-msda")
+        res["msda_check"] = check_msda_on(encoder.msda["encoder"], f"{tag}-msda")
     return res
 
 
@@ -3363,7 +3406,7 @@ def train_backbones(work: str, files: dict, device: str = "cuda") -> dict:
     res["resnet50-parity"] = check_resnet_train_parity(files["resnet50"], device)
     step, _, _ = parity_harness(files["resnet50-dilated"][0], files["resnet50-dilated"])
     reset_counts()
-    with EncoderMSDA() as encoder:
+    with KernelOperands() as encoder:
         run = step(device, frozen_keys=frozen_param_keys(True))
     counts = read_counts()
     log("resnet50-dilated-train", f"1 step (B=1, {BUCKET} bucket, f32) in {run['seconds']:.1f} "
@@ -3372,9 +3415,468 @@ def train_backbones(work: str, files: dict, device: str = "cuda") -> dict:
     if not math.isfinite(run["loss"]) or counts != train_launches_per_step({}):
         raise AssertionError(f"the dilated step: loss {run['loss']}, launches {counts}")
     res["resnet50-dilated"] = dict(counts=counts, loss=run["loss"],
-                                   msda_check=check_msda_on(encoder.operands,
+                                   msda_check=check_msda_on(encoder.msda["encoder"],
                                                             "resnet50-dilated-train-msda"))
     return res
+
+
+# ---------------------------------------------------------------- PAVE (phase 30)
+# the PAVE pipeline at full Swin-T width: a seeded 1080x1920 frame, a car
+# box that gives 21 crops of 512x512 (each padded into the 608x928 bucket:
+# levels 76x116, 38x58, 19x29, 10x15, L = 11721,
+# valid 64x64 / 32x32 / 16x16 / 8x8), the damage caption, a full-width M1.1
+# segmentor (RepViTConfig(): widths 64-512, depths 2/2/12/2, fpn 128)
+PAVE_FRAME = (1080, 1920)
+PAVE_CAR_BBOX = (200, 150, 1700, 950)
+PAVE_CROPS = 21
+PAVE_BUCKET = (608, 928)
+PAVE_LABELS = ["dent", "scratch", "missing", "scraped", "broken"]
+PAVE_CAPTION = " . ".join(PAVE_LABELS) + " ."
+PAVE_BATCH = 16              # pave/batch_eval.run_batch_eval's crop batch
+PAVE_SEG_INFER = (512, 1024)
+PAVE_SEG_CAR_SHARE = 0.3     # the classifier bias makes this share of pixels car
+# the segmentor's card logits against the CPU's, relative to the largest
+# |logit|: f32 with TF32 off, cuDNN and oneDNN take each conv's sums (up to
+# 3x3x512 = 4608 terms) in their own order through ~60 layers, a few 1e-6
+# relative each, and the head's GroupNorms re-normalize; 1e-3 leaves room
+# above that and stays far below a fault (a wrong layer moves the logits by
+# their own size)
+SEG_LOGIT_RTOL = 1e-3
+
+
+def pave_frames():
+    """Two seeded 1080x1920 frames (smooth blobs) as uint8 arrays, and each
+    frame's GT boxes: a few damage boxes inside the car box."""
+    import numpy as np
+
+    frames, gts = [], []
+    rng = np.random.RandomState(SEED + 30)
+    for i in range(2):
+        frames.append(np.asarray(synthetic_image(*PAVE_FRAME, 300 + i)))
+        x0, y0, x1, y1 = PAVE_CAR_BBOX
+        xy = rng.uniform((x0, y0), (x1 - 150, y1 - 150), (3 + i, 2))
+        gts.append(np.concatenate([xy, xy + rng.uniform(30, 150, (3 + i, 2))], 1)
+                   .astype(np.float32))
+    return frames, gts
+
+
+def check_segmentor(work: str, frame, device: str = "cuda") -> dict:
+    """Phase 30 (a): a seeded full-width M1.1 segmentor, its classifier bias
+    set so that PAVE_SEG_CAR_SHARE of the frame's pixels are car on the CPU;
+    the logits of derive_car_bbox's input on the card against the CPU's
+    (TF32 off) within SEG_LOGIT_RTOL of the largest |logit|, the masks equal
+    wherever the CPU's margin exceeds twice that; derive_car_bbox on both;
+    its time (median of 5 after a warm-up, host clock) and peak memory on
+    the card.  Saves the segmentor's .pth for phase 30 (b)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from open_groundingdino_tpu_torch.pave import repvit_seg as seg
+
+    cpu = seg.init_segmentor(seg.RepViTConfig(), seed=SEED, device="cpu")
+    x_cpu = seg.frame_input(frame, PAVE_SEG_INFER, "cpu")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = cpu(x_cpu)[0].numpy()
+        margin = logits[..., 1] - logits[..., 0]
+        shift = -float(np.quantile(margin, 1.0 - PAVE_SEG_CAR_SHARE))
+        cpu.head.cls.bias[cpu.cfg.car_class] += shift
+        logits = cpu(x_cpu)[0].numpy()
+    cpu_s = (time.perf_counter() - t0) / 2
+    card = copy.deepcopy(cpu).to(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        got = card(seg.frame_input(frame, PAVE_SEG_INFER, device))[0].cpu().numpy()
+    bbox_card = seg.derive_car_bbox(card, frame, PAVE_SEG_INFER)     # warm
+    lat = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        bbox_card = seg.derive_car_bbox(card, frame, PAVE_SEG_INFER)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    bbox_cpu = seg.derive_car_bbox(cpu, frame, PAVE_SEG_INFER)
+    scale = float(np.abs(logits).max())
+    err = float(np.abs(got - logits).max())
+    margin = logits[..., 1] - logits[..., 0]
+    clear = np.abs(margin) > 2 * SEG_LOGIT_RTOL * scale
+    mask_cpu, mask_card = margin > 0, got[..., 1] > got[..., 0]
+    differ = int((mask_cpu != mask_card)[clear].sum())
+    median = sorted(lat)[len(lat) // 2]
+    log("pave-segmentor", f"M1.1 (widths {cpu.cfg.widths}, depths {cpu.cfg.depths}, fpn "
+                          f"{cpu.cfg.fpn_dim}; {sum(p.numel() for p in cpu.parameters())} "
+                          f"parameters) on a {PAVE_FRAME} frame at {PAVE_SEG_INFER}: logits "
+                          f"max|card-CPU| {err:.3e} ({err / scale:.2e} of max|logit| {scale:.3g}; "
+                          f"limit {SEG_LOGIT_RTOL}); car share CPU {mask_cpu.mean():.3f}, card "
+                          f"{mask_card.mean():.3f}; masks differ at {differ} of {int(clear.sum())} "
+                          f"clear pixels ({int((~clear).sum())} within the margin); bbox card "
+                          f"{[round(v, 2) for v in bbox_card]}, CPU "
+                          f"{[round(v, 2) for v in bbox_cpu]}; derive_car_bbox on the card ms "
+                          f"{[round(t * 1e3, 1) for t in lat]} (median {median * 1e3:.1f}; CPU "
+                          f"{cpu_s * 1e3:.0f} a forward), max_memory_allocated "
+                          f"{peak / 2**30:.2f} GiB")
+    if not err <= SEG_LOGIT_RTOL * scale or differ or bbox_card is None:
+        raise AssertionError(f"the card's segmentor disagrees with the CPU's: error {err}, "
+                             f"{differ} clear pixels differ, bbox {bbox_card}")
+    path = os.path.join(work, "pave_seg.pth")
+    seg.save_segmentor(cpu, path)
+    return dict(max_abs_err=err, rel_err=err / scale, car_share=float(mask_cpu.mean()),
+                bbox_card=bbox_card, bbox_cpu=bbox_cpu, latency_s=lat, median_s=median,
+                peak_bytes=peak, cpu_forward_s=cpu_s, checkpoint=path)
+
+
+def run_pave_tool(files, frame_path: str, out_dir: str, *car: str, device: str = "cuda") -> dict:
+    """tools/inference_pave.py's main end to end on the frame (the car box
+    from `car`: --car_bbox ... or --car_seg_checkpoint ...), its launches
+    counted: n_crops x (12 K1 + 6 K2) f32 and no other kernel."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from open_groundingdino_tpu_torch.config import SLConfig
+    from open_groundingdino_tpu_torch.tools import inference_pave
+
+    cfg, ckpt, vocab = files
+    args = inference_pave.get_args_parser().parse_args([
+        "-c", cfg, "-p", ckpt, "--vocab", vocab, "-i", frame_path, "-t", PAVE_CAPTION,
+        "-o", out_dir, "--device", device, *car])
+    frame = np.asarray(Image.open(frame_path).convert("RGB"))
+    reset_counts()
+    t0 = time.perf_counter()
+    pred = inference_pave.main(args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    want = serving_launches(SLConfig.fromfile(cfg), pred["n_crops"])
+    boxes, scores = np.asarray(pred["boxes_xyxy"]), np.asarray(pred["scores"])
+    log("pave-tool", f"inference_pave {' '.join(car)}: {pred['n_crops']} crops, "
+                     f"{len(boxes)} detections after the merge, {seconds:.2f} s with load_model; "
+                     f"launches { {k: v for k, v in counts.items() if v} }")
+    if counts != want:
+        raise AssertionError(f"inference_pave: kernel launches {counts}, expected {want}")
+    if not (len(boxes) == len(scores) == len(pred["phrases"]) and np.isfinite(boxes).all()
+            and ((scores > args.box_threshold) & (scores <= 1)).all()
+            and os.path.getsize(os.path.join(out_dir, "pred.jpg")) > 0):
+        raise AssertionError(f"inference_pave: malformed output in {out_dir}")
+    # the car box the run used (the segmentor's is derived again, outside the count)
+    car_bbox = inference_pave.car_bbox_from_args(args, frame)
+    return dict(pred=pred, counts=counts, seconds=seconds, car_bbox=car_bbox)
+
+
+def check_pave_run(im, cpu_im, frame, car_bbox, tag: str) -> dict:
+    """Phase 30 (b) on one tool run's car box: the median of 3 frames
+    (predict_frame) and a crop's share of it, the frame's predicts alone,
+    host clock; a profiled crop's device busy share; the first crop's
+    forward on the card against the CPU's on the CPU's two-stage selection
+    with phase 6's limits, and with K1's output negated it must fail them."""
+    import torch
+    from PIL import Image
+
+    from open_groundingdino_tpu_torch import inference
+    from open_groundingdino_tpu_torch.ops import msda
+    from open_groundingdino_tpu_torch.pave import crop_utils
+    from open_groundingdino_tpu_torch.tools import inference_pave
+
+    crops = [Image.fromarray(crop_utils.crop_image(frame, cb))
+             for cb in crop_utils.create_crop_boxes(frame.shape[:2], car_bbox)]
+    size = dict(size=512, max_size=512)
+    lat = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        inference_pave.predict_frame(im, frame, car_bbox, PAVE_CAPTION)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    median = sorted(lat)[1]
+    t0 = time.perf_counter()
+    for crop in crops:   # the frame's predicts alone: the rest is the crop cuts and the merge
+        inference.predict(im, crop, PAVE_CAPTION, box_threshold=0.3, **size)
+    torch.cuda.synchronize()
+    predicts_s = time.perf_counter() - t0
+    log(f"pave-frame-{tag}", f"predict_frame over {len(crops)} crops: ms "
+                             f"{[round(t * 1e3, 1) for t in lat]} (median {median * 1e3:.1f}, "
+                             f"{median * 1e3 / len(crops):.1f} a crop); its {len(crops)} predicts "
+                             f"alone {predicts_s * 1e3:.1f} ms, the crop cuts and the merge (NMS "
+                             f"of every crop's detections) the rest")
+    profile = profile_request(im, crops[0], PAVE_CAPTION, tag=f"pave-crop-profile-{tag}", **size)
+
+    t0 = time.perf_counter()
+    with TwoStageSelection() as cpu_sel:
+        cpu = forward_outputs(cpu_im, crops[0], PAVE_CAPTION, **size)
+    cpu_s = time.perf_counter() - t0
+    if cpu[2][1:3] != PAVE_BUCKET:
+        raise AssertionError(f"a crop landed in {cpu[2]}, not the {PAVE_BUCKET} bucket")
+    with TwoStageSelection(cpu_sel.order):
+        card = forward_outputs(im, crops[0], PAVE_CAPTION, **size)
+    forward = compare_forward(card, cpu, f"pave-forward-{tag}",
+                              f"its first crop, the CPU's two-stage selection; CPU forward "
+                              f"{cpu_s:.1f} s")
+    fwd = msda._msda_fwd_cuda
+    msda._msda_fwd_cuda = negated_output(fwd)
+    try:
+        with TwoStageSelection(cpu_sel.order):
+            planted = forward_gap(forward_outputs(im, crops[0], PAVE_CAPTION, **size), cpu)
+    finally:
+        msda._msda_fwd_cuda = fwd
+    log(f"pave-forward-{tag}", f"planted fault, K1 output negated: flipped {planted[0]:.1%}, "
+                               f"bulk max|dlogit| {planted[1]:.3e}, bulk max|dbox| "
+                               f"{planted[2]:.3e}")
+    if planted[3]:
+        raise AssertionError(f"pave {tag}: the crop forward comparison passes with K1's output "
+                             f"negated")
+    return dict(frame_s=lat, median_frame_s=median, crop_s=median / len(crops),
+                predicts_s=predicts_s, profile=profile, forward=forward, planted_k1=planted[:3])
+
+
+def check_pave_tool(files, work: str, frame, seg_path: str, device: str = "cuda") -> dict:
+    """Phase 30 (b): tools/inference_pave.py twice, with --car_bbox
+    PAVE_CAR_BBOX (PAVE_CROPS crops) and with --car_seg_checkpoint (the
+    segmentor of (a)), each with exact f32 launches, then check_pave_run on
+    each run's car box."""
+    from PIL import Image
+
+    from open_groundingdino_tpu_torch import inference
+
+    frame_path = os.path.join(work, "pave_frame.png")
+    Image.fromarray(frame).save(frame_path)
+    runs = {"bbox": run_pave_tool(files, frame_path, os.path.join(work, "pave_out"),
+                                  "--car_bbox", ",".join(str(v) for v in PAVE_CAR_BBOX),
+                                  device=device),
+            "segmentor": run_pave_tool(files, frame_path, os.path.join(work, "pave_seg_out"),
+                                       "--car_seg_checkpoint", seg_path, device=device)}
+    if runs["bbox"]["pred"]["n_crops"] != PAVE_CROPS:
+        raise AssertionError(f"{runs['bbox']['pred']['n_crops']} crops for {PAVE_CAR_BBOX}")
+    im = inference.load_model(*files, device=device)
+    cpu_im = inference.load_model(*files, device="cpu")
+    return {tag: {"counts": r["counts"], "seconds": r["seconds"],
+                  "n_crops": r["pred"]["n_crops"],
+                  **check_pave_run(im, cpu_im, frame, r["car_bbox"], tag)}
+            for tag, r in runs.items()}
+
+
+def pave_forward_fn(model, post, compute_dtype):
+    """run_batch_eval's forward: make_eval_step in `compute_dtype` (the
+    parameters cast once) and PostProcess.device; per crop {'scores': (K,),
+    'boxes': (K, 4) xyxy in crop pixels} on the host."""
+    from open_groundingdino_tpu_torch.parallel.train_state import (cast_floating, make_eval_step,
+                                                                   resolve_compute_dtype)
+
+    step = make_eval_step(model, compute_dtype=compute_dtype)
+    dtype = resolve_compute_dtype(compute_dtype)
+    params = dict(model.named_parameters())
+    if dtype is not None:
+        params = cast_floating(params, dtype)
+
+    def forward(batch):
+        packed = post.device(step(batch, params), batch["orig_sizes"]).cpu().numpy()
+        return {"scores": packed[..., 0], "boxes": packed[..., 2:6]}
+
+    forward.step, forward.params = step, params
+    return forward
+
+
+def check_pave_eval(files, work: str, frames, gts, device: str = "cuda") -> dict:
+    """Phase 30 (c): pave/batch_eval.run_batch_eval over a two-frame manifest
+    at batch_size PAVE_BATCH in the config's compute dtype (bf16), through
+    make_eval_step + PostProcess.device: 12 K1 + 6 K2 bf16 launches a batch
+    and no other (a frame of 21 crops is a batch of 16 and one of 5), a
+    finite summary, and tools/get_metrics.py on its CSV giving the same
+    summary; crops/s and frames/s over a second pass, peak memory, a
+    profiled B = 16 batch's busy share; and the B = 16 batch's K1 and K2
+    operands for phase 30 (d)."""
+    import csv
+
+    import numpy as np
+    import torch
+    from PIL import Image
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from open_groundingdino_tpu_torch.config import SLConfig
+    from open_groundingdino_tpu_torch.data.loader import Collator
+    from open_groundingdino_tpu_torch.data.tokenization import build_caption, build_tokenizer
+    from open_groundingdino_tpu_torch.inference import load_model
+    from open_groundingdino_tpu_torch.models.postprocess import PostProcess
+    from open_groundingdino_tpu_torch.pave import batch_eval, engine
+    from open_groundingdino_tpu_torch.tools import get_metrics
+
+    cfg, ckpt, vocab = files
+    args = SLConfig.fromfile(cfg)
+    rows = []
+    for i, (frame, gt) in enumerate(zip(frames, gts)):
+        path = os.path.join(work, f"pave_eval_{i}.png")
+        Image.fromarray(frame).save(path)
+        rows.append({"image_path": path, "car_bbox": ",".join(map(str, PAVE_CAR_BBOX)),
+                     "gt_boxes": ";".join(",".join(f"{v:.1f}" for v in b) for b in gt),
+                     "gt_labels": ";".join(PAVE_LABELS[j % len(PAVE_LABELS)]
+                                           for j in range(len(gt)))})
+    manifest = os.path.join(work, "pave_manifest.csv")
+    with open(manifest, "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(rows[0]))
+        w.writeheader()
+        w.writerows(rows)
+    manifest_rows = batch_eval.parse_manifest(manifest)
+    tokenizer = build_tokenizer(vocab)
+    collator = Collator(tokenizer, args.image_buckets, int(args.max_text_len),
+                        int(args.max_gt_boxes), u8_images=True)
+    post = PostProcess(tokenizer, PAVE_LABELS, int(args.num_select), int(args.max_text_len))
+    model = load_model(*files, device=device).model
+    dtype = str(args.compute_dtype)
+    forward = pave_forward_fn(model, post, dtype)
+    n_crops = len(frames) * PAVE_CROPS
+    n_batches = len(frames) * -(-PAVE_CROPS // PAVE_BATCH)
+    out_csv = os.path.join(work, "pave_eval.csv")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = batch_eval.run_batch_eval(forward, collator, manifest_rows, PAVE_LABELS,
+                                    out_csv=out_csv, batch_size=PAVE_BATCH)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = eval_launches(n_batches, dtype == "bfloat16")
+    t0 = time.perf_counter()
+    batch_eval.run_batch_eval(forward, collator, manifest_rows, PAVE_LABELS,
+                              batch_size=PAVE_BATCH)
+    torch.cuda.synchronize()
+    pass_s = time.perf_counter() - t0
+    summary = res["summary"]
+    read_back = get_metrics.main(get_metrics.get_args_parser().parse_args([out_csv]))
+    log("pave-eval", f"run_batch_eval over {len(frames)} frames ({n_crops} crops, "
+                     f"{n_batches} batches of at most {PAVE_BATCH}, {dtype}): {first_s:.2f} s "
+                     f"with warm-up; a second pass {pass_s:.3f} s: {n_crops / pass_s:.1f} crops/s, "
+                     f"{len(frames) / pass_s:.2f} frames/s; max_memory_allocated "
+                     f"{peak / 2**30:.2f} GiB; launches "
+                     f"{ {k: v for k, v in counts.items() if v} }; summary {summary}; "
+                     f"get_metrics on its CSV {read_back['summary']}")
+    if counts != want:
+        raise AssertionError(f"pave eval: kernel launches {counts}, expected {want}")
+    if (not all(math.isfinite(v) for v in summary.values()) or read_back["summary"] != summary
+            or read_back["sweep"] != res["sweep"] or res["n_frames"] != len(frames)):
+        raise AssertionError(f"pave eval: summary {summary}, read back {read_back['summary']}")
+
+    # one B = 16 crop batch: its K1/K2 operands, and a profiled batch
+    caption = build_caption(PAVE_LABELS)
+    samples, _ = engine.crops_to_samples(frames[0], PAVE_CAR_BBOX, gts[0],
+                                         np.zeros(len(gts[0]), np.int64), caption, PAVE_LABELS,
+                                         keep_empty=True)
+    batch = collator(samples[:PAVE_BATCH])
+    if tuple(batch["images"].shape[:3]) != (PAVE_BATCH, *PAVE_BUCKET):
+        raise AssertionError(f"the crop batch is {batch['images'].shape}")
+    with KernelOperands() as operands:
+        forward.step(batch, forward.params)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            forward(batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            prof.step()
+    _, groups, launches = device_time_by_group(prof)
+    busy = sum(groups.values())
+    log("pave-eval-profile", f"one B={PAVE_BATCH} crop batch ({dtype}) {wall_ms:.1f} ms wall "
+                             f"(profiler on), device busy {busy:.1f} ms ({busy / wall_ms:.0%}); "
+                             f"by group ms { {k: round(v, 2) for k, v in groups.items() if v} }, "
+                             f"launches { {k: n for k, n in launches.items() if n} }")
+    if busy <= 0:
+        raise AssertionError("pave eval: the profiler recorded no device time")
+    return dict(counts=counts, summary=summary, first_pass_s=first_s, pass_s=pass_s,
+                crops_per_s=n_crops / pass_s, frames_per_s=len(frames) / pass_s,
+                peak_bytes=peak, batch_wall_ms=wall_ms, batch_busy_ms=busy,
+                batch_busy_share=busy / wall_ms, groups_ms=groups,
+                operands=(operands.msda, operands.fusion))
+
+
+def check_pave_kernels(operands) -> dict:
+    """Phase 30 (d): K1 (encoder and decoder) and K2 on the B = 16 crop
+    batch's own operands (each image valid 512x512 of 608x928), through
+    their f32 entries (the operands widened) and their bf16 entries (the
+    model's), against the plain versions: f32 within K1_TOL / K2_TOL, bf16
+    within BF16_FWD_RTOL of max|ref| (K2's out_l within K2_BF16_TEXT_SIDE x
+    out_v's error); CUDA-event and profiler device times beside the plain
+    version and the bound at these inputs."""
+    import torch
+
+    from open_groundingdino_tpu_torch.ops import fusion, msda
+
+    msda_ops, fusion_ops = operands
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = "f32" if dtype == torch.float32 else "bf16"
+        for part in ("encoder", "decoder"):
+            value, shapes, starts, locs, attn = msda_ops[part]
+            value = value.to(dtype)
+            fwd = lambda: msda.ms_deform_attn(value, shapes, starts, locs, attn)   # noqa: E731
+            plain = lambda: msda.ms_deform_attn_plain(   # noqa: E731
+                value, shapes, starts, locs, attn)
+            err, rel = rel_err(fwd(), plain())
+            bound = msda_bound_ms(value, shapes, locs, attn)
+            rows["K1", name, part] = dict(
+                B=value.shape[0], Q=locs.shape[1], L=value.shape[1],
+                shapes=[list(hw) for hw in shapes], max_abs_err=err, rel_err=rel,
+                ms=event_ms(fwd, 20),
+                device_ms=kernel_device_ms(fwd, 20, K1_BF16_NAMES if name == "bf16"
+                                           else "msda_fwd_kernel"),
+                plain_ms=event_ms(plain, 3), bound_ms=bound[0], bound_by=bound[1])
+            ok = err <= K1_TOL if name == "f32" else rel <= BF16_FWD_RTOL
+            r = rows["K1", name, part]
+            log("pave-kernels", f"K1 {name} {part}: B={r['B']} Q={r['Q']} L={r['L']} shapes "
+                                f"{r['shapes']}; max|kernel-plain| {err:.3e} ({rel:.2e} of "
+                                f"max|ref|; limit {K1_TOL if name == 'f32' else BF16_FWD_RTOL}"
+                                f"{'' if name == 'f32' else ' of max|ref|'}); kernel "
+                                f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain "
+                                f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+                                f"({r['bound_by']})")
+            if not ok:
+                raise AssertionError(f"pave: K1 {name} {part} disagrees with its plain version")
+        q, k, val_v, val_l, mask_v, mask_l, heads = fusion_ops
+        args = [t.to(dtype) for t in (q, k, val_v, val_l)] + [mask_v, mask_l]
+        fwd = lambda: fusion._fusion_fwd_cuda(*args, heads)   # noqa: E731
+        plain = lambda: fusion.fused_bi_attention_plain(*args, heads)   # noqa: E731
+        out_v, out_l = fwd()[:2]
+        ov_p, ol_p = plain()
+        (ev, rv), (el, rl) = rel_err(out_v, ov_p), rel_err(out_l, ol_p)
+        del ov_p, ol_p
+        bound = fusion_bound_ms(args[0], args[1], mask_v, mask_l)
+        frags = (("attend_bf16_kernel", "combine_bf16_kernel") if name == "bf16"
+                 else ("attend_kernel", "combine_kernel"))
+        rows["K2", name, "fusion"] = r = dict(
+            B=q.shape[0], Nv=q.shape[1], live_v=int((~mask_v).sum()), live_l=int((~mask_l).sum()),
+            max_abs_err=max(ev, el), rel_errs={"out_v": rv, "out_l": rl},
+            ms=event_ms(fwd, 5), device_ms=kernel_device_ms(fwd, 5, frags, per_call=3),
+            plain_ms=event_ms(plain, 3), bound_ms=bound[0], bound_by=bound[1])
+        ok = (max(ev, el) <= K2_TOL if name == "f32" else
+              max(rv, rl) <= BF16_FWD_RTOL and rl <= K2_BF16_TEXT_SIDE * rv)
+        log("pave-kernels", f"K2 {name}: B={r['B']} Nv={r['Nv']} ({r['live_v']} live of "
+                            f"{r['B'] * r['Nv']}) Nl={k.shape[1]} ({r['live_l']} live): "
+                            f"max|kernel-plain| out_v {ev:.3e} out_l {el:.3e} (of max|ref| "
+                            f"{rv:.2e} / {rl:.2e}; limit "
+                            f"{K2_TOL if name == 'f32' else f'{BF16_FWD_RTOL} of max|ref|'}); "
+                            f"kernel {r['ms']:.3f} ms (device {r['device_ms']:.3f}), plain "
+                            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+                            f"({r['bound_by']})")
+        if not ok:
+            raise AssertionError(f"pave: K2 {name} disagrees with its plain version")
+        del args
+    return rows
+
+
+def check_pave(work: str, files, device: str = "cuda") -> dict:
+    """Phase 30: the PAVE pipeline (a)-(d) on the smoke's Swin-T checkpoint."""
+    frames, gts = pave_frames()
+    segmentor = check_segmentor(work, frames[0], device)
+    tool = check_pave_tool(files, work, frames[0], segmentor["checkpoint"], device)
+    evals = check_pave_eval(files, work, frames, gts, device)
+    kernels = check_pave_kernels(evals.pop("operands"))
+    return dict(segmentor=segmentor, tool=tool, eval=evals, kernels=kernels)
 
 
 def main() -> int:
@@ -3511,6 +4013,9 @@ def main() -> int:
         clock("28")
         bb_train = train_backbones(work, bb_files)                     # 29
         clock("29")
+        del bb_files
+        pave = check_pave(work, files)                                 # 30
+        clock("30")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3546,22 +4051,37 @@ def main() -> int:
     def bb_launches(counter):
         return {tag: c[counter] for tag, c in bb_counts.items() if c[counter]}
 
+    # the PAVE paths (phase 30): the tool's two f32 runs, the bf16 crop-batch
+    # eval; the kernels held at the B = 16 crop batch's operands
+    pave_kernels = pave["kernels"]
+
+    def pave_launches(counter):
+        return sum(r["counts"][counter] for r in pave["tool"].values())
+
+    def pave_shapes(kname, dtype):
+        return {f"pave B={PAVE_BATCH} {part}": r for (k, d, part), r in pave_kernels.items()
+                if k == kname and d == dtype}
+
+    k1_row["per_shape"].update(pave_shapes("K1", "f32"))
     kernels = [
         {"name": "msda_fwd", "route": "cuda", "source": src + "msda_fwd.cu",
          "replaces": tpu + "msda_banded.py:311", "launches": counts["msda_fwd"],
          "launches_by_path": {"serve": counts["msda_fwd"], "train": train_counts["msda_fwd"],
                               "eval-f32": evals["float32"]["counts"]["msda_fwd"],
-                              **bb_launches("msda_fwd")},
-         **k1_row | {"max_abs_err": max(k1_row["max_abs_err"], k1_err)},
+                              **bb_launches("msda_fwd"), "pave": pave_launches("msda_fwd")},
+         **k1_row | {"max_abs_err": max(k1_row["max_abs_err"], k1_err, *(
+             r["max_abs_err"] for r in pave_shapes("K1", "f32").values()))},
          "sass": msda_sass["msda_fwd"]},
         {"name": "fusion_fwd", "route": "cuda", "source": src + "fusion_fwd.cu",
          "replaces": tpu + "fusion_pallas.py:50", "launches": counts["fusion_fwd"],
          "launches_by_path": {"serve": counts["fusion_fwd"],
                               "train": train_counts["fusion_fwd"],
                               "eval-f32": evals["float32"]["counts"]["fusion_fwd"],
-                              **bb_launches("fusion_fwd")},
-         **single_row(k2) | {"max_abs_err": max(k2["max_abs_err"], k2_err)},
-         "per_shape": {"B=1": single_row(k2), "B=4": single_row(k4["k2"])},
+                              **bb_launches("fusion_fwd"), "pave": pave_launches("fusion_fwd")},
+         **single_row(k2) | {"max_abs_err": max(
+             k2["max_abs_err"], k2_err, pave_kernels["K2", "f32", "fusion"]["max_abs_err"])},
+         "per_shape": {"B=1": single_row(k2), "B=4": single_row(k4["k2"]),
+                       **pave_shapes("K2", "f32")},
          "sass": k2["sass"]["fusion_fwd"]},
         {"name": "msda_bwd", "route": "cuda", "source": src + "msda_bwd.cu",
          "replaces": tpu + "msda_banded.py:524", "launches": train_counts["msda_bwd"],
@@ -3628,13 +4148,15 @@ def main() -> int:
         row = mean_row(shapes) if len(parts) == 2 else single_row(shapes["fusion"])
         row["per_shape"] = {f"{batch} {n}": r for (k, batch, n), r in bf16_rows.items()
                             if k == kname}
+        row["per_shape"].update(pave_shapes(kname, "bf16"))   # the crop batch (phase 30)
         row["max_abs_err"] = max(r["max_abs_err"] for r in row["per_shape"].values())
         row["device_ms"] = sum(r["device_ms"] for r in shapes.values()) / len(shapes)
         row["sass"] = bf16["sass"].get({"K2": "fusion_fwd", "K3": "msda_bwd_atomics",
                                         "K4": "fusion_bwd"}.get(kname))
         by_path = {"bf16-train": bf16_counts[f"{counter}_bf16"]}
-        if kname in ("K1", "K2"):   # and the bf16 eval (phase 22)
+        if kname in ("K1", "K2"):   # and the bf16 eval (phase 22), the PAVE crop eval (30)
             by_path["eval-bf16"] = evals["bfloat16"]["counts"][f"{counter}_bf16"]
+            by_path["pave"] = pave["eval"]["counts"][f"{counter}_bf16"]
         by_path.update(bb_launches(f"{counter}_bf16"))   # the Swin-L steps (phase 29)
         kernels.append({"name": f"{counter}_bf16", "route": "cuda", "source": src + source,
                         "replaces": tpu + line, "launches": bf16_counts[f"{counter}_bf16"],

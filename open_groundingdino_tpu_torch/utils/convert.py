@@ -215,3 +215,41 @@ def state_dict_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     _mlp(sd, "transformer.enc_out_bbox_embed", t["enc_out_bbox_embed"])
 
     return _tensors(sd)
+
+
+def _repvit_names(tree: Mapping) -> Dict[str, str]:
+    """A JAX segmentor module's child names -> the port's: a `X_conv` /
+    `X_bn` pair (the JAX package's _conv_bn) is the port's ConvBN `X`
+    (`X.conv`, `X.bn`); a lone `X_conv` is the port's conv `X`."""
+    names = {}
+    for name in tree:
+        base = name[:-len("_conv")] if name.endswith("_conv") else None
+        if base is not None and f"{base}_bn" in tree:
+            names[name] = f"{base}.conv"
+        elif name.endswith("_bn") and f"{name[:-len('_bn')]}_conv" in tree:
+            names[name] = f"{name[:-len('_bn')]}.bn"
+        else:
+            names[name] = base if base is not None else name
+    return names
+
+
+def _repvit(sd: StateDict, pre: str, tree: Mapping, group_norm: bool = False) -> None:
+    for name, key in _repvit_names(tree).items():
+        sub = tree[name]
+        if not isinstance(sub, Mapping):
+            if name == "kernel":   # HWIO -> OIHW (a depthwise kernel's I is 1)
+                sd[f"{pre}weight"] = _a(sub).transpose(3, 2, 0, 1)
+            else:                  # FrozenBN keeps `scale`; GroupNorm's is `weight`
+                sd[f"{pre}{'weight' if group_norm and name == 'scale' else name}"] = _a(sub)
+        else:
+            _repvit(sd, f"{pre}{key}.", sub, "_gn" in name)
+
+
+def repvit_state_dict_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX RepViTSegmentor's parameter tree (with or without its
+    "params" level) -> the port's RepViTSegmentor state dict: conv kernels
+    HWIO -> OIHW (depthwise `feature_group_count` is the port's `groups`),
+    FrozenBN `scale` / `bias` as they are, GroupNorm `scale` -> `weight`."""
+    sd: StateDict = {}
+    _repvit(sd, "", params.get("params", params))
+    return _tensors(sd)
