@@ -115,7 +115,7 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                config's bf16 and with compute_dtype=float32: eval_stats.json
                with the 12 finite COCO stats, 12 K1 + 6 K2 launches a batch in
                the compute dtype's entry and no other kernel; images/s over a
-               second pass, one batch's device busy share under
+               second pass, in bf16 one batch's device busy share under
                torch.profiler.  Then one B = 4 eval batch (4 images of the
                800x1216 bucket, each with its own valid region) through
                make_eval_step + PostProcess in f32 on the card and on the CPU
@@ -125,14 +125,14 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                output negated the card's AP must fall by more than 0.3; the
                bf16 eval's AP on it is recorded
  23. checkpoints - main at B = 4, bf16, one step an epoch, use_ema, with that
-               pseudo ground truth as its val split: 3 epochs, and apart 2
-               epochs then 3 in one directory (resuming from
-               checkpoint_1.pth); the restored state equals the saved one bit
+               pseudo ground truth as its val split: 2 epochs, and apart 1
+               epoch then 2 in one directory (resuming from
+               checkpoint_0.pth); the restored state equals the saved one bit
                for bit (parameters, both AdamW moments and the count, the EMA,
                step, nonfinite_count, the stochastic-depth generator), the
-               epoch-2 loss matches the continuous run's within 1e-3
+               epoch-1 loss matches the continuous run's within 1e-3
                relative, best/ and best_ema/ exist, every log.txt line holds
-               the JAX package's keys, and load_model on checkpoint_2.pth
+               the JAX package's keys, and load_model on checkpoint_1.pth
                answers a request
  24. bf16 sweep kernels - the bf16 entries of K6 and K7 (phase 8's B = 4
                and phase 3's B = 1 shapes, K7 on the decoder's sorted query
@@ -145,11 +145,11 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                spills), and K9's and K10's bf16 SASS must hold f32 global
                reductions and no bf16x2 one
  25. bf16 sweep train - main --options msda_kernel=sweep in the config's
-               default bf16 at B = 4, full width and depth: 1 warm-up + 3
-               timed steps, each loss finite, 18 K6 + 12 K9 + 12 K2 + 6 K4
-               bf16 launches a step and no other; a profiled step; 1 step
-               with msda_sweep_bwd=rowtap (12 K10 bf16) and a profiled one,
-               and 1 with msda_dec_fused=True (12 K6 + 6 K7 bf16); phase 15's
+               default bf16 at B = 4, full width and depth: 1 warm-up + 1
+               timed step, each loss finite, 18 K6 + 12 K9 + 12 K2 + 6 K4
+               bf16 launches a step and no other; 1 step with
+               msda_sweep_bwd=rowtap (12 K10 bf16), and 1 with
+               msda_dec_fused=True (12 K6 + 6 K7 bf16); phase 15's
                step in
                bf16 through the sweep (corner and row-tap backward) against
                phase 15's f32 sweep steps on the card: loss within 2e-2 and
@@ -182,7 +182,7 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                through inference.Model on the card: a warm-up and one
                predict_with_classes request on each of phase 5's three
                images, 12 K1 + 6 K2 f32 launches a request and no other,
-               median latency, peak memory, a profiled request; one forward
+               median latency, peak memory; one forward
                against the same checkpoint on the CPU: as served, fewer than
                10% of the queries flipped (and how many queries the two
                devices give other encoder tokens); then on the CPU's
@@ -197,7 +197,7 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                draws one Swin-B request's boxes into an image
  29. backbones train - main with cfg_swinl in the default bf16 at B = 4:
                2 steps (18 K1 + 12 K3 + 12 K2 + 6 K4 bf16 a step, no other),
-               a profiled one, then 1 more step of that model with
+               then 1 more step of that model with
                use_checkpoint off (no per-block recompute and no fusion
                replays: 6 K2 a step) for the peak memory the recompute
                saves; phase 11's f32 B = 1 step on ResNet-50 on the card
@@ -230,6 +230,22 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                decoder) and K2 on that B = 16 batch's own operands, f32 and
                bf16, against their plain versions (K1_TOL / K2_TOL, phase 20's
                bf16 limits), timed beside their bounds
+ 31. export  - the serving artifacts (serving.py through torch.export, the
+               forward kernels as the custom ops of ops/library.py):
+               tools/export_model.py in subprocesses for the 800x1216
+               bucket on the card, on phase 5's checkpoint (gather) and on
+               a checkpoint of one encoder and one decoder layer at full
+               width on the sweep (msda_dec_fused: K6, K7) and banded_point
+               (K5) paths; each artifact loaded by load_exported in a fresh
+               process (serve_artifact) and its forward held against the
+               eager forward of its checkpoint on the card with phase 6's
+               limits, its launches exactly the eager forward's; the gather
+               artifact's requests 12 K1 + 6 K2 f32 launches and no other,
+               predict and predict_with_spans equal to eager, a negated K1
+               failing the comparison; export seconds, artifact sizes,
+               load seconds, the median latency and profiled busy time of
+               its requests beside eager predict's on the same request (its
+               profile phase 7's)
 Each main training run saves one checkpoint, after its last epoch (the
 card's machine takes at most 45 GiB of disk writes a run).
 Every training phase runs with the config's use_checkpoint (True): Swin
@@ -237,7 +253,8 @@ recomputes each block in the backward, as the JAX package
 does.  A [time] line after each phase gives its seconds.
 then the {"kernels": [...]} line (K1-K10, then the bf16 entries of all ten;
 K1's and K2's rows hold phase 30 under launches_by_path "pave" and per_shape
-"pave B=16 ...")
+"pave B=16 ...", and K1's, K2's, K5's, K6's and K7's phase 31 under
+launches_by_path "export")
 and, last, {"ok": true, "device": {...}}.
 
 Exits nonzero when no CUDA device is present.  Scratch files (checkpoint,
@@ -1776,10 +1793,13 @@ def profile_train_step(run, top: int = 8, tag: str = "train-profile") -> dict:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
             prof.step()
+    t0 = time.perf_counter()
     kernels, groups, launches = device_time_by_group(prof)
+    digest_s = time.perf_counter() - t0
     busy = sum(groups.values())
     log(tag, f"one step {wall_ms:.1f} ms wall (profiler on), device busy "
-                         f"{busy:.1f} ms ({busy / wall_ms:.0%}); by group ms "
+                         f"{busy:.1f} ms ({busy / wall_ms:.0%}; the profile read in {digest_s:.1f} "
+                         f"s); by group ms "
                          f"{ {k: round(v, 2) for k, v in groups.items()} }, launches "
                          f"{ {k: n for k, n in launches.items() if n} }; top kernels "
                          f"{[(k[:48], round(ms, 2), n) for k, ms, n in kernels[:top]]}")
@@ -2307,8 +2327,8 @@ PSEUDO_GT_NMS = 0.5
 PSEUDO_GT_NUM_SELECT = 900 * len(CATEGORIES)
 EVAL_AP_TOL = 0.02
 EVAL_FAULT_DROP = 0.3
-# phase 23: the epoch-2 loss of a run resumed from the continuous run's own
-# checkpoint_1.pth against the continuous run's.  Two runs apart from the
+# phase 23: the epoch-1 loss of a run resumed from the continuous run's own
+# checkpoint_0.pth against the continuous run's.  Two runs apart from the
 # start part by more: K3's bf16 atomics add in an order that changes from
 # run to run, and the Hungarian matching turns the last bits into another
 # assignment (1.3e-3 and 5.5e-3 relative at epoch 2 in two H100 runs of
@@ -2457,10 +2477,10 @@ def check_bf16_sweep(device) -> dict:
 def train_bf16_sweep(cfg, work, train_files, eval_files, harness, sweep_f32_cards,
                      gather_bf16_card) -> dict:
     """Phase 25: main --options msda_kernel=sweep in the config's default
-    bf16 at B = 4, full width and depth: 1 warm-up + 3 timed steps (each a
-    18 K6 + 12 K9 + 12 K2 + 6 K4 bf16 launches, no f32 entry and no K1, K3)
-    and a profiled step; 1 step with msda_sweep_bwd=rowtap (12 K10 bf16, no
-    K9) and a profiled one, and 1 with msda_dec_fused=True (the decoder's 6
+    bf16 at B = 4, full width and depth: 1 warm-up + 1 timed step (each a
+    18 K6 + 12 K9 + 12 K2 + 6 K4 bf16 launches, no f32 entry and no K1, K3);
+    1 step with msda_sweep_bwd=rowtap (12 K10 bf16, no
+    K9), and 1 with msda_dec_fused=True (the decoder's 6
     on K7 bf16, the encoder's 12 on K6 bf16).  Then phase 15's B = 1 step in bf16 through the
     sweep, with the corner and the row-tap backward, against phase 15's f32
     sweep steps on the card (loss within BF16_LOSS_RTOL, each MSDA-fed
@@ -2475,7 +2495,7 @@ def train_bf16_sweep(cfg, work, train_files, eval_files, harness, sweep_f32_card
 
     sweep = {"msda_kernel": "sweep"}
     runs = {}
-    for tag, keys, kw in (("bf16-sweep-train", sweep, dict(epochs=2)),
+    for tag, keys, kw in (("bf16-sweep-train", sweep, dict(epochs=1)),
                           ("bf16-sweep-train-rowtap", sweep | {"msda_sweep_bwd": "rowtap"},
                            dict(epochs=1, max_steps=1)),
                           ("bf16-sweep-train-fused", sweep | {"msda_dec_fused": True},
@@ -2483,8 +2503,6 @@ def train_bf16_sweep(cfg, work, train_files, eval_files, harness, sweep_f32_card
         run = train(cfg, work, train_files, "cuda", keys, tag=tag, compute_dtype=None, **kw)
         if run["run"]["train_step"].compute_dtype != "bfloat16":
             raise AssertionError("main's default compute_dtype is not bf16")
-        if tag in ("bf16-sweep-train", "bf16-sweep-train-rowtap"):   # K10 bf16's on its path
-            run["profile"] = profile_train_step(run["run"], tag=f"{tag}-profile")
         del run["run"]
         runs[tag] = run
 
@@ -2567,7 +2585,8 @@ def check_eval_main(cfg: str, work: str, files, device: str = "cuda") -> dict:
     (their boxes as annotations), with the config's bf16 and with
     compute_dtype=float32: eval_stats.json with the 12 finite stats, the
     launches of K1 and K2 in the compute dtype's entry only; images/s over a
-    second pass, and one batch's device busy share under torch.profiler."""
+    second pass, and in bf16 one batch's device busy share under
+    torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -2598,28 +2617,32 @@ def check_eval_main(cfg: str, work: str, files, device: str = "cuda") -> dict:
         run["run_eval"](params)
         torch.cuda.synchronize()
         pass_s = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-            for _ in range(2):
-                t0 = time.perf_counter()
-                run["run_eval"](params, max_steps=1)
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-                prof.step()
-        _, groups, launches = device_time_by_group(prof)
-        busy = sum(groups.values())
         runs[dtype] = dict(stats=stats, counts=counts, first_pass_s=first_s, pass_s=pass_s,
-                           images_per_s=n_images / pass_s, batch_wall_ms=wall_ms,
-                           batch_busy_ms=busy, batch_busy_share=busy / wall_ms, groups_ms=groups)
+                           images_per_s=n_images / pass_s)
+        note = ""
+        if dtype == "bfloat16":   # the default's batch profiled
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+                for _ in range(2):
+                    t0 = time.perf_counter()
+                    run["run_eval"](params, max_steps=1)
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - t0) * 1e3
+                    prof.step()
+            _, groups, launches = device_time_by_group(prof)
+            busy = sum(groups.values())
+            runs[dtype].update(batch_wall_ms=wall_ms, batch_busy_ms=busy,
+                               batch_busy_share=busy / wall_ms, groups_ms=groups)
+            note = (f"; one batch {wall_ms:.1f} ms wall (profiler on), device busy {busy:.1f} ms "
+                    f"({busy / wall_ms:.0%}); by group ms "
+                    f"{ {k: round(v, 2) for k, v in groups.items() if v} }, launches "
+                    f"{ {k: n for k, n in launches.items() if n} }")
+            if busy <= 0:
+                raise AssertionError(f"{tag}: the profiler recorded no device time")
         log(tag, f"main --eval on {n_images} images (B=4, {n_batches} batches, {dtype}): "
                  f"{first_s:.1f} s with set-up; stats {stats}; launches "
                  f"{ {k: v for k, v in counts.items() if v} }; a second pass {pass_s:.3f} s, "
-                 f"{n_images / pass_s:.2f} images/s; one batch {wall_ms:.1f} ms wall (profiler "
-                 f"on), device busy {busy:.1f} ms ({busy / wall_ms:.0%}); by group ms "
-                 f"{ {k: round(v, 2) for k, v in groups.items() if v} }, launches "
-                 f"{ {k: n for k, n in launches.items() if n} }")
-        if busy <= 0:
-            raise AssertionError(f"{tag}: the profiler recorded no device time")
+                 f"{n_images / pass_s:.2f} images/s" + note)
         del run, params
     return runs
 
@@ -2711,7 +2734,8 @@ def check_eval_parity(cfg: str, work: str, files, device: str = "cuda") -> dict:
     del cpu_model
     card_out, card_res = eval_detections(card, batch, post, None)
     compare_forward(card_out, cpu_out, "eval-parity",
-                    f"B=4 valid {batch['image_sizes'].tolist()}, f32; CPU {cpu_s:.1f} s")
+                    f"B={len(EVAL_PARITY_IMAGES)} valid {batch['image_sizes'].tolist()}, f32; "
+                    f"CPU {cpu_s:.1f} s")
 
     pseudo = pseudo_ground_truth(cpu_res, batch["image_ids"].tolist(), ds.contiguous_to_catid)
     n_gt = sum(map(len, pseudo.values()))
@@ -2751,14 +2775,15 @@ def read_log(out_dir: str) -> list:
 
 def check_resume(cfg: str, work: str, files, manifest: str, device: str = "cuda") -> dict:
     """Phase 23: main at B = 4, bf16, one step an epoch, use_ema, on the
-    pseudo ground truth's 4-image val split (its NMS and num_select in the
-    postprocessor): 3 epochs continuously; main for 3 epochs on a directory
-    that holds the continuous run's checkpoint_1.pth, whose epoch-2 loss
-    must be the continuous run's within RESUME_LOSS_RTOL; and 2 epochs then
-    3 in another directory, which resumes from its own checkpoint_1.pth: the
-    state it restores equals what was saved, bit for bit, best/ and
-    best_ema/ exist, every log.txt line has the JAX package's keys, and
-    load_model on its checkpoint_2.pth answers a request."""
+    pseudo ground truth's val split (its NMS and num_select in the
+    postprocessor), a checkpoint each epoch: 2 epochs continuously; main for
+    2 epochs on a directory that holds the continuous run's
+    checkpoint_0.pth, whose epoch-1 loss must be the continuous run's within
+    RESUME_LOSS_RTOL; and 1 epoch then 2 in another directory, which resumes
+    from its own checkpoint_0.pth: the state it restores equals what was
+    saved, bit for bit, best/ and best_ema/ exist, every log.txt line has
+    the JAX package's keys, and load_model on its checkpoint_1.pth answers
+    a request."""
     import numpy as np
     import torch
 
@@ -2769,7 +2794,7 @@ def check_resume(cfg: str, work: str, files, manifest: str, device: str = "cuda"
     def main_run(out_dir, epochs):
         t0 = time.perf_counter()
         run = run_main(cfg, manifest, files, out_dir, "--max_steps", "1", device=device,
-                       options=(f"epochs={epochs}", "use_ema=True", "save_checkpoint_interval=2",
+                       options=(f"epochs={epochs}", "use_ema=True", "save_checkpoint_interval=1",
                                 f"nms_iou_threshold={PSEUDO_GT_NMS}",
                                 f"num_select={PSEUDO_GT_NUM_SELECT}"))
         torch.cuda.synchronize()
@@ -2779,21 +2804,21 @@ def check_resume(cfg: str, work: str, files, manifest: str, device: str = "cuda"
                                    for d in ("cont", "same", "split"))
     for d in (cont_dir, same_dir, res_dir):
         shutil.rmtree(d, ignore_errors=True)
-    cont, cont_s = main_run(cont_dir, 3)
+    cont, cont_s = main_run(cont_dir, 2)
     cont_log = read_log(cont_dir)
     del cont
     os.makedirs(same_dir)
-    shutil.copy(os.path.join(cont_dir, "checkpoint_1.pth"), same_dir)
+    shutil.copy(os.path.join(cont_dir, "checkpoint_0.pth"), same_dir)
     shutil.rmtree(cont_dir)   # checkpoints of ~2.6 GB each
-    same, _ = main_run(same_dir, 3)
+    same, _ = main_run(same_dir, 2)
     same_log = read_log(same_dir)
     del same
     gc.collect()
     shutil.rmtree(same_dir)
-    first, first_s = main_run(res_dir, 2)
+    first, first_s = main_run(res_dir, 1)
     del first
     gc.collect()
-    saved = ckpt.restore_checkpoint(os.path.join(res_dir, "checkpoint_1.pth"))
+    saved = ckpt.restore_checkpoint(os.path.join(res_dir, "checkpoint_0.pth"))
 
     restored = []
     load = TrainState.load_state_dict
@@ -2804,7 +2829,7 @@ def check_resume(cfg: str, work: str, files, manifest: str, device: str = "cuda"
 
     TrainState.load_state_dict = spy
     try:
-        resumed, resumed_s = main_run(res_dir, 3)
+        resumed, resumed_s = main_run(res_dir, 2)
     finally:
         TrainState.load_state_dict = load
     del resumed
@@ -2822,44 +2847,44 @@ def check_resume(cfg: str, work: str, files, manifest: str, device: str = "cuda"
     back = restored[0] if restored else None
     exact = {k: back is not None and same(back[k], saved[k])
              for k in ("model", "optimizer", "ema", "step", "nonfinite_count", "generator")}
-    loss_c, loss_s = cont_log[2]["loss"], same_log[0]["loss"]
+    loss_c, loss_s = cont_log[1]["loss"], same_log[0]["loss"]
     loss_rel = abs(loss_s - loss_c) / abs(loss_c)
-    loss_r = [r for r in res_log if r["epoch"] == 2][0]["loss"]
+    loss_r = [r for r in res_log if r["epoch"] == 1][0]["loss"]
     split_rel = abs(loss_r - loss_c) / abs(loss_c)
     best = {d: os.path.exists(os.path.join(res_dir, d, "checkpoint_0.pth"))
             for d in ("best", "best_ema")}
     missing = [sorted(set(LOG_KEYS) - set(r)) for r in cont_log + res_log]
-    im = inference.load_model(cfg, os.path.join(res_dir, "checkpoint_2.pth"), files[2],
+    im = inference.load_model(cfg, os.path.join(res_dir, "checkpoint_1.pth"), files[2],
                               device=device)
     image = synthetic_image(800, 1200, 7)
     boxes, scores, phrases = inference.predict(im, image, CAPTIONS[1])
     logits, pred_boxes, _ = forward_outputs(im, image, CAPTIONS[1])
     del im
-    size = os.path.getsize(os.path.join(res_dir, "checkpoint_2.pth"))
+    size = os.path.getsize(os.path.join(res_dir, "checkpoint_1.pth"))
     resumed_from = [r["epoch"] for r in res_log]
-    log("resume", f"continuous 3 epochs {cont_s:.1f} s, 2 epochs {first_s:.1f} s, resumed to 3 "
+    log("resume", f"continuous 2 epochs {cont_s:.1f} s, 1 epoch {first_s:.1f} s, resumed to 2 "
                   f"{resumed_s:.1f} s (B=4, bf16, 1 step an epoch, use_ema; a checkpoint "
                   f"{size / 2**30:.2f} GiB); restored equal to the saved bit for bit {exact}; "
-                  f"epoch-2 loss continuous {loss_c:.6f}, resumed from its checkpoint_1 "
+                  f"epoch-1 loss continuous {loss_c:.6f}, resumed from its checkpoint_0 "
                   f"{loss_s:.6f} (rel {loss_rel:.2e}, limit {RESUME_LOSS_RTOL}; epochs "
                   f"{[r['epoch'] for r in same_log]}), split run {loss_r:.6f} (rel "
                   f"{split_rel:.2e}, a record); APs by epoch continuous "
                   f"{[(r['AP'], r['ema_AP']) for r in cont_log]}, resumed "
                   f"{[(r['AP'], r['ema_AP']) for r in res_log]} (model, EMA); best dirs {best}; "
-                  f"log lines missing keys {missing}; load_model(checkpoint_2.pth) answered "
+                  f"log lines missing keys {missing}; load_model(checkpoint_1.pth) answered "
                   f"{len(boxes)} boxes over the 0.35 threshold (largest probability "
                   f"{float(np.nanmax(1 / (1 + np.exp(-logits.astype(np.float64))))):.3e})")
     if not all(exact.values()):
         raise AssertionError(f"the resumed run restored another state than was saved: {exact}")
-    if not (loss_rel <= RESUME_LOSS_RTOL and [r["epoch"] for r in same_log] == [2]):
-        raise AssertionError(f"the run resumed from the continuous run's checkpoint_1 has "
-                             f"epoch-2 loss {loss_s} against {loss_c}, epochs {same_log}")
-    if not all(best.values()) or any(missing) or len(cont_log) != 3 or resumed_from != [0, 1, 2]:
+    if not (loss_rel <= RESUME_LOSS_RTOL and [r["epoch"] for r in same_log] == [1]):
+        raise AssertionError(f"the run resumed from the continuous run's checkpoint_0 has "
+                             f"epoch-1 loss {loss_s} against {loss_c}, epochs {same_log}")
+    if not all(best.values()) or any(missing) or len(cont_log) != 2 or resumed_from != [0, 1]:
         raise AssertionError(f"best dirs {best}, log keys missing {missing}, log lines "
                              f"{len(cont_log)} / {len(res_log)}")
     if not (len(boxes) == len(scores) == len(phrases) and np.isfinite(boxes).all()
             and np.isfinite(pred_boxes).all() and not np.isnan(logits).any()):
-        raise AssertionError("load_model on checkpoint_2.pth gave no well-formed answer")
+        raise AssertionError("load_model on checkpoint_1.pth gave no well-formed answer")
     return dict(exact=exact, loss_rel=loss_rel, split_loss_rel=split_rel, cont_log=cont_log,
                 res_log=res_log, checkpoint_bytes=size, seconds=(cont_s, first_s, resumed_s))
 
@@ -3157,16 +3182,17 @@ def check_msda_on(operands, tag: str) -> dict:
     return res
 
 
-def serve_backbone(files, tag: str, plant_k1: bool = False, device: str = "cuda") -> dict:
+def serve_backbone(files, tag: str, plant_k1: bool = False, device: str = "cuda",
+                   annotate_in: str = None) -> dict:
     """Phase 28 for one model: Model(...) on the card, a warm-up and one
     request on each of the three IMAGE_SIZES through predict_with_classes
     (12 K1 + 6 K2 f32 launches a request, no other), median latency and peak
-    memory; a profiled request; one forward against the CPU's: as served
-    with fewer than 10% of the queries flipped, and on the CPU's two-stage
-    selection flip-aware with phase 6's limits; with `plant_k1` the card's
-    forward with K1's output negated must fail that comparison.  A dilated
-    ResNet's K1 and K3 are held against their plain versions on its encoder
-    operands."""
+    memory; one forward against the CPU's: as served with fewer than 10% of
+    the queries flipped, and on the CPU's two-stage selection flip-aware with
+    phase 6's limits; with `plant_k1` the card's forward with K1's output
+    negated must fail that comparison.  A dilated ResNet's K1 and K3 are held
+    against their plain versions on its encoder operands.  With
+    `annotate_in`, annotate_request on the model into that directory."""
     import numpy as np
     import torch
 
@@ -3211,7 +3237,6 @@ def serve_backbone(files, tag: str, plant_k1: bool = False, device: str = "cuda"
         raise AssertionError(f"{tag}: kernel launches {counts}, expected {want}")
     res = dict(load_s=load_s, latency_s=lat, median_s=median, peak_bytes=peak, counts=counts,
                detections=found)
-    res["profile"] = profile_request(model.im, pil[0], CAPTIONS[0], tag=f"{tag}-profile")
 
     t0 = time.perf_counter()
     cpu_im = inference.load_model(cfg, ckpt, vocab, device="cpu")
@@ -3252,6 +3277,8 @@ def serve_backbone(files, tag: str, plant_k1: bool = False, device: str = "cuda"
         if planted[3]:
             raise AssertionError(f"{tag}: the forward comparison passes with K1's output negated")
         res["planted_k1"] = planted[:3]
+    if annotate_in:
+        res["annotated"] = annotate_request(model.im, annotate_in)
     shapes = encoder.msda["encoder"][1]
     res["levels"] = [list(hw) for hw in shapes]
     if model.im.args.get("dilation", False):
@@ -3261,15 +3288,15 @@ def serve_backbone(files, tag: str, plant_k1: bool = False, device: str = "cuda"
     return res
 
 
-def annotate_request(files, work: str, device: str = "cuda") -> str:
-    """annotate() on one Swin-B request's predict output: writes the drawn
-    image under `work` and returns its path."""
+def annotate_request(im, work: str) -> str:
+    """annotate() on one request's predict output on `im` (an
+    InferenceModel): writes the drawn image under `work` and returns its
+    path."""
     import numpy as np
     from PIL import Image
 
     from open_groundingdino_tpu_torch import inference
 
-    im = inference.load_model(*files, device=device)
     image = synthetic_image(*IMAGE_SIZES[1], 1)
     boxes, scores, phrases = inference.predict(im, image, CAPTIONS[1])
     drawn = inference.annotate(np.asarray(image), boxes, scores, phrases)
@@ -3286,10 +3313,9 @@ def annotate_request(files, work: str, device: str = "cuda") -> str:
 def serve_backbones(work: str, files: dict, device: str = "cuda") -> dict:
     """Phase 28: serve_backbone for each of BACKBONES (K1 negated must fail
     Swin-B's comparison), and annotate on Swin-B's predict."""
-    res = {tag: serve_backbone(files[tag], f"serve-{tag}", tag == "swinb", device)
-           for tag, _, _ in BACKBONES}
-    annotate_request(files["swinb"], work, device)
-    return res
+    return {tag: serve_backbone(files[tag], f"serve-{tag}", tag == "swinb", device,
+                                annotate_in=work if tag == "swinb" else None)
+            for tag, _, _ in BACKBONES}
 
 
 def check_resnet_train_parity(files, device: str = "cuda") -> dict:
@@ -3388,8 +3414,8 @@ def step_without_recompute(run, device: str = "cuda") -> dict:
 
 def train_backbones(work: str, files: dict, device: str = "cuda") -> dict:
     """Phase 29: main with cfg_swinl at B = 4 in the default bf16, 2 steps
-    (18 K1 + 12 K3 + 12 K2 + 6 K4 bf16 launches a step) and a profiled one,
-    then one step with use_checkpoint off (step_without_recompute); phase
+    (18 K1 + 12 K3 + 12 K2 + 6 K4 bf16 launches a step), then one step with
+    use_checkpoint off (step_without_recompute); phase
     11's f32 step on ResNet-50 against the CPU's with its frozen tensors;
     and phase 11's f32 step on the dilated ResNet-50 on the card (its
     launches exact), whose K1 and K3 are held against their plain versions
@@ -3400,7 +3426,6 @@ def train_backbones(work: str, files: dict, device: str = "cuda") -> dict:
     res = {"swinl": train(cfg_l, work, files["swinl"], device, tag="swinl-train", epochs=1,
                           compute_dtype=None)}
     main_run = res["swinl"].pop("run")
-    res["swinl"]["profile"] = profile_train_step(main_run, tag="swinl-train-profile")
     res["swinl-no-recompute"] = step_without_recompute(main_run, device)
     del main_run
     res["resnet50-parity"] = check_resnet_train_parity(files["resnet50"], device)
@@ -3879,6 +3904,309 @@ def check_pave(work: str, files, device: str = "cuda") -> dict:
     return dict(segmentor=segmentor, tool=tool, eval=evals, kernels=kernels)
 
 
+# ---------------------------------------------------------------- export (phase 31)
+# phase 31: the serving artifacts.  The sweep (with msda_dec_fused: K6 in the
+# encoder, K7 in the decoder) and banded_point (K5) artifacts are of a model
+# with one encoder and one decoder layer at full width; the gather artifact is
+# phase 5's full model.  Each artifact is served in a fresh process; its
+# forward is held against the eager forward of the same checkpoint on the
+# card with phase 6's limits (both launch the same kernels and cuBLAS calls)
+EXPORT_LAYERS = 1
+EXPORT_REQUESTS = 5          # timed requests of the gather artifact and of eager predict
+EXPORT_SPANS = [[(2, 5)], [(10, 13)]]   # "cat" and "dog" of CAPTIONS[0]
+EXPORT_PATHS = (("gather", {}),
+                ("sweep", {"msda_kernel": "sweep", "msda_dec_fused": True}),
+                ("banded_point", {"msda_kernel": "banded_point"}))
+FLAG_TIMEOUT_S = 900
+
+
+def start_export(files, out_dir: str, device: str = "cuda") -> tuple:
+    """tools/export_model.py for the 800x1216 bucket on `device`, started in
+    a subprocess; returns (process, start time)."""
+    cfg, ckpt, vocab = files
+    cmd = [sys.executable, "-m", "open_groundingdino_tpu_torch.tools.export_model", "-c", cfg,
+           "--checkpoint", ckpt, "--vocab", vocab, "-o", out_dir,
+           "--bucket", f"{BUCKET[0]}x{BUCKET[1]}", "--device", device]
+    return (subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True), time.perf_counter())
+
+
+def start_serving(art: str, out: str, full: bool, device: str = "cuda") -> tuple:
+    """serve_artifact(art, out, full, device) in a fresh process; returns
+    (process, start time)."""
+    code = (f"import chip_smoke; chip_smoke.serve_artifact({art!r}, {out!r}, {full!r}, "
+            f"{device!r})")
+    return (subprocess.Popen([sys.executable, "-c", code], cwd=REPO, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True), time.perf_counter())
+
+
+def finish(started, tag: str, timeout: int = FLAG_TIMEOUT_S) -> tuple:
+    """Wait for a started subprocess; returns (its output, its wall
+    seconds); raises with its output's end if it failed."""
+    proc, t0 = started
+    out, _ = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{tag}: exited with {proc.returncode}:\n{out[-4000:]}")
+    return out, time.perf_counter() - t0
+
+
+def wait_for(flag: str) -> None:
+    """Block until the file `flag` exists (FLAG_TIMEOUT_S at most)."""
+    deadline = time.monotonic() + FLAG_TIMEOUT_S
+    while not os.path.exists(flag):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no {flag} after {FLAG_TIMEOUT_S} s")
+        time.sleep(0.05)
+
+
+def raise_flag(flag: str) -> None:
+    with open(flag, "w"):
+        pass
+
+
+def serve_artifact(art: str, out: str, full: bool, device: str = "cuda") -> None:
+    """Phase 31's fresh process.  It starts before the artifact exists: it
+    readies the device (as a server does at its start) and waits for
+    `out`.ready, then runs
+    load_exported and one forward (its launches counted), and with `full`
+    one predict and one predict_with_spans; with `full` it then waits for
+    `out`.go (the other processes done) and serves EXPORT_REQUESTS timed
+    predict requests (their launches counted), a profiled request, and the
+    forward again with K1's output negated.  Writes the outputs and numbers
+    to `out` (.npz)."""
+    import numpy as np
+    import torch
+
+    from open_groundingdino_tpu_torch import inference, serving
+    from open_groundingdino_tpu_torch.ops import build, library, msda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # what a serving process does once at its start: the ops registered, the
+    # kernels' libraries loaded, the device's BLAS and cuDNN handles made
+    library.custom_ops()
+    if device == "cuda":
+        for name in build.SOURCES:
+            build.load(name)
+    x = torch.ones(1, 1, 8, 8, device=device)
+    torch.nn.functional.conv2d(x, x[..., :3, :3])
+    torch.mm(x[0, 0], x[0, 0])
+    wait_for(out + ".ready")
+    t0 = time.perf_counter()
+    sm = serving.load_exported(art, device=device)
+    res = {"load_s": time.perf_counter() - t0}
+    image, caption = synthetic_image(*IMAGE_SIZES[0], 0), CAPTIONS[0]
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, boxes, _ = forward_outputs(sm, image, caption)
+    res["first_s"] = time.perf_counter() - t0
+    res["forward_counts"] = read_counts()
+    arrays = dict(logits=logits, boxes=boxes)
+    if full:
+        pred = inference.predict(sm, image, caption)
+        spans = inference.predict_with_spans(sm, image, caption, EXPORT_SPANS)
+        arrays.update(pred_boxes=pred[0], pred_scores=pred[1], spans_boxes=spans[0],
+                      spans_scores=spans[1])
+        res["phrases"], res["spans_phrases"] = pred[2], spans[2]
+        wait_for(out + ".go")
+        res["latency_s"], res["request_counts"] = timed_requests(sm, image, caption)
+        res["profile"] = profile_request(sm, image, caption, tag="export-profile")
+        fwd = msda._msda_fwd_cuda
+        msda._msda_fwd_cuda = negated_output(fwd)
+        arrays["neg_logits"], arrays["neg_boxes"], _ = forward_outputs(sm, image, caption)
+        msda._msda_fwd_cuda = fwd
+    np.savez(out, meta=json.dumps(json_safe(res)), **arrays)
+
+
+def timed_requests(im, image, caption) -> tuple:
+    """EXPORT_REQUESTS predict requests, each timed by the host clock to its
+    end on the device; returns (seconds, launch counts)."""
+    import torch
+
+    from open_groundingdino_tpu_torch import inference
+
+    torch.cuda.synchronize()
+    reset_counts()
+    lat = []
+    for _ in range(EXPORT_REQUESTS):
+        t0 = time.perf_counter()
+        inference.predict(im, image, caption)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    return lat, read_counts()
+
+
+def export_config(cfg: str, work: str, name: str, keys: dict) -> str:
+    """A config on `cfg` with the MSDA keys and EXPORT_LAYERS encoder and
+    decoder layers."""
+    return msda_config(cfg, work, f"export-{name}", enc_layers=EXPORT_LAYERS,
+                       dec_layers=EXPORT_LAYERS, **keys)
+
+
+def parse_export(out: str) -> dict:
+    """The tool's lines "  <file>  <size> MB  (export <s> s)" as {file: {mb,
+    export_s}}."""
+    written = {}
+    for line in out.splitlines():
+        parts = line.split()
+        if len(parts) >= 3 and parts[2] == "MB":
+            written[parts[0]] = {"mb": float(parts[1])}
+            if "(export" in line:
+                written[parts[0]]["export_s"] = float(parts[4])
+    return written
+
+
+def max_abs_diff(a, b) -> float:
+    """The largest |a - b| over the entries finite in both."""
+    import numpy as np
+
+    fin = np.isfinite(a) & np.isfinite(b)
+    return float(np.abs(a[fin] - b[fin]).max()) if fin.any() else 0.0
+
+
+def check_export(work: str, files, eager_profile: dict, device: str = "cuda") -> dict:
+    """Phase 31: the serving artifacts, each exported by
+    tools/export_model.py in a subprocess for the 800x1216 bucket: the gather
+    path on phase 5's checkpoint, the sweep (dec_fused) and banded_point
+    paths on a checkpoint of EXPORT_LAYERS encoder and decoder layers.  Each
+    is served in a fresh process (serve_artifact), started first so that it
+    waits for its artifact with the device ready, while the eager models of
+    the same checkpoints answer the same requests here.  The gather
+    artifact: 12 K1 + 6 K2 f32 launches a request and no other, its forward
+    against the eager one with phase 6's limits (the largest difference
+    printed), with K1's output negated failing them, predict and
+    predict_with_spans as the eager ones, export seconds, artifact sizes,
+    load seconds, the median latency and the profiled busy time of its
+    requests beside eager predict's (its latency timed here with no other
+    process at work, `eager_profile` phase 7's profile of the same
+    request).  The sweep and banded_point artifacts: their forwards against
+    their eager ones, and exactly the eager forward's launches (K6 + K7, K5,
+    K2)."""
+    import numpy as np
+
+    from open_groundingdino_tpu_torch import inference
+
+    cfg, ckpt, vocab = files
+    arts = {name: os.path.join(work, f"artifact_{name}") for name, _ in EXPORT_PATHS}
+    outs = {name: os.path.join(work, f"served_{name}.npz") for name, _ in EXPORT_PATHS}
+    procs = {}
+    try:
+        for name, _ in EXPORT_PATHS:
+            procs[f"serve-{name}"] = start_serving(arts[name], outs[name], name == "gather",
+                                                   device)
+        procs["export-gather"] = start_export(files, arts["gather"], device)
+        small_ckpt = os.path.join(work, "ckpt_export_small.pth")
+        write_checkpoint(export_config(cfg, work, "gather", {}), small_ckpt)
+        small = {name: (export_config(cfg, work, name, keys), small_ckpt, vocab)
+                 for name, keys in EXPORT_PATHS[1:]}
+        for name, f in small.items():
+            procs[f"export-{name}"] = start_export(f, arts[name], device)
+
+        # the eager models' answers, while the exports run
+        image, caption = synthetic_image(*IMAGE_SIZES[0], 0), CAPTIONS[0]
+        eager, want = {}, {}
+        for name, f in (("gather", files), *small.items()):
+            im = inference.load_model(*f, device=device)
+            reset_counts()
+            eager[name] = forward_outputs(im, image, caption)
+            want[name] = read_counts()
+            if name == "gather":
+                gather_im, args = im, im.args
+                eager_pred = inference.predict(im, image, caption)
+                eager_spans = inference.predict_with_spans(im, image, caption, EXPORT_SPANS)
+            del im
+        if want["gather"] != serving_launches(args, 1):
+            raise AssertionError(f"export: the eager forward launched {want['gather']}")
+
+        res = {}
+        for name, _ in EXPORT_PATHS:
+            out, wall = finish(procs.pop(f"export-{name}"), f"export-{name}")
+            res[name] = {"export_wall_s": wall, "files": parse_export(out)}
+            raise_flag(outs[name] + ".ready")
+        for name in ("sweep", "banded_point", "gather"):
+            if name == "gather":   # its timed requests wait for the others to end
+                raise_flag(outs[name] + ".go")
+            out, wall = finish(procs.pop(f"serve-{name}"), f"export-serve-{name}")
+            for line in out.splitlines():
+                if line.startswith("["):
+                    print(line, flush=True)
+            with np.load(outs[name]) as z:
+                served = {k: z[k] for k in z.files}
+            res[name].update(json.loads(str(served.pop("meta"))), serve_wall_s=wall,
+                             served=served)
+        lat, _ = timed_requests(gather_im, image, caption)
+        del gather_im
+    finally:
+        for proc, _ in procs.values():
+            proc.kill()
+            proc.wait()
+
+    for name, _ in EXPORT_PATHS:
+        run = res[name]
+        served = run.pop("served")
+        if name == "gather":
+            negated = {"logits": served["neg_logits"], "boxes": served["neg_boxes"]}
+            answers = {"predict": (served["pred_boxes"], served["pred_scores"], run["phrases"]),
+                       "predict_with_spans": (served["spans_boxes"], served["spans_scores"],
+                                              run["spans_phrases"])}
+        card = (served["logits"], served["boxes"], eager[name][2])
+        run["forward"] = compare_forward(card, eager[name], f"export-{name}",
+                                         "the artifact in a fresh process against the eager "
+                                         "forward on the card")
+        run["max_abs_diff"] = (max_abs_diff(card[0], eager[name][0]),
+                               max_abs_diff(card[1], eager[name][1]))
+        log(f"export-{name}", f"files {run['files']}; export subprocess "
+                              f"{run['export_wall_s']:.1f} s; load_exported {run['load_s']:.1f} s "
+                              f"in a fresh process; first forward {run['first_s']:.2f} s; "
+                              f"launches { {k: v for k, v in run['forward_counts'].items() if v} } "
+                              f"(the eager forward's "
+                              f"{ {k: v for k, v in want[name].items() if v} }); max |dlogit| "
+                              f"{run['max_abs_diff'][0]:.3e}, max |dbox| "
+                              f"{run['max_abs_diff'][1]:.3e} against the eager forward")
+        if run["forward_counts"] != want[name]:
+            raise AssertionError(f"export-{name}: the artifact launched {run['forward_counts']}, "
+                                 f"the eager forward {want[name]}")
+    run = res["gather"]
+    per_request = serving_launches(args, EXPORT_REQUESTS)
+    if run["request_counts"] != per_request:
+        raise AssertionError(f"export: {EXPORT_REQUESTS} requests launched "
+                             f"{run['request_counts']}, expected {per_request}")
+    planted = forward_gap((negated["logits"], negated["boxes"], eager["gather"][2]),
+                          eager["gather"])
+    log("export-gather", f"planted fault, K1 output negated in the artifact: flipped "
+                         f"{planted[0]:.1%}, bulk max|dlogit| {planted[1]:.3e}, bulk max|dbox| "
+                         f"{planted[2]:.3e}")
+    if planted[3]:
+        raise AssertionError("export: the comparison passes with K1's output negated")
+    for what, got, ref in (("predict", answers["predict"], eager_pred),
+                           ("predict_with_spans", answers["predict_with_spans"], eager_spans)):
+        ok = (len(got[0]) == len(ref[0]) and list(got[2]) == list(ref[2])
+              and np.allclose(got[0], ref[0], atol=5e-3) and np.allclose(got[1], ref[1], atol=5e-2))
+        log("export-gather", f"{what}: {len(got[0])} boxes served, {len(ref[0])} eager; max "
+                             f"|dbox| {max_abs_diff(got[0], ref[0]) if ok else float('nan'):.3e}, "
+                             f"phrases equal {list(got[2]) == list(ref[2])}")
+        if not ok:
+            raise AssertionError(f"export: {what} on the artifact disagrees with eager")
+    med = sorted(run["latency_s"])[len(run["latency_s"]) // 2]
+    eager_med = sorted(lat)[len(lat) // 2]
+    run.update(latency_median_s=med, eager_latency_s=lat, eager_latency_median_s=eager_med,
+               eager_profile=eager_profile, planted_k1=planted[:3])
+    log("export-gather", f"{EXPORT_REQUESTS} requests after 2: latency ms "
+                         f"{[round(t * 1e3, 1) for t in run['latency_s']]} (median "
+                         f"{med * 1e3:.1f}), device busy {run['profile']['device_busy_ms']:.1f} ms "
+                         f"of {run['profile']['wall_ms']:.1f} ms profiled; eager predict on the "
+                         f"same request {[round(t * 1e3, 1) for t in lat]} (median "
+                         f"{eager_med * 1e3:.1f}), device busy "
+                         f"{eager_profile['device_busy_ms']:.1f} ms of "
+                         f"{eager_profile['wall_ms']:.1f} ms (phase 7)")
+    for name, _ in EXPORT_PATHS:
+        shutil.rmtree(arts[name], ignore_errors=True)
+        for suffix in ("", ".ready", ".go"):
+            if os.path.exists(outs[name] + suffix):
+                os.remove(outs[name] + suffix)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -3920,7 +4248,7 @@ def main() -> int:
         clock("5")
         cpu_out = check_forward(im, files, images[0], CAPTIONS[0])     # 6
         clock("6")
-        profile_request(im, images[0], CAPTIONS[0])                    # 7
+        eager_profile = profile_request(im, images[0], CAPTIONS[0])    # 7
         clock("7")
         del im
         k3 = check_msda_bwd("cuda")                                    # 8
@@ -4016,6 +4344,8 @@ def main() -> int:
         del bb_files
         pave = check_pave(work, files)                                 # 30
         clock("30")
+        export = check_export(work, files, eager_profile)              # 31
+        clock("31")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4063,12 +4393,20 @@ def main() -> int:
                 if k == kname and d == dtype}
 
     k1_row["per_shape"].update(pave_shapes("K1", "f32"))
+
+    def export_launches(path, counter):
+        """The artifact's launches (phase 31): the gather artifact's timed
+        requests, the sweep's and banded_point's one forward each."""
+        run = export[path]
+        return (run["request_counts"] if path == "gather" else run["forward_counts"])[counter]
+
     kernels = [
         {"name": "msda_fwd", "route": "cuda", "source": src + "msda_fwd.cu",
          "replaces": tpu + "msda_banded.py:311", "launches": counts["msda_fwd"],
          "launches_by_path": {"serve": counts["msda_fwd"], "train": train_counts["msda_fwd"],
                               "eval-f32": evals["float32"]["counts"]["msda_fwd"],
-                              **bb_launches("msda_fwd"), "pave": pave_launches("msda_fwd")},
+                              **bb_launches("msda_fwd"), "pave": pave_launches("msda_fwd"),
+                              "export": export_launches("gather", "msda_fwd")},
          **k1_row | {"max_abs_err": max(k1_row["max_abs_err"], k1_err, *(
              r["max_abs_err"] for r in pave_shapes("K1", "f32").values()))},
          "sass": msda_sass["msda_fwd"]},
@@ -4077,7 +4415,8 @@ def main() -> int:
          "launches_by_path": {"serve": counts["fusion_fwd"],
                               "train": train_counts["fusion_fwd"],
                               "eval-f32": evals["float32"]["counts"]["fusion_fwd"],
-                              **bb_launches("fusion_fwd"), "pave": pave_launches("fusion_fwd")},
+                              **bb_launches("fusion_fwd"), "pave": pave_launches("fusion_fwd"),
+                              "export": export_launches("gather", "fusion_fwd")},
          **single_row(k2) | {"max_abs_err": max(
              k2["max_abs_err"], k2_err, pave_kernels["K2", "f32", "fusion"]["max_abs_err"])},
          "per_shape": {"B=1": single_row(k2), "B=4": single_row(k4["k2"]),
@@ -4134,6 +4473,9 @@ def main() -> int:
         kernels.append({"name": counter, "route": "cuda", "source": src + source,
                         "replaces": tpu + line, "launches": by_path[launches_from][counter],
                         "launches_by_path": {k: v[counter] for k, v in by_path.items()}, **row})
+        if kname in ("K5", "K6", "K7"):   # the serving artifacts (phase 31)
+            kernels[-1]["launches_by_path"]["export"] = export_launches(
+                "banded_point" if kname == "K5" else "sweep", counter)
         if kernels[-1]["launches"] <= 0:
             raise AssertionError(f"{kname} was not launched on its path")
     # the bf16 entries (phase 20; the row is phase 8's / 9's B = 4 shapes,
@@ -4186,9 +4528,6 @@ def main() -> int:
         row["max_abs_err"] = max(r["max_abs_err"] for r in row["per_shape"].values())
         row["device_ms"] = sum(r["device_ms"] for r in shapes.values()) / len(shapes)
         row["sass"] = bf16_sweep["sass"][kname]
-        if kname == "K10":   # its device time in the profiled rowtap step (phase 25)
-            row["step_profile_ms"] = bf16_sweep_train["runs"]["bf16-sweep-train-rowtap"][
-                "profile"]["groups_ms"]["K10 rowtap_bwd bf16"]
         kernels.append({"name": f"{counter}_bf16", "route": "cuda", "source": src + source,
                         "replaces": tpu + line,
                         "launches": sweep_counts[launches_from][f"{counter}_bf16"],

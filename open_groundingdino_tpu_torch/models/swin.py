@@ -15,9 +15,8 @@ package's `nn.remat(SwinBlock)`); eval and no-grad forwards run plainly.
 """
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -95,16 +94,27 @@ def shift_attn_mask(Hp: int, Wp: int, ws: int, shift: int) -> np.ndarray:
     return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=64)
+_CONSTANTS: Dict[Tuple, torch.Tensor] = {}
+
+
 def _device_constant(kind: str, device: str, *key: int) -> torch.Tensor:
     """The relative-position index or the shift mask as a tensor on `device`,
     made once per static shape (a few buckets x stages).  Made outside
     inference mode whatever the caller's mode, so that a training forward
-    after a serving one may save it for backward."""
+    after a serving one may save it for backward.  One made while a graph is
+    traced (torch.export: a fake tensor) is not kept; a kept one is read
+    there as a constant of the graph."""
+    t = _CONSTANTS.get((kind, device, *key))
+    if t is not None:
+        return t
     with torch.inference_mode(False):
         if kind == "rel_index":
-            return torch.from_numpy(relative_position_index(*key).reshape(-1)).to(device)
-        return torch.from_numpy(shift_attn_mask(*key)).to(device)
+            t = torch.from_numpy(relative_position_index(*key).reshape(-1)).to(device)
+        else:
+            t = torch.from_numpy(shift_attn_mask(*key)).to(device)
+    if not torch.compiler.is_compiling():
+        _CONSTANTS[(kind, device, *key)] = t
+    return t
 
 
 def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:

@@ -12,9 +12,13 @@ Layouts: the projections' raw (B, N, E = H*D) outputs, q already scaled;
 masks (B, N) bool with True = padded.  Returns (out_v (B, Nv, E),
 out_l (B, Nl, E)) before the output projections.
 
-`fused_bi_attention` takes `fused_bi_attention_plain` for CPU tensors
-(autograd differentiates it) and, for CUDA tensors,
-`FusedBiAttentionFunction`: K2 forward, K4 backward.
+K2 is the custom op `ogd_torch::fusion_fwd` (`fusion_fwd`; ops/library.py):
+on CUDA tensors the kernel (`_fusion_fwd_cuda`), on CPU ones the plain
+version with its softmax statistics (`fusion_fwd_plain`).
+`fused_bi_attention` calls the op when no gradient is needed; with one, it
+takes `fused_bi_attention_plain` for CPU tensors (autograd differentiates
+it) and, for CUDA tensors, `FusedBiAttentionFunction`: the op forward, K4
+backward.
 `fused_bi_attention_bwd` is K4's wrapper and takes CUDA tensors only;
 `fused_bi_attention_bwd_plain` is its reference.  `fused_bi_attention.launches`
 and `fused_bi_attention_bwd.launches` count the kernels' f32 launches,
@@ -32,10 +36,12 @@ gradients are summed in f32 over the image axis and rounded once.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
 from . import build
+from .library import needs_grad
 
 HEAD_DIM = 256  # the kernels' one head dim: fusion E = 1024, H = 4
 IMAGE_TOKENS_PER_SPLIT = 640  # image-axis split of the text-side passes
@@ -49,15 +55,27 @@ def fused_bi_attention_plain(q, k, val_v, val_l, mask_v, mask_l, num_heads):
     (ops/fusion_pallas.py:85-120): f32 logits and softmaxes, the image-side
     probabilities rounded to bf16 ahead of P_v . val_l, the text side's
     val_v^T . P_l in f32, the outputs rounded to bf16."""
+    return _fusion_plain(q, k, val_v, val_l, mask_v, mask_l, num_heads, stats=False)
+
+
+def fusion_fwd_plain(q, k, val_v, val_l, mask_v, mask_l, num_heads):
+    """K2's four outputs: the plain version's (out_v, out_l) and the softmax
+    statistics K2 writes for K4, lse_v (B, H, Nv) each image row's
+    log-sum-exp of q . k over the live text, lse_l (B, H, Nl) each text
+    column's over the live image tokens (+inf where none is live), f32."""
+    return _fusion_plain(q, k, val_v, val_l, mask_v, mask_l, num_heads, stats=True)
+
+
+def _fusion_plain(q, k, val_v, val_l, mask_v, mask_l, num_heads, stats: bool):
     B, Nv, E = q.shape
     Nl = k.shape[1]
     H = num_heads
     D = E // H
     dt = q.dtype
-    logits = torch.einsum(
+    raw = torch.einsum(
         "bvhd,blhd->bhvl", q.float().reshape(B, Nv, H, D), k.float().reshape(B, Nl, H, D)
     )
-    logits = logits - logits.max().detach()
+    logits = raw - raw.max().detach()
     logits = logits.clamp(-50000.0, 50000.0)
 
     logits_t = logits.transpose(-1, -2)                      # (B, H, Nl, Nv)
@@ -71,7 +89,15 @@ def fused_bi_attention_plain(q, k, val_v, val_l, mask_v, mask_l, num_heads):
 
     out_v = torch.einsum("bhvl,blhd->bvhd", attn_v, val_l.float().reshape(B, Nl, H, D))
     out_l = torch.einsum("bhlv,bvhd->blhd", attn_l, val_v.float().reshape(B, Nv, H, D))
-    return out_v.reshape(B, Nv, E).to(dt), out_l.reshape(B, Nl, E).to(dt)
+    out_v, out_l = out_v.reshape(B, Nv, E).to(dt), out_l.reshape(B, Nl, E).to(dt)
+    if not stats:
+        return out_v, out_l
+    inf = float("inf")
+    lse_v = torch.logsumexp(raw.masked_fill(mask_l[:, None, None, :], -inf), dim=-1)
+    lse_l = torch.logsumexp(raw.masked_fill(mask_v[:, None, :, None], -inf), dim=-2)
+    lse_v = torch.where((~mask_l).any(-1)[:, None, None], lse_v, inf)
+    lse_l = torch.where((~mask_v).any(-1)[:, None, None], lse_l, inf)
+    return out_v, out_l, lse_v, lse_l
 
 
 def fused_bi_attention_bwd_plain(q, k, val_v, val_l, mask_v, mask_l, g_ov, g_ol, num_heads):
@@ -237,15 +263,38 @@ def fused_bi_attention_bwd(q, k, val_v, val_l, mask_v, mask_l, out_v, out_l, lse
     return gq, gk, gvv, gvl
 
 
+@torch.library.custom_op("ogd_torch::fusion_fwd", mutates_args=(), device_types="cuda")
+def fusion_fwd(q: torch.Tensor, k: torch.Tensor, val_v: torch.Tensor, val_l: torch.Tensor,
+               mask_v: torch.Tensor, mask_l: torch.Tensor, num_heads: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2 as an op: (out_v, out_l, lse_v (B, H, Nv) f32, lse_l (B, H, Nl)
+    f32); on CUDA tensors the kernel, counted on
+    fused_bi_attention.launches(_bf16).  Its split partials stay inside."""
+    return _fusion_fwd_cuda(q, k, val_v, val_l, mask_v, mask_l, num_heads)
+
+
+@fusion_fwd.register_kernel("cpu")
+def _fusion_fwd_cpu(q, k, val_v, val_l, mask_v, mask_l, num_heads):
+    return fusion_fwd_plain(q, k, val_v, val_l, mask_v, mask_l, num_heads)
+
+
+@fusion_fwd.register_fake
+def _fusion_fwd_fake(q, k, val_v, val_l, mask_v, mask_l, num_heads):
+    B, Nv, _ = q.shape
+    Nl = k.shape[1]
+    return (torch.empty_like(q), torch.empty_like(k),
+            q.new_empty(B, num_heads, Nv, dtype=torch.float32),
+            q.new_empty(B, num_heads, Nl, dtype=torch.float32))
+
+
 class FusedBiAttentionFunction(torch.autograd.Function):
-    """K2 forward, K4 backward (the JAX package's custom_vjp `_fused_core`,
-    ops/fusion_pallas.py:362-400).  The forward saves its outputs and K2's
-    softmax statistics for K4."""
+    """K2 forward (the op), K4 backward (the JAX package's custom_vjp
+    `_fused_core`, ops/fusion_pallas.py:362-400).  The forward saves its
+    outputs and K2's softmax statistics for K4."""
 
     @staticmethod
     def forward(ctx, q, k, val_v, val_l, mask_v, mask_l, num_heads):
-        out_v, out_l, lse_v, lse_l = _fusion_fwd_cuda(q, k, val_v, val_l, mask_v, mask_l,
-                                                      num_heads)
+        out_v, out_l, lse_v, lse_l = fusion_fwd(q, k, val_v, val_l, mask_v, mask_l, num_heads)
         ctx.num_heads = num_heads
         ctx.save_for_backward(q, k, val_v, val_l, mask_v, mask_l, out_v, out_l, lse_v, lse_l)
         return out_v, out_l
@@ -260,11 +309,14 @@ class FusedBiAttentionFunction(torch.autograd.Function):
 
 def fused_bi_attention(q, k, val_v, val_l, mask_v, mask_l, num_heads: int):
     """K2 (K4 for its gradient) for CUDA tensors (all f32 or all bf16,
-    contiguous), the plain version for CPU tensors."""
+    contiguous), the plain version for CPU tensors; without a gradient,
+    through the op on either.  Returns (out_v, out_l)."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_bi_attention: unsupported device {q.device}")
+    if not needs_grad(q, k, val_v, val_l):
+        return fusion_fwd(q, k, val_v, val_l, mask_v, mask_l, num_heads)[:2]
     if q.device.type == "cpu":
         return fused_bi_attention_plain(q, k, val_v, val_l, mask_v, mask_l, num_heads)
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_bi_attention: unsupported device {q.device}")
     return FusedBiAttentionFunction.apply(q, k, val_v, val_l, mask_v, mask_l, num_heads)
 
 

@@ -14,12 +14,16 @@ Layouts (the JAX package's, at this public function):
 `spatial_shapes` and `level_start` are static sequences of ints:
 ((h, w), ...) per level and the offset of each level in L.
 
-`ms_deform_attn` takes `ms_deform_attn_plain` for CPU tensors (autograd
-differentiates it) and, for CUDA tensors, `MSDeformAttnFunction`: K1 forward,
-K3 backward.  `ms_deform_attn_bwd` is K3's wrapper and takes CUDA tensors
-only; `ms_deform_attn_bwd_plain` is its reference.  Nothing else reaches a
-plain version; `ms_deform_attn.launches` and `ms_deform_attn_bwd.launches`
-count the kernels' f32 launches, `.launches_bf16` their bf16 ones.
+K1 is the custom op `ogd_torch::msda_fwd` (`msda_fwd`; ops/library.py): on
+CUDA tensors the kernel (`_msda_fwd_cuda`), on CPU ones
+`ms_deform_attn_plain`.  `ms_deform_attn` calls the op when no gradient is
+needed; with one, it takes `ms_deform_attn_plain` for CPU tensors (autograd
+differentiates it) and, for CUDA tensors, `MSDeformAttnFunction`: the op
+forward, K3 backward.  `ms_deform_attn_bwd` is K3's wrapper and takes CUDA
+tensors only; `ms_deform_attn_bwd_plain` is its reference.  A CUDA tensor
+never reaches a plain version; `ms_deform_attn.launches` and
+`ms_deform_attn_bwd.launches` count the kernels' f32 launches,
+`.launches_bf16` their bf16 ones.
 
 bf16 (the value and the upstream gradient; locations and weights stay f32):
 K1 sums in f32 and rounds its output once.  K3 returns grad_value in bf16,
@@ -37,11 +41,12 @@ accumulate grad_value in shared memory (`msda_bwd_plan`).
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 
 from . import build
+from .library import flat_shapes, needs_grad, shape_pairs
 
 Shapes = Sequence[Tuple[int, int]]
 
@@ -102,7 +107,7 @@ def ms_deform_attn_plain(
     out = torch.zeros(B, H, Q, D, dtype=torch.float32, device=value.device)
     for t in range(K):
         g = torch.gather(value_bh, 2, idx_t[t][..., None].expand(B, H, Q, D))
-        out = out + g.float() * w_t[t][..., None]
+        out.add_(g.float().mul_(w_t[t][..., None]))   # in place: the same sums, fewer tensors
     return out.to(value.dtype).permute(0, 2, 1, 3).reshape(B, Q, H * D)
 
 
@@ -327,15 +332,34 @@ def ms_deform_attn_bwd(value, spatial_shapes, level_start, locs, attn, grad_out)
     return grad_value, grad_locs, grad_attn
 
 
+@torch.library.custom_op("ogd_torch::msda_fwd", mutates_args=(), device_types="cuda")
+def msda_fwd(value: torch.Tensor, spatial_shapes: List[int], level_start: List[int],
+             locs: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
+    """K1 as an op (`spatial_shapes` flat, library.flat_shapes): on CUDA
+    tensors the kernel, counted on ms_deform_attn.launches(_bf16)."""
+    return _msda_fwd_cuda(value, shape_pairs(spatial_shapes), level_start, locs, attn)
+
+
+@msda_fwd.register_kernel("cpu")
+def _msda_fwd_cpu(value, spatial_shapes, level_start, locs, attn):
+    return ms_deform_attn_plain(value, shape_pairs(spatial_shapes), level_start, locs, attn)
+
+
+@msda_fwd.register_fake
+def _msda_fwd_fake(value, spatial_shapes, level_start, locs, attn):
+    B, _, H, D = value.shape
+    return value.new_empty(B, locs.shape[1], H * D)
+
+
 class MSDeformAttnFunction(torch.autograd.Function):
-    """K1 forward, K3 backward (the JAX package's custom_vjp around the banded
-    kernels, ops/msda_banded.py)."""
+    """K1 forward (the op), K3 backward (the JAX package's custom_vjp around
+    the banded kernels, ops/msda_banded.py)."""
 
     @staticmethod
     def forward(ctx, value, locs, attn, spatial_shapes, level_start):
         ctx.spatial_shapes, ctx.level_start = spatial_shapes, level_start
         ctx.save_for_backward(value, locs, attn)
-        return _msda_fwd_cuda(value, spatial_shapes, level_start, locs, attn)
+        return msda_fwd(value, flat_shapes(spatial_shapes), list(level_start), locs, attn)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -353,12 +377,15 @@ def ms_deform_attn(
     attn: torch.Tensor,
 ) -> torch.Tensor:
     """K1 (K3 for its gradient) for CUDA tensors (f32 or bf16 value, f32
-    locs/attn, all contiguous), the plain version for CPU tensors.  Returns
-    (B, Q, H*D) in value's dtype."""
+    locs/attn, all contiguous), the plain version for CPU tensors; without a
+    gradient, through the op on either.  Returns (B, Q, H*D) in value's
+    dtype."""
+    if value.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ms_deform_attn: unsupported device {value.device}")
+    if not needs_grad(value, locs, attn):
+        return msda_fwd(value, flat_shapes(spatial_shapes), list(level_start), locs, attn)
     if value.device.type == "cpu":
         return ms_deform_attn_plain(value, spatial_shapes, level_start, locs, attn)
-    if value.device.type != "cuda":
-        raise ValueError(f"ms_deform_attn: unsupported device {value.device}")
     return MSDeformAttnFunction.apply(value, locs, attn, tuple(spatial_shapes),
                                       tuple(level_start))
 

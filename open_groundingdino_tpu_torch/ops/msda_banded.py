@@ -36,24 +36,29 @@ keeps it f32, as K1's bf16 entry does).  The backward is K3's bf16 entry,
 which adds grad_value in bf16 as the JAX banded backward does
 (`MSDA_BWD_GV_BF16`, msda_banded.py:693-709).
 
-`ms_deform_attn_banded` takes the plain version for CPU tensors (autograd
-differentiates it) and `MSDABandedFunction` for CUDA tensors, whose backward
-is K3 on the reference operands (ops/msda.ms_deform_attn_bwd), as the JAX
-custom VJP runs the native banded backward (`_banded_bwd`).  `banded_fwd` is
-K5's launcher: CUDA tensors only, counting `banded_fwd.launches` (f32) and
+K5 is the custom op `ogd_torch::banded_fwd` (`banded_fwd_op`;
+ops/library.py): on CUDA tensors the kernel, on CPU ones `banded_fwd_plain`
+with band windows taken from its own operands (`tap_band_ranges`).  Without
+a gradient, `ms_deform_attn_banded` calls the op; with one, it takes the
+plain version for CPU tensors (autograd differentiates it) and
+`MSDABandedFunction` for CUDA tensors, whose backward is K3 on the reference
+operands (ops/msda.ms_deform_attn_bwd), as the JAX custom VJP runs the
+native banded backward (`_banded_bwd`).  `banded_fwd` is K5's launcher,
+through the op: CUDA tensors only, counting `banded_fwd.launches` (f32) and
 `banded_fwd.launches_bf16`; nothing on the card reaches a plain version.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
 from . import build, msda
+from .library import flat_shapes, needs_grad, shape_pairs, with_flat_shapes
 from .msda import level_starts
-from .msda_sweep import (HEAD_DIM, QBLOCK, _count, _entry, _gather_rows, _to_reference, _value_bh,
-                         kernel_layout, sort_and_pad, unsort)
+from .msda_sweep import (HEAD_DIM, QBLOCK, _count, _cuda_only, _entry, _gather_rows, _to_reference,
+                         _value_bh, kernel_layout, sort_and_pad, unsort)
 
 Shapes = Sequence[Tuple[int, int]]
 
@@ -91,6 +96,25 @@ def banded_prep(locs_t: torch.Tensor, attn_t: torch.Tensor, spatial_shapes: Shap
     return stack(px_parts), stack(py_parts), stack(wa_parts)
 
 
+def _block_ranges(y0: torch.Tensor, counted: torch.Tensor, Hl: int, band: int) -> torch.Tensor:
+    """Per (bh, point, 128-query block) [ylo, n_it] of the first-corner rows
+    y0 (BH, P, Q_pad) of the `counted` queries: ylo their least row, n_it =
+    (yhi - ylo) // band + 1 windows to their greatest second-corner row,
+    both clipped into the level; a query not counted widens nothing."""
+    BH, P, Qp = y0.shape
+    y_lo = torch.where(counted, y0.clamp(0, Hl - 1), Hl - 1)
+    y_hi = torch.where(counted, (y0 + 1).clamp(0, Hl - 1), 0)
+    lo = y_lo.view(BH, P, Qp // QBLOCK, QBLOCK).amin(3)
+    hi = y_hi.view(BH, P, Qp // QBLOCK, QBLOCK).amax(3)
+    return torch.stack([lo, (hi - lo) // band + 1], -1)                    # (BH, P, nqb, 2)
+
+
+def _stack_ranges(parts) -> torch.Tensor:
+    """Each level's (BH, P, nqb, 2) -> (BH, nqb*NL*P*2) int32."""
+    ranges = torch.stack(parts, 1).movedim(3, 1)                           # (BH, nqb, NL, P, 2)
+    return ranges.reshape(ranges.shape[0], -1).to(torch.int32)
+
+
 def band_ranges(locs_t: torch.Tensor, spatial_shapes: Shapes, nqb: int, bands) -> torch.Tensor:
     """Per (bh, 128-query block, level, point) [ylo, n_it]
     (msda_banded.py::_band_ranges): ylo the block's least first-corner row,
@@ -98,18 +122,27 @@ def band_ranges(locs_t: torch.Tensor, spatial_shapes: Shapes, nqb: int, bands) -
     both clipped into the level.  Queries past Q (padding to nqb blocks)
     take ylo = H_l - 1, yhi = 0 and widen nothing.  -> (BH, nqb*NL*P*2)
     int32."""
-    BH, Q = locs_t.shape[0], locs_t.shape[-1]
+    Q = locs_t.shape[-1]
     pad = nqb * QBLOCK - Q
-    parts = []
-    for lvl, (Hl, _) in enumerate(spatial_shapes):
-        y0 = torch.floor(locs_t[:, lvl, :, 1, :] * Hl - 0.5).long()   # (BH, P, Q)
-        y_lo = torch.nn.functional.pad(y0.clamp(0, Hl - 1), (0, pad), value=Hl - 1)
-        y_hi = torch.nn.functional.pad((y0 + 1).clamp(0, Hl - 1), (0, pad), value=0)
-        lo = y_lo.view(BH, -1, nqb, QBLOCK).amin(3)                    # (BH, P, nqb)
-        hi = y_hi.view(BH, -1, nqb, QBLOCK).amax(3)
-        parts.append(torch.stack([lo, (hi - lo) // bands[lvl] + 1], -1))
-    ranges = torch.stack(parts, 1).movedim(3, 1)                       # (BH, nqb, NL, P, 2)
-    return ranges.reshape(BH, -1).to(torch.int32)
+    counted = torch.arange(nqb * QBLOCK, device=locs_t.device) < Q
+    return _stack_ranges([
+        _block_ranges(torch.nn.functional.pad(
+            torch.floor(locs_t[:, lvl, :, 1, :] * Hl - 0.5).long(), (0, pad)), counted, Hl,
+            bands[lvl])
+        for lvl, (Hl, _) in enumerate(spatial_shapes)])
+
+
+def tap_band_ranges(py: torch.Tensor, wa: torch.Tensor, spatial_shapes: Shapes,
+                    bands) -> torch.Tensor:
+    """band_ranges from K5's own operands (BH, NL*P, Q_pad): each live point's
+    (wa != 0) first row floor(py); a dead or padded one widens nothing.  The
+    windows cover the rows of every live point, which is all the plain
+    version needs (the module's docstring) -> (BH, nqb*NL*P*2) int32."""
+    P = py.shape[1] // len(spatial_shapes)
+    return _stack_ranges([
+        _block_ranges(torch.floor(py[:, lvl * P:(lvl + 1) * P]).long(),
+                      wa[:, lvl * P:(lvl + 1) * P] != 0, Hl, bands[lvl])
+        for lvl, (Hl, _) in enumerate(spatial_shapes)])
 
 
 def query_order(locs_t: torch.Tensor, spatial_shapes: Shapes, L: int):
@@ -197,14 +230,12 @@ def fwd_smem_bytes(NL: int, tile_q: int) -> int:
     return NL * msda.POINTS * (tile_q + 1) * 32
 
 
-def banded_fwd(value, spatial_shapes: Shapes, px, py, wa, band: int = BAND):
+def _banded_fwd_cuda(value, spatial_shapes: Shapes, px, py, wa):
     """K5 on CUDA tensors: one kernel block per (b*h, tile of queries), the
     tile chosen as K1's (msda.msda_fwd_tile); each live point (wa != 0)
     reads its at most four corner rows.  value (B, L, H, 32) f32 or bf16,
     16-byte aligned; px, py, wa (BH, NL*P, Q_pad) f32, contiguous ->
-    (BH, Q_pad, 32) in value's dtype (bf16: f32 sums, rounded once).  `band`
-    does not change the result (the module's docstring) and is not used
-    here."""
+    (BH, Q_pad, 32) in value's dtype (bf16: f32 sums, rounded once)."""
     for name, t in (("value", value), ("px", px), ("py", py), ("wa", wa)):
         if t.device.type != "cuda":
             raise ValueError(f"banded_fwd: unsupported device {t.device} for {name}")
@@ -241,6 +272,43 @@ def banded_fwd(value, spatial_shapes: Shapes, px, py, wa, band: int = BAND):
     return out
 
 
+@torch.library.custom_op("ogd_torch::banded_fwd", mutates_args=(), device_types="cuda")
+def banded_fwd_op(value: torch.Tensor, spatial_shapes: List[int], px: torch.Tensor,
+                  py: torch.Tensor, wa: torch.Tensor) -> torch.Tensor:
+    """K5 as an op (`spatial_shapes` flat): on CUDA tensors the kernel,
+    counted on banded_fwd.launches(_bf16)."""
+    return _banded_fwd_cuda(value, shape_pairs(spatial_shapes), px, py, wa)
+
+
+@banded_fwd_op.register_kernel("cpu")
+def _banded_fwd_cpu(value, spatial_shapes, px, py, wa):
+    shapes = shape_pairs(spatial_shapes)
+    ranges = tap_band_ranges(py, wa, shapes, level_bands(shapes, BAND))
+    return banded_fwd_plain(value, shapes, px, py, wa, ranges).to(value.dtype)
+
+
+@banded_fwd_op.register_fake
+def _banded_fwd_fake(value, spatial_shapes, px, py, wa):
+    return value.new_empty(px.shape[0], px.shape[2], value.shape[-1])
+
+
+def banded_fwd(value, spatial_shapes: Shapes, px, py, wa, band: int = BAND):
+    """K5 on CUDA tensors, through its op (`_banded_fwd_cuda` has the
+    operands); raises for any other device.  `band` does not change the
+    result (the module's docstring) and is not used here."""
+    _cuda_only("banded_fwd", value, px, py, wa)
+    return banded_fwd_op(value, flat_shapes(spatial_shapes), px, py, wa)
+
+
+def _banded_forward(value, locs, attn, spatial_shapes: Shapes, launch):
+    """The kernel's operands, launch(value, spatial_shapes, px, py, wa) (K5
+    or its op) and the un-sort -> (B, Q, H*D)."""
+    B, L, H, _ = value.shape
+    order, _, px, py, wa = banded_operands(locs, attn, spatial_shapes, L)
+    out = launch(value, spatial_shapes, px, py, wa)
+    return _to_reference(unsort(out, order, locs.shape[1], q_axis=1), B, H)
+
+
 class MSDABandedFunction(torch.autograd.Function):
     """K5 forward; K3 backward on the reference operands (the JAX package's
     custom VJP of `_banded_core`: its native banded backward, which
@@ -250,12 +318,10 @@ class MSDABandedFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, value, locs, attn, spatial_shapes, level_start, band):
-        B, L, H, _ = value.shape
         ctx.spatial_shapes, ctx.level_start = spatial_shapes, level_start
         ctx.save_for_backward(value, locs, attn)
-        order, _, px, py, wa = banded_operands(locs, attn, spatial_shapes, L)
-        out = banded_fwd(value, spatial_shapes, px, py, wa, band)
-        return _to_reference(unsort(out, order, locs.shape[1], q_axis=1), B, H)
+        return _banded_forward(value, locs, attn, spatial_shapes,
+                               lambda *operands: banded_fwd(*operands, band))
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -286,15 +352,19 @@ def ms_deform_attn_banded(value: torch.Tensor, spatial_shapes: Shapes, level_sta
     forward: value (B, L, H, D), locs (B, Q, H, NL, P, 2), attn
     (B, Q, H, NL, P) -> (B, Q, H*D) in value's dtype.  On CUDA tensors
     (value f32 or bf16, D = 32) K5 forward and K3 backward; on CPU tensors
-    the plain version.  `band` is the window height in rows; `level_start`
-    must be the raster offsets of the levels."""
+    the plain version; without a gradient, the op of K5 on either.  `band`
+    is the window height in rows (the CPU's windows without a gradient take
+    BAND: the result does not depend on it); `level_start` must be the
+    raster offsets of the levels."""
     if tuple(level_start) != level_starts(spatial_shapes):
         raise ValueError("the banded op takes the raster level order (level_start of spatial_shapes)")
-    if value.device.type == "cpu":
-        return ms_deform_attn_banded_plain(value, spatial_shapes, locs, attn, band)
-    if value.device.type != "cuda":
+    if value.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ms_deform_attn_banded: unsupported device {value.device}")
     shapes = tuple(map(tuple, spatial_shapes))
+    if not needs_grad(value, locs, attn):
+        return _banded_forward(value, locs, attn, shapes, with_flat_shapes(banded_fwd_op))
+    if value.device.type == "cpu":
+        return ms_deform_attn_banded_plain(value, spatial_shapes, locs, attn, band)
     return MSDABandedFunction.apply(value, locs, attn, shapes, level_starts(shapes), int(band))
 
 

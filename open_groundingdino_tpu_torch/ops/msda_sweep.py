@@ -52,20 +52,26 @@ path, which the wrapper rounds to bf16 once, as the TPU kernels write
 grad_value in f32 (msda_pallas.py:1093, 1315) and cast it once.  The tap
 weights stay f32 (the TPU kernels round them to bf16 for the MXU).
 
-`ms_deform_attn_sweep` takes the plain version for CPU tensors (autograd
-differentiates it) and `MSDASweepFunction` for CUDA tensors.  The five
-kernel wrappers take CUDA tensors only and count their launches
-(`sweep_fwd.launches`, ...; the bf16 entries' apart, in `.launches_bf16`);
-nothing on the card reaches a plain version.
+K6 and K7 are the custom ops `ogd_torch::sweep_fwd` and
+`ogd_torch::sweep_fwd_allq` (`sweep_fwd_op`, `sweep_fwd_allq_op`;
+ops/library.py): on CUDA tensors the kernels, on CPU ones
+`sweep_fwd_plain`.  Without a gradient, `ms_deform_attn_sweep` runs the
+row-tap forward through the ops; with one, it takes the plain version for
+CPU tensors (autograd differentiates it) and `MSDASweepFunction` for CUDA
+tensors.  The five kernel wrappers (`sweep_fwd` and `sweep_fwd_allq` reach
+their kernels through the ops) take CUDA tensors only and count their
+launches (`sweep_fwd.launches`, ...; the bf16 entries' apart, in
+`.launches_bf16`); nothing on the card reaches a plain version.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
 from . import build, msda
+from .library import flat_shapes, needs_grad, shape_pairs, with_flat_shapes
 from .msda import level_starts
 
 Shapes = Sequence[Tuple[int, int]]
@@ -359,23 +365,64 @@ def _rowtap_fwd(entry, what, value, spatial_shapes, row, px, w):
     return out
 
 
-def sweep_fwd(value, spatial_shapes, row, px, w):
-    """K6 on CUDA tensors: each live tap reads its at most two rows.  value
-    (B, L, H, 32) f32 or bf16, 16-byte aligned; row int32, px, w f32
-    (BH, NL*2*P, Q_pad) -> (BH, Q_pad, D) in value's dtype (bf16: f32 sums,
-    rounded once)."""
-    out = _rowtap_fwd("msda_rowtap_fwd", "sweep_fwd", value, spatial_shapes, row, px, w)
+def _cuda_only(what: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is on a CUDA device: a launcher never
+    reaches a plain version."""
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{what}: unsupported device {t.device}")
+
+
+@torch.library.custom_op("ogd_torch::sweep_fwd", mutates_args=(), device_types="cuda")
+def sweep_fwd_op(value: torch.Tensor, spatial_shapes: List[int], row: torch.Tensor,
+                 px: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """K6 as an op (`spatial_shapes` flat): on CUDA tensors the kernel,
+    counted on sweep_fwd.launches(_bf16)."""
+    out = _rowtap_fwd("msda_rowtap_fwd", "sweep_fwd", value, shape_pairs(spatial_shapes),
+                      row, px, w)
     _count(sweep_fwd, value)
     return out
 
 
-def sweep_fwd_allq(value, spatial_shapes, row, px, w):
-    """K7 on CUDA tensors: K6's function, operands and launch, for the
-    decoder's sorted query set under dec_fused, as a kernel of its own (its
-    own name in a profile, its own count)."""
-    out = _rowtap_fwd("msda_sweep_fwd_allq", "sweep_fwd_allq", value, spatial_shapes, row, px, w)
+@torch.library.custom_op("ogd_torch::sweep_fwd_allq", mutates_args=(), device_types="cuda")
+def sweep_fwd_allq_op(value: torch.Tensor, spatial_shapes: List[int], row: torch.Tensor,
+                      px: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """K7 as an op: on CUDA tensors the kernel, counted on
+    sweep_fwd_allq.launches(_bf16)."""
+    out = _rowtap_fwd("msda_sweep_fwd_allq", "sweep_fwd_allq", value,
+                      shape_pairs(spatial_shapes), row, px, w)
     _count(sweep_fwd_allq, value)
     return out
+
+
+def _rowtap_fwd_cpu(value, spatial_shapes, row, px, w):
+    return sweep_fwd_plain(value, row, px, w).to(value.dtype)
+
+
+def _rowtap_fwd_fake(value, spatial_shapes, row, px, w):
+    return value.new_empty(px.shape[0], px.shape[2], value.shape[-1])
+
+
+for _op in (sweep_fwd_op, sweep_fwd_allq_op):
+    _op.register_kernel("cpu")(_rowtap_fwd_cpu)
+    _op.register_fake(_rowtap_fwd_fake)
+
+
+def sweep_fwd(value, spatial_shapes, row, px, w):
+    """K6 on CUDA tensors, through its op: each live tap reads its at most
+    two rows.  value (B, L, H, 32) f32 or bf16, 16-byte aligned; row int32,
+    px, w f32 (BH, NL*2*P, Q_pad) -> (BH, Q_pad, D) in value's dtype (bf16:
+    f32 sums, rounded once)."""
+    _cuda_only("sweep_fwd", value, row, px, w)
+    return sweep_fwd_op(value, flat_shapes(spatial_shapes), row, px, w)
+
+
+def sweep_fwd_allq(value, spatial_shapes, row, px, w):
+    """K7 on CUDA tensors, through its op: K6's function, operands and
+    launch, for the decoder's sorted query set under dec_fused, as a kernel
+    of its own (its own name in a profile, its own count)."""
+    _cuda_only("sweep_fwd_allq", value, row, px, w)
+    return sweep_fwd_allq_op(value, flat_shapes(spatial_shapes), row, px, w)
 
 
 def sweep_fwd_corner(value, spatial_shapes, idx, w):
@@ -555,6 +602,18 @@ def _to_reference(t_bh: torch.Tensor, B: int, H: int) -> torch.Tensor:
     return t_bh.view(B, H, Q, D).permute(0, 2, 1, 3).reshape(B, Q, H * D)
 
 
+def _rowtap_forward(value, locs, attn, spatial_shapes, dec_fused, fwd, allq):
+    """The row-tap forward: the expansion, the decoder's sort, `fwd` (K6),
+    or `allq` (K7) for a sorted set under dec_fused, each called as
+    launch(value, spatial_shapes, row, px, w), and the un-sort."""
+    B, L, H, _ = value.shape
+    row, px, w = rowtap_positions_and_weights(*kernel_layout(locs, attn), spatial_shapes)
+    order = query_order(row, px, L)
+    launch = allq if (dec_fused and order is not None) else fwd
+    out = launch(value, spatial_shapes, *(sort_and_pad(t, order) for t in (row, px, w)))
+    return _to_reference(unsort(out, order, locs.shape[1], q_axis=1), B, H)
+
+
 class MSDASweepFunction(torch.autograd.Function):
     """The custom VJP of ms_deform_attn_pallas_t (msda_pallas.py:1415-1535):
     row-tap forward (K6, or K7 for a sorted query set under dec_fused), or
@@ -577,11 +636,8 @@ class MSDASweepFunction(torch.autograd.Function):
             order = query_order(idx, None, L)
             out = sweep_fwd_corner(value, spatial_shapes, *(sort_and_pad(t, order) for t in (idx, w)))
             return _to_reference(unsort(out, order, Q, q_axis=1), B, H)
-        row, px, w = rowtap_positions_and_weights(*kernel_layout(locs, attn), spatial_shapes)
-        order = query_order(row, px, L)
-        launch = sweep_fwd_allq if (dec_fused and order is not None) else sweep_fwd
-        out = launch(value, spatial_shapes, *(sort_and_pad(t, order) for t in (row, px, w)))
-        return _to_reference(unsort(out, order, Q, q_axis=1), B, H)
+        return _rowtap_forward(value, locs, attn, spatial_shapes, dec_fused, sweep_fwd,
+                               sweep_fwd_allq)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -637,7 +693,9 @@ def ms_deform_attn_sweep(value: torch.Tensor, spatial_shapes: Shapes, level_star
     `fwd="corner"`; K9 backward (`bwd="corner"`) or K10
     (`bwd="rowtap"`).  The corner forward is the JAX op-level path, which has
     neither a fused decoder nor the row-tap backward: with it, both raise.
-    On CPU tensors the plain version.
+    On CPU tensors the plain version.  Without a gradient the row-tap
+    forward goes through the ops of K6 and K7 (their plain versions on CPU
+    tensors).
     `level_start` is the raster offsets of the levels, checked against
     spatial_shapes."""
     if bwd not in SWEEP_BWD:
@@ -648,10 +706,14 @@ def ms_deform_attn_sweep(value: torch.Tensor, spatial_shapes: Shapes, level_star
         raise ValueError("the corner forward takes the corner backward and no fused decoder")
     if tuple(level_start) != level_starts(spatial_shapes):
         raise ValueError("the sweep takes the raster level order (level_start of spatial_shapes)")
+    if value.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ms_deform_attn_sweep: unsupported device {value.device}")
+    if fwd == "rowtap" and not needs_grad(value, locs, attn):
+        return _rowtap_forward(value, locs, attn, tuple(map(tuple, spatial_shapes)), dec_fused,
+                               with_flat_shapes(sweep_fwd_op),
+                               with_flat_shapes(sweep_fwd_allq_op))
     if value.device.type == "cpu":
         return ms_deform_attn_sweep_plain(value, spatial_shapes, locs, attn, fwd)
-    if value.device.type != "cuda":
-        raise ValueError(f"ms_deform_attn_sweep: unsupported device {value.device}")
     return MSDASweepFunction.apply(value, locs, attn, tuple(map(tuple, spatial_shapes)), bwd,
                                    bool(dec_fused), fwd)
 

@@ -30,9 +30,9 @@ def _imported_roots(path):
     return roots
 
 
-# every module of the serving, training, sweep, banded, eval, backbone and
-# PAVE slices and the tools: the walk below must find them all, and importing
-# them must load nothing of JAX
+# every module of the serving, training, sweep, banded, eval, backbone, PAVE
+# and serving-export slices and the tools: the walk below must find them all,
+# and importing them must load nothing of JAX
 EXPECTED = (
     "inference", "main", "engine", "ops.msda", "ops.msda_sweep", "ops.msda_banded", "ops.fusion",
     "ops.build", "tools", "tools.msda_microbench", "tools.inference_on_a_image",
@@ -44,7 +44,7 @@ EXPECTED = (
     "pave", "pave.crop_utils", "pave.metrics", "pave.engine", "pave.dmg_dataset",
     "pave.infer_utils", "pave.batch_eval", "pave.repvit_seg",
     "tools.inference_pave", "tools.get_metrics", "tools.inference_from_csv",
-    "tools.inference_a_folder",
+    "tools.inference_a_folder", "serving", "ops.library", "tools.export_model",
 )
 
 
