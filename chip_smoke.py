@@ -21,6 +21,8 @@ Phases, one line of output each (any failure exits nonzero, with no result):
   6. forward - one request's pred_logits / pred_boxes on the card against the
                same model on the CPU (plain versions), flip-aware
   7. profile - torch.profiler over one request: device time by kernel group
+               (read from the profiler's raw kineto events, as every profile
+               of the smoke; here also held against key_averages())
   8. K3      - the MSDA backward kernel against autograd of K1's plain
                version (grad_value, grad_locs, grad_attn), and K1 against its
                plain version on the same operands (and timed: 18 of its
@@ -246,6 +248,27 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                load seconds, the median latency and profiled busy time of
                its requests beside eager predict's on the same request (its
                profile phase 7's)
+ 32. roberta - the RoBERTa text encoder at full width: a 50265-entry
+               byte-level BPE vocabulary learnt from a seeded corpus
+               (write_bpe_vocab), phase 5's config with roberta-base's
+               geometry (514 positions, one token type) and its seeded
+               checkpoint; (a) load_model with the vocab.json + merges.txt
+               directory, 3 predict requests (12 K1 + 6 K2 f32 launches each,
+               no other; phrases words of the caption), predict_with_spans, a
+               profiled request; the checkpoint cut to 1 encoder and 1 decoder
+               layer (text tower and Swin-T whole) on the card against the CPU
+               on its two-stage selection with phase 6's limits, a negated K1
+               failing them; (c) tools/zero_shot_eval.py --debug in a fresh
+               process on a pseudo ground truth of the served model's bf16
+               detections: 12 rows and the JSON line, AP in (0, 1], 12 K1 + 6
+               K2 bf16 launches a batch, the C++ matcher built and used, its
+               numbers within 1e-6 of main --eval --debug in this process with
+               the numpy matcher; (b) main with text_dropout=0.1 in bf16 at
+               B = 4, 2 steps (18 K1 + 12 K2 + 12 K3 + 6 K4 bf16 a step), then
+               the served model's training-mode loss on the run's first batch
+               with the step generator seeded 0 (twice: each within 1e-6 of
+               main's first step's loss) and 1 (another loss), and the
+               embeddings' dropped share within 4 sigma of 0.1
 Each main training run saves one checkpoint, after its last epoch (the
 card's machine takes at most 45 GiB of disk writes a run).
 Every training phase runs with the config's use_checkpoint (True): Swin
@@ -253,8 +276,9 @@ recomputes each block in the backward, as the JAX package
 does.  A [time] line after each phase gives its seconds.
 then the {"kernels": [...]} line (K1-K10, then the bf16 entries of all ten;
 K1's and K2's rows hold phase 30 under launches_by_path "pave" and per_shape
-"pave B=16 ...", and K1's, K2's, K5's, K6's and K7's phase 31 under
-launches_by_path "export")
+"pave B=16 ...", K1's, K2's, K5's, K6's and K7's phase 31 under
+launches_by_path "export", and K1's-K4's rows, f32 and bf16, phase 32 under
+"roberta" (its requests and training steps) and "zero_shot")
 and, last, {"ok": true, "device": {...}}.
 
 Exits nonzero when no CUDA device is present.  Scratch files (checkpoint,
@@ -376,7 +400,6 @@ def kernel_device_ms(fn, iters: int, match, per_call: int = 0) -> float:
     one that recorded most gives the mean over the launches it recorded (a
     line says when that is fewer than were made), NaN where none was."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
@@ -392,16 +415,16 @@ def kernel_device_ms(fn, iters: int, match, per_call: int = 0) -> float:
                     fn()
                 torch.cuda.synchronize()
                 prof.step()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and any(m in e.key for m in matches)]
-        seen = sum(e.count for e in events)
+        events = [(ms, n) for name, (ms, n) in device_kernels(prof).items()
+                  if any(m in name for m in matches)]
+        seen = sum(n for _, n in events)
         if seen > count:
-            count, total = seen, sum(e.self_device_time_total for e in events)
+            count, total = seen, sum(ms for ms, _ in events)
         if count >= made:
             break
     if count != made:
         log("profiler", f"{count} of {made} launches of {matches} recorded")
-    return total / 1e3 / count * max(per_call, 1) if count else float("nan")
+    return total / count * max(per_call, 1) if count else float("nan")
 
 
 def padded_tokens(shapes, valid, device):
@@ -1246,6 +1269,105 @@ def write_vocab(path: str, size: int = 30522) -> None:
         f.write("\n".join(toks) + "\n")
 
 
+# roberta-base's geometry (reference get_tokenlizer.py:22-29 + RobertaModel)
+ROBERTA_VOCAB = 50265
+ROBERTA_MAX_POSITION = 514
+BPE_SPECIALS = ("<s>", "<pad>", "</s>", "<unk>", "<mask>")
+
+
+def learn_bpe_merges(words: dict, n_tokens: int) -> list:
+    """Byte-level BPE merges learnt on `words` ({byte-encoded pre-token:
+    count}): each step merges the most frequent adjacent pair (ties: the
+    smallest pair), until the merges have made `n_tokens` distinct tokens;
+    raises if the corpus runs out of pairs first."""
+    import heapq
+
+    seqs, freq = [list(w) for w in words], list(words.values())
+    pairs, where = {}, {}
+    for i, sq in enumerate(seqs):
+        for q in zip(sq, sq[1:]):
+            pairs[q] = pairs.get(q, 0) + freq[i]
+            where.setdefault(q, set()).add(i)
+    heap = [(-c, q) for q, c in pairs.items()]
+    heapq.heapify(heap)
+    made, merges = set(), []
+    while len(made) < n_tokens:
+        if not heap:
+            raise ValueError(f"the corpus ran out of pairs at {len(made)} of {n_tokens} tokens")
+        c, q = heapq.heappop(heap)
+        cur = pairs.get(q, 0)
+        if cur != -c:   # a stale entry: its count has fallen since
+            if cur > 0:
+                heapq.heappush(heap, (-cur, q))
+            continue
+        a, b = q
+        new = a + b
+        merges.append(q)
+        made.add(new)
+        for i in where.pop(q):
+            sq, f, out, j = seqs[i], freq[i], [], 0
+            while j < len(sq):
+                if j + 1 < len(sq) and sq[j] == a and sq[j + 1] == b:
+                    out.append(new)
+                    j += 2
+                else:
+                    out.append(sq[j])
+                    j += 1
+            for r in zip(sq, sq[1:]):
+                pairs[r] -= f
+            for r in zip(out, out[1:]):
+                pairs[r] = pairs.get(r, 0) + f
+                where.setdefault(r, set()).add(i)
+                if new in r:   # only pairs with the new token gain counts
+                    heapq.heappush(heap, (-pairs[r], r))
+            seqs[i] = out
+        pairs.pop(q, None)
+    return merges
+
+
+def write_bpe_vocab(directory: str, size: int = ROBERTA_VOCAB, seed: int = SEED) -> str:
+    """A roberta-base-shaped byte-level BPE vocabulary of exactly `size`
+    entries in `directory` (vocab.json + merges.txt, the file format of
+    tests/test_tokenization.py:118-133): the five special tokens at
+    roberta-base's ids, the 256 byte symbols, then every token that merges
+    learnt from a seeded synthetic corpus make (learn_bpe_merges).  The
+    corpus: the smoke's caption and category words, frequent and mostly
+    after a space, and random lowercase words, as GPT-2's pre-tokenizer
+    splits them.  Returns the directory."""
+    import random
+
+    from open_groundingdino_tpu_torch.data.tokenization import _bytes_to_unicode, _gpt2_pretokenize
+
+    n_tokens = size - len(BPE_SPECIALS) - 256
+    rng = random.Random(seed)
+    enc = _bytes_to_unicode()
+    words = {}
+
+    def add(text: str, count: int) -> None:
+        for piece, _ in _gpt2_pretokenize(text):
+            key = "".join(enc[b] for b in piece.encode("utf-8"))
+            words[key] = words.get(key, 0) + count
+
+    for w in VOCAB_WORDS + CATEGORIES:
+        add(" " + w, 1000)
+        add(w, 100)
+    add(" . ? , ' 0 1 2 3 4 5 6 7 8 9", 500)
+    # ~3.1 distinct tokens a random word before the corpus runs out
+    for _ in range(n_tokens // 3 + 100):
+        w = "".join(rng.choice("abcdefghijklmnopqrstuvwxyz") for _ in range(rng.randint(4, 12)))
+        add((" " if rng.random() < 0.8 else "") + w, rng.randint(1, 20))
+    merges = learn_bpe_merges(words, n_tokens)
+    toks = list(BPE_SPECIALS) + list(enc.values()) + list(dict.fromkeys(a + b for a, b in merges))
+    if len(toks) != size:
+        raise AssertionError(f"BPE vocab of {len(toks)} entries, expected {size}")
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump({t: i for i, t in enumerate(toks)}, f, ensure_ascii=False)
+    with open(os.path.join(directory, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    return directory
+
+
 def draw_frozen_bn(model, g) -> list:
     """A ResNet backbone's FrozenBN terms drawn near the identity, as a
     trained network's are away from it: weight and running_var U(0.5, 1.5),
@@ -1274,7 +1396,7 @@ def draw_frozen_bn(model, g) -> list:
 
 
 def write_checkpoint(cfg_path: str, path: str, random_biases: bool = False,
-                     anchor_boxes: bool = False) -> None:
+                     anchor_boxes: bool = False, extra=None) -> None:
     """Seeded random weights of the config's model with the reference
     state-dict keys; a ResNet backbone's FrozenBN terms drawn near the
     identity (`draw_frozen_bn`).
@@ -1294,7 +1416,9 @@ def write_checkpoint(cfg_path: str, path: str, random_biases: bool = False,
     (groundingdino.py), and so is enc_output's bias, so that the padded and
     out-of-range proposals, whose memory is zero, score 0 and leave the top
     900 to the image's tokens.  With random biases there, those proposals
-    (all one box) took every query, and NMS left one box an image."""
+    (all one box) took every query, and NMS left one box an image.  `extra`
+    ({key: tensor}) adds entries a published checkpoint holds beside the
+    model's tensors (buffers the loader drops)."""
     import torch
 
     from open_groundingdino_tpu_torch.config import SLConfig
@@ -1323,7 +1447,7 @@ def write_checkpoint(cfg_path: str, path: str, random_biases: bool = False,
                 head.layers[-1].weight.zero_()
                 head.layers[-1].bias.zero_()
             model.transformer.enc_output.bias.zero_()
-    torch.save({"model": model.state_dict()}, path)
+    torch.save({"model": {**model.state_dict(), **(extra or {})}}, path)
 
 
 def synthetic_image(h: int, w: int, seed: int):
@@ -1750,16 +1874,62 @@ KERNEL_GROUPS = (("K1 msda_fwd bf16", K1_BF16_NAMES),
                  ("K4 fusion_bwd", ("bwd_kernel", "sum_splits_kernel")))
 
 
+def device_kernels(prof) -> dict:
+    """{name: [device ms, launches]} of a finished profile's device events
+    (kernels, copies, sets), summed by name in one pass over the profiler's
+    raw kineto events.  prof.key_averages() gives the same numbers (phase 7
+    checks that once) but first builds an event tree of every host op: 10-24
+    s a training step."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        # the schedule's step annotation spans the step on the device too
+        if e.device_type() != DeviceType.CUDA or e.name().startswith("ProfilerStep"):
+            continue
+        ns = e.duration_ns() if hasattr(e, "duration_ns") else e.duration_us() * 1e3
+        if ns > 0:
+            rec = out.setdefault(e.name(), [0.0, 0])
+            rec[0] += ns / 1e6
+            rec[1] += 1
+    return out
+
+
+def check_device_kernels(prof) -> dict:
+    """device_kernels against key_averages() on one profile: the same
+    launches and device ms by kernel (a name's sum to 1e-6 relative, both
+    readers of the same kineto durations); logs both readers' seconds."""
+    from torch.autograd import DeviceType
+
+    t0 = time.perf_counter()
+    raw = device_kernels(prof)
+    raw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = {}
+    for e in prof.key_averages():
+        if (e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                and not e.key.startswith("ProfilerStep")):
+            ref[e.key] = [e.self_device_time_total / 1e3, e.count]
+    ref_s = time.perf_counter() - t0
+    by_launch = lambda d: sorted((n, round(ms, 6)) for ms, n in d.values())
+    total = lambda d: sum(ms for ms, _ in d.values())
+    worst = max((abs(a[0] - b[0]) / max(b[0], 1e-9)
+                 for a, b in zip(sorted(raw.values()), sorted(ref.values()))), default=0.0)
+    log("profiler", f"raw kineto events: {len(raw)} kernels, {total(raw):.3f} ms in "
+                    f"{raw_s:.2f} s; key_averages(): {len(ref)} kernels, {total(ref):.3f} ms in "
+                    f"{ref_s:.2f} s; worst kernel's relative difference {worst:.1e}")
+    if (len(raw) != len(ref) or [n for _, n in by_launch(raw)] != [n for _, n in by_launch(ref)]
+            or worst > 1e-6):
+        raise AssertionError("the raw kineto events and key_averages() read different device "
+                             "times")
+    return {"raw_s": raw_s, "key_averages_s": ref_s, "kernels": len(raw), "worst_rel": worst}
+
+
 def device_time_by_group(prof):
     """A profile's device kernels, largest first, as (name, ms, launches),
     and their device ms and launches summed by KERNEL_GROUPS, matrix
     products and the rest."""
-    from torch.autograd import DeviceType
-
-    # the schedule's step annotation spans the step on the device too
-    kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-               and not e.key.startswith("ProfilerStep")]
+    kernels = [(name, ms, n) for name, (ms, n) in device_kernels(prof).items()]
     kernels.sort(key=lambda k: -k[1])
     names = [g for g, _ in KERNEL_GROUPS] + ["matmul", "other"]
     groups, launches = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
@@ -2027,11 +2197,12 @@ def check_sweep_train_parity(harness, gather_card) -> tuple:
 
 
 def profile_request(im, image, caption, top: int = 8, tag: str = "profile",
-                    **predict_kw) -> dict:
+                    check_reader: bool = False, **predict_kw) -> dict:
     """torch.profiler over one warm request (after one under its warm-up;
     `predict_kw` go to predict): device time and launches by kernel group
     (KERNEL_GROUPS, matrix products, the rest) against the request's wall
-    time (profiler on)."""
+    time (profiler on).  With `check_reader`, the raw-event reader is held
+    against key_averages() on this profile (check_device_kernels)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -2049,6 +2220,7 @@ def profile_request(im, image, caption, top: int = 8, tag: str = "profile",
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
             prof.step()
+    reader = check_device_kernels(prof) if check_reader else None
     kernels, groups, launches = device_time_by_group(prof)
     busy = sum(groups.values())
     log(tag, f"one request {wall_ms:.1f} ms wall (profiler on), device busy {busy:.1f} ms "
@@ -2058,7 +2230,7 @@ def profile_request(im, image, caption, top: int = 8, tag: str = "profile",
                    f"{[(k[:48], round(ms, 2), n) for k, ms, n in kernels[:top]]}")
     if busy <= 0:
         raise AssertionError("the profiler recorded no device time")
-    return {"wall_ms": wall_ms, "device_busy_ms": busy, "groups_ms": groups}
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "groups_ms": groups, "reader": reader}
 
 
 # ---------------------------------------------------------------- bf16 (phases 20, 21)
@@ -4207,6 +4379,429 @@ def check_export(work: str, files, eager_profile: dict, device: str = "cuda") ->
     return res
 
 
+# ---------------------------------------------------------------- RoBERTa (phase 32)
+ROBERTA_CAPTION = "a cat . a dog . person . bicycle ."
+ROBERTA_SPANS = [[(2, 5)], [(10, 13)], [(16, 22)]]      # cat, dog, person
+ROBERTA_REQUESTS = 3        # timed predict requests after one warm-up
+# the card-vs-CPU forward's encoder and decoder layers (the text tower and
+# Swin-T stay at full depth): a full-depth CPU forward takes 45-65 s
+ROBERTA_FWD_LAYERS = 1
+TEXT_DROPOUT = 0.1
+DROPOUT_SIGMAS = 4.0
+# the same generator seed, weights and batch as main's first step: its loss,
+# but for the order of the card's sums where it is not fixed
+DROPOUT_LOSS_RTOL = 1e-6
+# the zero-shot tool's 12 numbers against the in-process numpy-matcher eval
+ZERO_SHOT_TOL = 1e-6
+
+
+def roberta_files(cfg: str, work: str) -> tuple:
+    """Phase 32's inputs in `work`: the 50265-entry BPE vocabulary
+    (write_bpe_vocab), a config on `cfg` with roberta-base's geometry,
+    text_encoder_type and text_dropout TEXT_DROPOUT (which only training
+    applies), and its seeded checkpoint (random biases, anchor
+    boxes) at the reference keys, with the (1, 514) position-id buffer a
+    roberta-base checkpoint carries; returns (config, checkpoint, vocab
+    directory)."""
+    import torch
+
+    from open_groundingdino_tpu_torch.config import SLConfig
+
+    t0 = time.perf_counter()
+    bpe = write_bpe_vocab(os.path.join(work, "roberta_bpe"))
+    vocab_s = time.perf_counter() - t0
+    rcfg = msda_config(cfg, work, "roberta", bert_vocab_size=ROBERTA_VOCAB,
+                       bert_max_position=ROBERTA_MAX_POSITION, bert_type_vocab=1,
+                       text_encoder_type="roberta-base", text_dropout=TEXT_DROPOUT)
+    ckpt = os.path.join(work, "roberta_ckpt.pth")
+    write_checkpoint(rcfg, ckpt, random_biases=True, anchor_boxes=True, extra={
+        "bert.embeddings.position_ids": torch.arange(ROBERTA_MAX_POSITION)[None]})
+    sd = torch.load(ckpt, map_location="cpu", weights_only=True)["model"]
+    shapes = {k: tuple(sd[k].shape) for k in (
+        "bert.embeddings.word_embeddings.weight", "bert.embeddings.position_embeddings.weight",
+        "bert.embeddings.token_type_embeddings.weight", "bert.embeddings.position_ids")}
+    log("roberta", f"BPE vocabulary of {ROBERTA_VOCAB} entries in {vocab_s:.1f} s; checkpoint "
+                   f"{os.path.getsize(ckpt) / 2**20:.0f} MiB in "
+                   f"{time.perf_counter() - t0 - vocab_s:.1f} s, {shapes}")
+    width = int(SLConfig.fromfile(rcfg).get("bert_hidden_size", 768))
+    if shapes != {"bert.embeddings.word_embeddings.weight": (ROBERTA_VOCAB, width),
+                  "bert.embeddings.position_embeddings.weight": (ROBERTA_MAX_POSITION, width),
+                  "bert.embeddings.token_type_embeddings.weight": (1, width),
+                  "bert.embeddings.position_ids": (1, ROBERTA_MAX_POSITION)}:
+        raise AssertionError(f"the RoBERTa checkpoint's text tower: {shapes}")
+    return rcfg, ckpt, bpe
+
+
+def depth_cut_checkpoint(files, work: str, layers: int) -> tuple:
+    """The checkpoint's model cut to `layers` encoder and decoder layers (the
+    rest of it whole): a config and a .pth holding the cut model's keys (and
+    the position-id buffer); returns (config, checkpoint, vocab)."""
+    import torch
+
+    from open_groundingdino_tpu_torch.config import SLConfig
+    from open_groundingdino_tpu_torch.models.groundingdino import build_groundingdino
+
+    cfg, ckpt, vocab = files
+    cut_cfg = msda_config(cfg, work, "roberta-cut", enc_layers=layers, dec_layers=layers)
+    keys = build_groundingdino(SLConfig.fromfile(cut_cfg), device="meta").state_dict()
+    sd = torch.load(ckpt, map_location="cpu", weights_only=True)["model"]
+    path = os.path.join(work, "roberta_cut.pth")
+    torch.save({"model": {k: v for k, v in sd.items()
+                          if k in keys or k == "bert.embeddings.position_ids"}}, path)
+    return cut_cfg, path, vocab
+
+
+def check_roberta_tokens(im) -> dict:
+    """The served tokenizer: roberta-base's BPE of the caption, its phrases
+    delimited by the 'Ġ.' id (one attention block and position run a
+    phrase), decoded back to the caption."""
+    from open_groundingdino_tpu_torch.data.tokenization import (
+        RobertaBPETokenizer, generate_masks_with_special_tokens)
+
+    tok = im.tokenizer
+    enc = tok([ROBERTA_CAPTION], padding=im.max_text_len)
+    ids = enc.input_ids[0][enc.attention_mask[0].astype(bool)]
+    _, pos = generate_masks_with_special_tokens(enc.input_ids, tok.special_token_ids())
+    phrases = int((pos[0][1:len(ids) - 1] == 0).sum())
+    pieces = [tok.ids_to_tokens[int(i)] for i in ids]
+    log("roberta", f"tokenizer {type(tok).__name__} ({len(tok.vocab)} entries): "
+                   f"{ROBERTA_CAPTION!r} -> {pieces}; {phrases} phrase position runs")
+    if not (isinstance(tok, RobertaBPETokenizer) and len(tok.vocab) == ROBERTA_VOCAB
+            and tok.decode(ids) == ROBERTA_CAPTION and tok.vocab["Ġ."] in tok.special_token_ids()
+            and phrases == ROBERTA_CAPTION.count(".")):
+        raise AssertionError("the served RoBERTa tokenizer")
+    return {"pieces": pieces}
+
+
+def serve_roberta(files, image, device: str = "cuda") -> dict:
+    """Phase 32 (a), serving at full width and depth: load_model with the BPE
+    directory, a warm-up and ROBERTA_REQUESTS predict requests (12 K1 + 6 K2
+    f32 launches each, no other), their phrases words of the caption;
+    predict_with_spans on three of its phrases; a profiled request."""
+    import numpy as np
+    import torch
+
+    from open_groundingdino_tpu_torch import inference
+
+    t0 = time.perf_counter()
+    im = inference.load_model(*files, device=device)
+    load_s = time.perf_counter() - t0
+    tokens = check_roberta_tokens(im)
+    inference.predict(im, image, ROBERTA_CAPTION)                     # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    lat = []
+    for _ in range(ROBERTA_REQUESTS):
+        t0 = time.perf_counter()
+        boxes, scores, phrases = inference.predict(im, image, ROBERTA_CAPTION)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    counts = read_counts()
+    want = serving_launches(im.args, ROBERTA_REQUESTS)
+    words = set(ROBERTA_CAPTION.split())
+    spans = inference.predict_with_spans(im, image, ROBERTA_CAPTION, ROBERTA_SPANS)
+    median = sorted(lat)[len(lat) // 2]
+    log("roberta-serve", f"load_model on {device} in {load_s:.1f} s; {ROBERTA_REQUESTS} requests "
+                         f"after 1 warm-up: latency ms {[round(t * 1e3, 1) for t in lat]} (median "
+                         f"{median * 1e3:.1f}); {len(boxes)} boxes, phrases "
+                         f"{sorted(set(phrases))[:8]}; predict_with_spans {len(spans[0])} boxes "
+                         f"over {sorted(set(spans[2]))}; launches "
+                         f"{ {k: v for k, v in counts.items() if v} }")
+    if counts != want:
+        raise AssertionError(f"RoBERTa requests: kernel launches {counts}, expected {want}")
+    if not (len(boxes) == len(scores) == len(phrases) > 0 and np.isfinite(boxes).all()
+            and all(set(p.split()) <= words for p in phrases)
+            and any(set(p.split()) - {"."} for p in phrases)):
+        raise AssertionError(f"RoBERTa predict's phrases are not the caption's words: {phrases}")
+    if not (len(spans[0]) == len(spans[2]) > 0 and np.isfinite(spans[0]).all()
+            and set(spans[2]) <= {"cat", "dog", "person"}):
+        raise AssertionError(f"RoBERTa predict_with_spans: {set(spans[2])}")
+    profile = profile_request(im, image, ROBERTA_CAPTION, tag="roberta-profile")
+    return dict(im=im, load_s=load_s, latency_s=lat, median_s=median, counts=counts,
+                profile=profile, tokens=tokens, phrases=sorted(set(phrases)))
+
+
+def check_roberta_forward(files, work: str, image, device: str = "cuda") -> dict:
+    """Phase 32 (a): the checkpoint cut to ROBERTA_FWD_LAYERS encoder and
+    decoder layers (depth_cut_checkpoint: the 12-layer text tower and Swin-T
+    whole) on the card and on the CPU: as served fewer than 10% of the
+    queries flipped, and on the CPU's two-stage selection phase 6's limits;
+    with K1's output negated the card must fail them."""
+    from open_groundingdino_tpu_torch import inference
+    from open_groundingdino_tpu_torch.ops import msda
+
+    cut = depth_cut_checkpoint(files, work, ROBERTA_FWD_LAYERS)
+    card_im = inference.load_model(*cut, device=device)
+    t0 = time.perf_counter()
+    cpu_im = inference.load_model(*cut, device="cpu")
+    with TwoStageSelection() as cpu_sel:
+        cpu = forward_outputs(cpu_im, image, ROBERTA_CAPTION)
+    del cpu_im
+    cpu_s = time.perf_counter() - t0
+    with TwoStageSelection() as card_sel:
+        free = forward_outputs(card_im, image, ROBERTA_CAPTION)
+    sel = cpu_sel.compare(card_sel)
+    flip, lg_err, bx_err, _ = forward_gap(free, cpu)
+    log("roberta-forward", f"{ROBERTA_FWD_LAYERS} + {ROBERTA_FWD_LAYERS} layers, as served: "
+                           f"{sel['reordered']} of {sel['queries']} queries took another encoder "
+                           f"token than on the CPU (score margin {sel['margin']:.2e} at the cut); "
+                           f"flipped {flip:.1%}, bulk max|dlogit| {lg_err:.3e}, bulk max|dbox| "
+                           f"{bx_err:.3e}")
+    if not flip < 0.10:
+        raise AssertionError(f"RoBERTa forward: {flip:.1%} of the queries flipped")
+    with TwoStageSelection(cpu_sel.order):
+        card = forward_outputs(card_im, image, ROBERTA_CAPTION)
+    res = dict(selection=sel, as_served=(flip, lg_err, bx_err), cpu_s=cpu_s)
+    res["forward"] = compare_forward(card, cpu, "roberta-forward",
+                                     f"with the CPU's two-stage selection; CPU forward "
+                                     f"{cpu_s:.1f} s")
+    fwd = msda._msda_fwd_cuda
+    msda._msda_fwd_cuda = negated_output(fwd)
+    try:
+        with TwoStageSelection(cpu_sel.order):
+            planted = forward_gap(forward_outputs(card_im, image, ROBERTA_CAPTION), cpu)
+    finally:
+        msda._msda_fwd_cuda = fwd
+    log("roberta-forward", f"planted fault, K1 output negated: flipped {planted[0]:.1%}, bulk "
+                           f"max|dlogit| {planted[1]:.3e}, bulk max|dbox| {planted[2]:.3e}")
+    if planted[3]:
+        raise AssertionError("the RoBERTa forward comparison passes with K1's output negated")
+    res["planted_k1"] = planted[:3]
+    return res
+
+
+def roberta_pseudo_gt(im, work: str) -> str:
+    """A COCO val split of EVAL_PARITY_IMAGES whose ground truth is the
+    served model's own bf16 detections (make_eval_step + PostProcess, NMS
+    PSEUDO_GT_NMS, pseudo_ground_truth); returns its manifest."""
+    import torch
+
+    from open_groundingdino_tpu_torch.data.coco import CocoDetection
+    from open_groundingdino_tpu_torch.data.loader import Collator
+    from open_groundingdino_tpu_torch.data.transforms import EvalTransform
+    from open_groundingdino_tpu_torch.models.postprocess import PostProcess
+
+    args = im.args
+    write_odvg(work)
+    with open(write_coco_val(work, EVAL_PARITY_IMAGES, name="roberta_parity")) as f:
+        anno = json.load(f)["val"][0]["anno"]
+    ds = CocoDetection(os.path.join(work, "odvg"), anno,
+                       transform=EvalTransform(args.eval_shortest_edge, args.eval_max_size))
+    batch = Collator(im.tokenizer, args.image_buckets, int(args.max_text_len),
+                     int(args.max_gt_boxes), u8_images=True)([ds[i] for i in range(len(ds))])
+    post = PostProcess(im.tokenizer, ds.cat_list, num_select=PSEUDO_GT_NUM_SELECT,
+                       max_text_len=int(args.max_text_len), nms_iou_threshold=PSEUDO_GT_NMS)
+    _, res = eval_detections(im.model, batch, post, torch.bfloat16)
+    pseudo = pseudo_ground_truth(res, batch["image_ids"].tolist(), ds.contiguous_to_catid)
+    log("roberta-zero-shot", f"pseudo ground truth: the served model's top "
+                             f"{sum(map(len, pseudo.values()))} bf16 detections of "
+                             f"{len(EVAL_PARITY_IMAGES)} images after NMS {PSEUDO_GT_NMS}")
+    return write_coco_val(work, EVAL_PARITY_IMAGES, annotations=pseudo, name="roberta_gt")
+
+
+ZERO_SHOT_OPTIONS = ("batch_size=4", f"nms_iou_threshold={PSEUDO_GT_NMS}",
+                     f"num_select={PSEUDO_GT_NUM_SELECT}")
+
+
+def run_zero_shot(argv, out: str) -> None:
+    """Phase 32 (c)'s process: tools/zero_shot_eval.py's main on `argv`
+    (TF32 off, as the smoke), then its launches, its native matches and
+    whether the matcher's library exists, into `out` (JSON)."""
+    import torch
+
+    from open_groundingdino_tpu_torch.tools import zero_shot_eval
+    from open_groundingdino_tpu_torch.utils import native
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reset_counts()
+    t0 = time.perf_counter()
+    stats = zero_shot_eval.main(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    with open(out, "w") as f:
+        json.dump({"stats": stats, "seconds": time.perf_counter() - t0, "counts": read_counts(),
+                   "native_calls": native.coco_greedy_match.calls,
+                   "native_lib": os.path.exists(native.lib_path("coco_match"))}, f)
+
+
+def start_zero_shot(files, manifest: str, work: str, device: str = "cuda") -> tuple:
+    """run_zero_shot on the pseudo ground truth's val split with --debug, in
+    a fresh process; returns ((process, start time), result path)."""
+    cfg, ckpt, vocab = files
+    with open(manifest) as f:
+        val = json.load(f)["val"][0]
+    out = os.path.join(work, "zero_shot_result.json")
+    argv = ["--checkpoint", ckpt, "--vocab", vocab, "--images", val["root"], "--annotations",
+            val["anno"], "--config", cfg, "--output_dir", os.path.join(work, "zero_shot_out"),
+            "--num_workers", "2", "--debug", "--device", device,
+            "--options", *ZERO_SHOT_OPTIONS]
+    code = f"import chip_smoke; chip_smoke.run_zero_shot({argv!r}, {out!r})"
+    return (subprocess.Popen([sys.executable, "-c", code], cwd=REPO, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True), time.perf_counter()), out
+
+
+def check_zero_shot(started, out: str, files, manifest: str, work: str,
+                    device: str = "cuda") -> dict:
+    """Phase 32 (c): the zero-shot tool's process (start_zero_shot) prints the
+    12 summary rows and the JSON line of its stats, AP in (0, 1], launches
+    12 K1 + 6 K2 bf16 a batch and nothing else, and matched in C++ (its
+    library built and called); its numbers within ZERO_SHOT_TOL of main
+    --eval --debug in this process on the same checkpoint and split with the
+    numpy matcher (run_eval(use_native=False); the C++ matcher's pass beside
+    it)."""
+    from open_groundingdino_tpu_torch.utils import native
+
+    text, wall = finish(started, "zero-shot")
+    with open(out) as f:
+        child = json.load(f)
+    lines = text.strip().splitlines()
+    rows = [line for line in lines if line.startswith(" Average ")]
+    printed = json.loads(next(line for line in reversed(lines) if line.startswith("{")))
+    eval_s = next((float(line.split("Eval done in ")[1].split()[0]) for line in lines
+                   if "Eval done in " in line), float("nan"))
+    n_images = len(EVAL_PARITY_IMAGES)
+    want = eval_launches(-(-n_images // 4), bf16=True)
+    cfg, ckpt, vocab = files
+    calls = native.coco_greedy_match.calls
+    run = run_main(cfg, manifest, files, os.path.join(work, "zero_shot_main"), "--eval",
+                   "--debug", options=ZERO_SHOT_OPTIONS[1:], device=device)
+    in_native = run["stats"]
+    in_numpy = run["run_eval"](dict(run["model"].named_parameters()), use_native=False)
+    gap = max(abs(printed[k] - in_numpy[k]) for k in STAT_KEYS)
+    in_calls = native.coco_greedy_match.calls - calls
+    log("roberta-zero-shot", f"tools/zero_shot_eval.py --debug in a fresh process: {wall:.1f} s "
+                             f"of process, its eval pass {eval_s:.2f} s ({n_images / eval_s:.2f} "
+                             f"images/s, B=4, bf16); {len(rows)} summary rows; stats {printed}; "
+                             f"launches { {k: v for k, v in child['counts'].items() if v} }; "
+                             f"C++ matches {child['native_calls']} (library built: "
+                             f"{child['native_lib']}); in-process main --eval --debug: C++ "
+                             f"matcher AP {in_native['AP']:.6f} ({in_calls} matches), numpy "
+                             f"matcher AP {in_numpy['AP']:.6f}; max |tool - "
+                             f"numpy| over the 12 stats {gap:.2e} (limit {ZERO_SHOT_TOL})")
+    if len(rows) != 12 or printed != child["stats"] or set(printed) != set(STAT_KEYS):
+        raise AssertionError(f"zero_shot_eval printed {len(rows)} rows and {printed}")
+    if not 0.0 < printed["AP"] <= 1.0:
+        raise AssertionError(f"zero-shot AP {printed['AP']} on the pseudo ground truth")
+    if child["counts"] != want:
+        raise AssertionError(f"zero-shot eval launches {child['counts']}, expected {want}")
+    if not (child["native_lib"] and child["native_calls"] > 0):
+        raise AssertionError("the zero-shot eval did not match in C++")
+    if not gap <= ZERO_SHOT_TOL:
+        raise AssertionError(f"the zero-shot tool is {gap:.2e} off the in-process eval")
+    return dict(stats=printed, counts=child["counts"], process_s=wall, eval_s=eval_s,
+                images_per_s=n_images / eval_s, native_calls=child["native_calls"],
+                in_process_numpy=in_numpy, in_process_native=in_native, gap=gap)
+
+
+def dropout_losses(model, run, cfg: str, seeds) -> dict:
+    """The training-mode loss (the train step's bf16 forward and criterion,
+    no update) of `model` on the first batch of the training run's first
+    epoch, once with the step generator seeded by each of `seeds`; and on
+    the first, the share of the text embeddings' output that dropout
+    zeroed."""
+    import torch
+
+    from open_groundingdino_tpu_torch.config import SLConfig
+    from open_groundingdino_tpu_torch.models.criterion import build_criterion
+    from open_groundingdino_tpu_torch.parallel.train_state import (
+        MODEL_INPUT_KEYS, cast_floating, maybe_device_normalize, swapped_parameters, to_device)
+
+    criterion = build_criterion(SLConfig.fromfile(cfg))
+    run["loader"].set_epoch(0)
+    batches = iter(run["loader"])
+    batch = next(batches)
+    batches.close()
+    t = to_device(batch, next(model.parameters()).device)
+    inputs = {k: t[k] for k in MODEL_INPUT_KEYS}
+    inputs["images"] = maybe_device_normalize(inputs["images"], inputs["image_sizes"]).to(
+        torch.bfloat16)
+    seen = {}
+
+    def hook(mod, inp, out):
+        if "share" not in seen:
+            live = inp[0] != 0
+            seen["share"] = float(((out == 0) & live).sum()) / float(live.sum())
+            seen["n"] = int(live.sum())
+
+    handle = model.bert.embeddings.dropout.register_forward_hook(hook)
+    losses = []
+    model.train()
+    try:
+        with torch.no_grad(), swapped_parameters(
+                model, cast_floating(dict(model.named_parameters()), torch.bfloat16)):
+            for seed in seeds:
+                out = model(**inputs, generator=torch.Generator().manual_seed(seed))
+                total, _ = criterion(out, t["gt_boxes"], t["gt_pos_maps"], t["gt_valid"])
+                losses.append(float(total))
+    finally:
+        handle.remove()
+        model.eval()
+    return dict(losses=losses, **seen)
+
+
+def train_roberta(files, work: str, model, device: str = "cuda") -> dict:
+    """Phase 32 (b): main with the RoBERTa checkpoint and BPE vocabulary,
+    text_dropout TEXT_DROPOUT, in the default bf16 at B = 4: one epoch of 2
+    steps (train(): 18 K1 + 12 K2 + 12 K3 + 6 K4 bf16 a step and no other,
+    each loss finite); then `model`, the served model on the same
+    checkpoint, gives the first step's loss on the run's first batch with
+    the step generator seeded SEED as main's is (within DROPOUT_LOSS_RTOL),
+    twice, and another loss seeded SEED + 1; the embeddings' dropped share
+    lies within DROPOUT_SIGMAS sigma of TEXT_DROPOUT."""
+    cfg = files[0]
+    run = train(cfg, work, files, device, {"text_dropout": TEXT_DROPOUT}, epochs=1,
+                tag="roberta-train", compute_dtype=None)
+    drop = dropout_losses(model, run["run"], cfg, (SEED, SEED, SEED + 1))
+    first = run["losses"][0]
+    a, b, c = drop["losses"]
+    sigma = (TEXT_DROPOUT * (1 - TEXT_DROPOUT) / drop["n"]) ** 0.5
+    rel = max(abs(a - first), abs(b - first)) / abs(first)
+    log("roberta-train", f"the first step's loss {first:.6f}; the same forward on the "
+                         f"checkpoint with the step generator seeded {SEED}, {SEED}, {SEED + 1}: "
+                         f"{a:.6f}, {b:.6f}, {c:.6f} (seed {SEED} against the step: relative "
+                         f"{rel:.1e}, limit {DROPOUT_LOSS_RTOL}); embeddings dropout zeroed "
+                         f"{drop['share']:.4f} of {drop['n']} activations "
+                         f"({(drop['share'] - TEXT_DROPOUT) / sigma:+.2f} sigma of {TEXT_DROPOUT})")
+    if not rel <= DROPOUT_LOSS_RTOL:
+        raise AssertionError(f"dropout seed {SEED} gave losses {a}, {b}; the first step {first}")
+    if c == a:
+        raise AssertionError("another dropout seed gave the same loss")
+    if not abs(drop["share"] - TEXT_DROPOUT) <= DROPOUT_SIGMAS * sigma:
+        raise AssertionError(f"text dropout zeroed {drop['share']} of the embeddings")
+    run.pop("run")
+    return dict(run, dropout=drop)
+
+
+def check_roberta(cfg: str, work: str, device: str = "cuda") -> dict:
+    """Phase 32: the RoBERTa text encoder at full width.  (a) serving
+    (serve_roberta) and the depth-cut forward against the CPU
+    (check_roberta_forward); (c) the zero-shot tool in a fresh process on a
+    pseudo ground truth of the served model's detections, held against main
+    --eval in this process (check_zero_shot); (b) training with text dropout
+    (train_roberta; its first step's loss held against the served model's
+    on the same batch and generator seed)."""
+    import torch
+
+    files = roberta_files(cfg, work)
+    image = synthetic_image(*IMAGE_SIZES[0], 0)
+    serve_res = serve_roberta(files, image, device)
+    im = serve_res.pop("im")
+    manifest = roberta_pseudo_gt(im, work)
+    started, out = start_zero_shot(files, manifest, work, device)
+    try:
+        forward = check_roberta_forward(files, work, image, device)
+    except BaseException:
+        started[0].kill()
+        started[0].wait()
+        raise
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_shot = check_zero_shot(started, out, files, manifest, work, device)
+    training = train_roberta(files, work, im.model, device)
+    return dict(serve=serve_res, forward=forward, zero_shot=zero_shot, train=training)
+
+
 def main() -> int:
     import torch
 
@@ -4248,7 +4843,8 @@ def main() -> int:
         clock("5")
         cpu_out = check_forward(im, files, images[0], CAPTIONS[0])     # 6
         clock("6")
-        eager_profile = profile_request(im, images[0], CAPTIONS[0])    # 7
+        eager_profile = profile_request(im, images[0], CAPTIONS[0],    # 7
+                                        check_reader=True)
         clock("7")
         del im
         k3 = check_msda_bwd("cuda")                                    # 8
@@ -4346,6 +4942,8 @@ def main() -> int:
         clock("30")
         export = check_export(work, files, eager_profile)              # 31
         clock("31")
+        roberta = check_roberta(cfg, work)                             # 32
+        clock("32")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4394,6 +4992,14 @@ def main() -> int:
 
     k1_row["per_shape"].update(pave_shapes("K1", "f32"))
 
+    def roberta_launches(counter):
+        """Phase 32's launches by the counter's name: the RoBERTa requests
+        (f32) and training steps (bf16) under "roberta", the zero-shot eval
+        (bf16) under "zero_shot"."""
+        served, trained = roberta["serve"]["counts"], roberta["train"]["counts"]
+        return {"roberta": served[counter] + trained[counter],
+                "zero_shot": roberta["zero_shot"]["counts"][counter]}
+
     def export_launches(path, counter):
         """The artifact's launches (phase 31): the gather artifact's timed
         requests, the sweep's and banded_point's one forward each."""
@@ -4406,7 +5012,8 @@ def main() -> int:
          "launches_by_path": {"serve": counts["msda_fwd"], "train": train_counts["msda_fwd"],
                               "eval-f32": evals["float32"]["counts"]["msda_fwd"],
                               **bb_launches("msda_fwd"), "pave": pave_launches("msda_fwd"),
-                              "export": export_launches("gather", "msda_fwd")},
+                              "export": export_launches("gather", "msda_fwd"),
+                              **roberta_launches("msda_fwd")},
          **k1_row | {"max_abs_err": max(k1_row["max_abs_err"], k1_err, *(
              r["max_abs_err"] for r in pave_shapes("K1", "f32").values()))},
          "sass": msda_sass["msda_fwd"]},
@@ -4416,7 +5023,8 @@ def main() -> int:
                               "train": train_counts["fusion_fwd"],
                               "eval-f32": evals["float32"]["counts"]["fusion_fwd"],
                               **bb_launches("fusion_fwd"), "pave": pave_launches("fusion_fwd"),
-                              "export": export_launches("gather", "fusion_fwd")},
+                              "export": export_launches("gather", "fusion_fwd"),
+                              **roberta_launches("fusion_fwd")},
          **single_row(k2) | {"max_abs_err": max(
              k2["max_abs_err"], k2_err, pave_kernels["K2", "f32", "fusion"]["max_abs_err"])},
          "per_shape": {"B=1": single_row(k2), "B=4": single_row(k4["k2"]),
@@ -4425,13 +5033,13 @@ def main() -> int:
         {"name": "msda_bwd", "route": "cuda", "source": src + "msda_bwd.cu",
          "replaces": tpu + "msda_banded.py:524", "launches": train_counts["msda_bwd"],
          "launches_by_path": {"serve": 0, "train": train_counts["msda_bwd"],
-                              **bb_launches("msda_bwd")},
+                              **bb_launches("msda_bwd"), **roberta_launches("msda_bwd")},
          **mean_row(k3),
          "sass": {k: msda_sass[k] for k in ("msda_bwd", "msda_bwd_atomics", "msda_bwd_plans")}},
         {"name": "fusion_bwd", "route": "cuda", "source": src + "fusion_bwd.cu",
          "replaces": tpu + "fusion_pallas.py:198", "launches": train_counts["fusion_bwd"],
          "launches_by_path": {"serve": 0, "train": train_counts["fusion_bwd"],
-                              **bb_launches("fusion_bwd")},
+                              **bb_launches("fusion_bwd"), **roberta_launches("fusion_bwd")},
          **single_row(k4), "sass": k4["sass"]["fusion_bwd"]},
     ]
     # K5 and K8 (phase 16; the row is phase 8's B = 4 shapes, per_shape adds
@@ -4500,6 +5108,7 @@ def main() -> int:
             by_path["eval-bf16"] = evals["bfloat16"]["counts"][f"{counter}_bf16"]
             by_path["pave"] = pave["eval"]["counts"][f"{counter}_bf16"]
         by_path.update(bb_launches(f"{counter}_bf16"))   # the Swin-L steps (phase 29)
+        by_path.update(roberta_launches(f"{counter}_bf16"))   # phase 32
         kernels.append({"name": f"{counter}_bf16", "route": "cuda", "source": src + source,
                         "replaces": tpu + line, "launches": bf16_counts[f"{counter}_bf16"],
                         "launches_by_path": by_path, **row})

@@ -16,8 +16,13 @@ framework has no network/tokenizers dependency: a BasicTokenizer
 Vocab: pass a path to a standard `vocab.txt` (one token per line; the file
 shipped with every bert-base-uncased checkpoint) or a dict.
 
-This is the port's own copy of the JAX package's data/tokenization.py (the
-WordPiece half), so the port imports nothing of that package.
+RoBERTa: `RobertaBPETokenizer` reads a roberta-base `vocab.json` +
+`merges.txt` pair (byte-level BPE, HuggingFace's trim_offsets offsets) and
+speaks the same protocol; `build_tokenizer` picks one of the two by the files
+it is given.
+
+This is the port's own copy of the JAX package's data/tokenization.py, so the
+port imports nothing of that package.
 """
 from __future__ import annotations
 
@@ -251,15 +256,270 @@ class BertWordPieceTokenizer:
         )
 
 
-def build_tokenizer(path: str) -> BertWordPieceTokenizer:
-    """A vocab.txt path, or a directory holding one -> BertWordPieceTokenizer
-    (the reference get_tokenlizer.py:22-29 semantics for bert-base-uncased).
-    The RoBERTa BPE tokenizer of the JAX package is not ported yet."""
+# ---------------------------------------------------------------------------
+# RoBERTa byte-level BPE (reference get_tokenlizer.py:22-29 supports
+# 'roberta-base' via RobertaTokenizerFast; this is the self-contained
+# equivalent with the same char_to_token offset semantics)
+# ---------------------------------------------------------------------------
+
+def _bytes_to_unicode() -> Dict[int, str]:
+    """GPT-2 byte <-> printable-unicode table (the standard mapping every
+    byte-level BPE vocab.json is written in)."""
+    bs = (
+        list(range(ord("!"), ord("~") + 1))
+        + list(range(ord("\xa1"), ord("\xac") + 1))
+        + list(range(ord("\xae"), ord("\xff") + 1))
+    )
+    cs = bs[:]
+    n = 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    return dict(zip(bs, (chr(c) for c in cs)))
+
+
+_CONTRACTIONS = ("'s", "'t", "'re", "'ve", "'m", "'ll", "'d")
+
+
+def _gpt2_pretokenize(text: str) -> List[Tuple[str, int]]:
+    """Segment `text` exactly like the GPT-2/RoBERTa regex
+    ('s|'t|'re|'ve|'m|'ll|'d| ?\\p{L}+| ?\\p{N}+| ?[^\\s\\p{L}\\p{N}]+|
+    \\s+(?!\\S)|\\s+) without the `regex` module: returns (piece,
+    start_char) pairs covering the text."""
+    def is_l(ch):
+        return unicodedata.category(ch).startswith("L")
+
+    def is_n(ch):
+        return unicodedata.category(ch).startswith("N")
+
+    def is_s(ch):
+        return ch.isspace()
+
+    out: List[Tuple[str, int]] = []
+    i, n = 0, len(text)
+    while i < n:
+        for c in _CONTRACTIONS:
+            if text.startswith(c, i):
+                out.append((c, i))
+                i += len(c)
+                break
+        else:
+            j = i + 1 if text[i] == " " and i + 1 < n else i
+            ch = text[j] if j < n else ""
+            if ch and is_l(ch):
+                k = j
+                while k < n and is_l(text[k]):
+                    k += 1
+                out.append((text[i:k], i))
+                i = k
+            elif ch and is_n(ch):
+                k = j
+                while k < n and is_n(text[k]):
+                    k += 1
+                out.append((text[i:k], i))
+                i = k
+            elif ch and not is_s(ch):
+                k = j
+                while k < n and not (is_s(text[k]) or is_l(text[k])
+                                     or is_n(text[k])):
+                    k += 1
+                out.append((text[i:k], i))
+                i = k
+            else:
+                # whitespace run: \s+(?!\S) leaves the LAST ws char to the
+                # following token's ` ?` (or to its own \s+ if not a space)
+                k = i
+                while k < n and is_s(text[k]):
+                    k += 1
+                if k < n and k - i > 1:
+                    out.append((text[i : k - 1], i))
+                    i = k - 1
+                else:
+                    # trailing run, or a single non-space ws char before \S
+                    # (a single ' ' before \S never reaches here — the
+                    # ` ?X` branches above consume it)
+                    out.append((text[i:k], i))
+                    i = k
+    return out
+
+
+class RobertaBPETokenizer:
+    """Self-contained byte-level BPE tokenizer (roberta-base file format:
+    vocab.json + merges.txt) with original-text char offsets, implementing
+    the same protocol as BertWordPieceTokenizer (__call__ ->
+    TokenizedBatch, special_token_ids, decode) so every downstream
+    consumer (Collator, positive maps, PostProcess) works unchanged.
+    Reference: get_tokenlizer.py:22-29 returns RobertaTokenizerFast for
+    text_encoder_type='roberta-base'."""
+
+    def __init__(self, vocab_json: str, merges_txt: str):
+        import json as _json
+
+        with open(vocab_json, encoding="utf-8") as f:
+            self.vocab: Dict[str, int] = _json.load(f)
+        self.ids_to_tokens = {i: t for t, i in self.vocab.items()}
+        merges: List[Tuple[str, str]] = []
+        with open(merges_txt, encoding="utf-8") as f:
+            for line in f:
+                line = line.rstrip("\n")
+                if not line or line.startswith("#version"):
+                    continue
+                a, b = line.split(" ")
+                merges.append((a, b))
+        self.bpe_ranks = {m: r for r, m in enumerate(merges)}
+        self.byte_encoder = _bytes_to_unicode()
+        self.byte_decoder = {v: k for k, v in self.byte_encoder.items()}
+        self.cls_token_id = self.vocab["<s>"]
+        self.sep_token_id = self.vocab["</s>"]
+        self.pad_token_id = self.vocab.get("<pad>", 1)
+        self.unk_token_id = self.vocab.get("<unk>", 3)
+        self._cache: Dict[str, List[str]] = {}
+
+    def _bpe(self, token: str) -> List[str]:
+        if token in self._cache:
+            return self._cache[token]
+        word = list(token)
+        while len(word) > 1:
+            pairs = {(word[i], word[i + 1]) for i in range(len(word) - 1)}
+            best = min(
+                pairs, key=lambda p: self.bpe_ranks.get(p, float("inf"))
+            )
+            if best not in self.bpe_ranks:
+                break
+            a, b = best
+            merged, i = [], 0
+            while i < len(word):
+                if i < len(word) - 1 and word[i] == a and word[i + 1] == b:
+                    merged.append(a + b)
+                    i += 2
+                else:
+                    merged.append(word[i])
+                    i += 1
+            word = merged
+        self._cache[token] = word
+        return word
+
+    # -- protocol -----------------------------------------------------------
+    def convert_tokens_to_ids(self, tokens: Sequence[str]) -> List[int]:
+        return [self.vocab.get(t, self.unk_token_id) for t in tokens]
+
+    def decode(self, ids: Sequence[int]) -> str:
+        specials = {self.cls_token_id, self.sep_token_id, self.pad_token_id}
+        text = "".join(
+            self.ids_to_tokens.get(int(i), "")
+            for i in ids if int(i) not in specials
+        )
+        raw = bytearray(self.byte_decoder.get(ch, 32) for ch in text)
+        return raw.decode("utf-8", errors="replace").strip()
+
+    def special_token_ids(self, extra: Sequence[str] = (".", "?")) -> List[int]:
+        """<s>, </s> + phrase-delimiter ids in BOTH surface forms ('.' and
+        'Ġ.'): captions put delimiters after a space, so the leading-space
+        variant is the one that actually occurs."""
+        ids = [self.cls_token_id, self.sep_token_id]
+        for t in extra:
+            for form in (t, "Ġ" + t):  # Ġ = byte-encoded leading space
+                if form in self.vocab:
+                    ids.append(self.vocab[form])
+        return ids
+
+    def tokenize_with_offsets(
+        self, text: str
+    ) -> Tuple[List[str], List[Tuple[int, int]]]:
+        tokens: List[str] = []
+        offsets: List[Tuple[int, int]] = []
+        for piece, start in _gpt2_pretokenize(text):
+            # byte-encode, tracking each encoded char's source char index
+            enc_chars: List[str] = []
+            src_idx: List[int] = []
+            for ci, ch in enumerate(piece):
+                for byte in ch.encode("utf-8"):
+                    enc_chars.append(self.byte_encoder[byte])
+                    src_idx.append(start + ci)
+            pos = 0
+            for sub in self._bpe("".join(enc_chars)):
+                a, b = src_idx[pos], src_idx[pos + len(sub) - 1] + 1
+                # HF fast-tokenizer default trim_offsets=True: leading
+                # space chars (Ġ) are dropped from the reported span; an
+                # all-space token collapses to the zero-width (b, b)
+                g = 0
+                while g < len(sub) and sub[g] == "Ġ":
+                    g += 1
+                a = b if g == len(sub) else a + g
+                tokens.append(sub)
+                offsets.append((a, b))
+                pos += len(sub)
+        return tokens, offsets
+
+    def __call__(
+        self,
+        captions: Union[str, Sequence[str]],
+        padding: Union[str, int] = "longest",
+        max_length: Optional[int] = None,
+    ) -> TokenizedBatch:
+        if isinstance(captions, str):
+            captions = [captions]
+        encoded = []
+        for cap in captions:
+            toks, offs = self.tokenize_with_offsets(cap)
+            ids = ([self.cls_token_id] + self.convert_tokens_to_ids(toks)
+                   + [self.sep_token_id])
+            spans: List[Optional[Tuple[int, int]]] = (
+                [None] + list(offs) + [None]
+            )
+            if max_length is not None and len(ids) > max_length:
+                ids = ids[: max_length - 1] + [self.sep_token_id]
+                spans = spans[: max_length - 1] + [None]
+            encoded.append((ids, spans))
+
+        width = max(len(ids) for ids, _ in encoded)
+        if isinstance(padding, int):
+            width = padding
+        input_ids = np.full((len(encoded), width), self.pad_token_id, np.int32)
+        attn = np.zeros((len(encoded), width), np.int32)
+        offsets: List[List[Optional[Tuple[int, int]]]] = []
+        for b, (ids, spans) in enumerate(encoded):
+            n = min(len(ids), width)
+            input_ids[b, :n] = ids[:n]
+            attn[b, :n] = 1
+            offsets.append(list(spans[:n]) + [None] * (width - n))
+        return TokenizedBatch(
+            input_ids=input_ids,
+            attention_mask=attn,
+            token_type_ids=np.zeros_like(input_ids),
+            offsets=offsets,
+        )
+
+
+def build_tokenizer(path_or_type: str, vocab_json: str = "",
+                    merges_txt: str = ""):
+    """Tokenizer loader, the reference get_tokenlizer.py:22-29 semantics
+    without AutoTokenizer: a vocab.txt path (or a directory containing one)
+    -> BertWordPieceTokenizer; a vocab.json+merges.txt pair (or a directory
+    containing both, the roberta-base file layout) -> RobertaBPETokenizer."""
     import os
 
-    if os.path.isdir(path):
-        path = os.path.join(path, "vocab.txt")
-    return BertWordPieceTokenizer(path)
+    if vocab_json and merges_txt:
+        return RobertaBPETokenizer(vocab_json, merges_txt)
+    if os.path.isdir(path_or_type):
+        d = path_or_type
+        if os.path.exists(os.path.join(d, "vocab.json")) and os.path.exists(
+            os.path.join(d, "merges.txt")
+        ):
+            return RobertaBPETokenizer(
+                os.path.join(d, "vocab.json"), os.path.join(d, "merges.txt")
+            )
+        if os.path.exists(os.path.join(d, "vocab.txt")):
+            return BertWordPieceTokenizer(os.path.join(d, "vocab.txt"))
+        raise ValueError(f"no vocab.txt or vocab.json+merges.txt in {d}")
+    if path_or_type.endswith(".json"):
+        return RobertaBPETokenizer(
+            path_or_type,
+            os.path.join(os.path.dirname(path_or_type), "merges.txt"),
+        )
+    return BertWordPieceTokenizer(path_or_type)
 
 
 # ---------------------------------------------------------------------------

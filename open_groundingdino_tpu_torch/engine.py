@@ -99,7 +99,7 @@ def train_one_epoch(train_step, state, loader, epoch: int,
 def evaluate_coco(eval_step, params: Dict, loader, postprocessor, coco_index,
                   contiguous_to_catid: Dict[int, int], logger: Optional[logging.Logger] = None,
                   print_freq: int = 50, max_steps: Optional[int] = None,
-                  precast_dtype=None) -> Dict[str, float]:
+                  precast_dtype=None, use_native: bool = True) -> Dict[str, float]:
     """COCO bbox eval of `params` (name -> tensor, as make_eval_step's
     eval_step takes them); returns the 12 COCO stats.
 
@@ -111,14 +111,15 @@ def evaluate_coco(eval_step, params: Dict, loader, postprocessor, coco_index,
     cast then leaves as they are.  The padded tail of the last batch
     (`n_real`) is not scored; labels go back to the dataset's category ids
     unless the postprocessor emits COCO ids.  A step with a criterion logs
-    its mean loss."""
+    its mean loss.  `use_native`: the evaluator's C++ matcher (False: its
+    numpy one)."""
     from .eval.coco_eval import CocoBboxEvaluator
     from .parallel.train_state import cast_floating
 
     if precast_dtype is not None:
         with torch.no_grad():
             params = cast_floating(params, precast_dtype)
-    evaluator = CocoBboxEvaluator(coco_index)
+    evaluator = CocoBboxEvaluator(coco_index, use_native=use_native)
     loss_meter = SmoothedValue()
     emit = logger.info if logger else print
     remap = not getattr(postprocessor, "emits_coco_ids", False)

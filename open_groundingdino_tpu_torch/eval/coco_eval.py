@@ -1,6 +1,8 @@
-"""COCO-style bbox mAP in pure numpy: the port's own copy of the JAX
-package's eval/coco_eval.py (its numpy matcher; the JAX package's optional
-C++ matcher is host code and is not copied).
+"""COCO-style bbox mAP on the host: the port's own copy of the JAX package's
+eval/coco_eval.py.  The greedy matcher runs in C++ (utils/native.py,
+native/coco_match.cpp) by default, as the JAX package's does; the numpy
+matcher is its plain version, taken with use_native=False or when the
+library cannot be built.
 
 The pycocotools COCOeval bbox protocol: greedy per-category matching at IoU
 thresholds 0.5:0.05:0.95, area ranges (all/small/medium/large), maxDets
@@ -49,9 +51,11 @@ def bbox_iou_xywh(det: np.ndarray, gt: np.ndarray, iscrowd: np.ndarray) -> np.nd
 class CocoBboxEvaluator:
     """update() with per-image detections, then accumulate()/summarize()."""
 
-    def __init__(self, coco_index):
-        """coco_index: data/coco.CocoIndex of the GT annotation file."""
+    def __init__(self, coco_index, use_native: bool = True):
+        """coco_index: data/coco.CocoIndex of the GT annotation file.
+        use_native: the C++ greedy matcher (numpy when it cannot be built)."""
         self.coco = coco_index
+        self.use_native = use_native
         self.cat_ids = coco_index.get_cat_ids()
         self.img_ids: List[int] = []
         # evalImgs[(img_id, cat_id)] -> match record
@@ -102,6 +106,12 @@ class CocoBboxEvaluator:
         dt_ig_gt = np.zeros((T, D), bool)          # matched-to-ignored flag
         if not (G and D):
             return dt_m, gt_m, dt_ig_gt
+        if self.use_native:
+            from ..utils.native import coco_greedy_match
+
+            native = coco_greedy_match(ious_s, gt_ignore_s, iscrowd_s, IOU_THRS)
+            if native is not None:
+                return native
         for t, thr in enumerate(IOU_THRS):
             thr_eff = min(thr, 1 - 1e-10)
             for d in range(D):

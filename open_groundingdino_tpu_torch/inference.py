@@ -19,7 +19,7 @@ cfg_swinb.py, cfg_swinl.py, cfg_resnet50.py).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -28,6 +28,7 @@ from PIL import Image
 from .config import SLConfig
 from .data.tokenization import (
     BertWordPieceTokenizer,
+    RobertaBPETokenizer,
     TokenizedBatch,
     build_tokenizer,
     generate_masks_with_special_tokens,
@@ -88,7 +89,7 @@ def load_reference_state_dict(model: GroundingDINO, path: str, ignore=()) -> Non
 @dataclass
 class InferenceModel:
     model: GroundingDINO
-    tokenizer: BertWordPieceTokenizer
+    tokenizer: Union[BertWordPieceTokenizer, RobertaBPETokenizer]
     args: SLConfig
     bucketer: Bucketer
     max_text_len: int
@@ -99,11 +100,13 @@ def load_model(config_path: str, checkpoint_path: str, vocab_path: str,
                device="cuda") -> InferenceModel:
     """Build the model of `config_path` on `device` and load the
     reference-keyed checkpoint; `vocab_path` is a bert-base-uncased
-    vocab.txt."""
+    vocab.txt, or for a roberta-base config a directory holding its
+    vocab.json + merges.txt (data/tokenization.build_tokenizer)."""
     if not checkpoint_path:
         raise ValueError("checkpoint_path required for inference")
     if not vocab_path:
-        raise ValueError("vocab_path to a bert-base-uncased vocab.txt is required")
+        raise ValueError("vocab_path (a bert-base-uncased vocab.txt, or a directory with "
+                         "roberta-base's vocab.json + merges.txt) is required")
     args = SLConfig.fromfile(config_path)
     device = torch.device(device)
     model = build_groundingdino(args, device="meta").to_empty(device=device)

@@ -4,8 +4,8 @@ main.py; reference main.py CLI surface).
     python -m open_groundingdino_tpu_torch.main -c CFG --datasets MANIFEST \\
         --output_dir OUT --vocab VOCAB [--eval] [--resume ckpt.pth] \\
         [--pretrain_model_path ckpt.pth] [--finetune_ignore KW ...] \\
-        [--frozen_weights ckpt.pth] [--max_steps N] [--device cuda] \\
-        [--options key=value ...]
+        [--frozen_weights ckpt.pth] [--max_steps N] [--debug] [--stage_dir DIR] \\
+        [--device cuda] [--options key=value ...]
 
 MANIFEST is the JAX package's datasets.json shape; each split lists COCO or
 ODVG entries:
@@ -21,7 +21,13 @@ and OUT/best_ema/, and appends one JSON line to OUT/log.txt.  Unlike the JAX
 package's main, a manifest without a "val" split trains without evaluating.
 Evaluation runs in the config's compute_dtype (bf16 by default, as the JAX
 package's), on every msda_kernel.  The model runs on CUDA unless --device
-says otherwise.
+says otherwise.  VOCAB is a bert-base-uncased vocab.txt, or a roberta-base
+directory (vocab.json + merges.txt) for a config with text_encoder_type
+"roberta-base" and its geometry (data/tokenization.build_tokenizer).
+--debug stops each epoch and each evaluation after 15 batches (the JAX
+package's), --max_steps after N (the smaller of the two when both are given).
+--stage_dir copies the manifest's datasets there first (data/staging.py; zips
+are extracted), runs on the copies and removes them when main returns.
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ from typing import Dict
 # pretrained checkpoint provides, so only the heads train (the JAX package's
 # main.py:285-292, reference main.py:338-341)
 FROZEN_WEIGHTS_KEYS = ("backbone", "bert", "transformer", "feat_map", "input_proj")
+DEBUG_STEPS = 15   # --debug: batches an epoch and an evaluation (the JAX package's main.py:183)
 
 
 def get_args_parser() -> argparse.ArgumentParser:
@@ -51,7 +58,9 @@ def get_args_parser() -> argparse.ArgumentParser:
                         "compute_dtype (bf16 by default)")
     p.add_argument("--resume", default="",
                    help="checkpoint_N.pth to resume from (default: the newest in output_dir)")
-    p.add_argument("--vocab", required=True, help="bert vocab.txt path")
+    p.add_argument("--vocab", required=True,
+                   help="bert vocab.txt, or a directory with roberta-base's vocab.json + "
+                        "merges.txt")
     p.add_argument("--pretrain_model_path", default="",
                    help="reference-keyed .pth to initialize from (default: seeded random init)")
     p.add_argument("--finetune_ignore", type=str, nargs="+", default=None,
@@ -66,6 +75,12 @@ def get_args_parser() -> argparse.ArgumentParser:
                    help="loader threads (0: collate in the calling thread)")
     p.add_argument("--max_steps", type=int, default=None,
                    help="stop each epoch (and each evaluation) after this many batches")
+    p.add_argument("--debug", action="store_true",
+                   help=f"stop each epoch and each evaluation after {DEBUG_STEPS} batches")
+    p.add_argument("--stage_dir", default="",
+                   help="copy the manifest's datasets to this local directory first (zips are "
+                        "extracted) and remove the copies at the end (reference "
+                        "datasets/data_util.py preparing_dataset)")
     p.add_argument("--print_freq", type=int, default=50)
     return p
 
@@ -114,27 +129,14 @@ def build_datasets(manifest: Dict, split: str, args, tokenizer=None):
 
 def main(cli) -> Dict:
     """Evaluate (--eval) or train.  Returns, after --eval, {"stats", "model",
-    "run_eval"} (run_eval(params, max_steps) evaluates again); after training
-    {"state", "train_step", "loader", "records" (the per-step metrics and host
-    seconds), "eval" (each epoch's eval stats), "best"}."""
-    import torch
-
+    "run_eval"} (run_eval(params, max_steps, use_native) evaluates again);
+    after training {"state", "train_step", "loader", "records" (the per-step
+    metrics and host seconds), "eval" (each epoch's eval stats), "best"}.
+    With --stage_dir the staged copies are gone when it returns."""
     from .config import SLConfig
     from .config.slconfig import parse_override_value
-    from .data.loader import Collator, DataLoader
-    from .data.tokenization import build_tokenizer
-    from .engine import evaluate_coco, train_one_epoch
-    from .inference import load_reference_state_dict
-    from .models.criterion import build_criterion
-    from .models.groundingdino import build_groundingdino, init_weights_
-    from .models.postprocess import PostProcess
-    from .models.resnet import ResNetConfig
-    from .models.resnet import frozen_param_keys as resnet_frozen_keys
-    from .parallel.optim import make_lr_schedule, make_optimizer
-    from .parallel.train_state import (TrainState, make_eval_step, make_train_step,
-                                       resolve_compute_dtype)
-    from .utils import checkpoint as ckpt
-    from .utils.ema import BestMetricHolder
+    from .data.staging import cleanup_staged, stage_datasets
+    from .parallel.train_state import resolve_compute_dtype
 
     args = SLConfig.fromfile(cli.config_file)
     if cli.options:
@@ -146,19 +148,49 @@ def main(cli) -> Dict:
     for key in ("lr", "lr_backbone", "weight_decay", "clip_max_norm"):
         float(args.get(key))
     compute_dtype = resolve_compute_dtype(args.compute_dtype)
-    use_ema = bool(args.get("use_ema", False))
-
     os.makedirs(cli.output_dir, exist_ok=True)
-    args.dump(os.path.join(cli.output_dir, "config_cfg.py"))
     logger = setup_logger(cli.output_dir)
+    with open(cli.datasets) as f:
+        manifest = json.load(f)
+    copyfilelist = []
+    if cli.stage_dir:
+        manifest, copyfilelist = stage_datasets(manifest, cli.stage_dir)
+        logger.info(f"staged {len(copyfilelist)} dataset paths to {cli.stage_dir}")
+    try:
+        return _run(cli, args, compute_dtype, manifest, logger)
+    finally:
+        cleanup_staged(copyfilelist)
+
+
+def _run(cli, args, compute_dtype, manifest: Dict, logger: logging.Logger) -> Dict:
+    import torch
+
+    from .data.loader import Collator, DataLoader
+    from .data.tokenization import build_tokenizer
+    from .engine import evaluate_coco, train_one_epoch
+    from .inference import load_reference_state_dict
+    from .models.criterion import build_criterion
+    from .models.groundingdino import build_groundingdino, init_weights_
+    from .models.postprocess import PostProcess
+    from .models.resnet import ResNetConfig
+    from .models.resnet import frozen_param_keys as resnet_frozen_keys
+    from .parallel.optim import make_lr_schedule, make_optimizer
+    from .parallel.train_state import TrainState, make_eval_step, make_train_step
+    from .utils import checkpoint as ckpt
+    from .utils.ema import BestMetricHolder
+
+    use_ema = bool(args.get("use_ema", False))
+    max_steps = cli.max_steps
+    if cli.debug:
+        max_steps = DEBUG_STEPS if max_steps is None else min(max_steps, DEBUG_STEPS)
+
+    args.dump(os.path.join(cli.output_dir, "config_cfg.py"))
     device = torch.device(cli.device)
     logger.info(f"device: {device}"
                 + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
     logger.info(f"config: {cli.config_file} output: {cli.output_dir}")
 
     tokenizer = build_tokenizer(cli.vocab)
-    with open(cli.datasets) as f:
-        manifest = json.load(f)
     collator = Collator(tokenizer, args.image_buckets, int(args.max_text_len),
                         int(args.max_gt_boxes), u8_images=bool(args.get("u8_images", False)))
     batch_size = int(args.batch_size)
@@ -191,11 +223,11 @@ def main(cli) -> Dict:
         # forward and undo the pipelining (the JAX package's runs on device)
         eval_step = make_eval_step(model, compute_dtype=compute_dtype)
 
-        def run_eval(params, max_steps=cli.max_steps):
+        def run_eval(params, max_steps=max_steps, use_native=True):
             return evaluate_coco(eval_step, params, eval_loader, postprocessor, val_dataset.coco,
                                  val_dataset.contiguous_to_catid, logger,
                                  print_freq=cli.print_freq, max_steps=max_steps,
-                                 precast_dtype=compute_dtype)
+                                 precast_dtype=compute_dtype, use_native=use_native)
 
     if cli.eval:
         if run_eval is None:
@@ -248,7 +280,7 @@ def main(cli) -> Dict:
         loader.set_epoch(epoch)
         t0 = time.time()
         state, stats = train_one_epoch(train_step, state, loader, epoch, logger,
-                                       print_freq=cli.print_freq, max_steps=cli.max_steps,
+                                       print_freq=cli.print_freq, max_steps=max_steps,
                                        step_records=records)
         logger.info(f"epoch {epoch} train stats: {stats} ({time.time() - t0:.1f}s)")
         if (epoch + 1) % int(args.save_checkpoint_interval) == 0 or epoch == epochs - 1:

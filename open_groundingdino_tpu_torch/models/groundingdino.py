@@ -102,9 +102,11 @@ class GroundingDINO(nn.Module):
 
     def forward(self, images, image_sizes, input_ids, text_token_mask, position_ids,
                 text_self_attention_masks, generator: Optional[torch.Generator] = None) -> Dict:
-        """`generator` draws the fusion blocks' stochastic depth in training
-        mode (the JAX package's `rngs={"dropout": ...}`)."""
-        bert_out = self.bert(input_ids, text_self_attention_masks, position_ids)
+        """`generator` draws the text tower's dropout and the fusion blocks'
+        stochastic depth in training mode (the JAX package's
+        `rngs={"dropout": ...}`)."""
+        bert_out = self.bert(input_ids, text_self_attention_masks, position_ids,
+                             generator=generator)
         text_dict = {
             "encoded_text": self.feat_map(bert_out),
             "text_token_mask": text_token_mask,
@@ -178,9 +180,9 @@ def build_groundingdino(args, device="cuda") -> GroundingDINO:
     checkpoint is then loaded with `to_empty` + `load_state_dict`.  On any
     other device the parameters are uninitialized until a checkpoint is
     loaded or `init_weights_` runs."""
-    for key in ("dropout", "text_dropout", "fusion_dropout"):
+    for key in ("dropout", "fusion_dropout"):
         if float(getattr(args, key, 0.0)) != 0.0:
-            raise ValueError(f"{key} > 0 is not ported (the port has no dropout)")
+            raise ValueError(f"{key} > 0 is not ported (the JAX package reads it nowhere)")
     use_checkpoint = bool(getattr(args, "use_checkpoint", False))
     if str(args.backbone).startswith("resnet"):
         # reference backbone.py:182-196: the torchvision resnet50/101 trunk
@@ -198,7 +200,11 @@ def build_groundingdino(args, device="cuda") -> GroundingDINO:
         num_attention_heads=int(getattr(args, "bert_heads", 12)),
         intermediate_size=int(getattr(args, "bert_intermediate", 3072)),
         max_position_embeddings=int(getattr(args, "bert_max_position", 512)),
+        # roberta-base: bert_vocab_size 50265, bert_max_position 514,
+        # bert_type_vocab 1, with a vocab.json + merges.txt tokenizer
         type_vocab_size=int(getattr(args, "bert_type_vocab", 2)),
+        hidden_dropout_prob=float(getattr(args, "text_dropout", 0.0)),
+        attention_probs_dropout_prob=float(getattr(args, "text_dropout", 0.0)),
     )
     with torch.device(device):
         return GroundingDINO(

@@ -30,8 +30,9 @@ def _imported_roots(path):
     return roots
 
 
-# every module of the serving, training, sweep, banded, eval, backbone, PAVE
-# and serving-export slices and the tools: the walk below must find them all,
+# every module of the serving, training, sweep, banded, eval, backbone, PAVE,
+# serving-export and RoBERTa / zero-shot slices and the tools: the walk below
+# must find them all,
 # and importing them must load nothing of JAX
 EXPECTED = (
     "inference", "main", "engine", "ops.msda", "ops.msda_sweep", "ops.msda_banded", "ops.fusion",
@@ -45,6 +46,7 @@ EXPECTED = (
     "pave.infer_utils", "pave.batch_eval", "pave.repvit_seg",
     "tools.inference_pave", "tools.get_metrics", "tools.inference_from_csv",
     "tools.inference_a_folder", "serving", "ops.library", "tools.export_model",
+    "data.staging", "data.strong_aug", "utils.native", "tools.zero_shot_eval",
 )
 
 

@@ -6,7 +6,7 @@ orig_sizes (data/loader.py).
 Seeded inputs go through both; PostProcess's scores agree to 1e-6 (the same
 f32 sigmoid and product) with labels and boxes equal except at exact score
 ties, NMS keeps the same boxes, the evaluator's 12 COCO stats agree to 1e-12
-with the JAX evaluator on its numpy matcher and on its C++ one, and the
+with the JAX evaluator, each on its numpy matcher and on its C++ one, and the
 datasets and Collator give the same samples and sizes.
 """
 import json
@@ -158,8 +158,8 @@ def _predictions(gt, seed=1):
     return preds
 
 
-def _port_stats(gt, preds):
-    ev = coco_eval.CocoBboxEvaluator(coco.CocoIndex(dataset=gt))
+def _port_stats(gt, preds, use_native=True):
+    ev = coco_eval.CocoBboxEvaluator(coco.CocoIndex(dataset=gt), use_native=use_native)
     ev.update(preds)
     ev.accumulate()
     return ev.summarize()
@@ -174,7 +174,7 @@ def test_coco_evaluator_matches_jax(seed, use_native):
     ref.update(preds)
     ref.accumulate()
     want = ref.summarize()
-    got = _port_stats(gt, preds)
+    got = _port_stats(gt, preds, use_native)
     assert list(got) == list(want) and len(got) == 12
     for k in got:
         assert abs(got[k] - want[k]) <= 1e-12, (k, got[k], want[k])
