@@ -269,16 +269,42 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                with the step generator seeded 0 (twice: each within 1e-6 of
                main's first step's loss) and 1 (another loss), and the
                embeddings' dropped share within 4 sigma of 0.1
-Each main training run saves one checkpoint, after its last epoch (the
-card's machine takes at most 45 GiB of disk writes a run).
+ 33. dist    - data parallelism through main on the one card, f32, TF32 off,
+               phase 22's checkpoint at full width and depth, 8 seeded
+               800x1066 images with one category each (every batch pads to
+               800x1216) and a val split whose ground truth is the
+               checkpoint's own detections on the even ids and the ODVG boxes
+               on the odd ones: (a) 2 ranks over gloo, both on cuda:0, each a
+               fresh process with torchrun's variables running main inside
+               torch.profiler, B = 2 a rank, 2 steps and the eval; (b) main in
+               this process as rank 0 of 1 over NCCL at B = 4 on the same
+               steps and eval.  The ranks' parameters equal bit for bit
+               (all-gathered digests), their losses and stats the same, each
+               step's loss within 5e-3 of (b)'s, the update within 5e-2 and
+               each stat within 0.05; rank 0 alone wrote the checkpoint (best/
+               a hard link to it) and log.txt; the merged eval saw the 8 ids
+               once; 18 K1 + 12 K2 + 12 K3 + 6 K4 f32 launches a step and 12
+               K1 + 6 K2 an eval batch on each rank and in (b); (c) planted
+               faults: each step's loss from its criterion inputs with
+               per-rank num_boxes / num_pos leaves the 5e-3 limit, a step
+               without the gradient reduction parts the
+               ranks, an eval without the merge sees 4 ids a rank and moves
+               the stats by more than 0.05; the seconds of each part, the step
+               medians, the reduction's share of the step and the merged
+               eval's images/s
+Each main training run saves one checkpoint, after its last epoch, and
+with a val split best/ (and best_ema/) as hard links to it when the epoch
+scores best (the card's machine takes at most 45 GiB of disk writes a
+run).
 Every training phase runs with the config's use_checkpoint (True): Swin
 recomputes each block in the backward, as the JAX package
 does.  A [time] line after each phase gives its seconds.
 then the {"kernels": [...]} line (K1-K10, then the bf16 entries of all ten;
 K1's and K2's rows hold phase 30 under launches_by_path "pave" and per_shape
 "pave B=16 ...", K1's, K2's, K5's, K6's and K7's phase 31 under
-launches_by_path "export", and K1's-K4's rows, f32 and bf16, phase 32 under
-"roberta" (its requests and training steps) and "zero_shot")
+launches_by_path "export", K1's-K4's rows, f32 and bf16, phase 32 under
+"roberta" (its requests and training steps) and "zero_shot", and K1's-K4's
+f32 rows phase 33 under "dist" (rank 0 of the gloo pair) and "dist-nccl")
 and, last, {"ok": true, "device": {...}}.
 
 Exits nonzero when no CUDA device is present.  Scratch files (checkpoint,
@@ -287,11 +313,13 @@ checkpoints) go to build/chip_smoke/ and are removed at the end.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -1622,32 +1650,40 @@ KERNEL_FED = (".sampling_offsets.", ".attention_weights.", ".value_proj.", ".att
 MSDA_FED = KERNEL_FED[:3]   # the deformable attentions' projections
 
 
-def write_odvg(work: str) -> str:
-    """A seeded synthetic ODVG set (OD mode): 8 images of mixed sizes with
-    1-5 boxes each, a 10-category label map, and the datasets.json
-    manifest; returns the manifest's path."""
+def odvg_manifest(work: str, subdir: str = "odvg") -> str:
+    return os.path.join(work, "datasets.json" if subdir == "odvg" else f"datasets_{subdir}.json")
+
+
+def write_odvg(work: str, sizes=TRAIN_IMAGE_SIZES, subdir: str = "odvg",
+               one_label: bool = False) -> str:
+    """A seeded synthetic ODVG set (OD mode) in work/subdir: images of
+    `sizes` (8 of mixed sizes by default) with 1-5 boxes each (with
+    `one_label` all of one category an image, so that its caption does not
+    hang on Python's string hashing), a 10-category label map, and the
+    manifest (odvg_manifest); returns the manifest's path."""
     import numpy as np
 
-    root = os.path.join(work, "odvg")
+    root = os.path.join(work, subdir)
     os.makedirs(root, exist_ok=True)
     rng = np.random.RandomState(SEED + 10)
     lines = []
-    for i, (h, w) in enumerate(TRAIN_IMAGE_SIZES):
+    for i, (h, w) in enumerate(sizes):
         name = f"img{i}.jpg"
         synthetic_image(h, w, 100 + i).save(os.path.join(root, name), quality=90)
         instances = []
+        label = int(rng.randint(len(CATEGORIES))) if one_label else None
         for _ in range(rng.randint(1, 6)):
             bw, bh = rng.uniform(0.1, 0.6) * w, rng.uniform(0.1, 0.6) * h
             x0, y0 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
             instances.append({"bbox": [float(x0), float(y0), float(x0 + bw), float(y0 + bh)],
-                              "label": int(rng.randint(len(CATEGORIES)))})
+                              "label": label if one_label else int(rng.randint(len(CATEGORIES)))})
         lines.append(json.dumps({"filename": name, "height": h, "width": w,
                                  "detection": {"instances": instances}}))
     with open(os.path.join(root, "train.jsonl"), "w") as f:
         f.write("\n".join(lines) + "\n")
     with open(os.path.join(root, "label_map.json"), "w") as f:
         json.dump({str(i): c for i, c in enumerate(CATEGORIES)}, f)
-    manifest = os.path.join(work, "datasets.json")
+    manifest = odvg_manifest(work, subdir)
     with open(manifest, "w") as f:
         json.dump({"train": [{"root": root, "anno": os.path.join(root, "train.jsonl"),
                               "label_map": os.path.join(root, "label_map.json"),
@@ -1656,14 +1692,15 @@ def write_odvg(work: str) -> str:
 
 
 def write_coco_val(work: str, indices=tuple(range(len(TRAIN_IMAGE_SIZES))), annotations=None,
-                   name: str = "val") -> str:
+                   name: str = "val", subdir: str = "odvg") -> str:
     """A COCO-format val split of write_odvg's images `indices` (run
-    write_odvg first), image ids 100 + index, the label map's names as
-    categories (ids 2i + 1, so that contiguous labels and category ids
-    differ); the annotations are the ODVG boxes, or `annotations` ({image id:
-    [(category id, [x, y, w, h])]}); and a manifest with write_odvg's train
-    split and this val split; returns the manifest's path."""
-    root = os.path.join(work, "odvg")
+    write_odvg first, with the same `subdir`), image ids 100 + index, the
+    label map's names as categories (ids 2i + 1, so that contiguous labels
+    and category ids differ); the annotations are the ODVG boxes, or
+    `annotations` ({image id: [(category id, [x, y, w, h])]}); and a
+    manifest with write_odvg's train split and this val split; returns the
+    manifest's path."""
+    root = os.path.join(work, subdir)
     with open(os.path.join(root, "train.jsonl")) as f:
         metas = [json.loads(line) for line in f]
     images, anns = [], []
@@ -1687,7 +1724,7 @@ def write_coco_val(work: str, indices=tuple(range(len(TRAIN_IMAGE_SIZES))), anno
         json.dump({"images": images, "annotations": anns,
                    "categories": [{"id": 2 * i + 1, "name": c} for i, c in enumerate(CATEGORIES)]},
                   f)
-    with open(os.path.join(work, "datasets.json")) as f:
+    with open(odvg_manifest(work, subdir)) as f:
         manifest = json.load(f)
     manifest["val"] = [{"root": root, "anno": anno, "dataset_mode": "coco"}]
     path = os.path.join(work, f"datasets_{name}.json")
@@ -4802,6 +4839,517 @@ def check_roberta(cfg: str, work: str, device: str = "cuda") -> dict:
     return dict(serve=serve_res, forward=forward, zero_shot=zero_shot, train=training)
 
 
+# ------------------------------------------------------------ data parallel (phase 33)
+DIST_WORLD = 2
+DIST_BATCH = 2               # a rank's batch: (b) takes the global B = DIST_WORLD x DIST_BATCH
+DIST_SIZE = (800, 1066)      # (h, w) of every image: each sample pads to the 800x1216 bucket
+DIST_STEPS = 2
+DIST_TIMEOUT_S = 300         # a rank's process, and its process group's collectives
+# the steps' learning rates: at the config's (1e-4, backbone 1e-5) two Adam
+# steps move every parameter of the random-weight model by ~lr and leave none
+# of its initial detections (AP 0 on their pseudo ground truth: H100 run);
+# at these the eval still scores them, and Adam's steps are as large
+# relative to lr, so the updates compare as well
+DIST_LR, DIST_LR_BACKBONE = 1e-7, 1e-8
+# (a)'s loss at each step against (b)'s: the two run the same images and
+# weights, the 2 ranks at B = 2 each and (b) at B = 4 (other GEMM shapes, K3's
+# atomics in another order, the matcher on their output): the card-vs-CPU
+# step bound (phase 11)
+DIST_LOSS_RTOL = PARITY_LOSS_RTOL
+# ||update_a - update_b|| / ||update_b||, each update the parameters after the
+# 2 steps minus the checkpoint's: Adam moves each parameter by about lr
+# whatever the size of its gradient, so a gradient that is zero up to
+# rounding (the attention key biases) takes a step of noise on either side
+DIST_UPDATE_RTOL = 5e-2
+# each of the 12 COCO stats, (a)'s merged eval against (b)'s: the same
+# images in the same bucket on nearly the same weights; one near-tied box
+# swapped among the ~55 ground-truth boxes moves AP by up to ~0.02
+DIST_STAT_TOL = 0.05
+DIST_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_files(cfg: str, work: str, files, size=DIST_SIZE, device: str = "cuda") -> tuple:
+    """Phase 33's data: 8 seeded images of one size (`size`) with one
+    category each (captions that do not hang on string hashing) as an ODVG
+    train split, and a COCO val split of them whose ground truth is, for the
+    even ids, `files`' checkpoint's own detections on the card (f32, NMS
+    PSEUDO_GT_NMS, pseudo_ground_truth) and, for the odd ids, the ODVG boxes
+    (AP ~0 at these weights): a rank that scores only its own half moves
+    the stats.  Returns (manifest, main's --options for these images)."""
+    import torch
+
+    from open_groundingdino_tpu_torch.config import SLConfig
+    from open_groundingdino_tpu_torch.data.coco import CocoDetection
+    from open_groundingdino_tpu_torch.data.loader import Collator
+    from open_groundingdino_tpu_torch.data.tokenization import build_tokenizer
+    from open_groundingdino_tpu_torch.data.transforms import EvalTransform
+    from open_groundingdino_tpu_torch.inference import load_reference_state_dict
+    from open_groundingdino_tpu_torch.models.groundingdino import build_groundingdino
+    from open_groundingdino_tpu_torch.models.postprocess import PostProcess
+
+    _, ckpt, vocab = files
+    args = SLConfig.fromfile(cfg)
+    n = 4 * DIST_WORLD
+    write_odvg(work, sizes=[size] * n, subdir="dist", one_label=True)
+    with open(write_coco_val(work, range(n), name="dist_odvg", subdir="dist")) as f:
+        anno = json.load(f)["val"][0]["anno"]
+    ds = CocoDetection(os.path.join(work, "dist"), anno,
+                       transform=EvalTransform(args.eval_shortest_edge, args.eval_max_size))
+    tokenizer = build_tokenizer(vocab)
+    collate = Collator(tokenizer, args.image_buckets, int(args.max_text_len),
+                       int(args.max_gt_boxes), u8_images=True)
+    num_select = int(args.num_queries) * len(CATEGORIES)
+    post = PostProcess(tokenizer, ds.cat_list, num_select=num_select,
+                       max_text_len=int(args.max_text_len), nms_iou_threshold=PSEUDO_GT_NMS)
+    t0 = time.perf_counter()
+    model = build_groundingdino(args, device="cpu")
+    load_reference_state_dict(model, ckpt)
+    model.to(device)
+    t_model = time.perf_counter() - t0
+    results, ids = [], []
+    for start in range(0, n, 4):
+        batch = collate([ds[i] for i in range(start, start + 4)])
+        results += eval_detections(model, batch, post, None)[1]
+        ids += batch["image_ids"].tolist()
+    del model
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    pseudo = pseudo_ground_truth(results, ids, ds.contiguous_to_catid)
+    with open(anno) as f:
+        odvg = json.load(f)["annotations"]
+    truth = {i: pseudo[i] if (i - 100) % 2 == 0 else
+             [(a["category_id"], a["bbox"]) for a in odvg if a["image_id"] == i] for i in ids}
+    manifest = write_coco_val(work, range(n), annotations=truth, name="dist_val", subdir="dist")
+    scale = size[0]
+    options = (f"data_aug_scales=[{scale}]", f"data_aug_scales2_resize=[{scale}]",
+               f"data_aug_scales2_crop=[{scale},{scale}]", "epochs=1", "compute_dtype=float32",
+               f"lr={DIST_LR}", f"lr_backbone={DIST_LR_BACKBONE}",
+               f"nms_iou_threshold={PSEUDO_GT_NMS}", f"num_select={num_select}")
+    log("dist-data", f"{n} images of {size[0]}x{size[1]}, one category each; ground truth: "
+                     f"{sum(len(truth[i]) for i in ids[::2])} pseudo boxes on the even ids, "
+                     f"{sum(len(truth[i]) for i in ids[1::2])} ODVG boxes on the odd ids; the "
+                     f"model built and loaded in {t_model:.1f} s")
+    return manifest, options
+
+
+def host_spans_ms(prof, name: str) -> list:
+    """The host milliseconds of every CPU event `name` of a finished
+    profile, in the order they began."""
+    from torch.autograd import DeviceType
+
+    spans = []
+    for e in prof.profiler.kineto_results.events():
+        if e.name() == name and e.device_type() == DeviceType.CPU:
+            ns = e.duration_ns() if hasattr(e, "duration_ns") else e.duration_us() * 1e3
+            start = e.start_ns() if hasattr(e, "start_ns") else e.start_us() * 1e3
+            spans.append((start, ns / 1e6))
+    return [ms for _, ms in sorted(spans)]
+
+
+@contextlib.contextmanager
+def evaluated_ids():
+    """Within the block, the image ids each CocoBboxEvaluator.accumulate()
+    sees, one list a call."""
+    from open_groundingdino_tpu_torch.eval import coco_eval
+
+    seen = []
+    accumulate = coco_eval.CocoBboxEvaluator.accumulate
+
+    def spy(self):
+        seen.append(list(self.img_ids))
+        return accumulate(self)
+
+    coco_eval.CocoBboxEvaluator.accumulate = spy
+    try:
+        yield seen
+    finally:
+        coco_eval.CocoBboxEvaluator.accumulate = accumulate
+
+
+def dist_main(cfg: str, manifest: str, files, out_dir: str, device: str, batch: int,
+              options) -> tuple:
+    """main at `batch` a rank for DIST_STEPS steps and the eval of the val
+    split, its training epoch inside torch.profiler, with spies on the
+    evaluator's image ids, the checkpoint writes and the eval pass's
+    seconds; returns (main's result, a record of the run)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from open_groundingdino_tpu_torch import engine
+    from open_groundingdino_tpu_torch import main as train_main
+    from open_groundingdino_tpu_torch.utils import checkpoint as ckpt
+
+    _, weights, vocab = files
+    cli = train_main.get_args_parser().parse_args([
+        "-c", cfg, "--datasets", manifest, "--output_dir", out_dir, "--vocab", vocab,
+        "--pretrain_model_path", weights, "--device", device, "--seed", str(SEED),
+        "--num_workers", "2", "--print_freq", "1", "--max_steps", str(DIST_STEPS),
+        "--options", f"batch_size={batch}", *options])
+    saves, eval_s, profiles = [], [], []
+    save, link = ckpt.save_checkpoint, ckpt.link_checkpoint
+    evaluate, epoch_fn = engine.evaluate_coco, engine.train_one_epoch
+
+    def spy_epoch(*args, **kw):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = epoch_fn(*args, **kw)
+        profiles.append(prof)
+        return out
+
+    def spy_save(ckpt_dir, epoch, payload):
+        saves.append(os.path.relpath(ckpt.checkpoint_path(ckpt_dir, epoch), out_dir))
+        return save(ckpt_dir, epoch, payload)
+
+    def spy_link(src, ckpt_dir, epoch):
+        saves.append(os.path.relpath(ckpt.checkpoint_path(ckpt_dir, epoch), out_dir) + " (link)")
+        return link(src, ckpt_dir, epoch)
+
+    def spy_evaluate(*args, **kw):
+        t0 = time.perf_counter()
+        stats = evaluate(*args, **kw)
+        eval_s.append(time.perf_counter() - t0)
+        return stats
+
+    ckpt.save_checkpoint, ckpt.link_checkpoint = spy_save, spy_link
+    engine.evaluate_coco, engine.train_one_epoch = spy_evaluate, spy_epoch
+    reset_counts()
+    try:
+        with evaluated_ids() as covered:
+            t0 = time.perf_counter()
+            run = train_main.main(cli)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        ckpt.save_checkpoint, ckpt.link_checkpoint = save, link
+        engine.evaluate_coco, engine.train_one_epoch = evaluate, epoch_fn
+    prof, = profiles
+    counts = read_counts()
+    records = run["records"]
+    with open(os.path.join(out_dir, "log.txt")) as f:
+        log_lines = len(f.read().splitlines())
+    return run, dict(
+        losses=[r["loss"] for r in records], grad_norms=[r["grad_norm"] for r in records],
+        step_s=[r["step_seconds"] for r in records], stats=run["eval"][0], counts=counts,
+        covered=covered, saves=saves, eval_s=eval_s, wall_s=wall,
+        reduce_ms=host_spans_ms(prof, "ogd_torch::all_reduce_sum"),
+        nccl_device_ms=sum(ms for name, (ms, _) in device_kernels(prof).items()
+                           if "nccl" in name.lower()),
+        log_lines=log_lines)
+
+
+@contextlib.contextmanager
+def criterion_inputs():
+    """Within the block, (criterion, its arguments detached) of every
+    SetCriterion call made with gradients on (the training steps'), in
+    order."""
+    import torch
+
+    from open_groundingdino_tpu_torch.models import criterion
+
+    seen = []
+    call = criterion.SetCriterion.__call__
+
+    def detached(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach()
+        if isinstance(x, dict):
+            return {k: detached(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(detached(v) for v in x)
+        return x
+
+    def spy(self, *args):
+        if torch.is_grad_enabled():
+            seen.append((self, detached(args)))
+        return call(self, *args)
+
+    criterion.SetCriterion.__call__ = spy
+    try:
+        yield seen
+    finally:
+        criterion.SetCriterion.__call__ = call
+
+
+def dist_worker(spec: dict) -> None:
+    """Phase 33 (a)'s rank (its process started with torchrun's variables):
+    TF32 off, the process group over gloo on spec["device"] (both ranks on
+    cuda:0), dist_main at DIST_BATCH, the ranks' parameter digests gathered;
+    then in the same group the planted faults: each step's loss again from
+    the criterion inputs that step saw with the count reduction removed
+    (per-rank num_boxes / num_pos; the ranks' totals summed as the step sums
+    them), the eval again with merge_eval_records skipped, and one more step
+    on this rank's next batch with the gradient reduction replaced by
+    identity, the digests gathered again.  Writes its record to spec["out"]
+    (JSON)."""
+    import types
+
+    import torch
+
+    from open_groundingdino_tpu_torch import engine
+    from open_groundingdino_tpu_torch.models import criterion
+    from open_groundingdino_tpu_torch.parallel import dist, train_state
+
+    started = time.time() - spec["spawned"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    info = dist.init_distributed(spec["device"], "gloo", timeout_s=DIST_TIMEOUT_S)
+    with criterion_inputs() as calls:
+        run, rec = dist_main(spec["cfg"], spec["manifest"], spec["files"], spec["out_dir"],
+                             spec["device"], DIST_BATCH, spec["options"])
+    t0 = time.perf_counter()
+    params = dict(run["state"].model.named_parameters())
+    rec["digests"] = dist.all_gather_object(dist.digest(params.values()))
+    criterion.dist = types.SimpleNamespace(all_reduce_sum_=lambda tensors: None)
+    try:
+        with torch.no_grad():
+            mine = [float(crit(*args)[0]) for crit, args in calls]
+    finally:
+        criterion.dist = dist
+    rec["per_rank_count_losses"] = [sum(x) for x in zip(*dist.all_gather_object(mine))]
+    merge = engine.merge_eval_records
+    engine.merge_eval_records = lambda evaluator: None
+    try:
+        with evaluated_ids() as covered:
+            rec["unmerged_stats"] = run["run_eval"](params)
+    finally:
+        engine.merge_eval_records = merge
+    rec["unmerged_covered"] = covered
+    batches = iter(run["loader"])
+    batch = next(batches)
+    batches.close()   # stops the loader's threads
+    train_state.dist = types.SimpleNamespace(all_reduce_sum_=lambda tensors: None)
+    try:
+        run["train_step"](run["state"], batch)
+    finally:
+        train_state.dist = dist
+    rec["fault_digests"] = dist.all_gather_object(dist.digest(params.values()))
+    rec.update(rank=info.rank, world_size=info.world_size, device=str(info.device),
+               start_s=started, after_main_s=time.perf_counter() - t0)
+    dist.cleanup()
+    with open(spec["out"], "w") as f:
+        json.dump(rec, f)
+
+
+def start_dist_workers(spec: dict, work: str) -> list:
+    """dist_worker in DIST_WORLD fresh processes, each in a session of its
+    own (killed with its children on failure); returns [(process, record
+    path)]."""
+    env = {k: v for k, v in os.environ.items() if k not in DIST_ENV}
+    env.update(WORLD_SIZE=str(DIST_WORLD), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    started = []
+    for r in range(DIST_WORLD):
+        out = os.path.join(work, f"dist_rank{r}.json")
+        code = (f"import chip_smoke; "
+                f"chip_smoke.dist_worker({dict(spec, out=out, spawned=time.time())!r})")
+        started.append((subprocess.Popen(
+            [sys.executable, "-c", code], cwd=REPO, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            start_new_session=True), out))
+    return started
+
+
+def finish_dist_workers(started) -> list:
+    """Each worker's record; on a failure or after DIST_TIMEOUT_S every
+    worker is killed and the phase fails with their output's ends."""
+    import signal
+
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    outs = []
+    try:
+        for proc, _ in started:
+            outs.append(proc.communicate(timeout=max(deadline - time.monotonic(), 1))[0])
+    except BaseException:
+        for proc, _ in started:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+        raise
+    bad = [(r, proc.returncode, out[-3000:])
+           for r, ((proc, _), out) in enumerate(zip(started, outs)) if proc.returncode != 0]
+    if bad:
+        raise AssertionError(f"dist workers failed: {bad}")
+    records = []
+    for _, path in started:
+        with open(path) as f:
+            records.append(json.load(f))
+    return records
+
+
+def dist_reference(cfg: str, manifest: str, files, out_dir: str, device: str,
+                   options) -> dict:
+    """Phase 33 (b): dist_main in this process as rank 0 of 1 over the
+    default backend (NCCL on the card), at the global batch."""
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        run, rec = dist_main(cfg, manifest, files, out_dir, device, DIST_WORLD * DIST_BATCH,
+                             options)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    del run
+    return rec
+
+
+def update_gap(init_ckpt: str, a_ckpt: str, b_ckpt: str) -> float:
+    """||(a - init) - (b - init)|| / ||b - init|| over the floating tensors
+    of the checkpoints' models."""
+    import torch
+
+    load = lambda p: torch.load(p, map_location="cpu", weights_only=True, mmap=True)["model"]
+    init, a, b = load(init_ckpt), load(a_ckpt), load(b_ckpt)
+    diff = ref = 0.0
+    for k, v in init.items():
+        if v.is_floating_point():
+            ub = b[k].double() - v.double()
+            diff += float(((a[k].double() - v.double()) - ub).pow(2).sum())
+            ref += float(ub.pow(2).sum())
+    return math.sqrt(diff) / max(math.sqrt(ref), 1e-30)
+
+
+def check_dist(cfg: str, work: str, files, device: str = "cuda", size=DIST_SIZE) -> dict:
+    """Phase 33: data parallelism through the port's main on the one card.
+    (a) DIST_WORLD ranks over gloo, each on cuda:0 in a fresh process
+    (dist_worker), DIST_STEPS steps at B = DIST_BATCH a rank and the eval of
+    the 8-image val split (dist_files); (b) main in this process as rank 0 of
+    1 over NCCL at the global batch on the same steps and eval.  Held: the
+    ranks' parameters equal bit for bit, and parted by a step without the
+    gradient reduction; both ranks' losses and stats the same; each step's
+    loss within DIST_LOSS_RTOL of (b)'s, and not so with per-rank counts in
+    the criterion, the update within DIST_UPDATE_RTOL
+    and each stat within DIST_STAT_TOL; rank 0 alone wrote the checkpoint
+    (best/ a link to it) and log.txt's one line; every eval saw the 8 ids
+    once, and with the merge skipped each rank its 4 and stats that move by
+    more than DIST_STAT_TOL; each rank's and (b)'s launches exactly the f32
+    training steps' and eval batches'."""
+    import torch
+
+    t_phase = time.perf_counter()
+    manifest, options = dist_files(cfg, work, files, size, device)
+    t_data = time.perf_counter() - t_phase
+    rank_device = "cuda:0" if device == "cuda" else device
+    dirs = {tag: os.path.join(work, f"dist_{tag}") for tag in ("a", "b")}
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    ranks = finish_dist_workers(start_dist_workers(
+        dict(cfg=cfg, manifest=manifest, files=list(files), out_dir=dirs["a"],
+             device=rank_device, options=list(options)), work))
+    t_a = time.perf_counter() - t0
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ref = dist_reference(cfg, manifest, files, dirs["b"], device, options)
+    t_b = time.perf_counter() - t0
+    gap = update_gap(files[1], *(os.path.join(dirs[t], "checkpoint_0.pth") for t in ("a", "b")))
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)   # checkpoints of ~2 GB each
+
+    n = 4 * DIST_WORLD
+    ids = list(range(100, 100 + n))
+    per_rank = -(-n // DIST_WORLD)
+    step = train_launches_per_step({})
+    evals = eval_launches(-(-per_rank // DIST_BATCH), False)
+    want = {k: DIST_STEPS * v + evals[k] for k, v in step.items()}
+    evals = eval_launches(-(-n // (DIST_WORLD * DIST_BATCH)), False)
+    want_b = {k: DIST_STEPS * v + evals[k] for k, v in step.items()}
+    a0 = ranks[0]
+    loss_gap = max(abs(x - y) / abs(y) for x, y in zip(a0["losses"], ref["losses"]))
+    stat_gap = max(abs(a0["stats"][k] - ref["stats"][k]) for k in STAT_KEYS)
+    moved = min(max(abs(r["unmerged_stats"][k] - a0["stats"][k]) for k in STAT_KEYS)
+                for r in ranks)
+    # per-rank counts: the ranks' totals summed, and their mean (the form a
+    # normaliser averaged over the ranks would give)
+    count_gap = max(abs(x - y) / abs(y) for x, y in zip(a0["per_rank_count_losses"],
+                                                         ref["losses"]))
+    count_mean_gap = max(abs(x / DIST_WORLD - y) / abs(y)
+                         for x, y in zip(a0["per_rank_count_losses"], ref["losses"]))
+    # the reduction's host time a step: each step calls it twice (the
+    # criterion's counts, then the gradients and losses)
+    red = [sum(a0["reduce_ms"][2 * i:2 * i + 2]) for i in range(DIST_STEPS)]
+    share = [r / 1e3 / s for r, s in zip(red, a0["step_s"])]
+    t_phase = time.perf_counter() - t_phase
+    log("dist", f"(a) {DIST_WORLD} ranks over gloo on {rank_device}, B = {DIST_BATCH} a rank, "
+                f"f32: losses {a0['losses']}, step s {[round(x, 3) for x in a0['step_s']]} "
+                f"(median {statistics.median(a0['step_s']):.3f}), gradient reduction host ms "
+                f"a step {[round(x, 1) for x in red]} ({[f'{x:.0%}' for x in share]} of the "
+                f"step), "
+                f"eval {a0['eval_s'][0]:.2f} s ({n / a0['eval_s'][0]:.2f} images/s merged), "
+                f"s by rank to reach dist_worker {[round(r['start_s'], 1) for r in ranks]}, "
+                f"in main {[round(r['wall_s'], 1) for r in ranks]}, after it (digests, faults) "
+                f"{[round(r['after_main_s'], 1) for r in ranks]}; launches a rank "
+                f"{ {k: v for k, v in a0['counts'].items() if v} }; saves by rank "
+                f"{[r['saves'] for r in ranks]}, log.txt lines {a0['log_lines']}; digests "
+                f"{[d[:12] for d in a0['digests']]}, after a step without the reduction "
+                f"{[d[:12] for d in a0['fault_digests']]}")
+    log("dist", f"(b) 1 rank over the default backend ({'NCCL' if device == 'cuda' else 'gloo'}),"
+                f" B = {DIST_WORLD * DIST_BATCH}: losses {ref['losses']}, step s "
+                f"{[round(x, 3) for x in ref['step_s']]} (median "
+                f"{statistics.median(ref['step_s']):.3f}), "
+                f"reduction host ms {[round(x, 2) for x in ref['reduce_ms']]}, NCCL device ms "
+                f"{ref['nccl_device_ms']:.3f}, eval {ref['eval_s'][0]:.2f} s "
+                f"({n / ref['eval_s'][0]:.2f} images/s); launches "
+                f"{ {k: v for k, v in ref['counts'].items() if v} }")
+    log("dist", f"(a) against (b): loss {loss_gap:.2e} (limit {DIST_LOSS_RTOL}), update "
+                f"{gap:.2e} (limit {DIST_UPDATE_RTOL}), stats {stat_gap:.4f} (limit "
+                f"{DIST_STAT_TOL}): (a) {a0['stats']}, (b) {ref['stats']}; per-rank counts: "
+                f"losses {a0['per_rank_count_losses']}, loss {count_gap:.2e} (their mean "
+                f"{count_mean_gap:.2e}); merge skipped: ids "
+                f"{[len(set(r['unmerged_covered'][0])) for r in ranks]} a rank, stats moved by "
+                f">= {moved:.4f}; seconds: data {t_data:.1f}, (a) {t_a:.1f}, (b) {t_b:.1f}, "
+                f"phase {t_phase:.1f}")
+    for r, rec in enumerate(ranks):
+        if (rec["rank"], rec["world_size"], rec["device"]) != (r, DIST_WORLD, rank_device):
+            raise AssertionError(f"rank {r} ran as {rec['rank']} of {rec['world_size']} on "
+                                 f"{rec['device']}")
+        if rec["counts"] != want:
+            raise AssertionError(f"rank {r}: launches {rec['counts']}, expected {want}")
+        if rec["losses"] != a0["losses"] or rec["stats"] != a0["stats"]:
+            raise AssertionError("the ranks logged other losses or stats")
+        if [sorted(c) for c in rec["covered"]] != [ids]:
+            raise AssertionError(f"rank {r}'s merged eval saw ids {rec['covered']}")
+        if len(set(rec["unmerged_covered"][0])) != per_rank:
+            raise AssertionError(f"rank {r} without the merge saw {rec['unmerged_covered']}")
+    if len(set(a0["digests"])) != 1:
+        raise AssertionError(f"the ranks' parameters differ: {a0['digests']}")
+    if len(set(a0["fault_digests"])) != DIST_WORLD:
+        raise AssertionError("a step without the gradient reduction left the ranks equal")
+    rank0_writes = ["checkpoint_0.pth", os.path.join("best", "checkpoint_0.pth") + " (link)"]
+    if a0["saves"] != rank0_writes or any(r["saves"] for r in ranks[1:]) or a0["log_lines"] != 1:
+        raise AssertionError(f"writes by rank {[r['saves'] for r in ranks]}, log.txt lines "
+                             f"{a0['log_lines']}")
+    if ref["counts"] != want_b or [sorted(c) for c in ref["covered"]] != [ids]:
+        raise AssertionError(f"(b): launches {ref['counts']} (expected {want_b}), ids "
+                             f"{ref['covered']}")
+    if not loss_gap <= DIST_LOSS_RTOL or not gap <= DIST_UPDATE_RTOL or \
+            not stat_gap <= DIST_STAT_TOL:
+        raise AssertionError("(a) is off (b)")
+    if not moved > DIST_STAT_TOL:
+        raise AssertionError("the stats hold without the eval merge")
+    if len(a0["per_rank_count_losses"]) != DIST_STEPS or not count_gap > DIST_LOSS_RTOL:
+        raise AssertionError(f"per-rank counts pass the loss limit: "
+                             f"{a0['per_rank_count_losses']} against {ref['losses']}")
+    return dict(ranks=ranks, reference=ref, update_gap=gap, loss_gap=loss_gap,
+                stat_gap=stat_gap, unmerged_moved=moved, count_gap=count_gap,
+                count_mean_gap=count_mean_gap, reduce_share=share,
+                seconds=dict(data=t_data, a=t_a, b=t_b, phase=t_phase))
+
+
 def main() -> int:
     import torch
 
@@ -4944,6 +5492,8 @@ def main() -> int:
         clock("31")
         roberta = check_roberta(cfg, work)                             # 32
         clock("32")
+        dist = check_dist(cfg, work, eval_files)                       # 33
+        clock("33")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -5000,6 +5550,13 @@ def main() -> int:
         return {"roberta": served[counter] + trained[counter],
                 "zero_shot": roberta["zero_shot"]["counts"][counter]}
 
+    def dist_launches(counter):
+        """Phase 33's launches by the counter's name: rank 0's of the gloo
+        pair under "dist" (each rank's are equal), the NCCL rank's under
+        "dist-nccl"."""
+        return {"dist": dist["ranks"][0]["counts"][counter],
+                "dist-nccl": dist["reference"]["counts"][counter]}
+
     def export_launches(path, counter):
         """The artifact's launches (phase 31): the gather artifact's timed
         requests, the sweep's and banded_point's one forward each."""
@@ -5013,7 +5570,7 @@ def main() -> int:
                               "eval-f32": evals["float32"]["counts"]["msda_fwd"],
                               **bb_launches("msda_fwd"), "pave": pave_launches("msda_fwd"),
                               "export": export_launches("gather", "msda_fwd"),
-                              **roberta_launches("msda_fwd")},
+                              **roberta_launches("msda_fwd"), **dist_launches("msda_fwd")},
          **k1_row | {"max_abs_err": max(k1_row["max_abs_err"], k1_err, *(
              r["max_abs_err"] for r in pave_shapes("K1", "f32").values()))},
          "sass": msda_sass["msda_fwd"]},
@@ -5024,7 +5581,7 @@ def main() -> int:
                               "eval-f32": evals["float32"]["counts"]["fusion_fwd"],
                               **bb_launches("fusion_fwd"), "pave": pave_launches("fusion_fwd"),
                               "export": export_launches("gather", "fusion_fwd"),
-                              **roberta_launches("fusion_fwd")},
+                              **roberta_launches("fusion_fwd"), **dist_launches("fusion_fwd")},
          **single_row(k2) | {"max_abs_err": max(
              k2["max_abs_err"], k2_err, pave_kernels["K2", "f32", "fusion"]["max_abs_err"])},
          "per_shape": {"B=1": single_row(k2), "B=4": single_row(k4["k2"]),
@@ -5033,13 +5590,15 @@ def main() -> int:
         {"name": "msda_bwd", "route": "cuda", "source": src + "msda_bwd.cu",
          "replaces": tpu + "msda_banded.py:524", "launches": train_counts["msda_bwd"],
          "launches_by_path": {"serve": 0, "train": train_counts["msda_bwd"],
-                              **bb_launches("msda_bwd"), **roberta_launches("msda_bwd")},
+                              **bb_launches("msda_bwd"), **roberta_launches("msda_bwd"),
+                              **dist_launches("msda_bwd")},
          **mean_row(k3),
          "sass": {k: msda_sass[k] for k in ("msda_bwd", "msda_bwd_atomics", "msda_bwd_plans")}},
         {"name": "fusion_bwd", "route": "cuda", "source": src + "fusion_bwd.cu",
          "replaces": tpu + "fusion_pallas.py:198", "launches": train_counts["fusion_bwd"],
          "launches_by_path": {"serve": 0, "train": train_counts["fusion_bwd"],
-                              **bb_launches("fusion_bwd"), **roberta_launches("fusion_bwd")},
+                              **bb_launches("fusion_bwd"), **roberta_launches("fusion_bwd"),
+                              **dist_launches("fusion_bwd")},
          **single_row(k4), "sass": k4["sass"]["fusion_bwd"]},
     ]
     # K5 and K8 (phase 16; the row is phase 8's B = 4 shapes, per_shape adds

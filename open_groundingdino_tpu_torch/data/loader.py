@@ -8,10 +8,11 @@ masks, and GT padded to max_gt with per-GT token positive maps and a
 validity mask (the reference's collate_fn/NestedTensor, util/misc.py:285-397,
 plus the host half of its criterion, groundingdino.py:535-547).
 
-`DataLoader` shuffles with a seed per epoch (the JAX package's order for one
-process), drops a short last batch when shuffling and pads it to the static
-batch size otherwise, and collates in the calling thread or, with
-num_threads > 0, in a small thread pool that keeps at most num_threads +
+`DataLoader` shuffles with a seed per epoch, takes its process's shard of
+the order (`shard_iter`, DistributedSampler semantics, the JAX package's
+order for each process), drops a short last batch when shuffling and pads it
+to the static batch size otherwise, and collates in the calling thread or,
+with num_threads > 0, in a small thread pool that keeps at most num_threads +
 PREFETCH batches in flight.
 """
 from __future__ import annotations
@@ -89,15 +90,38 @@ class Collator:
         }
 
 
+def shard_iter(n: int, process_index: int, process_count: int, shuffle: bool, seed: int,
+               drop_last: bool = True) -> List[int]:
+    """Process `process_index`'s indices of a dataset of n, DistributedSampler
+    semantics (the JAX package's data/loader.py:108-124): the order (a seeded
+    permutation, or 0..n-1) padded by wrapping to a multiple of
+    process_count, then strided.  `drop_last` is not used, as in the JAX
+    package."""
+    idx = np.arange(n)
+    if shuffle:
+        idx = np.random.RandomState(seed).permutation(n)
+    if n % process_count != 0:
+        pad = process_count - n % process_count
+        idx = np.concatenate([idx, idx[:pad]])
+    return idx[process_index::process_count].tolist()
+
+
 class DataLoader:
+    """Batches of one process's shard: `batch_size` is per process (the
+    reference's per-GPU batch size), and len() counts this process's
+    batches, which are the global batch's steps."""
+
     def __init__(self, dataset, collator: Collator, batch_size: int, shuffle: bool = False,
-                 seed: int = 0, num_threads: int = 0):
+                 seed: int = 0, num_threads: int = 0, process_index: int = 0,
+                 process_count: int = 1):
         self.dataset = dataset
         self.collator = collator
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.num_threads = num_threads
+        self.process_index = process_index
+        self.process_count = process_count
         self.drop_last = shuffle
         self.epoch = 0
 
@@ -105,16 +129,16 @@ class DataLoader:
         self.epoch = epoch
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = len(shard_iter(len(self.dataset), self.process_index, self.process_count, False, 0))
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _batches(self):
-        """[(dataset indices, n_real)]: full batches, then a last short batch
-        padded with its own last index (dropped under drop_last unless it is
-        the only one: a dataset smaller than one batch still trains)."""
-        n = len(self.dataset)
-        indices = (np.random.RandomState(self.seed + self.epoch).permutation(n) if self.shuffle
-                   else np.arange(n)).tolist()
+        """[(dataset indices, n_real)]: full batches of this process's shard,
+        then a last short batch padded with its own last index (dropped under
+        drop_last unless it is the only one: a dataset smaller than one batch
+        still trains)."""
+        indices = shard_iter(len(self.dataset), self.process_index, self.process_count,
+                             self.shuffle, self.seed + self.epoch)
         batches = []
         for i in range(0, len(indices), self.batch_size):
             b = indices[i : i + self.batch_size]

@@ -4,10 +4,12 @@ data/staging.py.
 
 The reference copies datasets from shared storage to node-local disk before
 training (rank 0 of a node copies or unzips, and the copied paths are
-recorded for cleanup at exit).  The port runs one process: `main
---stage_dir` stages the manifest's paths, trains or evaluates on the copies,
-and removes them at the end.  A marker file next to each copy makes a second
-run idempotent.
+recorded for cleanup at exit).  `main --stage_dir` stages the manifest's
+paths, trains or evaluates on the copies, and removes them at the end.  A
+marker file next to each copy makes a second run idempotent, and lets the
+processes of a node share one copy (`stage_datasets_for_node`: local rank 0
+copies, the others find the markers after a barrier, the JAX package's
+staging barrier in its main.py:171-175).
 
 Manifest entries keep their split/mode keys; `root`, `anno` and
 `label_map` paths are rewritten to the staged locations.  `.zip` sources
@@ -19,6 +21,8 @@ import os
 import shutil
 import zipfile
 from typing import Dict, List, Tuple
+
+from ..parallel import dist
 
 
 def _stage_one(src: str, stage_dir: str, copylist: List[str]) -> str:
@@ -94,6 +98,21 @@ def stage_datasets(
                 if e.get(key):
                     e[key] = _stage_one(e[key], stage_dir, copylist)
             staged[split].append(e)
+    return staged, copylist
+
+
+def stage_datasets_for_node(manifest: Dict, stage_dir: str,
+                            local_rank: int) -> Tuple[Dict, List[str]]:
+    """stage_datasets in every process of a node: local rank 0 copies, every
+    rank waits at a barrier, then the others stage too, finding each copy's
+    marker and copying nothing.  Returns the staged manifest and the copies
+    this process made (local rank 0's), for cleanup_staged once no rank
+    reads them."""
+    staged, copylist = (stage_datasets(manifest, stage_dir) if local_rank == 0
+                        else (None, []))
+    dist.barrier()
+    if local_rank != 0:
+        staged, _ = stage_datasets(manifest, stage_dir)
     return staged, copylist
 
 

@@ -9,8 +9,11 @@ engine_multi.py:544-547) is checked every step.
 
 evaluate_coco: forward -> PostProcess -> numpy COCO mAP, pipelined one deep
 as the JAX loop is: batch i+1's forward and device postprocess are launched
-before batch i's host half runs.  The multi-host merge of the JAX package's
-evaluator records is not ported (ROADMAP).
+before batch i's host half runs.  Under a process group each rank evaluates
+its shard of the val split, and the evaluator's records are gathered from
+every rank before they are accumulated (the JAX package's
+_merge_eval_across_hosts), so every rank holds the whole split's stats.
+Progress lines go to the logger, which writes the console on rank 0 only.
 """
 from __future__ import annotations
 
@@ -19,37 +22,15 @@ import logging
 import math
 import sys
 import time
-from collections import defaultdict
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from .parallel import dist
+from .utils.logger import MetricLogger, SmoothedValue
+
 LOGGED_KEYS = ("loss", "loss_ce", "loss_bbox", "loss_giou", "grad_norm")
-
-
-class SmoothedValue:
-    """Running window and global average of a scalar (reference
-    util/misc.py SmoothedValue)."""
-
-    def __init__(self, window: int = 20):
-        self.window: List[float] = []
-        self.size = window
-        self.total, self.count = 0.0, 0
-
-    def update(self, value: float) -> None:
-        self.window = (self.window + [value])[-self.size:]
-        self.total += value
-        self.count += 1
-
-    @property
-    def median(self) -> float:
-        d = sorted(self.window)
-        return d[len(d) // 2] if d else 0.0
-
-    @property
-    def global_avg(self) -> float:
-        return self.total / max(self.count, 1)
 
 
 def train_one_epoch(train_step, state, loader, epoch: int,
@@ -60,8 +41,7 @@ def train_one_epoch(train_step, state, loader, epoch: int,
     steps}).  `step_records`, when given, receives every step's metrics and
     its host seconds (the step ends in a host read, so these are wall times
     of whole steps)."""
-    meters: Dict[str, SmoothedValue] = defaultdict(SmoothedValue)
-    emit = logger.info if logger else print
+    meters = MetricLogger(logger=logger)
     # nonfinite_count is cumulative over the run: abort on growth since the
     # epoch began, not on its value
     base_nonfinite = state.nonfinite_count
@@ -77,23 +57,35 @@ def train_one_epoch(train_step, state, loader, epoch: int,
             step_records.append(dict(metrics, step_seconds=step_s, data_seconds=data_s))
         loss = metrics["loss"]
         if not math.isfinite(loss) or metrics["nonfinite_count"] > base_nonfinite:
-            (logger.error if logger else print)(
-                f"Loss is {loss} (nonfinite steps: {metrics['nonfinite_count']}), "
-                f"stopping training: {metrics}")
+            # the metrics are the global batch's: every rank stops here
+            meters.print(f"Loss is {loss} (nonfinite steps: {metrics['nonfinite_count']}), "
+                         f"stopping training: {metrics}")
             sys.exit(1)
-        for k in LOGGED_KEYS:
-            if k in metrics:
-                meters[k].update(metrics[k])
+        meters.update(**{k: metrics[k] for k in LOGGED_KEYS if k in metrics})
         if i % print_freq == 0 or i == total - 1:
-            shown = "  ".join(f"{k}: {m.median:.4f}" for k, m in meters.items())
-            emit(f"Epoch [{epoch}] [{i}/{total}] {shown}  step_t: {step_s:.4f}  "
-                 f"data_t: {data_s:.4f}")
+            meters.print(f"Epoch [{epoch}] [{i}/{total}] {meters}  step_t: {step_s:.4f}  "
+                         f"data_t: {data_s:.4f}")
         if max_steps is not None and i + 1 >= max_steps:
             break
         t_data = time.perf_counter()
-    emit(f"Epoch [{epoch}] done in "
-         f"{datetime.timedelta(seconds=int(time.perf_counter() - t_epoch))}")
-    return state, {k: m.global_avg for k, m in meters.items()}
+    meters.print(f"Epoch [{epoch}] done in "
+                 f"{datetime.timedelta(seconds=int(time.perf_counter() - t_epoch))}")
+    return state, {k: m.global_avg for k, m in meters.meters.items()}
+
+
+def merge_eval_records(evaluator) -> None:
+    """Every rank's evaluator records (img_ids, eval_imgs) gathered into each
+    rank's evaluator, in rank order (the JAX package's
+    _merge_eval_across_hosts over all_gather_object).  An image that
+    shard_iter's wrap evaluated twice keeps its first record, so every rank
+    accumulates the same records; accumulate() counts each id once."""
+    gathered = dist.all_gather_object((evaluator.img_ids, evaluator.eval_imgs))
+    evaluator.img_ids = [i for ids, _ in gathered for i in ids]
+    merged: Dict = {}
+    for _, recs in gathered:
+        for key, rec in recs.items():
+            merged.setdefault(key, rec)
+    evaluator.eval_imgs = merged
 
 
 def evaluate_coco(eval_step, params: Dict, loader, postprocessor, coco_index,
@@ -112,7 +104,8 @@ def evaluate_coco(eval_step, params: Dict, loader, postprocessor, coco_index,
     (`n_real`) is not scored; labels go back to the dataset's category ids
     unless the postprocessor emits COCO ids.  A step with a criterion logs
     its mean loss.  `use_native`: the evaluator's C++ matcher (False: its
-    numpy one)."""
+    numpy one).  Under a process group `loader` gives this rank's shard and
+    the stats are the merged records' (merge_eval_records)."""
     from .eval.coco_eval import CocoBboxEvaluator
     from .parallel.train_state import cast_floating
 
@@ -121,7 +114,7 @@ def evaluate_coco(eval_step, params: Dict, loader, postprocessor, coco_index,
             params = cast_floating(params, precast_dtype)
     evaluator = CocoBboxEvaluator(coco_index, use_native=use_native)
     loss_meter = SmoothedValue()
-    emit = logger.info if logger else print
+    emit = MetricLogger(logger=logger).print
     remap = not getattr(postprocessor, "emits_coco_ids", False)
 
     def finish(pending) -> None:
@@ -154,6 +147,8 @@ def evaluate_coco(eval_step, params: Dict, loader, postprocessor, coco_index,
             break
     if pending is not None:
         finish(pending)
+    if dist.world_size() > 1:
+        merge_eval_records(evaluator)
     evaluator.accumulate()
     stats = evaluator.summarize()
     emit(f"Eval done in {time.perf_counter() - t0:.1f} s"

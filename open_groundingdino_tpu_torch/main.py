@@ -5,7 +5,19 @@ main.py; reference main.py CLI surface).
         --output_dir OUT --vocab VOCAB [--eval] [--resume ckpt.pth] \\
         [--pretrain_model_path ckpt.pth] [--finetune_ignore KW ...] \\
         [--frozen_weights ckpt.pth] [--max_steps N] [--debug] [--stage_dir DIR] \\
-        [--device cuda] [--options key=value ...]
+        [--device cuda] [--dist_backend nccl|gloo] [--options key=value ...]
+
+    torchrun --nproc_per_node N -m open_groundingdino_tpu_torch.main ...
+
+On N processes (torchrun, or SLURM's SLURM_PROCID / SLURM_NTASKS /
+SLURM_LOCALID with MASTER_ADDR / MASTER_PORT set; parallel/dist.py) each rank
+runs on cuda:LOCAL_RANK (or the device --device names with an index) over
+NCCL (gloo for --device cpu, or as --dist_backend says), with batch_size
+images a rank: the global batch is N x batch_size, and a step gives the
+update one process would give on it.  Rank 0 alone writes config_cfg.py,
+the checkpoints, best/, best_ema/, log.txt and eval_stats.json; every rank
+writes info.txt and resumes from the same checkpoint.  Without those
+variables main runs one process, as it always has.
 
 MANIFEST is the JAX package's datasets.json shape; each split lists COCO or
 ODVG entries:
@@ -35,7 +47,6 @@ import argparse
 import json
 import logging
 import os
-import sys
 import time
 from typing import Dict
 
@@ -69,7 +80,11 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--frozen_weights", type=str, default=None,
                    help="checkpoint loaded as a pretrain whose parts (backbone, bert, "
                         "transformer, feat_map, input_proj) are then frozen")
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (on N processes cuda:LOCAL_RANK), cuda:I, or cpu")
+    p.add_argument("--dist_backend", default=None,
+                   help="torch.distributed backend on N processes (default: nccl for cuda, "
+                        "gloo for cpu; two ranks on one GPU need gloo)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--num_workers", type=int, default=2,
                    help="loader threads (0: collate in the calling thread)")
@@ -83,21 +98,6 @@ def get_args_parser() -> argparse.ArgumentParser:
                         "datasets/data_util.py preparing_dataset)")
     p.add_argument("--print_freq", type=int, default=50)
     return p
-
-
-def setup_logger(output_dir: str) -> logging.Logger:
-    logger = logging.getLogger("ogd_torch")
-    logger.setLevel(logging.INFO)
-    logger.propagate = False
-    for h in list(logger.handlers):
-        logger.removeHandler(h)
-        h.close()
-    fmt = logging.Formatter("[%(asctime)s] %(message)s", "%m/%d %H:%M:%S")
-    for h in (logging.StreamHandler(sys.stdout),
-              logging.FileHandler(os.path.join(output_dir, "info.txt"))):
-        h.setFormatter(fmt)
-        logger.addHandler(h)
-    return logger
 
 
 def build_datasets(manifest: Dict, split: str, args, tokenizer=None):
@@ -131,38 +131,50 @@ def main(cli) -> Dict:
     """Evaluate (--eval) or train.  Returns, after --eval, {"stats", "model",
     "run_eval"} (run_eval(params, max_steps, use_native) evaluates again);
     after training {"state", "train_step", "loader", "records" (the per-step
-    metrics and host seconds), "eval" (each epoch's eval stats), "best"}.
+    metrics and host seconds), "eval" (each epoch's eval stats), "best",
+    "run_eval" (None without a val split)}.  On N processes it joins the
+    group the environment describes, or the one its caller already joined.
     With --stage_dir the staged copies are gone when it returns."""
     from .config import SLConfig
     from .config.slconfig import parse_override_value
-    from .data.staging import cleanup_staged, stage_datasets
+    from .data.staging import cleanup_staged, stage_datasets_for_node
+    from .parallel import dist
     from .parallel.train_state import resolve_compute_dtype
+    from .utils.logger import setup_logger
 
-    args = SLConfig.fromfile(cli.config_file)
-    if cli.options:
-        args.merge_from_dict({kv.split("=", 1)[0]: parse_override_value(kv.split("=", 1)[1])
-                              for kv in cli.options})
-    for key in ("epochs", "batch_size", "num_queries", "max_text_len", "max_gt_boxes",
-                "save_checkpoint_interval"):
-        int(args.get(key))
-    for key in ("lr", "lr_backbone", "weight_decay", "clip_max_norm"):
-        float(args.get(key))
-    compute_dtype = resolve_compute_dtype(args.compute_dtype)
-    os.makedirs(cli.output_dir, exist_ok=True)
-    logger = setup_logger(cli.output_dir)
-    with open(cli.datasets) as f:
-        manifest = json.load(f)
+    # the process group first (the JAX package's jax.distributed.initialize);
+    # main leaves a group it made, and keeps one its caller made
+    own_group = not dist.is_initialized()
+    info = dist.init_distributed(cli.device, cli.dist_backend)
     copyfilelist = []
-    if cli.stage_dir:
-        manifest, copyfilelist = stage_datasets(manifest, cli.stage_dir)
-        logger.info(f"staged {len(copyfilelist)} dataset paths to {cli.stage_dir}")
     try:
-        return _run(cli, args, compute_dtype, manifest, logger)
+        args = SLConfig.fromfile(cli.config_file)
+        if cli.options:
+            args.merge_from_dict({kv.split("=", 1)[0]: parse_override_value(kv.split("=", 1)[1])
+                                  for kv in cli.options})
+        for key in ("epochs", "batch_size", "num_queries", "max_text_len", "max_gt_boxes",
+                    "save_checkpoint_interval"):
+            int(args.get(key))
+        for key in ("lr", "lr_backbone", "weight_decay", "clip_max_norm"):
+            float(args.get(key))
+        compute_dtype = resolve_compute_dtype(args.compute_dtype)
+        logger = setup_logger(cli.output_dir, process_index=info.rank)
+        with open(cli.datasets) as f:
+            manifest = json.load(f)
+        if cli.stage_dir:
+            manifest, copyfilelist = stage_datasets_for_node(manifest, cli.stage_dir,
+                                                             info.local_rank)
+            logger.info(f"staged {len(copyfilelist)} dataset paths to {cli.stage_dir}")
+        out = _run(cli, info, args, compute_dtype, manifest, logger)
+        dist.barrier()   # no rank removes staged copies another still reads
+        return out
     finally:
         cleanup_staged(copyfilelist)
+        if own_group:
+            dist.cleanup()
 
 
-def _run(cli, args, compute_dtype, manifest: Dict, logger: logging.Logger) -> Dict:
+def _run(cli, info, args, compute_dtype, manifest: Dict, logger: logging.Logger) -> Dict:
     import torch
 
     from .data.loader import Collator, DataLoader
@@ -174,6 +186,7 @@ def _run(cli, args, compute_dtype, manifest: Dict, logger: logging.Logger) -> Di
     from .models.postprocess import PostProcess
     from .models.resnet import ResNetConfig
     from .models.resnet import frozen_param_keys as resnet_frozen_keys
+    from .parallel import dist
     from .parallel.optim import make_lr_schedule, make_optimizer
     from .parallel.train_state import TrainState, make_eval_step, make_train_step
     from .utils import checkpoint as ckpt
@@ -184,16 +197,21 @@ def _run(cli, args, compute_dtype, manifest: Dict, logger: logging.Logger) -> Di
     if cli.debug:
         max_steps = DEBUG_STEPS if max_steps is None else min(max_steps, DEBUG_STEPS)
 
-    args.dump(os.path.join(cli.output_dir, "config_cfg.py"))
-    device = torch.device(cli.device)
+    main_process = info.rank == 0
+    if main_process:
+        args.dump(os.path.join(cli.output_dir, "config_cfg.py"))
+    device = info.device
     logger.info(f"device: {device}"
-                + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
+                + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
+                + (f", rank {info.rank} of {info.world_size} ({dist.tdist.get_backend()})"
+                   if dist.is_initialized() else ""))
     logger.info(f"config: {cli.config_file} output: {cli.output_dir}")
 
     tokenizer = build_tokenizer(cli.vocab)
     collator = Collator(tokenizer, args.image_buckets, int(args.max_text_len),
                         int(args.max_gt_boxes), u8_images=bool(args.get("u8_images", False)))
-    batch_size = int(args.batch_size)
+    batch_size = int(args.batch_size)   # a rank's: the global batch is world_size x this
+    shard = dict(process_index=info.rank, process_count=info.world_size)
 
     model = build_groundingdino(args, device="cpu")
     pretrain_path = cli.frozen_weights or cli.pretrain_model_path
@@ -206,6 +224,8 @@ def _run(cli, args, compute_dtype, manifest: Dict, logger: logging.Logger) -> Di
     else:
         init_weights_(model, cli.seed)
     model = model.to(device)
+    # every rank starts from the same weights (the seeded init, or the file)
+    dist.check_replicas(list(model.state_dict().values()), "the initial parameters")
 
     # ---- eval: the val split, when the manifest has one ----------------------
     run_eval = None
@@ -218,7 +238,7 @@ def _run(cli, args, compute_dtype, manifest: Dict, logger: logging.Logger) -> Di
             num_select=int(args.num_select), max_text_len=int(args.max_text_len),
             nms_iou_threshold=float(args.nms_iou_threshold))
         eval_loader = DataLoader(val_dataset, collator, batch_size=batch_size,
-                                 num_threads=cli.num_workers)
+                                 num_threads=cli.num_workers, **shard)
         # no criterion: its host matching would wait for every batch's
         # forward and undo the pipelining (the JAX package's runs on device)
         eval_step = make_eval_step(model, compute_dtype=compute_dtype)
@@ -233,8 +253,9 @@ def _run(cli, args, compute_dtype, manifest: Dict, logger: logging.Logger) -> Di
         if run_eval is None:
             raise SystemExit("--eval needs a 'val' split in the dataset manifest")
         stats = run_eval(dict(model.named_parameters()))
-        with open(os.path.join(cli.output_dir, "eval_stats.json"), "w") as f:
-            json.dump(stats, f, indent=2)
+        if main_process:
+            with open(os.path.join(cli.output_dir, "eval_stats.json"), "w") as f:
+                json.dump(stats, f, indent=2)
         return {"stats": stats, "model": model, "run_eval": run_eval}
 
     # ---- train ---------------------------------------------------------------
@@ -242,7 +263,7 @@ def _run(cli, args, compute_dtype, manifest: Dict, logger: logging.Logger) -> Di
                                  ema_decay=float(args.get("ema_decay", 0.9997)) if use_ema else 0.0)
     dataset = build_datasets(manifest, "train", args, tokenizer)
     loader = DataLoader(dataset, collator, batch_size=batch_size, shuffle=True,
-                        seed=cli.seed, num_threads=cli.num_workers)
+                        seed=cli.seed, num_threads=cli.num_workers, **shard)
     steps_per_epoch = max(len(loader), 1)
     frozen_keys = tuple(args.freeze_keywords or ())
     if isinstance(model.backbone_cfg, ResNetConfig):
@@ -270,8 +291,20 @@ def _run(cli, args, compute_dtype, manifest: Dict, logger: logging.Logger) -> Di
         start_epoch = int(restored["epoch"]) + 1
         logger.info(f"resumed from {resume_path} at epoch {start_epoch}")
 
+    on_disk = {}   # the (epoch, step) of the last state written, and its file
+
     def save(ckpt_dir: str, epoch: int, tag: int) -> None:
-        ckpt.save_checkpoint(ckpt_dir, tag, {**state.state_dict(), "epoch": epoch})
+        """Rank 0 writes; every rank waits for the file.  The state just
+        written (best/ of the epoch's checkpoint) is linked, not written
+        again."""
+        if main_process:
+            if on_disk.get("at") == (epoch, state.step):
+                ckpt.link_checkpoint(on_disk["path"], ckpt_dir, tag)
+            else:
+                on_disk["at"] = (epoch, state.step)
+                on_disk["path"] = ckpt.save_checkpoint(ckpt_dir, tag,
+                                                       {**state.state_dict(), "epoch": epoch})
+        dist.barrier()
 
     best = BestMetricHolder(use_ema=use_ema)
     records, evals = [], []
@@ -303,10 +336,11 @@ def _run(cli, args, compute_dtype, manifest: Dict, logger: logging.Logger) -> Di
         line = {"epoch": epoch, **stats, **eval_stats, **ema_stats}
         if run_eval is not None:
             line["best_AP"] = best.best_all
-        with open(os.path.join(cli.output_dir, "log.txt"), "a") as f:
-            f.write(json.dumps(line) + "\n")
+        if main_process:
+            with open(os.path.join(cli.output_dir, "log.txt"), "a") as f:
+                f.write(json.dumps(line) + "\n")
     return {"state": state, "train_step": train_step, "loader": loader, "records": records,
-            "eval": evals, "best": best.summary()}
+            "eval": evals, "best": best.summary(), "run_eval": run_eval}
 
 
 if __name__ == "__main__":

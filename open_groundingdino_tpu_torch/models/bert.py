@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import dist
 from .precision import LayerNorm, Linear, einsum
 
 _MASK_NEG = -1e9
@@ -58,7 +59,9 @@ def device_generator(generator: torch.Generator, device) -> torch.Generator:
 class TextDropout(nn.Module):
     """Inverted dropout (flax nn.Dropout): in training mode each element is
     kept with probability 1 - p and scaled by 1/(1 - p), else zeroed, its
-    mask drawn from `generator`; the identity in eval mode or at p = 0."""
+    mask drawn from `generator` (under a process group for the global batch,
+    this rank keeping its rows: dist.rand_local_rows); the identity in eval
+    mode or at p = 0."""
 
     def __init__(self, p: float):
         super().__init__()
@@ -67,7 +70,7 @@ class TextDropout(nn.Module):
     def forward(self, x, generator: Optional[torch.Generator] = None):
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.rand(x.shape, generator=generator, device=x.device) >= self.p
+        keep = dist.rand_local_rows(x.shape, generator, x.device) >= self.p
         return torch.where(keep, x / (1.0 - self.p), 0.0)
 
 

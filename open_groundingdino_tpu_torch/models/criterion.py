@@ -6,7 +6,10 @@ reference groundingdino.py:407-639).
 GT arrive padded to max_gt with a validity mask.  The costs of every output
 set are stacked and assigned in one host round trip (models/matcher.py).
 Normalizers follow the reference: boxes by the total GT count, the focal
-loss by the number of matched pairs of each set.
+loss by the number of matched pairs of each set, both counted over the
+global batch (summed over the ranks, reference groundingdino.py:570-576; the
+JAX package's one program sees the global batch).  So each rank's total is
+its share of the global loss, and the ranks' shares sum to it.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from ..parallel import dist
 from ..utils import box_ops
 from .matcher import compute_cost_matrix, hungarian_assign, minsum_assign
 
@@ -104,13 +108,18 @@ class SetCriterion:
         assign = minsum_assign if self.matcher_type == "SimpleMinsumMatcher" else hungarian_assign
         src_idx = assign(costs.reshape(S * B, Q, G), gt_valid.repeat(S, 1)).reshape(S, B, G)
 
-        num_boxes = gt_valid.sum().float().clamp(min=1.0)
+        # the GT count and each set's matched pairs, over the global batch
+        counts = torch.stack([gt_valid.sum()]
+                             + [((src_idx[s_i] < Q) & gt_valid).sum() for s_i in range(S)]).float()
+        dist.all_reduce_sum_([counts])
+        counts = counts.clamp(min=1.0)
+        num_boxes = counts[0]
         gt_boxes = gt_boxes.float()
         losses: Dict[str, torch.Tensor] = {}
         total = 0.0
         for s_i, (s, sfx) in enumerate(zip(sets, suffixes)):
             idx = src_idx[s_i]
-            num_pos = ((idx < Q) & gt_valid).sum().float().clamp(min=1.0)
+            num_pos = counts[1 + s_i]
             one_hot = build_one_hot_targets(idx, gt_pos_maps, gt_valid, Q)
             loss_ce = token_sigmoid_focal_loss(s["pred_logits"], one_hot, text_mask, num_pos,
                                                self.focal_alpha, self.focal_gamma)

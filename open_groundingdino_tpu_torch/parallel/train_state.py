@@ -15,6 +15,15 @@ master parameters in f32, and the clip, AdamW and the EMA stay f32.  No loss
 scaling: bf16 has f32's exponent range.  No torch.autocast: the model runs
 on what it is given, with the JAX package's casts and promotions
 (models/precision.py).  None or "float32" runs the f32 step unchanged.
+
+Under a process group (parallel/dist.py) each rank runs the step on its
+shard of the global batch: the criterion normalises by the global counts,
+and the gradients and losses are summed over the ranks (bucketed
+all_reduce) before the global norm, so the clip, AdamW, the EMA, the finite
+check and the logged metrics see the global batch's values on every rank,
+and the ranks' parameters stay equal.  No DistributedDataParallel: the bf16
+step runs the model on swapped-in cast parameters, which DDP's hooks do not
+see.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ import torch
 
 from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from ..utils.ema import ema_update
+from . import dist
 from .optim import GroupedAdamW, host_copy, safe_global_norm
 
 MODEL_INPUT_KEYS = (
@@ -188,10 +198,13 @@ def make_train_step(criterion, compute_dtype=None, ema_decay: float = 0.0
                 total, losses = criterion(out, t["gt_boxes"], t["gt_pos_maps"], t["gt_valid"])
                 total.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in opt.params]
-        norm = safe_global_norm(grads)
         names = list(losses)
-        host = torch.stack([losses[k].detach().float() for k in names]
-                           + [total.detach().float(), norm]).tolist()
+        reduced = torch.stack([losses[k].detach().float() for k in names]
+                              + [total.detach().float()])
+        # the global batch's gradients and losses: the ranks' shares summed
+        dist.all_reduce_sum_(grads + [reduced])
+        norm = safe_global_norm(grads)
+        host = torch.cat([reduced, norm[None]]).tolist()
         metrics = dict(zip(names, host[:-2]))
         metrics["loss"], metrics["grad_norm"] = host[-2], host[-1]
         if np.isfinite(metrics["loss"]) and np.isfinite(metrics["grad_norm"]):

@@ -1,7 +1,8 @@
 """The rest of the port's zero-shot eval surface against the JAX package, on
 the CPU: the C++ greedy COCO matcher (utils/native.py), dataset staging
 (data/staging.py), the strong augmentations (data/strong_aug.py), and
-`main --debug` / `--stage_dir` and tools/zero_shot_eval.py at nano size.
+`main --debug` / `--stage_dir` and tools/zero_shot_eval.py at nano size,
+and the small utilities utils/slio.py and utils/time_counter.py.
 
 The port's native matcher is held against its numpy matcher and against the
 JAX package's native matcher on seeded IoU matrices with crowd and ignored
@@ -13,7 +14,9 @@ as it does.  Each strong augmentation gives the JAX package's image, boxes
 and labels from equal seeds.  `main --debug --stage_dir` stops a 16-batch
 epoch and its 16-batch evaluation at 15 and removes its staged copies; the
 zero-shot tool on a nano .pth prints the 12 numbers that the port's `main
---eval` writes to eval_stats.json.
+--eval` writes to eval_stats.json.  slio writes and reads back what the JAX
+package's does, each reading the other's files, and raises on the same
+extensions; time_counter's meters average the same sections.
 """
 import json
 import os
@@ -31,13 +34,15 @@ from open_groundingdino_tpu.data import staging as jstaging
 from open_groundingdino_tpu.data import strong_aug as jaug
 from open_groundingdino_tpu.data.transforms import Sample as JSample
 from open_groundingdino_tpu.utils import native as jnative
+from open_groundingdino_tpu.utils import slio as jslio
+from open_groundingdino_tpu.utils import time_counter as jtime_counter
 from open_groundingdino_tpu_torch import main as port_main
 from open_groundingdino_tpu_torch.data import coco, staging
 from open_groundingdino_tpu_torch.data import strong_aug as aug
 from open_groundingdino_tpu_torch.data.transforms import Sample
 from open_groundingdino_tpu_torch.eval import coco_eval
 from open_groundingdino_tpu_torch.tools import zero_shot_eval
-from open_groundingdino_tpu_torch.utils import native
+from open_groundingdino_tpu_torch.utils import native, slio, time_counter
 
 THRS = np.linspace(0.5, 0.95, 10)
 needs_gxx = pytest.mark.skipif(shutil.which("g++") is None, reason="no g++ toolchain")
@@ -307,3 +312,36 @@ def test_zero_shot_eval_tool_equals_main_eval(ws, tmp_path, capsys):
     assert stats == want and len(stats) == 12
     with open(tmp_path / "zs" / "datasets_val.json") as f:
         assert json.load(f)["val"][0]["anno"] == os.path.abspath(val["anno"])
+
+
+@pytest.mark.parametrize("ext", [".json", ".yaml", ".pkl"])
+def test_slio_matches_jax(tmp_path, ext):
+    obj = {"a": [1, 2.5, "x"], "b": {"c": None, "d": True}}
+    ours, theirs = str(tmp_path / f"ours{ext}"), str(tmp_path / f"theirs{ext}")
+    slio.sldump(obj, ours)
+    jslio.sldump(obj, theirs)
+    assert open(ours, "rb").read() == open(theirs, "rb").read()
+    assert slio.slload(theirs) == jslio.slload(ours) == obj
+    for mod in (slio, jslio):
+        with pytest.raises(ValueError):
+            mod.sldump(obj, str(tmp_path / "x.txt"))
+        with pytest.raises(ValueError):
+            mod.slload(str(tmp_path / "x.txt"))
+
+
+def test_time_counter_matches_jax(monkeypatch):
+    """The same fake clock through both packages' TimeHolder sections."""
+    ticks = iter(np.cumsum([0.0, 1.5, 0.25, 2.0, 0.5, 3.0, 0.125, 0.75]).tolist() * 2)
+    monkeypatch.setattr(time_counter.time, "perf_counter", lambda: next(ticks))
+    summaries = []
+    for mod in (time_counter, jtime_counter):
+        holder = mod.TimeHolder()
+        for name in ("load", "step", "load", "step"):
+            with holder.section(name):
+                pass
+        meter = mod.AverageMeter()
+        meter.update(2.0, n=3)
+        meter.update(4.0)
+        summaries.append((holder.summary(), meter.avg))
+    assert summaries[0] == summaries[1]
+    assert summaries[0][1] == 2.5

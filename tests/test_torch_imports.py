@@ -31,7 +31,8 @@ def _imported_roots(path):
 
 
 # every module of the serving, training, sweep, banded, eval, backbone, PAVE,
-# serving-export and RoBERTa / zero-shot slices and the tools: the walk below
+# serving-export, RoBERTa / zero-shot and multi-process slices and the tools:
+# the walk below
 # must find them all,
 # and importing them must load nothing of JAX
 EXPECTED = (
@@ -47,6 +48,7 @@ EXPECTED = (
     "tools.inference_pave", "tools.get_metrics", "tools.inference_from_csv",
     "tools.inference_a_folder", "serving", "ops.library", "tools.export_model",
     "data.staging", "data.strong_aug", "utils.native", "tools.zero_shot_eval",
+    "parallel.dist", "utils.logger", "utils.slio", "utils.time_counter",
 )
 
 
