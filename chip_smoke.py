@@ -292,10 +292,31 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                the stats by more than 0.05; the seconds of each part, the step
                medians, the reduction's share of the step and the merged
                eval's images/s
-Each main training run saves one checkpoint, after its last epoch, and
-with a val split best/ (and best_ema/) as hard links to it when the epoch
-scores best (the card's machine takes at most 45 GiB of disk writes a
-run).
+ 34. ops and tools - every kernel as a differentiable op: torch.library
+               .opcheck of the ten ogd_torch ops on CUDA tensors at small
+               shapes in the kernels' geometry, f32 and bf16, the forwards on
+               operands that require a gradient (schema, fake, registered
+               autograd, AOT dispatch; K3 bf16's comparisons within 3e-2 of
+               its largest grad_value: its bf16 atomics part two runs); one
+               fusion block and one gather encoder layer at flagship width
+               (B = 2, the 800x1216 bucket's levels, f32) compiled fullgraph
+               through AOTAutograd: K2 and K1 in the forward graph, K3 and K4
+               in the backward, one launch each, the loss and every gradient
+               within phase 11's limits of eager, a compiled run with K3's
+               grad_locs negated outside them; then the tools once each at
+               flagship size: benchmark (B = 1 f32 forward; B = 4 bf16
+               --train, its FLOPs holding K1-K4's formulas), profile (B = 4
+               bf16, 2 iterations), serving_bench (the 800x1216 bucket),
+               eval_pipeline_bench (8 images, B = 4), matcher_microbench and
+               opt_microbench: the JAX tools' keys, every launch counted
+The CPU references of phases 11, 22, 28 and 29 (a B = 1 training step, a
+B = 4 eval forward, one forward of each backbone, the ResNet-50 step) run
+one after the other on a thread beside the card's phases, which join each
+result where they compare.  Each main training run asks for one
+checkpoint, after its last epoch, and with a val split best/ (and
+best_ema/) as hard links to it when the epoch scores best; train()'s runs
+do not write theirs (no phase reads them), phase 23's and 33's do (the
+card's machine takes at most 45 GiB of disk writes a run).
 Every training phase runs with the config's use_checkpoint (True): Swin
 recomputes each block in the backward, as the JAX package
 does.  A [time] line after each phase gives its seconds.
@@ -304,8 +325,9 @@ K1's and K2's rows hold phase 30 under launches_by_path "pave" and per_shape
 "pave B=16 ...", K1's, K2's, K5's, K6's and K7's phase 31 under
 launches_by_path "export", K1's-K4's rows, f32 and bf16, phase 32 under
 "roberta" (its requests and training steps) and "zero_shot", and K1's-K4's
-f32 rows phase 33 under "dist" (rank 0 of the gloo pair) and "dist-nccl")
-and, last, {"ok": true, "device": {...}}.
+f32 rows phase 33 under "dist" (rank 0 of the gloo pair) and "dist-nccl",
+and phase 34's compiled layers ("compiled", K1-K4 f32) and tools ("tools
+<name>")) and, last, {"ok": true, "device": {...}}.
 
 Exits nonzero when no CUDA device is present.  Scratch files (checkpoint,
 vocab, the ODVG set and its COCO val splits, the runs' outputs and
@@ -315,6 +337,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+from concurrent import futures
 import json
 import math
 import os
@@ -322,7 +345,10 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
+
+from open_groundingdino_tpu_torch.utils import profiling
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
@@ -415,44 +441,9 @@ def json_safe(x):
 
 
 def kernel_device_ms(fn, iters: int, match, per_call: int = 0) -> float:
-    """torch.profiler's mean device time a launch of the kernels whose
-    names hold `match` (a string, or a tuple of them: any), over `iters`
-    calls of fn that each launch one: the kernel alone, without the host's
-    launch cost, which sets event_ms's time where a kernel takes tens of
-    microseconds (`per_call`: the number of matching launches a call makes,
-    for a call that launches several; then the device time of all of them a
-    call).  The calls run twice under the profiler, and only the second
-    pass is recorded (the schedule's warm-up step): launches right after the
-    profiler starts can go unrecorded.  A profile that records fewer than
-    the iters x per_call launches made is taken again, twice at most; the
-    one that recorded most gives the mean over the launches it recorded (a
-    line says when that is fewer than were made), NaN where none was."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    fn()
-    torch.cuda.synchronize()
-    matches = (match,) if isinstance(match, str) else match
-    made = iters * max(per_call, 1)
-    count, total = 0, 0.0
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-            for _ in range(2):
-                for _ in range(iters):
-                    fn()
-                torch.cuda.synchronize()
-                prof.step()
-        events = [(ms, n) for name, (ms, n) in device_kernels(prof).items()
-                  if any(m in name for m in matches)]
-        seen = sum(n for _, n in events)
-        if seen > count:
-            count, total = seen, sum(ms for ms, _ in events)
-        if count >= made:
-            break
-    if count != made:
-        log("profiler", f"{count} of {made} launches of {matches} recorded")
-    return total / count * max(per_call, 1) if count else float("nan")
+    """profiling.kernel_device_ms, its lost launches logged."""
+    return profiling.kernel_device_ms(fn, iters, match, per_call,
+                                      note=lambda msg: log("profiler", msg))
 
 
 def padded_tokens(shapes, valid, device):
@@ -1799,11 +1790,15 @@ def train(cfg: str, work: str, files, device: str, msda_keys=None, epochs: int =
     smoke's seeded checkpoint (random biases), with the MSDA config keys
     `msda_keys` given as --options; with `val`, the 8 images also as a COCO
     val split, which main evaluates after each epoch; main saves one
-    checkpoint, after the last epoch; counts the kernels' launches of the
+    checkpoint, after the last epoch, which is not written (no phase reads
+    a train() run's checkpoint; each weighs 2.6-5 GB: phase 23 writes and
+    reads them): its state dict is made and its path handed back, the save
+    asked for once with main's keys; counts the kernels' launches of the
     run."""
     import torch
 
     from open_groundingdino_tpu_torch import main as train_main
+    from open_groundingdino_tpu_torch.utils import checkpoint as ckpt_io
 
     manifest = write_odvg(work)
     if val:
@@ -1831,8 +1826,21 @@ def train(cfg: str, work: str, files, device: str, msda_keys=None, epochs: int =
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    saves = []
+
+    def unwritten(ckpt_dir, epoch, payload=None):
+        saves.append((os.path.relpath(ckpt_dir, out_dir), epoch,
+                      sorted(payload) if payload is not None else None))
+        return ckpt_io.checkpoint_path(ckpt_dir, epoch)
+
+    kept = ckpt_io.save_checkpoint, ckpt_io.link_checkpoint
+    ckpt_io.save_checkpoint = lambda ckpt_dir, epoch, payload: unwritten(ckpt_dir, epoch, payload)
+    ckpt_io.link_checkpoint = lambda src, ckpt_dir, epoch: unwritten(ckpt_dir, epoch)
     t0 = time.perf_counter()
-    run = train_main.main(cli)
+    try:
+        run = train_main.main(cli)
+    finally:
+        ckpt_io.save_checkpoint, ckpt_io.link_checkpoint = kept
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
@@ -1859,6 +1867,11 @@ def train(cfg: str, work: str, files, device: str, msda_keys=None, epochs: int =
         raise AssertionError(f"expected {steps} finite losses, got {losses}")
     if epochs_logged != epochs:
         raise AssertionError(f"log.txt has {epochs_logged} lines, expected {epochs}")
+    written = [(d, e, keys) for d, e, keys in saves if keys is not None]
+    if (len(written) != 1 or written[0][:2] != (".", epochs - 1)
+            or not {"model", "optimizer", "epoch"} <= set(written[0][2])):
+        raise AssertionError(f"main asked for the saves {saves}, expected one of its state at "
+                             f"epoch {epochs - 1}")
     want = {k: v * steps
             for k, v in train_launches_per_step(msda_keys, dtype == "bfloat16").items()}
     if val:   # each epoch's eval pass over the 8 images, B = 4
@@ -1873,133 +1886,33 @@ def train(cfg: str, work: str, files, device: str, msda_keys=None, epochs: int =
                 median_step_s=median_s, peak_bytes=peak, wall_s=wall)
 
 
-# the bf16 instances of the MSDA kernels by name, demangled or not (each
-# kernel's f32 and bf16 entries are one template)
-BF16_MANGLED = "I13__nv_bfloat16"
-
-
-def bf16_names(kernel: str) -> tuple:
-    return (f"{kernel}<__nv_bfloat16", f"{kernel}{BF16_MANGLED}")
-
-
-K1_BF16_NAMES = bf16_names("msda_fwd_kernel")
-K3_BF16_NAMES = bf16_names("msda_bwd_kernel")
-SWEEP_BF16_NAMES = {"K6": bf16_names("rowtap_fwd_kernel"), "K7": bf16_names("allq_fwd_kernel"),
-                    "K9": bf16_names("corner_bwd_kernel"), "K10": bf16_names("rowtap_bwd_kernel"),
-                    "K5": bf16_names("banded_fwd_kernel"), "K8": bf16_names("corner_fwd_kernel")}
-# the port's kernels by the names torch.profiler shows, first match wins
-# (K4's bwd_kernel after the MSDA backwards, whose names hold it too)
-KERNEL_GROUPS = (("K1 msda_fwd bf16", K1_BF16_NAMES),
-                 ("K3 msda_bwd bf16", K3_BF16_NAMES),
-                 ("K2 fusion_fwd bf16", ("attend_bf16_kernel", "combine_bf16_kernel")),
-                 ("K4 fusion_bwd bf16", ("bwd_bf16_kernel", "sum_splits_bf16_kernel")),
-                 ("K6 rowtap_fwd bf16", SWEEP_BF16_NAMES["K6"]),
-                 ("K7 allq_fwd bf16", SWEEP_BF16_NAMES["K7"]),
-                 ("K9 corner_bwd bf16", SWEEP_BF16_NAMES["K9"]),
-                 ("K10 rowtap_bwd bf16", SWEEP_BF16_NAMES["K10"]),
-                 ("K5 banded_fwd bf16", SWEEP_BF16_NAMES["K5"]),
-                 ("K8 corner_fwd bf16", SWEEP_BF16_NAMES["K8"]),
-                 ("K5 banded_fwd", ("banded_fwd_kernel",)),
-                 ("K6 rowtap_fwd", ("rowtap_fwd_kernel",)),
-                 ("K7 allq_fwd", ("allq_fwd_kernel",)),
-                 ("K8 corner_fwd", ("corner_fwd_kernel",)),
-                 ("K9 corner_bwd", ("corner_bwd_kernel",)),
-                 ("K10 rowtap_bwd", ("rowtap_bwd_kernel",)),
-                 ("K1 msda_fwd", ("msda_fwd_kernel",)),
-                 ("K2 fusion_fwd", ("attend_kernel", "combine_kernel")),
-                 ("K3 msda_bwd", ("msda_bwd_kernel",)),
-                 ("K4 fusion_bwd", ("bwd_kernel", "sum_splits_kernel")))
-
-
-def device_kernels(prof) -> dict:
-    """{name: [device ms, launches]} of a finished profile's device events
-    (kernels, copies, sets), summed by name in one pass over the profiler's
-    raw kineto events.  prof.key_averages() gives the same numbers (phase 7
-    checks that once) but first builds an event tree of every host op: 10-24
-    s a training step."""
-    from torch.autograd import DeviceType
-
-    out = {}
-    for e in prof.profiler.kineto_results.events():
-        # the schedule's step annotation spans the step on the device too
-        if e.device_type() != DeviceType.CUDA or e.name().startswith("ProfilerStep"):
-            continue
-        ns = e.duration_ns() if hasattr(e, "duration_ns") else e.duration_us() * 1e3
-        if ns > 0:
-            rec = out.setdefault(e.name(), [0.0, 0])
-            rec[0] += ns / 1e6
-            rec[1] += 1
-    return out
+BF16_MANGLED = profiling.BF16_MANGLED
+K1_BF16_NAMES, K3_BF16_NAMES = profiling.K1_BF16_NAMES, profiling.K3_BF16_NAMES
+SWEEP_BF16_NAMES = profiling.SWEEP_BF16_NAMES
+device_kernels = profiling.device_kernels
+device_time_by_group = profiling.device_time_by_group
+host_spans_ms = profiling.host_spans_ms
 
 
 def check_device_kernels(prof) -> dict:
-    """device_kernels against key_averages() on one profile: the same
-    launches and device ms by kernel (a name's sum to 1e-6 relative, both
-    readers of the same kineto durations); logs both readers' seconds."""
-    from torch.autograd import DeviceType
-
-    t0 = time.perf_counter()
-    raw = device_kernels(prof)
-    raw_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ref = {}
-    for e in prof.key_averages():
-        if (e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-                and not e.key.startswith("ProfilerStep")):
-            ref[e.key] = [e.self_device_time_total / 1e3, e.count]
-    ref_s = time.perf_counter() - t0
-    by_launch = lambda d: sorted((n, round(ms, 6)) for ms, n in d.values())
-    total = lambda d: sum(ms for ms, _ in d.values())
-    worst = max((abs(a[0] - b[0]) / max(b[0], 1e-9)
-                 for a, b in zip(sorted(raw.values()), sorted(ref.values()))), default=0.0)
-    log("profiler", f"raw kineto events: {len(raw)} kernels, {total(raw):.3f} ms in "
-                    f"{raw_s:.2f} s; key_averages(): {len(ref)} kernels, {total(ref):.3f} ms in "
-                    f"{ref_s:.2f} s; worst kernel's relative difference {worst:.1e}")
-    if (len(raw) != len(ref) or [n for _, n in by_launch(raw)] != [n for _, n in by_launch(ref)]
-            or worst > 1e-6):
-        raise AssertionError("the raw kineto events and key_averages() read different device "
-                             "times")
-    return {"raw_s": raw_s, "key_averages_s": ref_s, "kernels": len(raw), "worst_rel": worst}
-
-
-def device_time_by_group(prof):
-    """A profile's device kernels, largest first, as (name, ms, launches),
-    and their device ms and launches summed by KERNEL_GROUPS, matrix
-    products and the rest."""
-    kernels = [(name, ms, n) for name, (ms, n) in device_kernels(prof).items()]
-    kernels.sort(key=lambda k: -k[1])
-    names = [g for g, _ in KERNEL_GROUPS] + ["matmul", "other"]
-    groups, launches = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
-    for key, ms, n in kernels:
-        group = next((g for g, frags in KERNEL_GROUPS if any(f in key for f in frags)), None)
-        if group is None:
-            matmul = any(t in key.lower() for t in ("gemm", "xmma", "cutlass", "matmul"))
-            group = "matmul" if matmul else "other"
-        groups[group] += ms
-        launches[group] += n
-    return kernels, groups, launches
+    """profiling.check_device_kernels, logged: the raw kineto events against
+    key_averages() on one profile, and both readers' seconds."""
+    r = profiling.check_device_kernels(prof)
+    log("profiler", f"raw kineto events: {r['kernels']} kernels, {r['raw_ms']:.3f} ms in "
+                    f"{r['raw_s']:.2f} s; key_averages(): {r['ref_kernels']} kernels, "
+                    f"{r['ref_ms']:.3f} ms in {r['key_averages_s']:.2f} s; worst kernel's "
+                    f"relative difference {r['worst_rel']:.1e}")
+    return r
 
 
 def profile_train_step(run, top: int = 8, tag: str = "train-profile") -> dict:
     """torch.profiler over one more training step (after one under its
     warm-up): device time and launches by kernel group against the step's
     wall time (profiler on)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
-
     batches = iter(run["loader"])
     batch = next(batches)
     batches.close()   # stops the loader's threads
-    # two steps, the second recorded (launches right after the profiler
-    # starts can go unrecorded)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        for _ in range(2):
-            t0 = time.perf_counter()
-            run["train_step"](run["state"], batch)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-            prof.step()
+    prof, wall_ms = profiling.profile_calls(lambda: run["train_step"](run["state"], batch))
     t0 = time.perf_counter()
     kernels, groups, launches = device_time_by_group(prof)
     digest_s = time.perf_counter() - t0
@@ -2162,9 +2075,10 @@ def planted_faults(step, gaps, within, ref, fed, faults, tag, **step_kw) -> dict
     return planted
 
 
-def check_train_parity(harness) -> dict:
+def check_train_parity(harness, cpu_step) -> dict:
     """One training step on the card and the same step on the CPU (plain
-    versions of the kernels).  Loss within PARITY_LOSS_RTOL, each top-level
+    versions of the kernels; `cpu_step` the future of harness's step("cpu"),
+    run on a thread beside the earlier phases).  Loss within PARITY_LOSS_RTOL, each top-level
     module's gradient norm within PARITY_GRAD_RTOL, and the gradient of each
     parameter that K3 or K4 feeds within PARITY_LEAF_RTOL.  Then the card's
     step again with K3's grad_locs and, apart, K4's gvl negated: each planted
@@ -2173,7 +2087,10 @@ def check_train_parity(harness) -> dict:
     from open_groundingdino_tpu_torch.ops import fusion, msda
 
     step, gaps, within = harness
-    card, cpu = step("cuda"), step("cpu")
+    card = step("cuda")
+    t0 = time.perf_counter()
+    cpu = cpu_step.result()
+    waited = time.perf_counter() - t0
     gap = gaps(card, cpu, KERNEL_FED)
     loss_rel, norm_rel, leaf_rel = gap
     worst = sorted(leaf_rel.items(), key=lambda kv: -kv[1])[:3]
@@ -2184,7 +2101,8 @@ def check_train_parity(harness) -> dict:
                         f"{PARITY_GRAD_RTOL}); {len(leaf_rel)} K3/K4-fed leaves "
                         f"||dg||/||g|| max {max(leaf_rel.values()):.2e} (limit "
                         f"{PARITY_LEAF_RTOL}), worst {[(n, f'{v:.2e}') for n, v in worst]}; "
-                        f"step s card {card['seconds']:.1f}, CPU {cpu['seconds']:.1f}")
+                        f"step s card {card['seconds']:.1f}, CPU {cpu['seconds']:.1f} (on its "
+                        f"own thread; {waited:.1f} s waited for it here)")
     if len(card["grads"]) != len(cpu["grads"]) or not within(gap):
         raise AssertionError("the card's training step disagrees with the CPU's")
     planted = planted_faults(step, gaps, within, cpu, KERNEL_FED,
@@ -2241,22 +2159,13 @@ def profile_request(im, image, caption, top: int = 8, tag: str = "profile",
     time (profiler on).  With `check_reader`, the raw-event reader is held
     against key_averages() on this profile (check_device_kernels)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
 
     from open_groundingdino_tpu_torch import inference
 
     inference.predict(im, image, caption, **predict_kw)
     torch.cuda.synchronize()
-    # two requests, the second recorded (launches right after the profiler
-    # starts can go unrecorded)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        for _ in range(2):
-            t0 = time.perf_counter()
-            inference.predict(im, image, caption, **predict_kw)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-            prof.step()
+    prof, wall_ms = profiling.profile_calls(
+        lambda: inference.predict(im, image, caption, **predict_kw))
     reader = check_device_kernels(prof) if check_reader else None
     kernels, groups, launches = device_time_by_group(prof)
     busy = sum(groups.values())
@@ -2897,28 +2806,19 @@ def coco_ap(index, batch, results, contiguous_to_catid) -> float:
     return evaluator.summarize()["AP"]
 
 
-def check_eval_parity(cfg: str, work: str, files, device: str = "cuda") -> dict:
-    """Phase 22 (b): one B = 4 eval batch (EVAL_PARITY_IMAGES, the 800x1216
-    bucket) through make_eval_step + PostProcess in f32 on the card and on
-    the CPU (plain versions): pred_logits / pred_boxes flip-aware with phase
-    6's limits; the CPU's detections, after NMS, give a pseudo ground truth
-    (PSEUDO_GT_PER_IMAGE an image on average) on which the CPU scores AP 1.0, the card
-    within EVAL_AP_TOL of it, and the card with K1's output negated more
-    than EVAL_FAULT_DROP lower; the bf16 eval's AP is recorded.  Returns the
-    AP values and the manifest of the pseudo ground truth's val split."""
-    import copy
-
-    import torch
-
+def start_eval_parity(cfg: str, work: str, files, cpu_jobs) -> dict:
+    """Phase 22 (b)'s operands and its CPU half, started on `cpu_jobs`: one
+    B = 4 eval batch (EVAL_PARITY_IMAGES, the 800x1216 bucket), the
+    checkpoint's model on the CPU, and the future of its f32 eval forward +
+    PostProcess (plain versions of the kernels)."""
     from open_groundingdino_tpu_torch.config import SLConfig
-    from open_groundingdino_tpu_torch.data.coco import CocoDetection, CocoIndex
+    from open_groundingdino_tpu_torch.data.coco import CocoDetection
     from open_groundingdino_tpu_torch.data.loader import Collator
     from open_groundingdino_tpu_torch.data.tokenization import build_tokenizer
     from open_groundingdino_tpu_torch.data.transforms import EvalTransform
     from open_groundingdino_tpu_torch.inference import load_reference_state_dict
     from open_groundingdino_tpu_torch.models.groundingdino import build_groundingdino
     from open_groundingdino_tpu_torch.models.postprocess import PostProcess
-    from open_groundingdino_tpu_torch.ops import msda
 
     _, ckpt, vocab = files
     args = SLConfig.fromfile(cfg)
@@ -2936,15 +2836,41 @@ def check_eval_parity(cfg: str, work: str, files, device: str = "cuda") -> dict:
                        max_text_len=int(args.max_text_len), nms_iou_threshold=PSEUDO_GT_NMS)
     cpu_model = build_groundingdino(args, device="cpu")
     load_reference_state_dict(cpu_model, ckpt)
+
+    def cpu_half():
+        t0 = time.perf_counter()
+        out, res = eval_detections(cpu_model, batch, post, None)
+        return out, res, time.perf_counter() - t0
+
+    return dict(ds=ds, batch=batch, post=post, model=cpu_model, work=work,
+                cpu=cpu_jobs.submit(cpu_half))
+
+
+def check_eval_parity(ref: dict, device: str = "cuda") -> dict:
+    """Phase 22 (b): the batch of start_eval_parity (`ref`) through
+    make_eval_step + PostProcess in f32 on the card, against its CPU half:
+    pred_logits / pred_boxes flip-aware with phase 6's limits; the CPU's
+    detections, after NMS, give a pseudo ground truth (PSEUDO_GT_PER_IMAGE
+    an image on average) on which the CPU scores AP 1.0, the card within
+    EVAL_AP_TOL of it, and the card with K1's output negated more than
+    EVAL_FAULT_DROP lower; the bf16 eval's AP is recorded.  Returns the AP
+    values and the manifest of the pseudo ground truth's val split."""
+    import copy
+
+    import torch
+
+    from open_groundingdino_tpu_torch.data.coco import CocoIndex
+    from open_groundingdino_tpu_torch.ops import msda
+
+    ds, batch, post, work = ref["ds"], ref["batch"], ref["post"], ref["work"]
     t0 = time.perf_counter()
-    cpu_out, cpu_res = eval_detections(cpu_model, batch, post, None)
-    cpu_s = time.perf_counter() - t0
-    card = copy.deepcopy(cpu_model).to(device)
-    del cpu_model
+    cpu_out, cpu_res, cpu_s = ref["cpu"].result()
+    waited = time.perf_counter() - t0
+    card = copy.deepcopy(ref.pop("model")).to(device)
     card_out, card_res = eval_detections(card, batch, post, None)
     compare_forward(card_out, cpu_out, "eval-parity",
                     f"B={len(EVAL_PARITY_IMAGES)} valid {batch['image_sizes'].tolist()}, f32; "
-                    f"CPU {cpu_s:.1f} s")
+                    f"CPU {cpu_s:.1f} s on its own thread, {waited:.1f} s waited for it here")
 
     pseudo = pseudo_ground_truth(cpu_res, batch["image_ids"].tolist(), ds.contiguous_to_catid)
     n_gt = sum(map(len, pseudo.values()))
@@ -3216,7 +3142,7 @@ def train_bf16_banded(cfg, work, train_files, harness, banded_f32_card,
     if not within(gap):
         raise AssertionError("the bf16 banded_point step disagrees with the f32 banded_point step")
     planted = planted_faults(step, gaps, within, banded_f32_card, MSDA_FED,
-                             (("K5 bf16 output negated", mb, "banded_fwd", None),),
+                             (("K5 bf16 output negated", mb, "_banded_fwd_cuda", None),),
                              "bf16-banded-parity", msda=banded, compute_dtype="bfloat16")
     run["parity"] = dict(loss_rel=loss_rel, leaf_rel_max=max(leaf_rel.values()),
                          vs_gather_bf16=dict(loss_rel=to_gather[0],
@@ -3294,47 +3220,63 @@ class KernelOperands:
         self.modules[0]._msda_fwd_cuda, self.modules[1]._fusion_fwd_cuda = self.kernels
 
 
+# the thread's active TwoStageSelection: the CPU references run on a thread
+# of their own beside the card's phases, each with its own selection
+_SELECTION = threading.local()
+
+
 class TwoStageSelection:
     """Within the block, the model's two-stage query selection
     (models/transformer.py two_stage_select: the top num_queries encoder
     tokens by score, in score order) is recorded (`order`, `scores`), or,
-    given an `order`, takes that order's tokens instead.  At random weights
-    two tokens' scores can tie to within the card's and the CPU's rounding
-    and swap places in the order (or at the cut).  Each query index has its
-    own learned content embedding (tgt_embed), so a swap changes both
-    queries, and the decoder's self-attention spreads it over every query:
-    the forwards are compared on one selection."""
+    given an `order`, takes that order's tokens instead, on this thread
+    only (one hook, installed once, hands each thread's calls to that
+    thread's selection).  At random weights two tokens' scores can tie to
+    within the card's and the CPU's rounding and swap places in the order
+    (or at the cut).  Each query index has its own learned content embedding
+    (tgt_embed), so a swap changes both queries, and the decoder's
+    self-attention spreads it over every query: the forwards are compared on
+    one selection."""
 
     def __init__(self, order=None):
         self.order, self.scores = order, None
 
     def __enter__(self):
-        import torch
-
         from open_groundingdino_tpu_torch.models import transformer
 
-        self.module, self.select = transformer, transformer.two_stage_select
+        if not hasattr(transformer.two_stage_select, "original"):
+            original = transformer.two_stage_select
 
-        def select(output_memory, output_proposals, enc_delta, enc_logits, num_queries):
-            if self.order is not None:   # rank the given order first, in that order
-                rank = torch.full(enc_logits.shape[:2], float(-enc_logits.shape[1]),
-                                  device=enc_logits.device)
-                order = self.order.to(enc_logits.device)
-                rank.scatter_(1, order, -torch.arange(order.shape[1], device=rank.device,
-                                                      dtype=rank.dtype).expand_as(order))
-                enc_logits = rank[..., None]
-            else:
-                self.scores = enc_logits.max(-1).values.float().cpu()
-                self.order = torch.sort(self.scores, dim=1, descending=True,
-                                        stable=True).indices[:, :num_queries]
-            return self.select(output_memory, output_proposals, enc_delta, enc_logits,
-                               num_queries)
+            def hook(*args):
+                active = getattr(_SELECTION, "active", None)
+                return active.select(*args) if active is not None else original(*args)
 
-        transformer.two_stage_select = select
+            hook.original = original
+            transformer.two_stage_select = hook
+        self.original = transformer.two_stage_select.original
+        self.outer = getattr(_SELECTION, "active", None)
+        _SELECTION.active = self
         return self
 
+    def select(self, output_memory, output_proposals, enc_delta, enc_logits, num_queries):
+        import torch
+
+        if self.order is not None:   # rank the given order first, in that order
+            rank = torch.full(enc_logits.shape[:2], float(-enc_logits.shape[1]),
+                              device=enc_logits.device)
+            order = self.order.to(enc_logits.device)
+            rank.scatter_(1, order, -torch.arange(order.shape[1], device=rank.device,
+                                                  dtype=rank.dtype).expand_as(order))
+            enc_logits = rank[..., None]
+        else:
+            self.scores = enc_logits.max(-1).values.float().cpu()
+            self.order = torch.sort(self.scores, dim=1, descending=True,
+                                    stable=True).indices[:, :num_queries]
+        return self.original(output_memory, output_proposals, enc_delta, enc_logits,
+                             num_queries)
+
     def __exit__(self, *exc):
-        self.module.two_stage_select = self.select
+        _SELECTION.active = self.outer
 
     def compare(self, other) -> dict:
         """How many query indices hold another token in the other selection,
@@ -3391,8 +3333,22 @@ def check_msda_on(operands, tag: str) -> dict:
     return res
 
 
+def backbone_reference(files) -> tuple:
+    """Phase 28's CPU half for one model: the checkpoint on the CPU, one
+    forward of the first image and caption with its two-stage selection
+    recorded -> (outputs, TwoStageSelection, seconds)."""
+    from open_groundingdino_tpu_torch import inference
+
+    t0 = time.perf_counter()
+    cpu_im = inference.load_model(*files, device="cpu")
+    h, w = IMAGE_SIZES[0]
+    with TwoStageSelection() as cpu_sel:
+        cpu = forward_outputs(cpu_im, synthetic_image(h, w, 0), CAPTIONS[0])
+    return cpu, cpu_sel, time.perf_counter() - t0
+
+
 def serve_backbone(files, tag: str, plant_k1: bool = False, device: str = "cuda",
-                   annotate_in: str = None) -> dict:
+                   annotate_in: str = None, cpu_ref=None) -> dict:
     """Phase 28 for one model: Model(...) on the card, a warm-up and one
     request on each of the three IMAGE_SIZES through predict_with_classes
     (12 K1 + 6 K2 f32 launches a request, no other), median latency and peak
@@ -3401,7 +3357,9 @@ def serve_backbone(files, tag: str, plant_k1: bool = False, device: str = "cuda"
     phase 6's limits; with `plant_k1` the card's forward with K1's output
     negated must fail that comparison.  A dilated ResNet's K1 and K3 are held
     against their plain versions on its encoder operands.  With
-    `annotate_in`, annotate_request on the model into that directory."""
+    `annotate_in`, annotate_request on the model into that directory.
+    `cpu_ref`: the future of backbone_reference(files), run on a thread
+    beside the earlier phases (None: run here)."""
     import numpy as np
     import torch
 
@@ -3448,11 +3406,8 @@ def serve_backbone(files, tag: str, plant_k1: bool = False, device: str = "cuda"
                detections=found)
 
     t0 = time.perf_counter()
-    cpu_im = inference.load_model(cfg, ckpt, vocab, device="cpu")
-    with TwoStageSelection() as cpu_sel:
-        cpu = forward_outputs(cpu_im, pil[0], CAPTIONS[0])
-    del cpu_im
-    cpu_s = time.perf_counter() - t0
+    cpu, cpu_sel, cpu_s = cpu_ref.result() if cpu_ref is not None else backbone_reference(files)
+    waited = time.perf_counter() - t0
     with TwoStageSelection() as card_sel:
         free = forward_outputs(model.im, pil[0], CAPTIONS[0])
     res["selection"] = cpu_sel.compare(card_sel)
@@ -3472,7 +3427,8 @@ def serve_backbone(files, tag: str, plant_k1: bool = False, device: str = "cuda"
         card = forward_outputs(model.im, pil[0], CAPTIONS[0])
     res["forward"] = compare_forward(card, cpu, f"{tag}-forward",
                                      f"with the CPU's two-stage selection; CPU forward "
-                                     f"{cpu_s:.1f} s")
+                                     f"{cpu_s:.1f} s on its own thread, {waited:.1f} s waited "
+                                     f"for it here")
     if plant_k1:
         fwd = msda._msda_fwd_cuda
         msda._msda_fwd_cuda = negated_output(fwd)
@@ -3519,30 +3475,44 @@ def annotate_request(im, work: str) -> str:
     return path
 
 
-def serve_backbones(work: str, files: dict, device: str = "cuda") -> dict:
+def serve_backbones(work: str, files: dict, device: str = "cuda", cpu_refs=None) -> dict:
     """Phase 28: serve_backbone for each of BACKBONES (K1 negated must fail
-    Swin-B's comparison), and annotate on Swin-B's predict."""
+    Swin-B's comparison), and annotate on Swin-B's predict; `cpu_refs`: the
+    futures of their CPU halves by tag."""
     return {tag: serve_backbone(files[tag], f"serve-{tag}", tag == "swinb", device,
-                                annotate_in=work if tag == "swinb" else None)
+                                annotate_in=work if tag == "swinb" else None,
+                                cpu_ref=(cpu_refs or {}).get(tag))
             for tag, _, _ in BACKBONES}
 
 
-def check_resnet_train_parity(files, device: str = "cuda") -> dict:
+def resnet_reference(files) -> tuple:
+    """Phase 29 (c)'s CPU half: the parity harness on the ResNet-50 model and
+    its step on the CPU with main's freeze policy, the two-stage selection
+    recorded -> (harness, the CPU's run, its TwoStageSelection)."""
+    from open_groundingdino_tpu_torch.models.resnet import frozen_param_keys
+
+    harness = parity_harness(files[0], files)
+    with TwoStageSelection() as selection:
+        cpu = harness[0]("cpu", frozen_keys=frozen_param_keys(True))
+    return harness, cpu, selection
+
+
+def check_resnet_train_parity(files, device: str = "cuda", cpu_ref=None) -> dict:
     """Phase 29 (c): phase 11's step (B = 1, f32, the 800x1216 bucket) on
     the ResNet-50 model on the CPU and on the card, with main's freeze
     policy.  The card's step on the CPU's two-stage selection
     (TwoStageSelection) is held within phase 11's limits; its step on its
     own selection is logged.  After it the stem, layer1 and every FrozenBN
     buffer equal the checkpoint's bit for bit, and every other trunk
-    parameter has moved."""
+    parameter has moved.  `cpu_ref`: the future of resnet_reference(files),
+    run on a thread beside the earlier phases (None: run here)."""
     import torch
 
     from open_groundingdino_tpu_torch.models.resnet import BODY_PREFIX, frozen_param_keys
 
-    step, gaps, within = parity_harness(files[0], files)
+    (step, gaps, within), cpu, selection = (cpu_ref.result() if cpu_ref is not None
+                                            else resnet_reference(files))
     frozen = frozen_param_keys(True)
-    with TwoStageSelection() as selection:
-        cpu = step("cpu", frozen_keys=frozen)
     free = gaps(step(device, frozen_keys=frozen), cpu, KERNEL_FED)
     log("resnet-train-parity", f"the card's step on its own two-stage selection: loss rel "
                                f"{free[0]:.2e}, grad-norm rel max {max(free[1].values()):.2e}, "
@@ -3621,14 +3591,15 @@ def step_without_recompute(run, device: str = "cuda") -> dict:
                 loss=metrics["loss"])
 
 
-def train_backbones(work: str, files: dict, device: str = "cuda") -> dict:
+def train_backbones(work: str, files: dict, device: str = "cuda", resnet_ref=None) -> dict:
     """Phase 29: main with cfg_swinl at B = 4 in the default bf16, 2 steps
     (18 K1 + 12 K3 + 12 K2 + 6 K4 bf16 launches a step), then one step with
     use_checkpoint off (step_without_recompute); phase
     11's f32 step on ResNet-50 against the CPU's with its frozen tensors;
     and phase 11's f32 step on the dilated ResNet-50 on the card (its
     launches exact), whose K1 and K3 are held against their plain versions
-    on its encoder operands."""
+    on its encoder operands.  `resnet_ref`: the future of the ResNet-50
+    step's CPU half (resnet_reference)."""
     from open_groundingdino_tpu_torch.models.resnet import frozen_param_keys
 
     cfg_l = files["swinl"][0]
@@ -3637,7 +3608,7 @@ def train_backbones(work: str, files: dict, device: str = "cuda") -> dict:
     main_run = res["swinl"].pop("run")
     res["swinl-no-recompute"] = step_without_recompute(main_run, device)
     del main_run
-    res["resnet50-parity"] = check_resnet_train_parity(files["resnet50"], device)
+    res["resnet50-parity"] = check_resnet_train_parity(files["resnet50"], device, resnet_ref)
     step, _, _ = parity_harness(files["resnet50-dilated"][0], files["resnet50-dilated"])
     reset_counts()
     with KernelOperands() as encoder:
@@ -4941,20 +4912,6 @@ def dist_files(cfg: str, work: str, files, size=DIST_SIZE, device: str = "cuda")
     return manifest, options
 
 
-def host_spans_ms(prof, name: str) -> list:
-    """The host milliseconds of every CPU event `name` of a finished
-    profile, in the order they began."""
-    from torch.autograd import DeviceType
-
-    spans = []
-    for e in prof.profiler.kineto_results.events():
-        if e.name() == name and e.device_type() == DeviceType.CPU:
-            ns = e.duration_ns() if hasattr(e, "duration_ns") else e.duration_us() * 1e3
-            start = e.start_ns() if hasattr(e, "start_ns") else e.start_us() * 1e3
-            spans.append((start, ns / 1e6))
-    return [ms for _, ms in sorted(spans)]
-
-
 @contextlib.contextmanager
 def evaluated_ids():
     """Within the block, the image ids each CocoBboxEvaluator.accumulate()
@@ -5350,6 +5307,238 @@ def check_dist(cfg: str, work: str, files, device: str = "cuda", size=DIST_SIZE)
                 seconds=dict(data=t_data, a=t_a, b=t_b, phase=t_phase))
 
 
+# ---------------------------------------------------------------- ops with autograd, the tools (phase 34)
+# small operands in the kernels' geometry: D = 32, P = 4, four levels (the
+# 128x192 bucket's), a decoder-like query set the sweep sorts; the fusion's
+# head dim 256
+OPCHECK_LEVELS = ((16, 24), (8, 12), (4, 6), (2, 3))
+OPCHECK_QUERIES = 40
+
+
+def op_cases(dtype, device) -> dict:
+    """Each ogd_torch op's operands at small shapes on `device`, value (and
+    the upstream gradients) in `dtype`, the forwards' differentiable
+    operands requiring a gradient, as the model hands them over."""
+    import torch
+
+    from open_groundingdino_tpu_torch.ops import fusion, library, msda
+    from open_groundingdino_tpu_torch.ops import msda_banded as mb
+    from open_groundingdino_tpu_torch.ops import msda_sweep as sw
+
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    rand = lambda *shape: torch.randn(*shape, generator=g)   # noqa: E731
+    shapes = OPCHECK_LEVELS
+    L, Q = sum(h * w for h, w in shapes), OPCHECK_QUERIES
+    value = rand(1, L, 2, HEAD_DIM).to(device, dtype)
+    locs = (torch.rand(1, Q, 2, len(shapes), POINTS, 2, generator=g) * 1.2 - 0.1).to(device)
+    attn = torch.rand(1, Q, 2, len(shapes), POINTS, generator=g).to(device)
+    flat, starts = library.flat_shapes(shapes), list(msda.level_starts(shapes))
+    E = 2 * 256
+    q, k, vv, vl = (rand(1, n, E).mul(0.05).to(device, dtype) for n in (40, 8, 40, 8))
+    mask_v = (torch.arange(40) >= 36)[None].to(device)
+    mask_l = (torch.arange(8) >= 5)[None].to(device)
+    order, _, px, py, wa = mb.banded_operands(locs, attn, shapes, L)
+    row, tpx, w = sw.rowtap_positions_and_weights(*sw.kernel_layout(locs, attn), shapes)
+    rorder = sw.query_order(row, tpx, L)
+    row, tpx, w = (sw.sort_and_pad(t, rorder) for t in (row, tpx, w))
+    idx, cw = sw.corner_indices_and_weights(*sw.kernel_layout(locs, attn), shapes)
+    corder = sw.query_order(idx, None, L)
+    idx, cw = (sw.sort_and_pad(t, corder) for t in (idx, cw))
+    with torch.no_grad():
+        fo = fusion.fusion_fwd(q, k, vv, vl, mask_v, mask_l, 2)
+    g_msda = rand(1, Q, 2 * HEAD_DIM).to(device, dtype)
+    g_taps = rand(2, w.shape[-1], HEAD_DIM).to(device, dtype)
+    g_fus = [rand(*t.shape).to(device, dtype) for t in fo[:2]]
+    grad = lambda t: t.detach().clone().requires_grad_(True)   # noqa: E731
+    return {
+        "msda_fwd": (grad(value), flat, starts, grad(locs), grad(attn)),
+        "msda_bwd": (value, flat, starts, locs, attn, g_msda),
+        "fusion_fwd": (grad(q), grad(k), grad(vv), grad(vl), mask_v, mask_l, 2),
+        "fusion_bwd": (q, k, vv, vl, mask_v, mask_l, *fo, *g_fus, 2),
+        "banded_fwd": (grad(value), flat, px, py, wa, grad(locs), grad(attn), order),
+        "sweep_fwd": (grad(value), flat, row, grad(tpx), grad(w), "corner"),
+        "sweep_fwd_allq": (grad(value), flat, row, grad(tpx), grad(w), "rowtap"),
+        "sweep_fwd_corner": (grad(value), flat, idx, grad(cw)),
+        "sweep_bwd_corner": (value, flat, idx, cw, g_taps),
+        "sweep_bwd_rowtap": (value, flat, row, tpx, w, g_taps),
+    }
+
+
+def check_opcheck(device: str = "cuda") -> dict:
+    """torch.library.opcheck of every ogd_torch op on CUDA tensors, f32 and
+    bf16: schema, the fake implementation against the kernel, the registered
+    autograd (the forwards' operands require a gradient, so their backward
+    kernels run), dispatch under AOT tracing.  Raises on any failure."""
+    import torch
+
+    from open_groundingdino_tpu_torch.ops import library
+
+    ops = library.custom_ops()
+    seconds = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cases = op_cases(dtype, device)
+        if set(cases) != set(ops):
+            raise AssertionError(f"opcheck cases {sorted(cases)} against the ops {sorted(ops)}")
+        # K3's bf16 entry adds grad_value with bf16 atomics in an order that
+        # changes from run to run: two runs part by up to a few bf16 steps of
+        # an element, so the comparisons of the runs that reach it (msda_bwd,
+        # and the forwards whose gradient it is) take phase 20's limit, 3e-2
+        # of the largest grad_value, instead of assert_close's bf16 default
+        tol = {}
+        if dtype == torch.bfloat16:
+            grad_value = ops["msda_bwd"](*cases["msda_bwd"])[0]
+            atol = BF16_K3_GV_RTOL * float(grad_value.float().abs().max())
+            tol = {name: dict(atol=atol, rtol=BF16_FWD_RTOL)
+                   for name in ("msda_bwd", "msda_fwd", "banded_fwd")}
+        for name, args in cases.items():
+            t0 = time.perf_counter()
+            torch.library.opcheck(ops[name], args, **tol.get(name, {}))
+            seconds[f"{name} {str(dtype)[6:]}"] = round(time.perf_counter() - t0, 2)
+    log("opcheck", f"{len(seconds)} checks passed on {device} (schema, fake, autograd "
+                   f"registration, AOT dispatch; K3 bf16's comparisons within {BF16_K3_GV_RTOL} "
+                   f"of its largest grad_value): seconds {seconds}")
+    return seconds
+
+
+def check_compiled_gather(device: str = "cuda") -> dict:
+    """One fusion block and one deformable encoder layer on the gather path
+    at flagship width (hidden 256, 8 heads, 4 levels, 4 points; fusion 1024
+    wide, 4 heads) on the 800x1216 bucket's levels, B = 2, f32, compiled
+    whole (torch.compile fullgraph through AOTAutograd, utils/graph_check):
+    no graph break, K2 and K1 in the forward graph, K3 and K4 in the
+    backward, one launch each in the compiled run (its launches counted
+    alone), the loss and every gradient against eager within phase 11's
+    limits (PARITY_LOSS_RTOL, PARITY_GRAD_RTOL); a compiled run whose K3
+    grad_locs is negated must leave the gradient limit."""
+    from open_groundingdino_tpu_torch.ops import msda
+    from open_groundingdino_tpu_torch.utils import graph_check
+
+    layers = graph_check.build_layers(HEADS * HEAD_DIM, 2048, LEVELS, HEADS, POINTS, FUSION_E,
+                                      FUSION_HEADS, device, seed=SEED)
+    inputs = graph_check.layer_inputs(2, level_shapes(*BUCKET), HEADS * HEAD_DIM, TEXT_LEN,
+                                      LIVE_TEXT, device, seed=SEED + 1)
+    t0 = time.perf_counter()
+    r = graph_check.compile_check(layers, inputs, before=reset_counts, after=read_counts)
+    t_clean = time.perf_counter() - t0
+    launches = {k: v for k, v in r["after"].items() if v}
+    real = msda.ms_deform_attn_bwd
+
+    def plant():
+        reset_counts()
+        msda.ms_deform_attn_bwd = negated_output(real, 1)
+
+    t0 = time.perf_counter()
+    try:
+        fault = graph_check.compile_check(layers, inputs, before=plant,
+                                          after=lambda: setattr(msda, "ms_deform_attn_bwd", real))
+    finally:
+        msda.ms_deform_attn_bwd = real
+    t_fault = time.perf_counter() - t0
+    loss_rel = abs(r["loss"] - r["eager_loss"]) / abs(r["eager_loss"])
+    log("compiled", f"fusion block + gather encoder layer (B=2, 800x1216 levels, f32) compiled "
+                    f"fullgraph through AOTAutograd in {t_clean:.1f} s: forward graph ops "
+                    f"{r['forward_ops']}, backward {r['backward_ops']}; launches of the compiled "
+                    f"run {launches}; loss {r['loss']:.6f} against eager {r['eager_loss']:.6f} "
+                    f"(rel {loss_rel:.2e}, limit {PARITY_LOSS_RTOL}), worst gradient "
+                    f"{r['max_rel_grad_err']:.2e} of its max (limit {PARITY_GRAD_RTOL}); "
+                    f"K3 grad_locs negated: {fault['max_rel_grad_err']:.2e} ({t_fault:.1f} s)")
+    if sorted(r["forward_ops"]) != ["fusion_fwd", "msda_fwd"] or \
+            sorted(r["backward_ops"]) != ["fusion_bwd", "msda_bwd"]:
+        raise AssertionError("the compiled graphs do not hold K1, K2 forward and K3, K4 backward")
+    if launches != {"msda_fwd": 1, "fusion_fwd": 1, "msda_bwd": 1, "fusion_bwd": 1}:
+        raise AssertionError(f"the compiled run launched {launches}")
+    if loss_rel > PARITY_LOSS_RTOL or r["max_rel_grad_err"] > PARITY_GRAD_RTOL:
+        raise AssertionError("the compiled layers' loss or gradients left eager's")
+    if fault["max_rel_grad_err"] <= PARITY_GRAD_RTOL:
+        raise AssertionError("a negated K3 grad_locs stayed within the gradient limit")
+    return {"launches": launches, "max_rel_grad_err": r["max_rel_grad_err"],
+            "loss_rel": loss_rel, "fault_rel": fault["max_rel_grad_err"], "seconds": t_clean}
+
+
+# each tool's arguments at flagship size (few iterations) and the kernel
+# launches a call of it makes; the JAX tools' keys each must print
+TOOL_FWD_KEYS = ("nparam", "flops_per_forward", "gflops", "time_s", "fps", "shape", "platform")
+TOOL_TRAIN_KEYS = ("mode", "nparam", "compute_dtype", "step_time_s", "steps_per_call",
+                   "imgs_per_sec", "loss", "shape", "platform")
+TOOL_SERVE_KEYS = ("metric", "aot_latency_ms", "aot_img_s", "first_call_s", "export_s",
+                   "artifact_mb", "bucket", "batch", "platform")
+TOOL_EVAL_KEYS = ("metric", "pipeline_img_s", "raw_fwd_img_s", "ratio", "images", "batch",
+                  "device_resident", "platform")
+FWD_LAUNCHES = {"msda_fwd": 2 * ENC_LAYERS, "fusion_fwd": ENC_LAYERS}   # a forward's, f32
+
+
+def run_tools(cfg: str, work: str) -> dict:
+    """The JAX package's last tools, ported, once each at flagship width and
+    depth on the card (tools/): benchmark forward (B = 1, 800x1216, f32)
+    and --train (B = 4, bf16), profile (forward, B = 4 bf16, 2 iterations),
+    serving_bench (the 800x1216 bucket), eval_pipeline_bench (8 images of
+    750x1000, B = 4), matcher_microbench and opt_microbench.  Each tool's
+    result and seconds on a line; the keys the JAX tools print, the
+    benchmark's FLOPs (K1 and K2 in the forward's count, K3 and K4 too in the
+    step's) and every tool's kernel launches checked."""
+    from open_groundingdino_tpu_torch.config import SLConfig
+    from open_groundingdino_tpu_torch.tools import (benchmark, eval_pipeline_bench,
+                                                    matcher_microbench, opt_microbench, profile,
+                                                    serving_bench)
+
+    out = os.path.join(work, "tools")
+    results, seconds, launches = {}, {}, {}
+
+    def tool(name, fn, want=None):
+        reset_counts()
+        t0 = time.perf_counter()
+        results[name] = fn()
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = {k: v for k, v in read_counts().items() if v}
+        shown = {k: v for k, v in results[name].items() if k not in ("summary",)} \
+            if isinstance(results[name], dict) else results[name]
+        log("tools", f"{name}: {shown} in {seconds[name]:.1f} s; launches {launches[name]}")
+        if want is not None and launches[name] != want:
+            raise AssertionError(f"{name} launched {launches[name]}, expected {want}")
+
+    bench = benchmark.get_args_parser()
+    fwd_calls = 1 + 2 + 5      # the FLOP count, warm-up, timed
+    tool("benchmark", lambda: benchmark.run(bench.parse_args(
+        ["-c", cfg, "-o", out, "--batch", "1", "--warmup", "2", "--iters", "5"])),
+        {k: v * fwd_calls for k, v in FWD_LAUNCHES.items()})
+    steps = 1 + 1 + 3
+    per_step = train_launches_per_step({}, bf16=True)
+    tool("benchmark --train", lambda: benchmark.run(bench.parse_args(
+        ["-c", cfg, "-o", out, "--train", "--batch", "4", "--compute_dtype", "bfloat16",
+         "--warmup", "1", "--iters", "3"])), {k: v * steps for k, v in per_step.items() if v})
+    tool("profile", lambda: profile.run(profile.get_args_parser().parse_args(
+        ["-c", cfg, "-o", os.path.join(out, "trace"), "--batch", "4", "--iters", "2"])),
+        {f"{k}_bf16": v * (1 + 2 + 2 + 2) for k, v in FWD_LAUNCHES.items()})
+    tool("serving_bench", lambda: serving_bench.run(serving_bench.get_args_parser().parse_args(
+        ["-c", cfg, "--iters", "5"])))
+    tool("eval_pipeline_bench", lambda: eval_pipeline_bench.run(
+        eval_pipeline_bench.get_args_parser().parse_args(
+            ["-c", cfg, "--images", "8", "--batch", "4", "--fwd_iters", "3"])))
+    tool("matcher_microbench", lambda: matcher_microbench.run(
+        matcher_microbench.get_args_parser().parse_args(["--iters", "5", "--repeats", "2"])), {})
+    tool("opt_microbench", lambda: opt_microbench.run(opt_microbench.get_args_parser().parse_args(
+        ["--iters", "5", "--repeats", "2"])), {})
+
+    fwd, train_r = results["benchmark"], results["benchmark --train"]
+    for name, keys in (("benchmark", TOOL_FWD_KEYS), ("benchmark --train", TOOL_TRAIN_KEYS),
+                       ("serving_bench", TOOL_SERVE_KEYS), ("eval_pipeline_bench", TOOL_EVAL_KEYS)):
+        missing = [k for k in keys if k not in results[name]]
+        if missing or results[name]["platform"] != "gpu":
+            raise AssertionError(f"{name} printed no {missing} or ran off the card")
+    if set(fwd["kernel_flops"]) != {"msda_fwd", "fusion_fwd"} or \
+            not {"msda_fwd", "fusion_fwd", "msda_bwd", "fusion_bwd"} <= set(train_r["kernel_flops"]):
+        raise AssertionError(f"FLOP counts by kernel: forward {fwd['kernel_flops']}, step "
+                             f"{train_r['kernel_flops']}")
+    if not math.isfinite(train_r["loss"]) or results["profile"]["summary"]["device_ms_per_iter"] <= 0:
+        raise AssertionError("the step's loss or the profile's device time is missing")
+    # the serving artifact and the eval pipeline launch K1 and K2 (f32 serving,
+    # bf16 eval, the config's compute dtype)
+    if not (launches["serving_bench"].get("msda_fwd") and launches["serving_bench"].get("fusion_fwd")
+            and launches["eval_pipeline_bench"].get("msda_fwd_bf16")):
+        raise AssertionError("serving_bench or eval_pipeline_bench reached no kernel")
+    return {"results": results, "seconds": seconds, "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -5384,9 +5573,26 @@ def main() -> int:
 
     work = os.path.join(REPO, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
+    # the CPU reference computations of phases 11, 22, 28 and 29 (B = 1
+    # training steps, a B = 4 eval forward, one forward a backbone: ~230 s
+    # on an H100 host) run on a thread of their own beside the card's
+    # phases, one after the other; each phase joins its result where it
+    # compares
+    cpu_jobs = futures.ThreadPoolExecutor(1)
     try:
         cfg = os.path.join(REPO, "open_groundingdino_tpu_torch", "config", "cfg_coco.py")
         files = write_serving_files(cfg, work)
+        train_files = (cfg, os.path.join(work, "train_ckpt.pth"), files[2])
+        write_checkpoint(cfg, train_files[1], random_biases=True)
+        harness = parity_harness(cfg, train_files)
+        cpu_step = cpu_jobs.submit(harness[0], "cpu")
+        eval_files = (cfg, os.path.join(work, "eval_ckpt.pth"), files[2])
+        write_checkpoint(cfg, eval_files[1], random_biases=True, anchor_boxes=True)
+        eval_reference = start_eval_parity(cfg, work, eval_files, cpu_jobs)
+        bb_files = backbone_files(work, files[2])
+        bb_refs = {tag: cpu_jobs.submit(backbone_reference, bb_files[tag])
+                   for tag, _, _ in BACKBONES}
+        resnet_ref = cpu_jobs.submit(resnet_reference, bb_files["resnet50"])
         im, lat, counts, images = serve(files, "cuda")                 # 5
         clock("5")
         cpu_out = check_forward(im, files, images[0], CAPTIONS[0])     # 6
@@ -5400,13 +5606,10 @@ def main() -> int:
         clock("8")
         k4 = check_fusion_bwd("cuda")                                  # 9
         clock("9")
-        train_files = (cfg, os.path.join(work, "train_ckpt.pth"), files[2])
-        write_checkpoint(cfg, train_files[1], random_biases=True)
         tr = train(cfg, work, train_files, "cuda")                     # 10
         profile_train_step(tr.pop("run"))
         clock("10")
-        harness = parity_harness(cfg, train_files)
-        _, gather_card = check_train_parity(harness)                   # 11
+        _, gather_card = check_train_parity(harness, cpu_step)         # 11
         clock("11")
 
         sweep = check_sweep("cuda")                                    # 12
@@ -5461,10 +5664,8 @@ def main() -> int:
         gather_bf16_card = bf16_train.pop("parity_card")
         del gather_card
         clock("21")
-        eval_files = (cfg, os.path.join(work, "eval_ckpt.pth"), files[2])
-        write_checkpoint(cfg, eval_files[1], random_biases=True, anchor_boxes=True)
         evals = check_eval_main(cfg, work, eval_files, "cuda")          # 22
-        parity = check_eval_parity(cfg, work, eval_files, "cuda")
+        parity = check_eval_parity(eval_reference, "cuda")
         clock("22")
         check_resume(cfg, work, eval_files, parity["manifest"], "cuda")    # 23
         clock("23")
@@ -5480,10 +5681,9 @@ def main() -> int:
                                               banded_card, gather_bf16_card)
         del harness, banded_card, gather_bf16_card
         clock("27")
-        bb_files = backbone_files(work, files[2])
-        bb_serve = serve_backbones(work, bb_files)                     # 28
+        bb_serve = serve_backbones(work, bb_files, cpu_refs=bb_refs)   # 28
         clock("28")
-        bb_train = train_backbones(work, bb_files)                     # 29
+        bb_train = train_backbones(work, bb_files, resnet_ref=resnet_ref)   # 29
         clock("29")
         del bb_files
         pave = check_pave(work, files)                                 # 30
@@ -5494,7 +5694,12 @@ def main() -> int:
         clock("32")
         dist = check_dist(cfg, work, eval_files)                       # 33
         clock("33")
+        check_opcheck("cuda")                                          # 34
+        compiled = check_compiled_gather("cuda")
+        tools = run_tools(cfg, work)
+        clock("34")
     finally:
+        cpu_jobs.shutdown(cancel_futures=True)
         shutil.rmtree(work, ignore_errors=True)
 
     def mean_row(rows):
@@ -5601,6 +5806,13 @@ def main() -> int:
                               **dist_launches("fusion_bwd")},
          **single_row(k4), "sass": k4["sass"]["fusion_bwd"]},
     ]
+    # the compiled fusion block and gather encoder layer (phase 34), and the
+    # tools' runs of the gather path
+    for row in kernels:
+        row["launches_by_path"]["compiled"] = compiled["launches"][row["name"]]
+        row["launches_by_path"].update({f"tools {name}": c[row["name"]]
+                                        for name, c in tools["launches"].items()
+                                        if c.get(row["name"])})
     # K5 and K8 (phase 16; the row is phase 8's B = 4 shapes, per_shape adds
     # B = 1) and the sweep kernels (phase 12 at phase 8's B = 4 shapes; K6's
     # and K7's per_shape add B = 1);
@@ -5668,6 +5880,8 @@ def main() -> int:
             by_path["pave"] = pave["eval"]["counts"][f"{counter}_bf16"]
         by_path.update(bb_launches(f"{counter}_bf16"))   # the Swin-L steps (phase 29)
         by_path.update(roberta_launches(f"{counter}_bf16"))   # phase 32
+        by_path.update({f"tools {name}": c[f"{counter}_bf16"]   # phase 34
+                        for name, c in tools["launches"].items() if c.get(f"{counter}_bf16")})
         kernels.append({"name": f"{counter}_bf16", "route": "cuda", "source": src + source,
                         "replaces": tpu + line, "launches": bf16_counts[f"{counter}_bf16"],
                         "launches_by_path": by_path, **row})

@@ -12,17 +12,16 @@ Layouts: the projections' raw (B, N, E = H*D) outputs, q already scaled;
 masks (B, N) bool with True = padded.  Returns (out_v (B, Nv, E),
 out_l (B, Nl, E)) before the output projections.
 
-K2 is the custom op `ogd_torch::fusion_fwd` (`fusion_fwd`; ops/library.py):
-on CUDA tensors the kernel (`_fusion_fwd_cuda`), on CPU ones the plain
-version with its softmax statistics (`fusion_fwd_plain`).
-`fused_bi_attention` calls the op when no gradient is needed; with one, it
-takes `fused_bi_attention_plain` for CPU tensors (autograd differentiates
-it) and, for CUDA tensors, `FusedBiAttentionFunction`: the op forward, K4
-backward.
-`fused_bi_attention_bwd` is K4's wrapper and takes CUDA tensors only;
-`fused_bi_attention_bwd_plain` is its reference.  `fused_bi_attention.launches`
-and `fused_bi_attention_bwd.launches` count the kernels' f32 launches,
-`.launches_bf16` their bf16 ones.
+K2 is the custom op `ogd_torch::fusion_fwd` (`fusion_fwd`; ops/library.py)
+and K4 the op `ogd_torch::fusion_bwd` (`fusion_bwd_op`): on CUDA tensors the
+kernels (`_fusion_fwd_cuda`, `fused_bi_attention_bwd`), on CPU ones the plain
+version with its softmax statistics (`fusion_fwd_plain`) and the plain
+backward (`fused_bi_attention_bwd_plain`).  fusion_fwd's registered autograd
+formula saves its outputs and statistics and calls fusion_bwd, so
+`fused_bi_attention` calls the op whether or not a gradient is needed.
+`fused_bi_attention_bwd` is K4's launcher and takes CUDA tensors only.
+`fused_bi_attention.launches` and `fused_bi_attention_bwd.launches` count
+the kernels' f32 launches, `.launches_bf16` their bf16 ones.
 
 The operands are all f32 or all bf16.  In bf16 the kernels compute what the
 TPU kernels compute on bf16 operands (ops/fusion_pallas.py): logits and
@@ -39,9 +38,10 @@ import ctypes
 from typing import Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import build
-from .library import needs_grad
+from .library import fusion_flops, kernel_rows, vjp_on_fresh_thread
 
 HEAD_DIM = 256  # the kernels' one head dim: fusion E = 1024, H = 4
 IMAGE_TOKENS_PER_SPLIT = 640  # image-axis split of the text-side passes
@@ -269,7 +269,8 @@ def fusion_fwd(q: torch.Tensor, k: torch.Tensor, val_v: torch.Tensor, val_l: tor
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2 as an op: (out_v, out_l, lse_v (B, H, Nv) f32, lse_l (B, H, Nl)
     f32); on CUDA tensors the kernel, counted on
-    fused_bi_attention.launches(_bf16).  Its split partials stay inside."""
+    fused_bi_attention.launches(_bf16).  Its split partials stay inside.
+    Its gradient is K4's op (`fusion_bwd_op`); the statistics carry none."""
     return _fusion_fwd_cuda(q, k, val_v, val_l, mask_v, mask_l, num_heads)
 
 
@@ -287,37 +288,68 @@ def _fusion_fwd_fake(q, k, val_v, val_l, mask_v, mask_l, num_heads):
             q.new_empty(B, num_heads, Nl, dtype=torch.float32))
 
 
-class FusedBiAttentionFunction(torch.autograd.Function):
-    """K2 forward (the op), K4 backward (the JAX package's custom_vjp
-    `_fused_core`, ops/fusion_pallas.py:362-400).  The forward saves its
-    outputs and K2's softmax statistics for K4."""
+@torch.library.custom_op("ogd_torch::fusion_bwd", mutates_args=(), device_types="cuda")
+def fusion_bwd_op(q: torch.Tensor, k: torch.Tensor, val_v: torch.Tensor, val_l: torch.Tensor,
+                  mask_v: torch.Tensor, mask_l: torch.Tensor, out_v: torch.Tensor,
+                  out_l: torch.Tensor, lse_v: torch.Tensor, lse_l: torch.Tensor,
+                  g_ov: torch.Tensor, g_ol: torch.Tensor, num_heads: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4 as an op: (gq, gk, gvv, gvl); on CUDA tensors the kernel
+    (`fused_bi_attention_bwd`), counted on fused_bi_attention_bwd.launches(_bf16)."""
+    return fused_bi_attention_bwd(q, k, val_v, val_l, mask_v, mask_l, out_v, out_l, lse_v, lse_l,
+                                  g_ov, g_ol, num_heads)
 
-    @staticmethod
-    def forward(ctx, q, k, val_v, val_l, mask_v, mask_l, num_heads):
-        out_v, out_l, lse_v, lse_l = fusion_fwd(q, k, val_v, val_l, mask_v, mask_l, num_heads)
-        ctx.num_heads = num_heads
-        ctx.save_for_backward(q, k, val_v, val_l, mask_v, mask_l, out_v, out_l, lse_v, lse_l)
-        return out_v, out_l
 
-    @staticmethod
-    def backward(ctx, g_ov, g_ol):
-        saved = ctx.saved_tensors
-        grads = fused_bi_attention_bwd(*saved, g_ov.contiguous(), g_ol.contiguous(),
-                                       ctx.num_heads)
-        return (*grads, None, None, None)
+@fusion_bwd_op.register_kernel("cpu")
+def _fusion_bwd_cpu(q, k, val_v, val_l, mask_v, mask_l, out_v, out_l, lse_v, lse_l, g_ov, g_ol,
+                    num_heads):
+    grads = vjp_on_fresh_thread(fused_bi_attention_bwd_plain, q, k, val_v, val_l, mask_v, mask_l,
+                                g_ov, g_ol, num_heads)
+    return tuple(t.contiguous() for t in grads)
+
+
+@fusion_bwd_op.register_fake
+def _fusion_bwd_fake(q, k, val_v, val_l, mask_v, mask_l, out_v, out_l, lse_v, lse_l, g_ov, g_ol,
+                     num_heads):
+    return tuple(torch.empty_like(t) for t in (q, k, val_v, val_l))
+
+
+def _fusion_fwd_setup(ctx, inputs, output):
+    q, k, val_v, val_l, mask_v, mask_l, num_heads = inputs
+    ctx.num_heads = num_heads
+    ctx.mark_non_differentiable(output[2], output[3])
+    ctx.save_for_backward(q, k, val_v, val_l, mask_v, mask_l, *output)
+
+
+def _fusion_fwd_backward(ctx, g_ov, g_ol, g_lse_v, g_lse_l):
+    """K4 (the JAX package's custom_vjp `_fused_core`,
+    ops/fusion_pallas.py:362-400) on K2's outputs and softmax statistics."""
+    saved = ctx.saved_tensors
+    dt = saved[0].dtype
+    grads = fusion_bwd_op(*saved, kernel_rows(g_ov, dt), kernel_rows(g_ol, dt), ctx.num_heads)
+    return (*grads, None, None, None)
+
+
+fusion_fwd.register_autograd(_fusion_fwd_backward, setup_context=_fusion_fwd_setup)
+
+
+@register_flop_formula(torch.ops.ogd_torch.fusion_fwd, get_raw=True)
+def _fusion_fwd_flops(q, k, val_v, val_l, mask_v, mask_l, num_heads, out_val=None):
+    return fusion_flops(q, k, mask_v, mask_l, backward=False)
+
+
+@register_flop_formula(torch.ops.ogd_torch.fusion_bwd, get_raw=True)
+def _fusion_bwd_flops(q, k, val_v, val_l, mask_v, mask_l, *rest, out_val=None):
+    return fusion_flops(q, k, mask_v, mask_l, backward=True)
 
 
 def fused_bi_attention(q, k, val_v, val_l, mask_v, mask_l, num_heads: int):
     """K2 (K4 for its gradient) for CUDA tensors (all f32 or all bf16,
-    contiguous), the plain version for CPU tensors; without a gradient,
-    through the op on either.  Returns (out_v, out_l)."""
+    contiguous), the plain versions for CPU tensors; through the ops either
+    way.  Returns (out_v, out_l)."""
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_bi_attention: unsupported device {q.device}")
-    if not needs_grad(q, k, val_v, val_l):
-        return fusion_fwd(q, k, val_v, val_l, mask_v, mask_l, num_heads)[:2]
-    if q.device.type == "cpu":
-        return fused_bi_attention_plain(q, k, val_v, val_l, mask_v, mask_l, num_heads)
-    return FusedBiAttentionFunction.apply(q, k, val_v, val_l, mask_v, mask_l, num_heads)
+    return fusion_fwd(q, k, val_v, val_l, mask_v, mask_l, num_heads)[:2]
 
 
 fused_bi_attention.launches = fused_bi_attention.launches_bf16 = 0

@@ -14,16 +14,16 @@ Layouts (the JAX package's, at this public function):
 `spatial_shapes` and `level_start` are static sequences of ints:
 ((h, w), ...) per level and the offset of each level in L.
 
-K1 is the custom op `ogd_torch::msda_fwd` (`msda_fwd`; ops/library.py): on
-CUDA tensors the kernel (`_msda_fwd_cuda`), on CPU ones
-`ms_deform_attn_plain`.  `ms_deform_attn` calls the op when no gradient is
-needed; with one, it takes `ms_deform_attn_plain` for CPU tensors (autograd
-differentiates it) and, for CUDA tensors, `MSDeformAttnFunction`: the op
-forward, K3 backward.  `ms_deform_attn_bwd` is K3's wrapper and takes CUDA
-tensors only; `ms_deform_attn_bwd_plain` is its reference.  A CUDA tensor
-never reaches a plain version; `ms_deform_attn.launches` and
-`ms_deform_attn_bwd.launches` count the kernels' f32 launches,
-`.launches_bf16` their bf16 ones.
+K1 is the custom op `ogd_torch::msda_fwd` (`msda_fwd`; ops/library.py) and
+K3 the op `ogd_torch::msda_bwd` (`msda_bwd`): on CUDA tensors the kernels
+(`_msda_fwd_cuda`, `ms_deform_attn_bwd`), on CPU ones `ms_deform_attn_plain`
+and its VJP by autograd (`ms_deform_attn_bwd_plain`).  msda_fwd's registered
+autograd formula calls msda_bwd, so `ms_deform_attn` calls the op whether
+or not a gradient is needed, and a graph traced through it (torch.compile,
+AOTAutograd, FlopCounterMode) sees K1 and K3.  `ms_deform_attn_bwd` is K3's
+launcher and takes CUDA tensors only.  A CUDA tensor never reaches a plain
+version; `ms_deform_attn.launches` and `ms_deform_attn_bwd.launches` count
+the kernels' f32 launches, `.launches_bf16` their bf16 ones.
 
 bf16 (the value and the upstream gradient; locations and weights stay f32):
 K1 sums in f32 and rounds its output once.  K3 returns grad_value in bf16,
@@ -44,9 +44,11 @@ import ctypes
 from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import build
-from .library import flat_shapes, needs_grad, shape_pairs
+from .library import (flat_shapes, in_map_corners, is_real, kernel_rows, msda_flops,
+                      shape_pairs, vjp_on_fresh_thread)
 
 Shapes = Sequence[Tuple[int, int]]
 
@@ -336,7 +338,8 @@ def ms_deform_attn_bwd(value, spatial_shapes, level_start, locs, attn, grad_out)
 def msda_fwd(value: torch.Tensor, spatial_shapes: List[int], level_start: List[int],
              locs: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
     """K1 as an op (`spatial_shapes` flat, library.flat_shapes): on CUDA
-    tensors the kernel, counted on ms_deform_attn.launches(_bf16)."""
+    tensors the kernel, counted on ms_deform_attn.launches(_bf16).  Its
+    gradient is K3's op (`msda_bwd`)."""
     return _msda_fwd_cuda(value, shape_pairs(spatial_shapes), level_start, locs, attn)
 
 
@@ -351,22 +354,64 @@ def _msda_fwd_fake(value, spatial_shapes, level_start, locs, attn):
     return value.new_empty(B, locs.shape[1], H * D)
 
 
-class MSDeformAttnFunction(torch.autograd.Function):
-    """K1 forward (the op), K3 backward (the JAX package's custom_vjp around
-    the banded kernels, ops/msda_banded.py)."""
+@torch.library.custom_op("ogd_torch::msda_bwd", mutates_args=(), device_types="cuda")
+def msda_bwd(value: torch.Tensor, spatial_shapes: List[int], level_start: List[int],
+             locs: torch.Tensor, attn: torch.Tensor, grad_out: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3 as an op: (grad_value, grad_locs, grad_attn); on CUDA tensors the
+    kernel (`ms_deform_attn_bwd`), counted on ms_deform_attn_bwd.launches(_bf16)."""
+    return ms_deform_attn_bwd(value, shape_pairs(spatial_shapes), level_start, locs, attn,
+                              grad_out)
 
-    @staticmethod
-    def forward(ctx, value, locs, attn, spatial_shapes, level_start):
-        ctx.spatial_shapes, ctx.level_start = spatial_shapes, level_start
-        ctx.save_for_backward(value, locs, attn)
-        return msda_fwd(value, flat_shapes(spatial_shapes), list(level_start), locs, attn)
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        value, locs, attn = ctx.saved_tensors
-        grads = ms_deform_attn_bwd(value, ctx.spatial_shapes, ctx.level_start, locs, attn,
-                                   grad_out.contiguous())
-        return (*grads, None, None)
+@msda_bwd.register_kernel("cpu")
+def _msda_bwd_cpu(value, spatial_shapes, level_start, locs, attn, grad_out):
+    grads = vjp_on_fresh_thread(ms_deform_attn_bwd_plain, value, shape_pairs(spatial_shapes),
+                                level_start, locs, attn, grad_out)
+    return tuple(t.contiguous() for t in grads)
+
+
+@msda_bwd.register_fake
+def _msda_bwd_fake(value, spatial_shapes, level_start, locs, attn, grad_out):
+    return torch.empty_like(value), torch.empty_like(locs), torch.empty_like(attn)
+
+
+def _msda_fwd_setup(ctx, inputs, output):
+    value, spatial_shapes, level_start, locs, attn = inputs
+    ctx.spatial_shapes, ctx.level_start = spatial_shapes, level_start
+    ctx.save_for_backward(value, locs, attn)
+
+
+def _msda_fwd_backward(ctx, grad_out):
+    """K3 (the JAX package's custom_vjp around the banded kernels,
+    ops/msda_banded.py) on the upstream gradient in value's dtype."""
+    value, locs, attn = ctx.saved_tensors
+    grad_value, grad_locs, grad_attn = msda_bwd(value, ctx.spatial_shapes, ctx.level_start, locs,
+                                                attn, kernel_rows(grad_out, value.dtype))
+    return grad_value, None, None, grad_locs, grad_attn
+
+
+msda_fwd.register_autograd(_msda_fwd_backward, setup_context=_msda_fwd_setup)
+
+
+@register_flop_formula(torch.ops.ogd_torch.msda_fwd, get_raw=True)
+def _msda_fwd_flops(value, spatial_shapes, level_start, locs, attn, out_val=None):
+    return _msda_flops(value, spatial_shapes, locs, per_corner=2)
+
+
+@register_flop_formula(torch.ops.ogd_torch.msda_bwd, get_raw=True)
+def _msda_bwd_flops(value, spatial_shapes, level_start, locs, attn, grad_out, out_val=None):
+    return _msda_flops(value, spatial_shapes, locs, per_corner=8)
+
+
+def _msda_flops(value, spatial_shapes, locs, per_corner: int) -> int:
+    """K1's (K3's) operations on these locations: every in-map corner of
+    real locations, four a sample of fake ones."""
+    B, Q, H, NL, P, _ = locs.shape
+    samples = B * Q * H * NL * P
+    corners = (in_map_corners(locs, shape_pairs(spatial_shapes)) if is_real(locs)
+               else 4 * samples)
+    return msda_flops(samples, corners, value.shape[-1], per_corner)
 
 
 def ms_deform_attn(
@@ -377,17 +422,11 @@ def ms_deform_attn(
     attn: torch.Tensor,
 ) -> torch.Tensor:
     """K1 (K3 for its gradient) for CUDA tensors (f32 or bf16 value, f32
-    locs/attn, all contiguous), the plain version for CPU tensors; without a
-    gradient, through the op on either.  Returns (B, Q, H*D) in value's
-    dtype."""
+    locs/attn, all contiguous), the plain versions for CPU tensors; through
+    the ops either way.  Returns (B, Q, H*D) in value's dtype."""
     if value.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ms_deform_attn: unsupported device {value.device}")
-    if not needs_grad(value, locs, attn):
-        return msda_fwd(value, flat_shapes(spatial_shapes), list(level_start), locs, attn)
-    if value.device.type == "cpu":
-        return ms_deform_attn_plain(value, spatial_shapes, level_start, locs, attn)
-    return MSDeformAttnFunction.apply(value, locs, attn, tuple(spatial_shapes),
-                                      tuple(level_start))
+    return msda_fwd(value, flat_shapes(spatial_shapes), list(level_start), locs, attn)
 
 
 ms_deform_attn.launches = ms_deform_attn.launches_bf16 = 0

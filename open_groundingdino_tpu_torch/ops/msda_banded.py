@@ -1,6 +1,6 @@
 """Multi-scale deformable attention with one band sweep per sample point: K5
-(csrc/msda_banded_fwd.cu), its plain PyTorch version, and the autograd
-Function around it (K5 forward, K3 backward).
+(csrc/msda_banded_fwd.cu), its plain PyTorch version, and its op, whose
+gradient is K3's.
 
 The port of the JAX package's ops/msda_banded.py under MSDA_BANDED_MP=0 (its
 `_banded_core` with `_msda_banded_kernel`).  The function is
@@ -38,24 +38,25 @@ which adds grad_value in bf16 as the JAX banded backward does
 
 K5 is the custom op `ogd_torch::banded_fwd` (`banded_fwd_op`;
 ops/library.py): on CUDA tensors the kernel, on CPU ones `banded_fwd_plain`
-with band windows taken from its own operands (`tap_band_ranges`).  Without
-a gradient, `ms_deform_attn_banded` calls the op; with one, it takes the
-plain version for CPU tensors (autograd differentiates it) and
-`MSDABandedFunction` for CUDA tensors, whose backward is K3 on the reference
-operands (ops/msda.ms_deform_attn_bwd), as the JAX custom VJP runs the
-native banded backward (`_banded_bwd`).  `banded_fwd` is K5's launcher,
+with band windows taken from its own operands (`tap_band_ranges`).  The op
+also takes the reference operands (value, locs, attn) and the query order:
+its registered autograd formula is K3's op on them (ops/msda.msda_bwd), as
+the JAX custom VJP runs the native banded backward (`_banded_bwd`), and
+K5's operands are made without a gradient.  `ms_deform_attn_banded` calls
+the op whether or not a gradient is needed.  `banded_fwd` is K5's launcher,
 through the op: CUDA tensors only, counting `banded_fwd.launches` (f32) and
 `banded_fwd.launches_bf16`; nothing on the card reaches a plain version.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import build, msda
-from .library import flat_shapes, needs_grad, shape_pairs, with_flat_shapes
+from .library import flat_shapes, is_real, kernel_rows, msda_flops, shape_pairs
 from .msda import level_starts
 from .msda_sweep import (HEAD_DIM, QBLOCK, _count, _cuda_only, _entry, _gather_rows, _to_reference,
                          _value_bh, kernel_layout, sort_and_pad, unsort)
@@ -274,22 +275,72 @@ def _banded_fwd_cuda(value, spatial_shapes: Shapes, px, py, wa):
 
 @torch.library.custom_op("ogd_torch::banded_fwd", mutates_args=(), device_types="cuda")
 def banded_fwd_op(value: torch.Tensor, spatial_shapes: List[int], px: torch.Tensor,
-                  py: torch.Tensor, wa: torch.Tensor) -> torch.Tensor:
+                  py: torch.Tensor, wa: torch.Tensor, locs: Optional[torch.Tensor] = None,
+                  attn: Optional[torch.Tensor] = None, order: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """K5 as an op (`spatial_shapes` flat): on CUDA tensors the kernel,
-    counted on banded_fwd.launches(_bf16)."""
+    counted on banded_fwd.launches(_bf16).  `locs`, `attn` (the reference
+    operands px, py, wa were made from) and `order` (their query order,
+    None for raster) are its gradient's: K3's op on (value, locs, attn),
+    the JAX custom VJP's native banded backward (`_banded_bwd`).  The
+    forward reads only px, py, wa."""
     return _banded_fwd_cuda(value, shape_pairs(spatial_shapes), px, py, wa)
 
 
 @banded_fwd_op.register_kernel("cpu")
-def _banded_fwd_cpu(value, spatial_shapes, px, py, wa):
+def _banded_fwd_cpu(value, spatial_shapes, px, py, wa, locs=None, attn=None, order=None):
     shapes = shape_pairs(spatial_shapes)
     ranges = tap_band_ranges(py, wa, shapes, level_bands(shapes, BAND))
     return banded_fwd_plain(value, shapes, px, py, wa, ranges).to(value.dtype)
 
 
 @banded_fwd_op.register_fake
-def _banded_fwd_fake(value, spatial_shapes, px, py, wa):
+def _banded_fwd_fake(value, spatial_shapes, px, py, wa, locs=None, attn=None, order=None):
     return value.new_empty(px.shape[0], px.shape[2], value.shape[-1])
+
+
+def _banded_fwd_setup(ctx, inputs, output):
+    value, spatial_shapes, px, py, wa, locs, attn, order = inputs
+    if locs is None or attn is None:
+        raise ValueError("banded_fwd takes its gradient only with the reference locs and attn")
+    ctx.spatial_shapes = spatial_shapes
+    ctx.save_for_backward(value, locs, attn, order)
+
+
+def _banded_fwd_backward(ctx, grad_out):
+    """K3 on the reference operands: the upstream gradient un-sorted into
+    (B, Q, H*D) in value's dtype; grad_locs and grad_attn f32, px, py and
+    wa none (they are made without a gradient)."""
+    value, locs, attn, order = ctx.saved_tensors
+    B, _, H, _ = value.shape
+    g = _to_reference(unsort(grad_out, order, locs.shape[1], q_axis=1), B, H)
+    shapes = shape_pairs(ctx.spatial_shapes)
+    grad_value, grad_locs, grad_attn = msda.msda_bwd(
+        value, ctx.spatial_shapes, list(level_starts(shapes)), locs, attn,
+        kernel_rows(g, value.dtype))
+    return grad_value, None, None, None, None, grad_locs, grad_attn, None
+
+
+banded_fwd_op.register_autograd(_banded_fwd_backward, setup_context=_banded_fwd_setup)
+
+
+@register_flop_formula(torch.ops.ogd_torch.banded_fwd, get_raw=True)
+def _banded_fwd_flops(value, spatial_shapes, px, py, wa, *rest, out_val=None):
+    """K5's operations: each live point's (wa != 0) in-map corners (its
+    x corners by px, its rows floor(py) and floor(py) + 1 inside the level)."""
+    BH, R, Qp = px.shape
+    if not is_real(px, py, wa):
+        return msda_flops(BH * R * Qp, 4 * BH * R * Qp, value.shape[-1], 2)
+    shapes = shape_pairs(spatial_shapes)
+    P = R // len(shapes)
+    corners = 0
+    for lvl, (Hl, _) in enumerate(shapes):
+        x, y, a = (t[:, lvl * P:(lvl + 1) * P] for t in (px, py, wa))
+        nx = 1 + (x > torch.floor(x)).int()
+        y0 = torch.floor(y)
+        ny = ((y0 >= 0) & (y0 < Hl)).int() + ((y0 + 1 >= 0) & (y0 + 1 < Hl)).int()
+        corners += int((nx * ny * (a != 0).int()).sum())
+    return msda_flops(BH * R * Qp, corners, value.shape[-1], 2)
 
 
 def banded_fwd(value, spatial_shapes: Shapes, px, py, wa, band: int = BAND):
@@ -298,39 +349,6 @@ def banded_fwd(value, spatial_shapes: Shapes, px, py, wa, band: int = BAND):
     result (the module's docstring) and is not used here."""
     _cuda_only("banded_fwd", value, px, py, wa)
     return banded_fwd_op(value, flat_shapes(spatial_shapes), px, py, wa)
-
-
-def _banded_forward(value, locs, attn, spatial_shapes: Shapes, launch):
-    """The kernel's operands, launch(value, spatial_shapes, px, py, wa) (K5
-    or its op) and the un-sort -> (B, Q, H*D)."""
-    B, L, H, _ = value.shape
-    order, _, px, py, wa = banded_operands(locs, attn, spatial_shapes, L)
-    out = launch(value, spatial_shapes, px, py, wa)
-    return _to_reference(unsort(out, order, locs.shape[1], q_axis=1), B, H)
-
-
-class MSDABandedFunction(torch.autograd.Function):
-    """K5 forward; K3 backward on the reference operands (the JAX package's
-    custom VJP of `_banded_core`: its native banded backward, which
-    ops/msda.py's K3 ports).  The output and grad_value are in value's dtype
-    and the upstream gradient reaches K3 in it; grad_locs and grad_attn are
-    f32."""
-
-    @staticmethod
-    def forward(ctx, value, locs, attn, spatial_shapes, level_start, band):
-        ctx.spatial_shapes, ctx.level_start = spatial_shapes, level_start
-        ctx.save_for_backward(value, locs, attn)
-        return _banded_forward(value, locs, attn, spatial_shapes,
-                               lambda *operands: banded_fwd(*operands, band))
-
-    @staticmethod
-    def backward(ctx, grad_out):
-        value, locs, attn = ctx.saved_tensors
-        g = grad_out.to(value.dtype).contiguous()
-        if g.data_ptr() % 16:   # K3 reads 16-byte rows: a view at an offset is copied
-            g = g.clone()
-        grads = msda.ms_deform_attn_bwd(value, ctx.spatial_shapes, ctx.level_start, locs, attn, g)
-        return (*grads, None, None, None)
 
 
 def ms_deform_attn_banded_plain(value, spatial_shapes: Shapes, locs, attn, band: int = BAND):
@@ -351,21 +369,21 @@ def ms_deform_attn_banded(value: torch.Tensor, spatial_shapes: Shapes, level_sta
     """ms_deform_attn's contract (ops/msda.py) through the per-point banded
     forward: value (B, L, H, D), locs (B, Q, H, NL, P, 2), attn
     (B, Q, H, NL, P) -> (B, Q, H*D) in value's dtype.  On CUDA tensors
-    (value f32 or bf16, D = 32) K5 forward and K3 backward; on CPU tensors
-    the plain version; without a gradient, the op of K5 on either.  `band`
-    is the window height in rows (the CPU's windows without a gradient take
-    BAND: the result does not depend on it); `level_start` must be the
-    raster offsets of the levels."""
+    (value f32 or bf16, D = 32) K5 forward and K3 backward, on CPU tensors
+    their plain versions, through the ops either way.  `band` is the window
+    height in rows of the plain version; the result does not depend on it,
+    and the ops take BAND.  `level_start` must be the raster offsets of the
+    levels."""
     if tuple(level_start) != level_starts(spatial_shapes):
         raise ValueError("the banded op takes the raster level order (level_start of spatial_shapes)")
     if value.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ms_deform_attn_banded: unsupported device {value.device}")
     shapes = tuple(map(tuple, spatial_shapes))
-    if not needs_grad(value, locs, attn):
-        return _banded_forward(value, locs, attn, shapes, with_flat_shapes(banded_fwd_op))
-    if value.device.type == "cpu":
-        return ms_deform_attn_banded_plain(value, spatial_shapes, locs, attn, band)
-    return MSDABandedFunction.apply(value, locs, attn, shapes, level_starts(shapes), int(band))
+    B, L, H, _ = value.shape
+    with torch.no_grad():   # K5's operands carry no gradient: its backward is K3's
+        order, _, px, py, wa = banded_operands(locs, attn, shapes, L)
+    out = banded_fwd_op(value, flat_shapes(shapes), px, py, wa, locs, attn, order)
+    return _to_reference(unsort(out, order, locs.shape[1], q_axis=1), B, H)
 
 
 banded_fwd.launches = banded_fwd.launches_bf16 = 0

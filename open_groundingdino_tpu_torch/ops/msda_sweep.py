@@ -2,8 +2,7 @@
 taps, csrc/msda_rowtap_fwd.cu; K7 for the decoder under dec_fused), K8
 (forward on corner taps, csrc/msda_corner_fwd.cu), K9 (backward on corner
 taps, csrc/msda_corner_bwd.cu) and K10 (backward on row taps,
-csrc/msda_rowtap_bwd.cu), their plain PyTorch versions, and the autograd
-Function around them.
+csrc/msda_rowtap_bwd.cu), their plain PyTorch versions, and their ops.
 
 The port of the JAX package's ops/msda_pallas.py::ms_deform_attn_pallas_t,
 the model path of `msda_impl="pallas"` with `MSDA_BANDED=0`, and of its
@@ -52,16 +51,23 @@ path, which the wrapper rounds to bf16 once, as the TPU kernels write
 grad_value in f32 (msda_pallas.py:1093, 1315) and cast it once.  The tap
 weights stay f32 (the TPU kernels round them to bf16 for the MXU).
 
-K6 and K7 are the custom ops `ogd_torch::sweep_fwd` and
-`ogd_torch::sweep_fwd_allq` (`sweep_fwd_op`, `sweep_fwd_allq_op`;
-ops/library.py): on CUDA tensors the kernels, on CPU ones
-`sweep_fwd_plain`.  Without a gradient, `ms_deform_attn_sweep` runs the
-row-tap forward through the ops; with one, it takes the plain version for
-CPU tensors (autograd differentiates it) and `MSDASweepFunction` for CUDA
-tensors.  The five kernel wrappers (`sweep_fwd` and `sweep_fwd_allq` reach
-their kernels through the ops) take CUDA tensors only and count their
-launches (`sweep_fwd.launches`, ...; the bf16 entries' apart, in
-`.launches_bf16`); nothing on the card reaches a plain version.
+Every kernel is a custom op (ops/library.py): `ogd_torch::sweep_fwd` (K6),
+`sweep_fwd_allq` (K7), `sweep_fwd_corner` (K8), `sweep_bwd_corner` (K9) and
+`sweep_bwd_rowtap` (K10); on CUDA tensors the kernels, on CPU ones the plain
+versions.  The forwards carry registered autograd formulas.  K8's gradient
+is K9 on its own corner taps.  K6's and K7's is named by their `bwd`
+argument: K10 on their row taps, or (the default) K9 on the corner taps of
+those row taps (`corner_taps_of_rows`: a row tap's two positions, weighted
+r0 * w and r1 * w, in the corner expansion's layout) with the corner
+gradients folded back onto the rows (`row_grads_of_corners`); autograd
+chains the tap gradients to the locations and weights through the
+expansion and the decoder's sort (the JAX package's jax.vjp).
+`ms_deform_attn_sweep` calls the ops whether or not a gradient is needed.
+The launchers (`sweep_fwd`, `sweep_fwd_allq` and `sweep_fwd_corner` reach
+their kernels through the ops; `sweep_bwd_corner` and `sweep_bwd_rowtap`
+are the backward ops' CUDA implementations) take CUDA tensors only and
+count their launches (`sweep_fwd.launches`, ...; the bf16 entries' apart,
+in `.launches_bf16`); nothing on the card reaches a plain version.
 """
 from __future__ import annotations
 
@@ -69,9 +75,10 @@ import ctypes
 from typing import List, Sequence, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import build, msda
-from .library import flat_shapes, needs_grad, shape_pairs, with_flat_shapes
+from .library import flat_shapes, is_real, kernel_rows, msda_flops, shape_pairs
 from .msda import level_starts
 
 Shapes = Sequence[Tuple[int, int]]
@@ -375,9 +382,11 @@ def _cuda_only(what: str, *tensors: torch.Tensor) -> None:
 
 @torch.library.custom_op("ogd_torch::sweep_fwd", mutates_args=(), device_types="cuda")
 def sweep_fwd_op(value: torch.Tensor, spatial_shapes: List[int], row: torch.Tensor,
-                 px: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+                 px: torch.Tensor, w: torch.Tensor, bwd: str = "corner") -> torch.Tensor:
     """K6 as an op (`spatial_shapes` flat): on CUDA tensors the kernel,
-    counted on sweep_fwd.launches(_bf16)."""
+    counted on sweep_fwd.launches(_bf16).  `bwd` names its gradient's
+    kernel: K9 on the corner taps of these row taps ("corner") or K10 on
+    them ("rowtap"); the forward does not read it."""
     out = _rowtap_fwd("msda_rowtap_fwd", "sweep_fwd", value, shape_pairs(spatial_shapes),
                       row, px, w)
     _count(sweep_fwd, value)
@@ -386,26 +395,21 @@ def sweep_fwd_op(value: torch.Tensor, spatial_shapes: List[int], row: torch.Tens
 
 @torch.library.custom_op("ogd_torch::sweep_fwd_allq", mutates_args=(), device_types="cuda")
 def sweep_fwd_allq_op(value: torch.Tensor, spatial_shapes: List[int], row: torch.Tensor,
-                      px: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+                      px: torch.Tensor, w: torch.Tensor, bwd: str = "corner") -> torch.Tensor:
     """K7 as an op: on CUDA tensors the kernel, counted on
-    sweep_fwd_allq.launches(_bf16)."""
+    sweep_fwd_allq.launches(_bf16); its gradient is sweep_fwd_op's."""
     out = _rowtap_fwd("msda_sweep_fwd_allq", "sweep_fwd_allq", value,
                       shape_pairs(spatial_shapes), row, px, w)
     _count(sweep_fwd_allq, value)
     return out
 
 
-def _rowtap_fwd_cpu(value, spatial_shapes, row, px, w):
+def _rowtap_fwd_cpu(value, spatial_shapes, row, px, w, bwd="corner"):
     return sweep_fwd_plain(value, row, px, w).to(value.dtype)
 
 
-def _rowtap_fwd_fake(value, spatial_shapes, row, px, w):
+def _rowtap_fwd_fake(value, spatial_shapes, row, px, w, bwd="corner"):
     return value.new_empty(px.shape[0], px.shape[2], value.shape[-1])
-
-
-for _op in (sweep_fwd_op, sweep_fwd_allq_op):
-    _op.register_kernel("cpu")(_rowtap_fwd_cpu)
-    _op.register_fake(_rowtap_fwd_fake)
 
 
 def sweep_fwd(value, spatial_shapes, row, px, w):
@@ -425,7 +429,7 @@ def sweep_fwd_allq(value, spatial_shapes, row, px, w):
     return sweep_fwd_allq_op(value, flat_shapes(spatial_shapes), row, px, w)
 
 
-def sweep_fwd_corner(value, spatial_shapes, idx, w):
+def _sweep_fwd_corner_cuda(value, spatial_shapes, idx, w):
     """K8 on CUDA tensors: one kernel block per (b*h, tile of queries), the
     tile chosen as K1's (msda.msda_fwd_tile); each live corner tap reads its
     row.  value (B, L, H, 32) f32 or bf16, 16-byte aligned; idx int32 and w
@@ -446,6 +450,32 @@ def sweep_fwd_corner(value, spatial_shapes, idx, w):
     build.check(err, entry)
     _count(sweep_fwd_corner, value)
     return out
+
+
+@torch.library.custom_op("ogd_torch::sweep_fwd_corner", mutates_args=(), device_types="cuda")
+def sweep_fwd_corner_op(value: torch.Tensor, spatial_shapes: List[int], idx: torch.Tensor,
+                        w: torch.Tensor) -> torch.Tensor:
+    """K8 as an op: on CUDA tensors the kernel, counted on
+    sweep_fwd_corner.launches(_bf16).  Its gradient is K9's op on the same
+    corner taps."""
+    return _sweep_fwd_corner_cuda(value, shape_pairs(spatial_shapes), idx, w)
+
+
+@sweep_fwd_corner_op.register_kernel("cpu")
+def _sweep_fwd_corner_cpu(value, spatial_shapes, idx, w):
+    return sweep_fwd_corner_plain(value, idx, w).to(value.dtype)
+
+
+@sweep_fwd_corner_op.register_fake
+def _sweep_fwd_corner_fake(value, spatial_shapes, idx, w):
+    return value.new_empty(w.shape[0], w.shape[2], value.shape[-1])
+
+
+def sweep_fwd_corner(value, spatial_shapes, idx, w):
+    """K8 on CUDA tensors, through its op (`_sweep_fwd_corner_cuda` has the
+    operands); raises for any other device."""
+    _cuda_only("sweep_fwd_corner", value, idx, w)
+    return sweep_fwd_corner_op(value, flat_shapes(spatial_shapes), idx, w)
 
 
 def corner_bwd_smem_bytes(smem_rows: int) -> int:
@@ -547,7 +577,157 @@ def sweep_bwd_rowtap(value, spatial_shapes, row, px, w, g):
     return gv.to(value.dtype), gpx, gw
 
 
-# ---------------------------------------------------------------- the op
+# ---------------------------------------------------------------- the backward ops
+@torch.library.custom_op("ogd_torch::sweep_bwd_corner", mutates_args=(), device_types="cuda")
+def sweep_bwd_corner_op(value: torch.Tensor, spatial_shapes: List[int], idx: torch.Tensor,
+                        w: torch.Tensor, g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K9 as an op: (grad_value, gw); on CUDA tensors the kernel
+    (`sweep_bwd_corner`), counted on sweep_bwd_corner.launches(_bf16)."""
+    return sweep_bwd_corner(value, shape_pairs(spatial_shapes), idx, w, g)
+
+
+@sweep_bwd_corner_op.register_kernel("cpu")
+def _sweep_bwd_corner_cpu(value, spatial_shapes, idx, w, g):
+    gv, gw = sweep_bwd_corner_plain(value, idx, w, g)
+    return gv.to(value.dtype), gw
+
+
+@sweep_bwd_corner_op.register_fake
+def _sweep_bwd_corner_fake(value, spatial_shapes, idx, w, g):
+    return torch.empty_like(value), torch.empty_like(w)
+
+
+@torch.library.custom_op("ogd_torch::sweep_bwd_rowtap", mutates_args=(), device_types="cuda")
+def sweep_bwd_rowtap_op(value: torch.Tensor, spatial_shapes: List[int], row: torch.Tensor,
+                        px: torch.Tensor, w: torch.Tensor, g: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K10 as an op: (grad_value, gpx, gw), gpx without the row weight; on
+    CUDA tensors the kernel (`sweep_bwd_rowtap`), counted on
+    sweep_bwd_rowtap.launches(_bf16)."""
+    return sweep_bwd_rowtap(value, shape_pairs(spatial_shapes), row, px, w, g)
+
+
+@sweep_bwd_rowtap_op.register_kernel("cpu")
+def _sweep_bwd_rowtap_cpu(value, spatial_shapes, row, px, w, g):
+    gv, gpx, gw = sweep_bwd_rowtap_plain(value, row, px, w, g)
+    return gv.to(value.dtype), gpx, gw
+
+
+@sweep_bwd_rowtap_op.register_fake
+def _sweep_bwd_rowtap_fake(value, spatial_shapes, row, px, w, g):
+    return torch.empty_like(value), torch.empty_like(w), torch.empty_like(w)
+
+
+def corner_taps_of_rows(row: torch.Tensor, px: torch.Tensor, w: torch.Tensor, L: int, NL: int):
+    """The corner taps K9 takes, from row taps (BH, NL*2*P, Q): each row
+    tap's two positions with weights r0 * w and r1 * w (`_rowtap_corners`),
+    laid out as corner_indices_and_weights lays its taps out (level, point,
+    then (x0, y0), (x1, y0), (x0, y1), (x1, y1)) -> idx int32, wc f32
+    (BH, NL*P*4, Q).  Where an edge point was collapsed onto its one valid
+    corner (rowtap_positions_and_weights), the other corner's weight is 0."""
+    BH, R, Q = px.shape
+    i0, i1, r0, r1 = _rowtap_corners(row, px, L)
+    layout = lambda a, b: (torch.stack([a, b], 2).view(BH, NL, 2, R // (2 * NL), 2, Q)
+                           .transpose(2, 3).reshape(BH, 2 * R, Q))
+    return layout(i0, i1).to(torch.int32), layout(r0 * w, r1 * w)
+
+
+def row_grads_of_corners(gwc: torch.Tensor, px: torch.Tensor, w: torch.Tensor, NL: int):
+    """The row taps' gradients from K9's corner-tap gw (`corner_taps_of_rows`'
+    layout): with P_c the corners' V . g, d/dw = r0 P_0 + r1 P_1 and
+    d/dpx = w (P_1 - P_0).  -> (gpx, gw) (BH, NL*2*P, Q)."""
+    BH, R, Q = px.shape
+    g = gwc.view(BH, NL, R // (2 * NL), 2, 2, Q).transpose(2, 3).reshape(BH, R, 2, Q)
+    p0 = torch.floor(px)
+    r0, r1 = 1.0 - (px - p0), 1.0 - ((p0 + 1.0) - px)
+    return w * (g[:, :, 1] - g[:, :, 0]), r0 * g[:, :, 0] + r1 * g[:, :, 1]
+
+
+def _rowtap_setup(ctx, inputs, output):
+    value, spatial_shapes, row, px, w, bwd = inputs
+    if bwd not in SWEEP_BWD:
+        raise ValueError(f"bwd must be one of {SWEEP_BWD}, got {bwd!r}")
+    ctx.spatial_shapes, ctx.bwd = spatial_shapes, bwd
+    ctx.save_for_backward(value, row, px, w)
+
+
+def _rowtap_backward(ctx, grad_out):
+    """The custom VJP of ms_deform_attn_pallas_t (msda_pallas.py:1415-1535)
+    on the sorted row taps: K10 on them, or K9 on their corner taps with
+    the corner gradients folded back onto the rows (`row_grads_of_corners`);
+    autograd chains px's and w's gradients to the locations and weights
+    through the expansion, as the JAX package's jax.vjp does."""
+    value, row, px, w = ctx.saved_tensors
+    g = kernel_rows(grad_out, value.dtype)
+    if ctx.bwd == "rowtap":
+        gv, gpx, gw = sweep_bwd_rowtap_op(value, ctx.spatial_shapes, row, px, w, g)
+        return gv, None, None, gpx * w, gw, None
+    NL = len(ctx.spatial_shapes) // 2
+    idx, wc = corner_taps_of_rows(row, px, w, value.shape[1], NL)
+    gv, gwc = sweep_bwd_corner_op(value, ctx.spatial_shapes, idx, wc, g)
+    gpx, gw = row_grads_of_corners(gwc, px, w, NL)
+    return gv, None, None, gpx, gw, None
+
+
+def _corner_fwd_setup(ctx, inputs, output):
+    value, spatial_shapes, idx, w = inputs
+    ctx.spatial_shapes = spatial_shapes
+    ctx.save_for_backward(value, idx, w)
+
+
+def _corner_fwd_backward(ctx, grad_out):
+    """K9 on K8's own corner taps (ms_deform_attn_pallas under
+    MSDA_FWD_VARIANT=corner)."""
+    value, idx, w = ctx.saved_tensors
+    gv, gw = sweep_bwd_corner_op(value, ctx.spatial_shapes, idx, w,
+                                 kernel_rows(grad_out, value.dtype))
+    return gv, None, None, gw
+
+
+for _op in (sweep_fwd_op, sweep_fwd_allq_op):
+    _op.register_kernel("cpu")(_rowtap_fwd_cpu)
+    _op.register_fake(_rowtap_fwd_fake)
+    _op.register_autograd(_rowtap_backward, setup_context=_rowtap_setup)
+sweep_fwd_corner_op.register_autograd(_corner_fwd_backward, setup_context=_corner_fwd_setup)
+
+
+def _tap_flops(value, w, px, taps_per_sample: int, per_corner: int) -> int:
+    """A sweep kernel's operations (library.msda_flops) on its taps: the
+    corners of every live tap (w != 0; a row tap's two, one where px is an
+    integer), samples counted over the padded query axis."""
+    BH, R, Qp = w.shape
+    samples = BH * Qp * (R // taps_per_sample)
+    if not is_real(w, px):
+        corners = 4 * samples
+    elif px is None:
+        corners = int((w != 0).sum())
+    else:
+        corners = int(((w != 0).int() * (1 + (px > torch.floor(px)).int())).sum())
+    return msda_flops(samples, corners, value.shape[-1], per_corner)
+
+
+@register_flop_formula([torch.ops.ogd_torch.sweep_fwd, torch.ops.ogd_torch.sweep_fwd_allq],
+                       get_raw=True)
+def _rowtap_fwd_flops(value, spatial_shapes, row, px, w, bwd="corner", out_val=None):
+    return _tap_flops(value, w, px, 2, 2)
+
+
+@register_flop_formula(torch.ops.ogd_torch.sweep_fwd_corner, get_raw=True)
+def _corner_fwd_flops(value, spatial_shapes, idx, w, out_val=None):
+    return _tap_flops(value, w, None, 4, 2)
+
+
+@register_flop_formula(torch.ops.ogd_torch.sweep_bwd_corner, get_raw=True)
+def _corner_bwd_flops(value, spatial_shapes, idx, w, g, out_val=None):
+    return _tap_flops(value, w, None, 4, 8)
+
+
+@register_flop_formula(torch.ops.ogd_torch.sweep_bwd_rowtap, get_raw=True)
+def _rowtap_bwd_flops(value, spatial_shapes, row, px, w, g, out_val=None):
+    return _tap_flops(value, w, px, 2, 8)
+
+
+# ---------------------------------------------------------------- the model's op
 def kernel_layout(locs: torch.Tensor, attn: torch.Tensor):
     """(B, Q, H, NL, P, 2) / (B, Q, H, NL, P) -> (BH, NL, P, 2, Q) /
     (BH, NL, P, Q), f32."""
@@ -602,75 +782,33 @@ def _to_reference(t_bh: torch.Tensor, B: int, H: int) -> torch.Tensor:
     return t_bh.view(B, H, Q, D).permute(0, 2, 1, 3).reshape(B, Q, H * D)
 
 
-def _rowtap_forward(value, locs, attn, spatial_shapes, dec_fused, fwd, allq):
-    """The row-tap forward: the expansion, the decoder's sort, `fwd` (K6),
-    or `allq` (K7) for a sorted set under dec_fused, each called as
-    launch(value, spatial_shapes, row, px, w), and the un-sort."""
+def _rowtap_forward(value, locs, attn, spatial_shapes, dec_fused: bool, bwd: str):
+    """The row-tap forward: the expansion, the decoder's sort, K6's op, or
+    K7's for a sorted set under dec_fused, and the un-sort; differentiable
+    through the ops' autograd (K9 or K10 by `bwd`) and the expansion."""
     B, L, H, _ = value.shape
     row, px, w = rowtap_positions_and_weights(*kernel_layout(locs, attn), spatial_shapes)
-    order = query_order(row, px, L)
-    launch = allq if (dec_fused and order is not None) else fwd
-    out = launch(value, spatial_shapes, *(sort_and_pad(t, order) for t in (row, px, w)))
+    order = query_order(row, px.detach(), L)
+    op = sweep_fwd_allq_op if (dec_fused and order is not None) else sweep_fwd_op
+    out = op(value, flat_shapes(spatial_shapes), *(sort_and_pad(t, order) for t in (row, px, w)),
+             bwd)
     return _to_reference(unsort(out, order, locs.shape[1], q_axis=1), B, H)
 
 
-class MSDASweepFunction(torch.autograd.Function):
-    """The custom VJP of ms_deform_attn_pallas_t (msda_pallas.py:1415-1535):
-    row-tap forward (K6, or K7 for a sorted query set under dec_fused), or
-    with fwd="corner" that of ms_deform_attn_pallas under
-    MSDA_FWD_VARIANT=corner (K8 on corner taps); the backward re-expands the
-    taps it needs, launches K9 (corner taps) or K10 (row taps), and chains
-    the tap gradients to the locations and weights with autograd of the
-    expansion (the JAX package's jax.vjp).  The output and grad_value are in
-    value's dtype (the TPU kernels' out_ref.dtype), the upstream gradient
-    reaches the kernels in it; the taps, grad_locs and grad_attn are f32."""
-
-    @staticmethod
-    def forward(ctx, value, locs, attn, spatial_shapes, bwd, dec_fused, fwd="rowtap"):
-        B, L, H, D = value.shape
-        Q = locs.shape[1]
-        ctx.spatial_shapes, ctx.bwd = spatial_shapes, bwd
-        ctx.save_for_backward(value, locs, attn)
-        if fwd == "corner":
-            idx, w = corner_indices_and_weights(*kernel_layout(locs, attn), spatial_shapes)
-            order = query_order(idx, None, L)
-            out = sweep_fwd_corner(value, spatial_shapes, *(sort_and_pad(t, order) for t in (idx, w)))
-            return _to_reference(unsort(out, order, Q, q_axis=1), B, H)
-        return _rowtap_forward(value, locs, attn, spatial_shapes, dec_fused, sweep_fwd,
-                               sweep_fwd_allq)
-
-    @staticmethod
-    def backward(ctx, grad_out):
-        value, locs, attn = ctx.saved_tensors
-        shapes = ctx.spatial_shapes
-        B, L, H, D = value.shape
-        Q = locs.shape[1]
-        g = grad_out.to(value.dtype).reshape(B, Q, H, D).permute(0, 2, 1, 3).reshape(B * H, Q, D)
-        with torch.enable_grad():
-            locs_t, attn_t = (t.detach().requires_grad_(True) for t in kernel_layout(locs, attn))
-            row, px, w = rowtap_positions_and_weights(locs_t, attn_t, shapes)
-            order = query_order(row, px.detach(), L)
-            g_k = sort_and_pad(g, order, q_axis=1)
-            if ctx.bwd == "rowtap":
-                gv, gpx, gw = sweep_bwd_rowtap(value, shapes, sort_and_pad(row, order),
-                                               sort_and_pad(px.detach(), order),
-                                               sort_and_pad(w.detach(), order), g_k)
-                outs = (px, w)
-                grads = (unsort(gpx, order, Q) * w.detach(), unsort(gw, order, Q))
-            else:
-                idx, wc = corner_indices_and_weights(locs_t, attn_t, shapes)
-                gv, gw = sweep_bwd_corner(value, shapes, sort_and_pad(idx, order),
-                                          sort_and_pad(wc.detach(), order), g_k)
-                outs, grads = (wc,), (unsort(gw, order, Q),)
-            g_locs_t, g_attn_t = torch.autograd.grad(outs, (locs_t, attn_t), grads)
-        NL, P = locs.shape[3], locs.shape[4]
-        grad_locs = g_locs_t.view(B, H, NL, P, 2, Q).permute(0, 5, 1, 2, 3, 4)
-        grad_attn = g_attn_t.view(B, H, NL, P, Q).permute(0, 4, 1, 2, 3)
-        return gv, grad_locs.contiguous(), grad_attn.contiguous(), None, None, None, None
+def _corner_forward(value, locs, attn, spatial_shapes):
+    """The corner forward (ms_deform_attn_pallas under MSDA_FWD_VARIANT=corner):
+    the corner expansion, sorted by its first corner tap, K8's op (K9 for
+    its gradient), the un-sort."""
+    B, L, H, _ = value.shape
+    idx, w = corner_indices_and_weights(*kernel_layout(locs, attn), spatial_shapes)
+    order = query_order(idx, None, L)
+    out = sweep_fwd_corner_op(value, flat_shapes(spatial_shapes),
+                              *(sort_and_pad(t, order) for t in (idx, w)))
+    return _to_reference(unsort(out, order, locs.shape[1], q_axis=1), B, H)
 
 
 def ms_deform_attn_sweep_plain(value, spatial_shapes, locs, attn, fwd="rowtap"):
-    """The sweep's function for CPU tensors: row-tap (or corner) expansion
+    """The sweep's function without the ops: row-tap (or corner) expansion
     and sweep_fwd_plain (sweep_fwd_corner_plain), differentiable by
     autograd.  Returns (B, Q, H*D) in value's dtype."""
     B, L, H, D = value.shape
@@ -693,9 +831,7 @@ def ms_deform_attn_sweep(value: torch.Tensor, spatial_shapes: Shapes, level_star
     `fwd="corner"`; K9 backward (`bwd="corner"`) or K10
     (`bwd="rowtap"`).  The corner forward is the JAX op-level path, which has
     neither a fused decoder nor the row-tap backward: with it, both raise.
-    On CPU tensors the plain version.  Without a gradient the row-tap
-    forward goes through the ops of K6 and K7 (their plain versions on CPU
-    tensors).
+    On CPU tensors the kernels' plain versions; through the ops either way.
     `level_start` is the raster offsets of the levels, checked against
     spatial_shapes."""
     if bwd not in SWEEP_BWD:
@@ -708,14 +844,10 @@ def ms_deform_attn_sweep(value: torch.Tensor, spatial_shapes: Shapes, level_star
         raise ValueError("the sweep takes the raster level order (level_start of spatial_shapes)")
     if value.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ms_deform_attn_sweep: unsupported device {value.device}")
-    if fwd == "rowtap" and not needs_grad(value, locs, attn):
-        return _rowtap_forward(value, locs, attn, tuple(map(tuple, spatial_shapes)), dec_fused,
-                               with_flat_shapes(sweep_fwd_op),
-                               with_flat_shapes(sweep_fwd_allq_op))
-    if value.device.type == "cpu":
-        return ms_deform_attn_sweep_plain(value, spatial_shapes, locs, attn, fwd)
-    return MSDASweepFunction.apply(value, locs, attn, tuple(map(tuple, spatial_shapes)), bwd,
-                                   bool(dec_fused), fwd)
+    shapes = tuple(map(tuple, spatial_shapes))
+    if fwd == "corner":
+        return _corner_forward(value, locs, attn, shapes)
+    return _rowtap_forward(value, locs, attn, shapes, bool(dec_fused), bwd)
 
 
 sweep_fwd.launches = sweep_fwd.launches_bf16 = 0

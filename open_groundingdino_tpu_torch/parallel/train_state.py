@@ -100,10 +100,14 @@ def to_device(batch: Dict[str, np.ndarray], device,
     on `device` (integer arrays as int64).  For a CUDA device each array is
     staged in page-locked memory, so that its copy queues behind the work
     already launched instead of waiting for it (the eval loop launches a
-    batch while the card still runs the one before)."""
+    batch while the card still runs the one before).  A tensor (a batch
+    staged on the device ahead) is moved only if it lies elsewhere."""
     out = {}
     pin = torch.device(device).type == "cuda"
     for k in keys:
+        if isinstance(batch[k], torch.Tensor):
+            out[k] = batch[k].to(device)
+            continue
         v = np.asarray(batch[k])
         if v.dtype.kind in "iu" and v.dtype != np.uint8:
             v = v.astype(np.int64)

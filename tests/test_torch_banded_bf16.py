@@ -26,17 +26,16 @@ measures.
     fusion through the TPU kernel, as tests/test_torch_bf16.py runs it),
     flip-aware (NANO_FLIPS says why two swapped pairs), and against the
     port's bf16 forward through the gather with no flip;
-  * the CUDA path's plumbing (MSDABandedFunction, and MSDASweepFunction with
-    fwd="corner", their launchers on the plain versions): a bf16 output, the
+  * the ops' plumbing (K5's op with K3's, and K8's with K9's, under their
+    registered autograd; the ops dispatched recorded): a bf16 output, the
     value handed to K5 / K8 in bf16, a bf16 contiguous upstream gradient
     handed to K3 / K9, grad_value in bf16 and grad_locs / grad_attn in f32.
 No JAX training step is compiled here (tests/test_torch_bf16.py holds one).
 """
-import types
-
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax
 import jax.numpy as jnp
@@ -204,88 +203,82 @@ def test_bf16_nano_forward_matches_jax_banded_path(per_point, jax_fusion_kernel)
         assert_anchored(bx[0], bx[ref_i], bx[2], "pred_boxes" + what, keep)
 
 
-# ---------------------------------------------------------------- the CUDA path's plumbing
+# ---------------------------------------------------------------- the ops' plumbing
 def _plumbing_inputs(Q, seed):
     value, locs, attn, grad = _inputs(Q, seed)
     return _t(_bf(value), BF), _t(locs), _t(attn), _t(_bf(grad), BF)
 
 
+class Record(TorchDispatchMode):
+    """The ogd_torch ops dispatched under it: (name, value dtype, the last
+    tensor operand's dtype and contiguity, the output dtypes)."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func.namespace == "ogd_torch":
+            outs = (out,) if isinstance(out, torch.Tensor) else tuple(out)
+            last = [a for a in args if isinstance(a, torch.Tensor)][-1]
+            self.calls.append((func.__name__.split(".")[0], args[0].dtype, last.dtype,
+                               last.is_contiguous(), tuple(o.dtype for o in outs)))
+        return out
+
+
 @pytest.mark.parametrize("Q", [L, 150], ids=["Q=L", "Q!=L-sorted"])
-def test_bf16_banded_function_dtypes(monkeypatch, Q):
-    """MSDABandedFunction in bf16, K5 and K3 on their plain versions: K5
-    given the bf16 value, a bf16 output, the upstream gradient handed to K3
-    in bf16 and contiguous, grad_value returned in bf16 and grad_locs /
-    grad_attn in f32 (the backward called directly, so that autograd's
-    casts cannot hide a dtype).  The output against the plain op on the
-    same bf16 inputs, grad_value against K3's plain version (which adds it
-    in bf16, as K3 bf16 does) and grad_locs / grad_attn against the plain
-    op under autograd."""
+def test_bf16_banded_function_dtypes(Q):
+    """K5's op in bf16 under its registered autograd (the CUDA path's
+    plumbing, the ops dispatched recorded): K5 given the bf16 value, a bf16
+    output, the upstream gradient handed to K3 in bf16 and contiguous (the
+    caller upcasts the output and sends an f32 gradient), grad_value
+    returned in bf16 and grad_locs / grad_attn in f32 (read at K3's op, so
+    that autograd's casts cannot hide a dtype).  The output against the
+    plain banded version on the same bf16 inputs, grad_value against K3's
+    plain version (which adds it in bf16, as K3 bf16 does) and grad_locs /
+    grad_attn against the plain banded version under autograd."""
     v, locs, attn, g = _plumbing_inputs(Q, 7)
     leaves = [t.clone().requires_grad_(True) for t in (v, locs, attn)]
-    ref = mb.ms_deform_attn_banded(leaves[0], SHAPES, STARTS, leaves[1], leaves[2], BAND)
+    ref = mb.ms_deform_attn_banded_plain(leaves[0], SHAPES, leaves[1], leaves[2], BAND)
     ref.backward(g)
-    called = []
-
-    def k5(value, shapes, px, py, wa, band):
-        called.append(("K5", value.dtype))
-        _, lt, *_ = mb.banded_operands(locs, attn, shapes, value.shape[1])
-        ranges = mb.band_ranges(lt, shapes, px.shape[-1] // sw.QBLOCK,
-                                mb.level_bands(shapes, band))
-        return mb.banded_fwd_plain(value, shapes, px, py, wa, ranges, band).to(value.dtype)
-
-    def k3(value, shapes, starts, l, a, grad_out):
-        called.append(("K3", value.dtype, grad_out.dtype, grad_out.is_contiguous()))
-        return msda.ms_deform_attn_bwd_plain(value, shapes, starts, l, a, grad_out)
-
-    monkeypatch.setattr(mb, "banded_fwd", k5)
-    monkeypatch.setattr(msda, "ms_deform_attn_bwd", k3)
-    out = mb.MSDABandedFunction.apply(v, locs, attn, SHAPES, STARTS, BAND)
+    got = [t.clone().requires_grad_(True) for t in (v, locs, attn)]
+    with Record() as rec:
+        out = mb.ms_deform_attn_banded(got[0], SHAPES, STARTS, got[1], got[2], BAND)
+        out.float().backward(g.float())
     assert out.dtype == BF
-    ctx = types.SimpleNamespace(saved_tensors=(v, locs, attn), spatial_shapes=SHAPES,
-                                level_start=STARTS)
-    # an f32 upstream gradient, as a caller upcasting the output would send
-    gv, gl, ga = mb.MSDABandedFunction.backward(ctx, g.float())[:3]
+    gv, gl, ga = (t.grad for t in got)
     assert (gv.dtype, gl.dtype, ga.dtype) == (BF, torch.float32, torch.float32)
-    assert called == [("K5", BF), ("K3", BF, BF, True)]
+    assert [c[:2] for c in rec.calls] == [("banded_fwd", BF), ("msda_bwd", BF)]
+    assert rec.calls[0][4] == (BF,)
+    assert rec.calls[1][2:] == (BF, True, (BF, torch.float32, torch.float32))
     torch.testing.assert_close(out, ref.detach())
     want = msda.ms_deform_attn_bwd_plain(v, SHAPES, STARTS, locs, attn, g)
     torch.testing.assert_close(gv, want[0], rtol=0, atol=0)
-    for got, want in ((gl, leaves[1].grad), (ga, leaves[2].grad)):
-        torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-4)
+    for got_g, want_g in ((gl, leaves[1].grad), (ga, leaves[2].grad)):
+        torch.testing.assert_close(got_g, want_g, rtol=1e-4, atol=2e-4)
 
 
-def test_bf16_corner_function_dtypes(monkeypatch):
-    """MSDASweepFunction with fwd="corner" in bf16, K8 and K9 on their plain
-    versions: K8 given the bf16 value, a bf16 output, K9 the bf16 value and
-    upstream gradient, grad_value in bf16 and grad_locs / grad_attn in f32;
-    against the plain op under autograd."""
+def test_bf16_corner_function_dtypes():
+    """K8's op (fwd="corner") in bf16 under its registered autograd: K8
+    given the bf16 value, a bf16 output, K9 the bf16 value and upstream
+    gradient, grad_value in bf16 and gw in f32 (read at K9's op), grad_locs /
+    grad_attn in f32; against the plain corner forward under autograd."""
     Q = 150
     v, locs, attn, g = _plumbing_inputs(Q, 8)
     leaves = [t.clone().requires_grad_(True) for t in (v, locs, attn)]
-    ref = sw.ms_deform_attn_sweep(leaves[0], SHAPES, STARTS, leaves[1], leaves[2],
-                                  fwd="corner")
+    ref = sw.ms_deform_attn_sweep_plain(leaves[0], SHAPES, leaves[1], leaves[2], fwd="corner")
     ref.backward(g)
-    called = []
-
-    def k8(value, shapes, idx, w):
-        called.append(("K8", value.dtype))
-        return sw.sweep_fwd_corner_plain(value, idx, w).to(value.dtype)
-
-    def k9(value, shapes, idx, w, g_k):
-        called.append(("K9", value.dtype, g_k.dtype, g_k.is_contiguous()))
-        gv, gw = sw.sweep_bwd_corner_plain(value, idx, w, g_k)
-        return gv.to(value.dtype), gw
-
-    monkeypatch.setattr(sw, "sweep_fwd_corner", k8)
-    monkeypatch.setattr(sw, "sweep_bwd_corner", k9)
-    out = sw.MSDASweepFunction.apply(v, locs, attn, SHAPES, "corner", False, "corner")
+    got = [t.clone().requires_grad_(True) for t in (v, locs, attn)]
+    with Record() as rec:
+        out = sw.ms_deform_attn_sweep(got[0], SHAPES, STARTS, got[1], got[2], fwd="corner")
+        out.backward(g)
     assert out.dtype == BF
-    ctx = types.SimpleNamespace(saved_tensors=(v, locs, attn), spatial_shapes=SHAPES,
-                                bwd="corner")
-    gv, gl, ga = sw.MSDASweepFunction.backward(ctx, g)[:3]
+    gv, gl, ga = (t.grad for t in got)
     assert (gv.dtype, gl.dtype, ga.dtype) == (BF, torch.float32, torch.float32)
-    assert called == [("K8", BF), ("K9", BF, BF, True)]
+    assert rec.calls == [("sweep_fwd_corner", BF, torch.float32, True, (BF,)),
+                         ("sweep_bwd_corner", BF, BF, True, (BF, torch.float32))]
     torch.testing.assert_close(out, ref.detach())
     torch.testing.assert_close(gv, leaves[0].grad)
-    for got, want in ((gl, leaves[1].grad), (ga, leaves[2].grad)):
-        torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-4)
+    for got_g, want_g in ((gl, leaves[1].grad), (ga, leaves[2].grad)):
+        torch.testing.assert_close(got_g, want_g, rtol=1e-4, atol=2e-4)

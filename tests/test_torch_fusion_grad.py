@@ -9,14 +9,16 @@ another order).  One case makes the +-50000 clamps bind, where the plain
 version's max shifts must be constants to autograd, as `stop_gradient`
 makes them in the JAX package.
 
-`FusedBiAttentionFunction`'s autograd plumbing (its launchers replaced by
-the plain versions) is checked too: the kernels themselves run only on the
-card (chip_smoke.py), and the K4 wrapper raises for any tensor not on the
-card.
+The registered autograd of K2's op is checked too: its backward dispatches
+K4's op (`ogd_torch::fusion_bwd`) on K2's outputs and statistics, whose CPU
+implementation is the plain backward; the kernels themselves run only on
+the card (chip_smoke.py), and the K4 wrapper raises for any tensor not on
+the card.
 """
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax
 
@@ -101,7 +103,7 @@ def test_grad_matches_jax_where_the_clamps_bind():
     _compare(params, v, l, mask_v, mask_l, g_v, g_l)
 
 
-def test_bwd_wrapper_cpu_path_and_function_plumbing(monkeypatch):
+def test_bwd_wrapper_cpu_path_and_function_plumbing():
     rng = np.random.RandomState(3)
     q = torch.from_numpy((rng.randn(B, NV, E) * (E // H) ** -0.5).astype(np.float32))
     k, val_l = (torch.from_numpy(rng.randn(B, NL, E).astype(np.float32)) for _ in range(2))
@@ -116,21 +118,22 @@ def test_bwd_wrapper_cpu_path_and_function_plumbing(monkeypatch):
         fusion.fused_bi_attention_bwd(q, k, val_v, val_l, mask_v, mask_l, q, k, None, None,
                                       g_ov, g_ol, H)
 
-    def plain_fwd(*args):
-        out_v, out_l = fusion.fused_bi_attention_plain(*args)
-        return out_v, out_l, torch.zeros(B, H, NV), torch.zeros(B, H, NL)
+    calls = []
 
-    def plain_bwd(q, k, val_v, val_l, mask_v, mask_l, out_v, out_l, lse_v, lse_l, g_ov, g_ol,
-                  num_heads):
-        assert out_v.shape == q.shape and lse_l.shape == (B, H, NL)   # what K2 saved
-        return fusion.fused_bi_attention_bwd_plain(q, k, val_v, val_l, mask_v, mask_l, g_ov,
-                                                   g_ol, num_heads)
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func._overloadpacket == torch.ops.ogd_torch.fusion_bwd:
+                calls.append(args)
+            return func(*args, **(kwargs or {}))
 
-    monkeypatch.setattr(fusion, "_fusion_fwd_cuda", plain_fwd)
-    monkeypatch.setattr(fusion, "fused_bi_attention_bwd", plain_bwd)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, val_v, val_l)]
-    out_v, out_l = fusion.FusedBiAttentionFunction.apply(*leaves, mask_v, mask_l, H)
-    torch.autograd.backward((out_v, out_l), (g_ov, g_ol))
+    out_v, out_l = fusion.fused_bi_attention(*leaves, mask_v, mask_l, H)
+    with Record():
+        torch.autograd.backward((out_v, out_l), (g_ov, g_ol))
+    assert len(calls) == 1
+    saved = calls[0]
+    assert saved[6].shape == q.shape and saved[9].shape == (B, H, NL)   # what K2 saved
+    torch.testing.assert_close(saved[6], out_v.detach(), rtol=0, atol=0)
     for t, r in zip(leaves, ref):
         torch.testing.assert_close(t.grad, r, rtol=0, atol=0)
 

@@ -31,7 +31,8 @@ def _imported_roots(path):
 
 
 # every module of the serving, training, sweep, banded, eval, backbone, PAVE,
-# serving-export, RoBERTa / zero-shot and multi-process slices and the tools:
+# serving-export, RoBERTa / zero-shot and multi-process slices and the tools
+# (the JAX package's last tools among them), plot_utils and the profile reader:
 # the walk below
 # must find them all,
 # and importing them must load nothing of JAX
@@ -49,6 +50,9 @@ EXPECTED = (
     "tools.inference_a_folder", "serving", "ops.library", "tools.export_model",
     "data.staging", "data.strong_aug", "utils.native", "tools.zero_shot_eval",
     "parallel.dist", "utils.logger", "utils.slio", "utils.time_counter",
+    "tools.benchmark", "tools.profile", "tools.serving_bench", "tools.eval_pipeline_bench",
+    "tools.matcher_microbench", "tools.opt_microbench", "utils.plot_utils", "utils.profiling",
+    "utils.graph_check",
 )
 
 

@@ -14,16 +14,16 @@ model's level shapes.
     `_sorted`, forward and gradients of value, locations and weights, at
     rtol 1e-4 / atol 2e-4 (tests/test_msda_pallas.py:84-89; sampling points
     are continuous draws, off the pixel lattice).
-  * `MSDABandedFunction` (the CUDA path) with K5's launcher replaced by the
-    plain version and K3's by its reference: the forward reaches K5 with
-    the operands `banded_operands` makes, the backward reaches K3 with the
-    reference operands and the upstream gradient.
+  * The registered autograd of K5's op (the CUDA path's too): the forward
+    reaches K5's op with the operands `banded_operands` makes, the backward
+    reaches K3's op with the reference operands and the upstream gradient.
 The module and the nano model on this path are
 tests/test_torch_banded_model.py.
 """
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax
 import jax.numpy as jnp
@@ -151,39 +151,35 @@ def test_op_and_gradient_match_jax(per_point, Q):
         np.testing.assert_allclose(t.grad.numpy(), r, **GRAD_TOL, err_msg=name)
 
 
-def test_function_reaches_k5_and_k3(monkeypatch):
-    """The CUDA path's autograd plumbing, its two launchers on the plain
-    versions: the decoder's sorted, padded operands into K5, the output
-    un-sorted, and K3 given the reference operands and the upstream
-    gradient."""
+def test_function_reaches_k5_and_k3():
+    """The op's autograd plumbing, recorded at the dispatcher: the decoder's
+    sorted, padded operands into K5's op, the output un-sorted, and K3's op
+    given the reference operands and the upstream gradient."""
     Q = 150
     value, locs, attn, grad = _t(*_inputs(Q, 3))
     calls = []
 
-    def k5(v, shapes, px, py, wa, band):
-        calls.append(("K5", px, py, wa, band))
-        ranges = mb.band_ranges(lt, shapes, px.shape[-1] // QBLOCK, mb.level_bands(shapes, band))
-        return mb.banded_fwd_plain(v, shapes, px, py, wa, ranges, band)
-
-    def k3(*args):
-        calls.append(("K3",) + args)
-        return msda.ms_deform_attn_bwd_plain(*args)
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.namespace == "ogd_torch":
+                calls.append((func.__name__.split(".")[0],) + tuple(args))
+            return func(*args, **(kwargs or {}))
 
     order, lt, px, py, wa = mb.banded_operands(locs, attn, SHAPES, L)
     assert order is not None and (wa[..., Q:] == 0).all()
-    monkeypatch.setattr(mb, "banded_fwd", k5)
-    monkeypatch.setattr(msda, "ms_deform_attn_bwd", k3)
     leaves = [t.clone().requires_grad_(True) for t in (value, locs, attn)]
-    out = mb.MSDABandedFunction.apply(*leaves, SHAPES, STARTS, BAND)
-    out.backward(grad)
-    assert [c[0] for c in calls] == ["K5", "K3"]
-    for got, want in zip(calls[0][1:4], (px, py, wa)):
+    with Record():
+        out = mb.ms_deform_attn_banded(*leaves[:1], SHAPES, STARTS, *leaves[1:], BAND)
+        out.backward(grad)
+    assert [c[0] for c in calls] == ["banded_fwd", "msda_bwd"]
+    for got, want in zip(calls[0][3:6], (px, py, wa)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     _, v3, shapes3, starts3, l3, a3, g3 = calls[1]
-    assert (shapes3, starts3) == (SHAPES, STARTS)
+    assert (shapes3, starts3) == ([v for hw in SHAPES for v in hw], list(STARTS))
     for got, want in zip((v3, l3, a3, g3), (value, locs, attn, grad)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
-    ref = mb.ms_deform_attn_banded(value, SHAPES, STARTS, locs, attn, BAND)
+    with torch.no_grad():
+        ref = mb.ms_deform_attn_banded(value, SHAPES, STARTS, locs, attn, BAND)
     torch.testing.assert_close(out.detach(), ref, rtol=0, atol=0)
     ref_grads = msda.ms_deform_attn_bwd_plain(value, SHAPES, STARTS, locs, attn, grad)
     for t, r in zip(leaves, ref_grads):

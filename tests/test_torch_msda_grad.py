@@ -10,14 +10,17 @@ another order).  Sampling locations are continuous random draws, so no point
 sits on the pixel lattice, where the one-sided derivative of floor makes
 the JAX package's own jitted and eager gradients differ (ROADMAP section 3).
 
-`MSDeformAttnFunction`, which the CUDA path takes, is checked for its
-autograd plumbing on the CPU with its two launchers replaced by the plain
-versions: the kernels themselves run only on the card (chip_smoke.py), and
-the K3 wrapper raises for any tensor not on the card.
+The registered autograd of K1's op, which the CUDA path takes too, is
+checked for its plumbing on the CPU: its backward dispatches K3's op
+(`ogd_torch::msda_bwd`) once, on the saved operands, whose CPU
+implementation is the plain VJP; the kernels themselves run only on the
+card (chip_smoke.py), and the K3 wrapper raises for any tensor not on the
+card.
 """
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax
 import jax.numpy as jnp
@@ -70,17 +73,23 @@ def test_autograd_through_wrapper_matches_jax_grad():
         np.testing.assert_allclose(t.grad.numpy(), r, **TOL, err_msg=name)
 
 
-def test_function_plumbing(monkeypatch):
-    """MSDeformAttnFunction with its launchers replaced by the plain
-    versions hands each input its own gradient."""
-    monkeypatch.setattr(msda, "_msda_fwd_cuda", msda.ms_deform_attn_plain)
-    monkeypatch.setattr(msda, "ms_deform_attn_bwd", msda.ms_deform_attn_bwd_plain)
+def test_function_plumbing():
+    """K1's op hands each input its own gradient through K3's op."""
     value, locs, attn, grad_out = _inputs(3)
     ref = _jax_grads(value, locs, attn, grad_out)
     leaves = [torch.from_numpy(a).requires_grad_(True) for a in (value, locs, attn)]
-    out = msda.MSDeformAttnFunction.apply(leaves[0], leaves[1], leaves[2], SHAPES,
-                                          msda.level_starts(SHAPES))
-    out.backward(torch.from_numpy(grad_out))
+    out = msda.msda_fwd(leaves[0], [v for hw in SHAPES for v in hw],
+                        list(msda.level_starts(SHAPES)), leaves[1], leaves[2])
+    calls = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            calls.append(func._overloadpacket)
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        out.backward(torch.from_numpy(grad_out))
+    assert calls.count(torch.ops.ogd_torch.msda_bwd) == 1
     for name, t, r in zip(("value", "locs", "attn"), leaves, ref):
         np.testing.assert_allclose(t.grad.numpy(), r, **TOL, err_msg=name)
 

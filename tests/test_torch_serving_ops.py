@@ -2,11 +2,11 @@
 banded_point paths, at nano size on the CPU (the gather path's artifact
 against the JAX package's is tests/test_torch_serving.py).
 
-  * (a) `torch.library.opcheck` on the five custom ops (K1, K2, K5, K6, K7)
-    at tiny shapes, f32 and bf16: schema, the fake implementation against
-    the CPU one (the plain version), dispatch under AOT tracing; and the
-    wrappers' two CPU routes (the op without a gradient, the differentiable
-    plain version with one) give the same values.
+  * (a) `torch.library.opcheck` on the ten custom ops (K1-K10) at tiny
+    shapes, f32 and bf16: schema, the fake implementation against the CPU
+    one (the plain version), dispatch under AOT tracing; and the wrappers
+    reach the ops with and without a gradient, with the plain version's
+    values.
   * (e) A nano model (one encoder and one decoder layer, seeded weights with
     perturbed offset/weight kernels) exported on msda_kernel="sweep" (with
     msda_dec_fused: K6 in the encoder, K7 in the decoder) and on
@@ -102,11 +102,31 @@ def _op_cases(dtype):
     _, _, px, py, wa = mb.banded_operands(locs, attn, shapes, value.shape[1])
     row, tpx, w = (sw.sort_and_pad(t, None) for t in sw.rowtap_positions_and_weights(
         *sw.kernel_layout(locs, attn), shapes))
-    return {"msda_fwd": (value, flat, list(msda.level_starts(shapes)), locs, attn),
+    idx, cw = (sw.sort_and_pad(t, None) for t in sw.corner_indices_and_weights(
+        *sw.kernel_layout(locs, attn), shapes))
+    starts = list(msda.level_starts(shapes))
+    B, L, H, D = value.shape
+    out_v, out_l, lse_v, lse_l = library.custom_ops()["fusion_fwd"](*fusion, *masks, 2)
+    g_f = [torch.from_numpy(rng.randn(*t.shape).astype(np.float32)).to(dtype)
+           for t in (out_v, out_l)]
+    g_msda = torch.from_numpy(rng.randn(B, locs.shape[1], H * D).astype(np.float32)).to(dtype)
+    g_taps = torch.from_numpy(rng.randn(B * H, w.shape[-1], D).astype(np.float32)).to(dtype)
+    return {"msda_fwd": (value, flat, starts, locs, attn),
+            "msda_bwd": (value, flat, starts, locs, attn, g_msda),
             "fusion_fwd": (*fusion, *masks, 2),
+            "fusion_bwd": (*fusion, *masks, out_v, out_l, lse_v, lse_l, *g_f, 2),
             "banded_fwd": (value, flat, px, py, wa),
             "sweep_fwd": (value, flat, row, tpx, w),
-            "sweep_fwd_allq": (value, flat, row, tpx, w)}
+            "sweep_fwd_allq": (value, flat, row, tpx, w),
+            "sweep_fwd_corner": (value, flat, idx, cw),
+            "sweep_bwd_corner": (value, flat, idx, cw, g_taps),
+            "sweep_bwd_rowtap": (value, flat, row, tpx, w, g_taps)}
+
+
+# each op's outputs that are f32 whatever the operands' dtype: K2's
+# statistics, the location, weight and tap gradients
+F32_OUTPUTS = {"fusion_fwd": (2, 3), "msda_bwd": (1, 2), "sweep_bwd_corner": (1,),
+               "sweep_bwd_rowtap": (1, 2)}
 
 
 def _as_tuple(t):
@@ -124,7 +144,7 @@ def test_ops_opcheck(dtype):
         real = ops[name](*args)
         for f, r in zip(_as_tuple(fake), _as_tuple(real)):
             assert (f.shape, f.dtype) == (r.shape, r.dtype), name
-        assert all(r.dtype == (dtype if i < 2 or name != "fusion_fwd" else torch.float32)
+        assert all(r.dtype == (torch.float32 if i in F32_OUTPUTS.get(name, ()) else dtype)
                    for i, r in enumerate(_as_tuple(real))), name
 
 
@@ -143,8 +163,8 @@ def test_fusion_op_statistics():
 
 
 def test_wrappers_reach_the_ops():
-    """Without a gradient the wrappers' results are the ops'; with one, on
-    the CPU, the differentiable plain versions' (the same values)."""
+    """The wrappers' results are the ops', the plain versions' values, with
+    and without a gradient."""
     value, shapes, locs, attn = _msda_args(torch.float32)
     starts = msda.level_starts(shapes)
     plain = msda.ms_deform_attn_plain(value, shapes, starts, locs, attn)

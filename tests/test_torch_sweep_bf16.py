@@ -30,19 +30,19 @@ difference the anchor measures.
     the JAX nano model's make_eval_step in bf16 on the Pallas path (its
     fusion through the TPU kernel, as tests/test_torch_bf16.py runs it),
     flip-aware;
-  * the CUDA path's plumbing (MSDASweepFunction with its launchers on the
-    plain versions): a bf16 output, a bf16 upstream gradient handed to K9
-    and K10, grad_value in bf16 and grad_locs / grad_attn in f32; a bf16
+  * the ops' plumbing (their registered autograd, the CUDA path's too; the
+    ops dispatched recorded): a bf16 output, a bf16 upstream gradient handed
+    to K9 and K10, grad_value in bf16 and grad_locs / grad_attn in f32; a bf16
     module returns bf16 on every kernel path, and K8's launcher takes a
     bf16 value (tests/test_torch_banded_bf16.py holds banded_point and K8 in
     bf16).
 No JAX training step is compiled here (tests/test_torch_bf16.py holds one).
 """
-import types
 
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax
 import jax.numpy as jnp
@@ -252,60 +252,53 @@ def test_bf16_nano_forward_matches_jax_pallas_path(sweep_path, jax_fusion_kernel
 
 
 # ---------------------------------------------------------------- the CUDA path's plumbing
-def _bf16_launchers(monkeypatch):
-    """The four launchers on their plain versions, returning what the
-    kernels' wrappers return (the forward and grad_value in value's dtype);
-    returns the list of (launcher, value dtype, g dtype and layout)."""
-    called = []
+class Record(TorchDispatchMode):
+    """The ogd_torch ops dispatched under it: (name, value dtype, the last
+    tensor operand's dtype and contiguity, the output dtypes)."""
 
-    def fwd(name):
-        def launch(value, shapes, row, px, w):
-            called.append((name, value.dtype))
-            return sw.sweep_fwd_plain(value, row, px, w).to(value.dtype)
-        return launch
+    def __init__(self):
+        super().__init__()
+        self.calls = []
 
-    def bwd(name, plain):
-        def launch(value, shapes, *taps_g):
-            g = taps_g[-1]
-            called.append((name, value.dtype, g.dtype, g.is_contiguous()))
-            gv, *rest = plain(value, *taps_g)
-            return (gv.to(value.dtype), *rest)
-        return launch
-
-    monkeypatch.setattr(sw, "sweep_fwd", fwd("K6"))
-    monkeypatch.setattr(sw, "sweep_fwd_allq", fwd("K7"))
-    monkeypatch.setattr(sw, "sweep_bwd_corner", bwd("K9", sw.sweep_bwd_corner_plain))
-    monkeypatch.setattr(sw, "sweep_bwd_rowtap", bwd("K10", sw.sweep_bwd_rowtap_plain))
-    return called
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func.namespace == "ogd_torch":
+            outs = (out,) if isinstance(out, torch.Tensor) else tuple(out)
+            last = [a for a in args if isinstance(a, torch.Tensor)][-1]
+            self.calls.append((func.__name__.split(".")[0], args[0].dtype, last.dtype,
+                               last.is_contiguous(), tuple(o.dtype for o in outs)))
+        return out
 
 
 @pytest.mark.parametrize("Q,dec_fused,bwd", [(sum(h * w for h, w in SHAPES), False, "corner"),
                                              (173, True, "rowtap")],
                          ids=["Q=L-corner", "Q!=L-fused-rowtap"])
-def test_bf16_function_dtypes(monkeypatch, Q, dec_fused, bwd):
-    """MSDASweepFunction in bf16: a bf16 output, the upstream gradient handed
-    to K9/K10 in bf16 and contiguous, grad_value returned in bf16 and
-    grad_locs / grad_attn in f32 (its backward called directly, so that
-    autograd's casts cannot hide a dtype); against the plain op under
-    autograd on the same bf16 inputs."""
+def test_bf16_function_dtypes(Q, dec_fused, bwd):
+    """The sweep's ops in bf16: a bf16 output, the upstream gradient handed
+    to K9/K10 in bf16 and contiguous, grad_value returned in bf16 and the
+    tap gradients in f32 (read at the backward op, so that autograd's casts
+    cannot hide a dtype), grad_locs / grad_attn in f32; against the plain
+    forward under autograd on the same bf16 inputs."""
     value, locs, attn, grad = _inputs(Q, 7)
     v, g = _t(_bf(value), BF), _t(_bf(grad), BF)
     leaves = [t.clone().requires_grad_(True) for t in (v, _t(locs), _t(attn))]
-    ref = sw.ms_deform_attn_sweep(leaves[0], SHAPES, STARTS, leaves[1], leaves[2], bwd, dec_fused)
+    ref = sw.ms_deform_attn_sweep_plain(leaves[0], SHAPES, leaves[1], leaves[2])
     ref.backward(g)
-    called = _bf16_launchers(monkeypatch)
-    out = sw.MSDASweepFunction.apply(v, _t(locs), _t(attn), SHAPES, bwd, dec_fused)
+    got = [t.clone().requires_grad_(True) for t in (v, _t(locs), _t(attn))]
+    with Record() as rec:
+        out = sw.ms_deform_attn_sweep(got[0], SHAPES, STARTS, got[1], got[2], bwd, dec_fused)
+        out.backward(g)
     assert out.dtype == BF
-    ctx = types.SimpleNamespace(saved_tensors=(v, _t(locs), _t(attn)), spatial_shapes=SHAPES,
-                                bwd=bwd)
-    gv, gl, ga = sw.MSDASweepFunction.backward(ctx, g)[:3]
+    gv, gl, ga = (t.grad for t in got)
     assert (gv.dtype, gl.dtype, ga.dtype) == (BF, torch.float32, torch.float32)
-    assert called == [("K7" if dec_fused else "K6", BF),
-                      ("K9" if bwd == "corner" else "K10", BF, BF, True)]
+    fwd = ("sweep_fwd_allq" if dec_fused else "sweep_fwd", BF, torch.float32, True, (BF,))
+    bwd_call = (f"sweep_bwd_{bwd}", BF, BF, True,
+                (BF, torch.float32) if bwd == "corner" else (BF, torch.float32, torch.float32))
+    assert rec.calls == [fwd, bwd_call]
     torch.testing.assert_close(out, ref.detach())
     torch.testing.assert_close(gv, leaves[0].grad)   # one bf16 rounding of f32 sums each
-    for got, want in ((gl, leaves[1].grad), (ga, leaves[2].grad)):
-        torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-4)
+    for got_g, want in ((gl, leaves[1].grad), (ga, leaves[2].grad)):
+        torch.testing.assert_close(got_g, want, rtol=1e-4, atol=2e-4)
 
 
 def test_bf16_runs_where_entries_exist():

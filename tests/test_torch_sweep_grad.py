@@ -3,12 +3,12 @@
 in interpret mode on the CPU, at tests/test_msda_pallas.py's tiny shapes
 (the inputs of tests/test_torch_msda_sweep.py).
 
-`ms_deform_attn_sweep` on CPU tensors (the plain version under autograd)
-and `MSDASweepFunction` (the CUDA path's plumbing: expansion, sort, pad,
-un-sort, the chain rule through the expansion, with its four launchers
-replaced by the plain versions) must both match the forward and the
-gradients of value, locations and weights, for Q == L and Q != L, with each
-DEC_FUSED and each BWD_VARIANT, at rtol 1e-4 / atol 2e-4
+`ms_deform_attn_sweep` on CPU tensors (the ops with their plain versions and
+registered autograd, the CUDA path's plumbing: expansion, sort, pad,
+un-sort, K9's corner taps of the row taps or K10's row taps, the chain rule
+through the expansion; the ops it dispatches recorded) must match the
+forward and the gradients of value, locations and weights, for Q == L and
+Q != L, with each DEC_FUSED and each BWD_VARIANT, at rtol 1e-4 / atol 2e-4
 (tests/test_msda_pallas.py:84-89: the row-tap forward's rounding reaches the
 location gradients through the W scale).  DEC_FUSED has no effect where
 Q == L (nothing is sorted), so that case runs once per backward.  Sampling
@@ -17,13 +17,13 @@ row-tap and corner derivatives agree.
 
 The corner forward (`fwd="corner"`, K8 with the K9 backward) is held against
 the op-level `ms_deform_attn_pallas` with FWD_VARIANT="corner" and its VJP
-at the nano model's four levels, at the same tolerances, on the CPU path and
-through the Function, whose K8 and K9 launchers must receive the corner taps
-in the query order the op documents.
+at the nano model's four levels, at the same tolerances; K8's and K9's ops
+must receive the corner taps in the query order the op documents.
 """
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax
 import jax.numpy as jnp
@@ -52,35 +52,17 @@ def _jax_sweep(value, locs, attn, grad):
                  ga_t.reshape(B, H, NL, P, Q).transpose(0, 4, 1, 2, 3))
 
 
-def _plain_launchers(monkeypatch):
-    """Replace the four CUDA launchers by their plain versions; returns the
-    list of the launchers called."""
-    called = []
+class Record(TorchDispatchMode):
+    """The ogd_torch ops dispatched under it, (name, args) in order."""
 
-    def fwd(name):
-        def launch(value, shapes, row, px, w):
-            called.append(name)
-            return sw.sweep_fwd_plain(value, row, px, w)
-        return launch
+    def __init__(self):
+        super().__init__()
+        self.calls = []
 
-    def corner_fwd(value, shapes, idx, w):
-        called.append(("K8", idx, w))
-        return sw.sweep_fwd_corner_plain(value, idx, w)
-
-    def corner(value, shapes, idx, w, g):
-        called.append(("K9", idx, w, g))
-        return sw.sweep_bwd_corner_plain(value, idx, w, g)
-
-    def rowtap(value, shapes, row, px, w, g):
-        called.append("K10")
-        return sw.sweep_bwd_rowtap_plain(value, row, px, w, g)
-
-    monkeypatch.setattr(sw, "sweep_fwd", fwd("K6"))
-    monkeypatch.setattr(sw, "sweep_fwd_allq", fwd("K7"))
-    monkeypatch.setattr(sw, "sweep_fwd_corner", corner_fwd)
-    monkeypatch.setattr(sw, "sweep_bwd_corner", corner)
-    monkeypatch.setattr(sw, "sweep_bwd_rowtap", rowtap)
-    return called
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace == "ogd_torch":
+            self.calls.append((func.__name__.split(".")[0], args))
+        return func(*args, **(kwargs or {}))
 
 
 @pytest.mark.parametrize("Q,dec_fused,bwd", [
@@ -100,17 +82,11 @@ def test_sweep_matches_pallas_t(monkeypatch, Q, dec_fused, bwd):
         for name, t, r in zip(("value", "locs", "attn"), leaves, ref_grads):
             np.testing.assert_allclose(t.grad.numpy(), r, **GRAD_TOL, err_msg=name)
 
-    # the CPU path: the plain version, differentiated by autograd
-    run(lambda v, l, a: sw.ms_deform_attn_sweep(v, SHAPES, STARTS, l, a, bwd, dec_fused))
-    # the CUDA path's Function with its launchers on the plain versions
-    called = _plain_launchers(monkeypatch)
-    run(lambda v, l, a: sw.MSDASweepFunction.apply(v, l, a, SHAPES, bwd, bool(dec_fused)))
-    fwd = "K7" if dec_fused and Q != L else "K6"
-    assert _names(called) == [fwd, "K9" if bwd == "corner" else "K10"]
-
-
-def _names(called):
-    return [c if isinstance(c, str) else c[0] for c in called]
+    # the ops on CPU tensors: their plain versions under their registered autograd
+    with Record() as rec:
+        run(lambda v, l, a: sw.ms_deform_attn_sweep(v, SHAPES, STARTS, l, a, bwd, dec_fused))
+    fwd = "sweep_fwd_allq" if dec_fused and Q != L else "sweep_fwd"
+    assert [c[0] for c in rec.calls] == [fwd, f"sweep_bwd_{bwd}"]
 
 
 SHAPES4 = ((8, 12), (4, 6), (2, 3), (1, 2))
@@ -149,22 +125,18 @@ def test_corner_sweep_matches_pallas(monkeypatch):
         for name, t, r in zip(("value", "locs", "attn"), leaves, ref_grads):
             np.testing.assert_allclose(t.grad.numpy(), np.asarray(r), **GRAD_TOL, err_msg=name)
 
-    run(lambda v, l, a: sw.ms_deform_attn_sweep(v, SHAPES4, STARTS4, l, a, fwd="corner"))
-    called = _plain_launchers(monkeypatch)
-    run(lambda v, l, a: sw.MSDASweepFunction.apply(v, l, a, SHAPES4, "corner", False, "corner"))
-    assert _names(called) == ["K8", "K9"]
+    with Record() as rec:
+        run(lambda v, l, a: sw.ms_deform_attn_sweep(v, SHAPES4, STARTS4, l, a, fwd="corner"))
+    assert [c[0] for c in rec.calls] == ["sweep_fwd_corner", "sweep_bwd_corner"]
     idx, w = sw.corner_indices_and_weights(*sw.kernel_layout(*(torch.from_numpy(a)
                                                                for a in (locs, attn))), SHAPES4)
     order = sw.query_order(idx, None, L4)
     assert order is not None
-    torch.testing.assert_close(called[0][1], sw.sort_and_pad(idx, order), rtol=0, atol=0)
-    torch.testing.assert_close(called[0][2], sw.sort_and_pad(w, order), rtol=0, atol=0)
-    # the backward's K9: the same taps and the upstream gradient, in the row
-    # taps' query order (any order is exact; the backward sorts as the model path does)
-    row, px, _ = sw.rowtap_positions_and_weights(*sw.kernel_layout(
-        *(torch.from_numpy(a) for a in (locs, attn))), SHAPES4)
-    order = sw.query_order(row, px, L4)
+    k8, k9 = rec.calls[0][1], rec.calls[1][1]
+    torch.testing.assert_close(k8[2], sw.sort_and_pad(idx, order), rtol=0, atol=0)
+    torch.testing.assert_close(k8[3], sw.sort_and_pad(w, order), rtol=0, atol=0)
+    # the backward's K9: K8's taps and the upstream gradient, in their query order
     g = torch.from_numpy(grad).view(B, Q, H, D).permute(0, 2, 1, 3).reshape(B * H, Q, D)
-    for got, want in zip(called[1][1:], (sw.sort_and_pad(idx, order), sw.sort_and_pad(w, order),
-                                          sw.sort_and_pad(g, order, 1))):
+    for got, want in zip(k9[2:], (sw.sort_and_pad(idx, order), sw.sort_and_pad(w, order),
+                                  sw.sort_and_pad(g, order, 1))):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
