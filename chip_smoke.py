@@ -305,10 +305,25 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                within phase 11's limits of eager, a compiled run with K3's
                grad_locs negated outside them; then the tools once each at
                flagship size: benchmark (B = 1 f32 forward; B = 4 bf16
-               --train, its FLOPs holding K1-K4's formulas), profile (B = 4
-               bf16, 2 iterations), serving_bench (the 800x1216 bucket),
+               --train at one step a call and at --steps_per_call 2, its
+               FLOPs holding K1-K4's formulas), profile (B = 4 bf16, 2
+               iterations),
+               serving_bench (the 800x1216 bucket),
                eval_pipeline_bench (8 images, B = 4), matcher_microbench and
                opt_microbench: the JAX tools' keys, every launch counted
+ 35. device step - the training step with no host read inside it, bf16,
+               B = 4, at flagship width: the LSAP kernel (the Hungarian
+               matcher on the device) against its plain version on the
+               (28, 900, 128) costs of the step's own criterion (the same
+               indices, no overflow; total cost against scipy within 1e-5)
+               and on degenerate matrices (ties, +/-inf, a spinning row:
+               the same indices and overflow flags), timed beside scipy;
+               one step under set_sync_debug_mode("error") (and "warn",
+               which lists any synchronisation) between the batch's copy
+               and the read of its metrics; the step's median with the
+               device matcher and with scipy on the host; a steps_per_call
+               = 2 call against two single steps; main with steps_per_call
+               = 2 (one multi-step call)
 The CPU references of phases 11, 22, 28 and 29 (a B = 1 training step, a
 B = 4 eval forward, one forward of each backbone, the ResNet-50 step) run
 one after the other on a thread beside the card's phases, which join each
@@ -327,7 +342,8 @@ launches_by_path "export", K1's-K4's rows, f32 and bf16, phase 32 under
 "roberta" (its requests and training steps) and "zero_shot", and K1's-K4's
 f32 rows phase 33 under "dist" (rank 0 of the gloo pair) and "dist-nccl",
 and phase 34's compiled layers ("compiled", K1-K4 f32) and tools ("tools
-<name>")) and, last, {"ok": true, "device": {...}}.
+<name>"); last the LSAP kernel's row, phase 35's) and, last,
+{"ok": true, "device": {...}}.
 
 Exits nonzero when no CUDA device is present.  Scratch files (checkpoint,
 vocab, the ODVG set and its COCO val splits, the runs' outputs and
@@ -1625,7 +1641,8 @@ TRAIN_EPOCHS = 3           # 8 images, B = 4: 2 steps an epoch
 # K1 per step: 6 encoder + 6 decoder forward + 6 encoder replays under
 # checkpointing; K2: 6 forward + 6 replays; K3: one per MSDA layer; K4: one
 # per fusion layer
-TRAIN_LAUNCHES_PER_STEP = {"msda_fwd": 18, "fusion_fwd": 12, "msda_bwd": 12, "fusion_bwd": 6}
+TRAIN_LAUNCHES_PER_STEP = {"msda_fwd": 18, "fusion_fwd": 12, "msda_bwd": 12, "fusion_bwd": 6,
+                           "lsap": 1}
 PARITY_LOSS_RTOL = 5e-3    # the JAX package's kernel-vs-reference train-step bound
 PARITY_GRAD_RTOL = 1e-2    # per top-level module gradient norm
 # ||g_card - g_cpu|| / ||g_cpu|| of each parameter that K3 or K4 computes the
@@ -1733,8 +1750,9 @@ DEC_LAYERS = 6             # the config's decoder layers: the decoder's MSDA lau
 
 def kernel_counters():
     """{count name: (wrapper, attribute)}: each wrapper's f32 launches, and
-    as "<name>_bf16" its bf16 entry's launches."""
-    from open_groundingdino_tpu_torch.ops import fusion, msda
+    as "<name>_bf16" its bf16 entry's launches (the LSAP kernel has none: the
+    matcher's costs are f32 in every step)."""
+    from open_groundingdino_tpu_torch.ops import fusion, lsap, msda
     from open_groundingdino_tpu_torch.ops import msda_banded as mb
     from open_groundingdino_tpu_torch.ops import msda_sweep as sw
 
@@ -1743,7 +1761,8 @@ def kernel_counters():
            "banded_fwd": mb.banded_fwd,
            "sweep_fwd": sw.sweep_fwd, "sweep_fwd_allq": sw.sweep_fwd_allq,
            "sweep_fwd_corner": sw.sweep_fwd_corner,
-           "sweep_bwd_corner": sw.sweep_bwd_corner, "sweep_bwd_rowtap": sw.sweep_bwd_rowtap}
+           "sweep_bwd_corner": sw.sweep_bwd_corner, "sweep_bwd_rowtap": sw.sweep_bwd_rowtap,
+           "lsap": lsap.lsap}
     counters = {k: (fn, "launches") for k, fn in fns.items()}
     counters.update({f"{k}_bf16": (fns[k], "launches_bf16") for k in BF16_KERNELS})
     return counters
@@ -1765,7 +1784,8 @@ def train_launches_per_step(msda_keys: dict, bf16: bool = False) -> dict:
     replays on K6), and K9 or K10 where it runs K3; banded_point runs K5
     where the gather runs K1, and K3.  With use_checkpoint False the fusion
     blocks are not replayed: ENC_LAYERS fewer K2.  In bf16 the same
-    launches go to the bf16 entries."""
+    launches go to the bf16 entries, the LSAP kernel's (one a step, the
+    matcher on the device) to its one entry."""
     per = dict(TRAIN_LAUNCHES_PER_STEP)
     if msda_keys.get("use_checkpoint") is False:
         per["fusion_fwd"] -= ENC_LAYERS
@@ -1778,7 +1798,8 @@ def train_launches_per_step(msda_keys: dict, bf16: bool = False) -> dict:
             per["sweep_fwd_allq"] = DEC_LAYERS
         per["sweep_bwd_" + msda_keys.get("msda_sweep_bwd", "corner")] = per.pop("msda_bwd")
     suffix = "_bf16" if bf16 else ""
-    return dict.fromkeys(kernel_counters(), 0) | {k + suffix: v for k, v in per.items()}
+    return dict.fromkeys(kernel_counters(), 0) | {
+        (k + suffix if k in BF16_KERNELS else k): v for k, v in per.items()}
 
 
 def train(cfg: str, work: str, files, device: str, msda_keys=None, epochs: int = TRAIN_EPOCHS,
@@ -2013,9 +2034,9 @@ def parity_harness(cfg: str, files):
         grads = {}
         step_fn = opt.step
 
-        def spy(gs, norm):
+        def spy(gs, norm, finite):
             grads.update((n, g.detach().to("cpu", copy=True)) for n, g in zip(opt.names, gs))
-            step_fn(gs, norm)
+            step_fn(gs, norm, finite)
 
         opt.step = spy
         t0 = time.perf_counter()
@@ -2023,7 +2044,7 @@ def parity_harness(cfg: str, files):
             TrainState.create(model, opt, seed=SEED), batch)
         if device == "cuda":
             torch.cuda.synchronize()
-        run = dict(loss=metrics["loss"], grads=grads, seconds=time.perf_counter() - t0)
+        run = dict(loss=float(metrics["loss"]), grads=grads, seconds=time.perf_counter() - t0)
         if snapshot:
             run["snapshot"] = {k: v.detach().to("cpu", copy=True)
                                for k, v in model.state_dict().items() if k.startswith(snapshot)}
@@ -3572,8 +3593,7 @@ def step_without_recompute(run, device: str = "cuda") -> dict:
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    metrics = run["train_step"](run["state"], batch)
-    torch.cuda.synchronize()
+    metrics = {k: float(v) for k, v in run["train_step"](run["state"], batch).items()}
     seconds = time.perf_counter() - t0
     peak, counts = torch.cuda.max_memory_allocated(), read_counts()
     want = train_launches_per_step({"use_checkpoint": False},
@@ -3790,12 +3810,12 @@ def check_pave_run(im, cpu_im, frame, car_bbox, tag: str) -> dict:
              for cb in crop_utils.create_crop_boxes(frame.shape[:2], car_bbox)]
     size = dict(size=512, max_size=512)
     lat = []
-    for _ in range(3):
+    for _ in range(2):
         t0 = time.perf_counter()
         inference_pave.predict_frame(im, frame, car_bbox, PAVE_CAPTION)
         torch.cuda.synchronize()
         lat.append(time.perf_counter() - t0)
-    median = sorted(lat)[1]
+    median = statistics.median(lat)
     t0 = time.perf_counter()
     for crop in crops:   # the frame's predicts alone: the rest is the crop cuts and the merge
         inference.predict(im, crop, PAVE_CAPTION, box_threshold=0.3, **size)
@@ -5361,6 +5381,9 @@ def op_cases(dtype, device) -> dict:
         "sweep_fwd_corner": (grad(value), flat, idx, grad(cw)),
         "sweep_bwd_corner": (value, flat, idx, cw, g_taps),
         "sweep_bwd_rowtap": (value, flat, row, tpx, w, g_taps),
+        # the matcher's costs: f32 whatever the compute dtype, few valid GT
+        "lsap": (rand(4, OPCHECK_QUERIES, 16).to(device),
+                 (torch.rand(4, 16, generator=g) > 0.6).to(device)),
     }
 
 
@@ -5470,7 +5493,8 @@ FWD_LAUNCHES = {"msda_fwd": 2 * ENC_LAYERS, "fusion_fwd": ENC_LAYERS}   # a forw
 def run_tools(cfg: str, work: str) -> dict:
     """The JAX package's last tools, ported, once each at flagship width and
     depth on the card (tools/): benchmark forward (B = 1, 800x1216, f32)
-    and --train (B = 4, bf16), profile (forward, B = 4 bf16, 2 iterations),
+    and --train (B = 4, bf16, one step a call and --steps_per_call 2),
+    profile (forward, B = 4 bf16, 2 iterations),
     serving_bench (the 800x1216 bucket), eval_pipeline_bench (8 images of
     750x1000, B = 4), matcher_microbench and opt_microbench.  Each tool's
     result and seconds on a line; the keys the JAX tools print, the
@@ -5501,11 +5525,16 @@ def run_tools(cfg: str, work: str) -> dict:
     tool("benchmark", lambda: benchmark.run(bench.parse_args(
         ["-c", cfg, "-o", out, "--batch", "1", "--warmup", "2", "--iters", "5"])),
         {k: v * fwd_calls for k, v in FWD_LAUNCHES.items()})
-    steps = 1 + 1 + 3
     per_step = train_launches_per_step({}, bf16=True)
+    steps = 1 + 1 + 3          # the FLOP count, warm-up, timed
     tool("benchmark --train", lambda: benchmark.run(bench.parse_args(
         ["-c", cfg, "-o", out, "--train", "--batch", "4", "--compute_dtype", "bfloat16",
          "--warmup", "1", "--iters", "3"])), {k: v * steps for k, v in per_step.items() if v})
+    steps = 2 * (1 + 1 + 2)    # two steps a call: the FLOP count, warm-up, timed
+    tool("benchmark --train --steps_per_call 2", lambda: benchmark.run(bench.parse_args(
+        ["-c", cfg, "-o", out, "--train", "--batch", "4", "--compute_dtype", "bfloat16",
+         "--steps_per_call", "2", "--warmup", "1", "--iters", "2"])),
+        {k: v * steps for k, v in per_step.items() if v})
     tool("profile", lambda: profile.run(profile.get_args_parser().parse_args(
         ["-c", cfg, "-o", os.path.join(out, "trace"), "--batch", "4", "--iters", "2"])),
         {f"{k}_bf16": v * (1 + 2 + 2 + 2) for k, v in FWD_LAUNCHES.items()})
@@ -5515,12 +5544,15 @@ def run_tools(cfg: str, work: str) -> dict:
         eval_pipeline_bench.get_args_parser().parse_args(
             ["-c", cfg, "--images", "8", "--batch", "4", "--fwd_iters", "3"])))
     tool("matcher_microbench", lambda: matcher_microbench.run(
-        matcher_microbench.get_args_parser().parse_args(["--iters", "5", "--repeats", "2"])), {})
+        matcher_microbench.get_args_parser().parse_args(["--iters", "5", "--repeats", "2"])),
+        {"lsap": 1 + 2 * 5})   # the device path's warm-up and timed calls
     tool("opt_microbench", lambda: opt_microbench.run(opt_microbench.get_args_parser().parse_args(
-        ["--iters", "5", "--repeats", "2"])), {})
+        ["--iters", "5", "--repeats", "2", "--ema"])), {})
 
     fwd, train_r = results["benchmark"], results["benchmark --train"]
+    chunk_r = results["benchmark --train --steps_per_call 2"]
     for name, keys in (("benchmark", TOOL_FWD_KEYS), ("benchmark --train", TOOL_TRAIN_KEYS),
+                       ("benchmark --train --steps_per_call 2", TOOL_TRAIN_KEYS),
                        ("serving_bench", TOOL_SERVE_KEYS), ("eval_pipeline_bench", TOOL_EVAL_KEYS)):
         missing = [k for k in keys if k not in results[name]]
         if missing or results[name]["platform"] != "gpu":
@@ -5529,14 +5561,427 @@ def run_tools(cfg: str, work: str) -> dict:
             not {"msda_fwd", "fusion_fwd", "msda_bwd", "fusion_bwd"} <= set(train_r["kernel_flops"]):
         raise AssertionError(f"FLOP counts by kernel: forward {fwd['kernel_flops']}, step "
                              f"{train_r['kernel_flops']}")
-    if not math.isfinite(train_r["loss"]) or results["profile"]["summary"]["device_ms_per_iter"] <= 0:
-        raise AssertionError("the step's loss or the profile's device time is missing")
+    if not (math.isfinite(train_r["loss"]) and math.isfinite(chunk_r["loss"])) or \
+            results["profile"]["summary"]["device_ms_per_iter"] <= 0:
+        raise AssertionError("a step's loss or the profile's device time is missing")
+    if (train_r["steps_per_call"], chunk_r["steps_per_call"]) != (1, 2):
+        raise AssertionError(f"benchmark --train printed steps_per_call "
+                             f"{train_r['steps_per_call']} and {chunk_r['steps_per_call']}")
     # the serving artifact and the eval pipeline launch K1 and K2 (f32 serving,
     # bf16 eval, the config's compute dtype)
     if not (launches["serving_bench"].get("msda_fwd") and launches["serving_bench"].get("fusion_fwd")
             and launches["eval_pipeline_bench"].get("msda_fwd_bf16")):
         raise AssertionError("serving_bench or eval_pipeline_bench reached no kernel")
     return {"results": results, "seconds": seconds, "launches": launches}
+
+
+DEVICE_STEP_BATCHES = 2      # B = 4 batches of synthetic 800x1200 images (the 800x1216 bucket)
+DEVICE_STEP_TIMED = 5        # timed steps a matcher, in turns, after one warm-up each
+LSAP_TIMED = 20              # kernel launches timed on the captured costs
+LSAP_COST_RTOL = 1e-5        # total cost against scipy's, relative
+SYNC_MARK = "synchronizing CUDA operation"
+# main with steps_per_call = 2: every image resized to at most 480 on its
+# longer side, so that each B = 4 batch lands in the 480x736 bucket and an
+# epoch's two batches make one chunk
+MULTI_STEP_KEYS = {"steps_per_call": 2, "data_aug_scales": [480], "data_aug_max_size": 480,
+                   "data_aug_scales2_resize": [480], "data_aug_scales2_crop": [480, 480]}
+
+
+def device_step_batches(cfg: str, vocab: str, n: int = DEVICE_STEP_BATCHES) -> list:
+    """n B = 4 training batches (the Collator's uint8 images, as main's) of
+    synthetic 800x1200 images in the 800x1216 bucket, each image with 3-8
+    boxes of the categories' caption."""
+    import numpy as np
+
+    from open_groundingdino_tpu_torch.config import SLConfig
+    from open_groundingdino_tpu_torch.data.loader import Collator
+    from open_groundingdino_tpu_torch.data.tokenization import build_tokenizer
+    from open_groundingdino_tpu_torch.data.transforms import Sample
+
+    args = SLConfig.fromfile(cfg)
+    collator = Collator(build_tokenizer(vocab), args.image_buckets, int(args.max_text_len),
+                        int(args.max_gt_boxes), u8_images=True)
+    rng = np.random.RandomState(SEED + 35)
+    cap_list = list(CATEGORIES)
+    batches = []
+    for b in range(n):
+        samples = []
+        for i in range(4):
+            k = int(rng.randint(3, 9))
+            xy = rng.uniform(0, 600, (k, 2))
+            wh = rng.uniform(60, 500, (k, 2))
+            boxes = np.concatenate([xy, np.minimum(xy + wh, [1199, 799])], 1).astype(np.float32)
+            samples.append(Sample(image=synthetic_image(800, 1200, 300 + 4 * b + i), boxes=boxes,
+                                  labels=rng.randint(len(cap_list), size=k).astype(np.int64),
+                                  caption=" . ".join(cap_list) + " .", cap_list=cap_list))
+        batch = collator(samples)
+        if tuple(batch["images"].shape[1:3]) != BUCKET:
+            raise AssertionError(f"a phase 35 batch landed in {batch['images'].shape}")
+        batches.append(batch)
+    return batches
+
+
+class DeviceStepHarness:
+    """Phase 35's ground: the flagship model from the smoke's training
+    checkpoint (on the host, copied onto the card for each state), its
+    config's criterion and optimizer settings."""
+
+    def __init__(self, cfg: str, ckpt: str):
+        from open_groundingdino_tpu_torch.config import SLConfig
+        from open_groundingdino_tpu_torch.inference import load_reference_state_dict
+        from open_groundingdino_tpu_torch.models.criterion import build_criterion
+        from open_groundingdino_tpu_torch.models.groundingdino import build_groundingdino
+
+        self.args = SLConfig.fromfile(cfg)
+        self.base = build_groundingdino(self.args, device="cpu")
+        load_reference_state_dict(self.base, ckpt)
+        self.criterion = build_criterion(self.args)
+
+    def state(self):
+        import copy
+
+        from open_groundingdino_tpu_torch.parallel.optim import make_optimizer
+        from open_groundingdino_tpu_torch.parallel.train_state import TrainState
+
+        a = self.args
+        model = copy.deepcopy(self.base).to("cuda")
+        opt = make_optimizer(model, lr=float(a.lr), base_lr=float(a.lr),
+                             lr_backbone=float(a.lr_backbone),
+                             lr_linear_proj_mult=float(a.lr_linear_proj_mult),
+                             weight_decay=float(a.weight_decay),
+                             clip_max_norm=float(a.clip_max_norm))
+        return TrainState.create(model, opt, seed=SEED)
+
+
+def host_metrics(metrics: dict) -> dict:
+    """A step's (or a call's) device metrics as host numbers, in one read."""
+    from open_groundingdino_tpu_torch import engine
+
+    if metrics["loss"].dim() == 0:
+        return engine.metrics_to_host([metrics])[0]
+    n = metrics["loss"].shape[0]
+    return engine.metrics_to_host([{k: v[j] for k, v in metrics.items()} for j in range(n)])
+
+
+def sync_sites(fn) -> list:
+    """fn() under torch.cuda.set_sync_debug_mode("warn"): every host
+    synchronisation it makes, each as the last frames of the Python stack
+    that made it."""
+    import traceback
+    import warnings
+
+    import torch
+
+    sites = []
+    shown = warnings.showwarning
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if SYNC_MARK in str(message):
+            frames = traceback.extract_stack()[:-1]
+            sites.append(" <- ".join(f"{os.path.relpath(f.filename, REPO)}:{f.lineno}"
+                                     for f in reversed(frames[-8:])))
+        else:
+            shown(message, category, filename, lineno, file, line)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            warnings.showwarning = shown
+    return sites
+
+
+def lsap_degenerate_cases():
+    """(name, costs (N, Q, G), valid (N, G), the overflow flags the solver
+    must set): ties, the JAX package's +/-inf matrix and a sparser mix, a
+    row whose Dijkstra would spin, more valid GT than queries."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED + 36)
+    inf = rng.randn(2, 10, 5).astype(np.float32)
+    inf[0, 2, :] = np.inf
+    inf[0, :, 3] = -np.inf
+    inf[1][rng.rand(10, 5) < 0.2] = np.inf
+    inf[1][rng.rand(10, 5) < 0.1] = -np.inf
+    spin = (rng.rand(2, 8, 2) * 10).astype(np.float32)
+    spin[0, :, 0] = np.inf
+    spin[0, 0, :] = -np.inf
+    return [("ties", np.zeros((2, 12, 6), np.float32), np.ones((2, 6), bool), [False, False]),
+            ("integer ties", rng.randint(0, 3, (2, 15, 8)).astype(np.float32),
+             np.ones((2, 8), bool), [False, False]),
+            ("+/-inf", inf, np.ones((2, 5), bool), [False, False]),
+            ("spinning row", spin, np.ones((2, 2), bool), [True, False]),
+            ("more GT than queries", rng.randn(1, 3, 5).astype(np.float32),
+             np.ones((1, 5), bool), [True])]
+
+
+def total_costs(cost, assigned, valid) -> list:
+    """Each problem's total cost over its valid, assigned GT (float64)."""
+    import numpy as np
+
+    Q = cost.shape[1]
+    out = []
+    for c, a, v in zip(cost, assigned, valid):
+        g = np.nonzero(v & (a < Q))[0]
+        out.append(float(c[a[g], g].astype(np.float64).sum()))
+    return out
+
+
+def check_lsap(costs, valid) -> dict:
+    """Phase 35 (a): the LSAP kernel against its plain version on a flagship
+    step's (S*B, Q, G) costs: identical indices and no overflow; each
+    problem's total cost against scipy's within LSAP_COST_RTOL; the kernel
+    against the plain version on the degenerate matrices (the same indices
+    and overflow flags, injective on the valid GT); the plain version with
+    the last minimum in place of the first must part from the kernel on the
+    tied matrix (a planted fault).  Times: the kernel by CUDA events and
+    torch.profiler, the plain version on the card, scipy on the host copy
+    (the library call) and the matcher's callback path (copy, scipy, copy
+    back)."""
+    import numpy as np
+    import torch
+
+    from open_groundingdino_tpu_torch.models import matcher
+    from open_groundingdino_tpu_torch.ops import lsap as L
+
+    N, Q, G = costs.shape
+    got, over = L.lsap(costs, valid)
+    ref, ref_over = L.lsap_plain(costs, valid)
+    host_c, host_v = costs.cpu().numpy(), valid.cpu().numpy()
+    got_h = got.cpu().numpy()
+    scipy_a = matcher.host_lsa(host_c, host_v)
+    ours, theirs = total_costs(host_c, got_h, host_v), total_costs(host_c, scipy_a, host_v)
+    cost_rel = max(abs(a - b) / max(abs(b), 1.0) for a, b in zip(ours, theirs))
+    diff = int((got != ref).sum())
+    n_valid = host_v.sum(1)
+    if diff or over.any() or ref_over.any():
+        raise AssertionError(f"LSAP kernel against its plain version: {diff} indices differ, "
+                             f"overflow {over.tolist()} / {ref_over.tolist()}")
+    if not cost_rel <= LSAP_COST_RTOL:
+        raise AssertionError(f"LSAP total cost {ours} against scipy's {theirs}")
+    degenerate = {}
+    for name, c, v, want_over in lsap_degenerate_cases():
+        tc, tv = torch.from_numpy(c).cuda(), torch.from_numpy(v).cuda()
+        (a, o), (pa, po) = L.lsap(tc, tv), L.lsap_plain(tc, tv)
+        a, o = a.cpu().numpy(), o.cpu().numpy().tolist()
+        live = [row[row < c.shape[1]] for row in a]
+        if (not np.array_equal(a, pa.cpu().numpy()) or o != po.cpu().tolist() or o != want_over
+                or any(len(set(r.tolist())) != len(r) for r in live)):
+            raise AssertionError(f"LSAP {name}: kernel {a.tolist()} {o}, plain "
+                                 f"{pa.tolist()} {po.tolist()}, overflow wanted {want_over}")
+        degenerate[name] = o
+    ties = torch.zeros(2, 12, 6, device="cuda"), torch.ones(2, 6, dtype=torch.bool, device="cuda")
+    real_argmin = L.first_argmin
+    L.first_argmin = lambda x, dim=-1: x.shape[dim] - 1 - real_argmin(x.flip(dim), dim)
+    try:
+        planted = L.lsap_plain(*ties)[0]
+    finally:
+        L.first_argmin = real_argmin
+    if torch.equal(planted, L.lsap(*ties)[0]):
+        raise AssertionError("the plain LSAP with the last minimum gave the kernel's indices")
+    ms = event_ms(lambda: L.lsap(costs, valid), LSAP_TIMED)
+    device_ms = kernel_device_ms(lambda: L.lsap(costs, valid), LSAP_TIMED, "lsap_kernel")
+    t0 = time.perf_counter()
+    for _ in range(2):
+        L.lsap_plain(costs, valid)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) / 2 * 1e3
+    t0 = time.perf_counter()
+    for _ in range(5):
+        matcher.host_lsa(host_c, host_v)
+    scipy_ms = (time.perf_counter() - t0) / 5 * 1e3
+    t0 = time.perf_counter()
+    for _ in range(5):
+        matcher.hungarian_assign(costs, valid, method="callback")
+    callback_ms = (time.perf_counter() - t0) / 5 * 1e3
+    nbytes = costs.numel() * 4 + valid.numel() + got.numel() * 8 + N
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log("lsap", f"kernel on a flagship step's costs ({N}, {Q}, {G}), valid GT a problem "
+                f"{int(n_valid.min())}-{int(n_valid.max())}: the plain version's indices "
+                f"({diff} differ), no overflow; total cost against scipy's worst {cost_rel:.1e} "
+                f"(limit {LSAP_COST_RTOL}); degenerate matrices against the plain version: "
+                f"{degenerate} (overflow flags); the last-minimum plant parts from the kernel; "
+                f"kernel {ms:.4f} ms (dev. {device_ms:.4f}), plain on the card {plain_ms:.1f} ms, "
+                f"scipy {scipy_ms:.2f} ms (the host path with its copies {callback_ms:.2f} ms), "
+                f"bound {bound_ms:.4f} ms (bytes: {nbytes / 1e6:.1f} MB)")
+    return {"max_abs_err": float(diff), "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": scipy_ms,
+            "callback_ms": callback_ms, "cost_rel": cost_rel, "degenerate": degenerate,
+            "shape": [N, Q, G]}
+
+
+def timed_steps(step, state, batches, n: int) -> list:
+    """n steps over `batches` in turn, each ended by a read of its metrics:
+    host seconds of whole steps."""
+    seconds = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        metrics = host_metrics(step(state, batches[i % len(batches)]))
+        seconds.append(time.perf_counter() - t0)
+        if not math.isfinite(metrics["loss"]):
+            raise AssertionError(f"a timed step's loss is {metrics['loss']}")
+    return seconds
+
+
+def check_device_step(cfg: str, work: str, files) -> dict:
+    """Phase 35: the device-resident training step at flagship width, bf16,
+    B = 4 (the config's default step, make_train_step).  (a) The LSAP
+    kernel on the costs of the step's own criterion (check_lsap).  (b) With
+    the batch on the card (its copy made first), a step under
+    set_sync_debug_mode("warn") makes no host synchronisation (its sites
+    listed if it does), and one under "error" runs through; its metrics
+    reach the host in one read after it.  (c) The step's median with the
+    device matcher against the host (scipy) matcher, DEVICE_STEP_TIMED
+    whole steps each, in turns.  (d) steps_per_call = 2: one make_multi_train_step
+    call against two single steps on the same batches from the same
+    weights: the losses within PARITY_LOSS_RTOL, the count and
+    nonfinite_count equal, the parameters' update within DIST_UPDATE_RTOL;
+    the call on the batches in swapped order must fail the loss limit.  (e)
+    main with steps_per_call = 2 (MULTI_STEP_KEYS: one chunk, a multi-step
+    call, an epoch; train()'s checks).  tools/benchmark.py --train
+    --steps_per_call 2 runs in phase 34."""
+    import functools
+
+    import torch
+
+    from open_groundingdino_tpu_torch.models import criterion as crit_mod
+    from open_groundingdino_tpu_torch.models import matcher
+    from open_groundingdino_tpu_torch.parallel import train_state as ts
+
+    t_phase = time.perf_counter()
+    harness = DeviceStepHarness(files[0], files[1])
+    batches = device_step_batches(cfg, files[2])
+    step = ts.make_train_step(harness.criterion, compute_dtype="bfloat16")
+    state = harness.state()
+    captured = []
+    real_assign = crit_mod.hungarian_assign
+
+    def capture(cost, gt_valid, method="device"):
+        captured.append((cost.detach().clone(), gt_valid.clone()))
+        return real_assign(cost, gt_valid, method)
+
+    reset_counts()
+    crit_mod.hungarian_assign = capture
+    try:
+        first = host_metrics(step(state, batches[0]))             # warm-up
+    finally:
+        crit_mod.hungarian_assign = real_assign
+    lsap_row = check_lsap(*captured[0])
+    del captured
+    reset_counts()   # the main path's launches from here: the steps of (b) and (c)
+
+    # (b) no host sync inside a step
+    on_card = ts.to_device(batches[1], "cuda")
+    torch.cuda.synchronize()
+    sites = sync_sites(lambda: step(state, on_card))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics = step(state, on_card)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    read = host_metrics(metrics)
+    log("device-step", f"bf16 B=4 step with the device matcher: warm-up loss {first['loss']:.4f}; "
+                       f"under set_sync_debug_mode('warn') {len(sites)} synchronisations"
+                       f"{': ' + '; '.join(sites[:12]) if sites else ''}; under 'error' one "
+                       f"step ran through, its metrics read after it: loss {read['loss']:.4f}, "
+                       f"grad_norm {read['grad_norm']:.4g}, nonfinite_count "
+                       f"{read['nonfinite_count']}")
+    if sites:
+        raise AssertionError(f"the step synchronised with the host {len(sites)} times")
+
+    # (c) the step's median, device matcher against the host one, in turns
+    device_s, host_s = [], []
+    host_assign = functools.partial(matcher.hungarian_assign, method="callback")
+    for i in range(DEVICE_STEP_TIMED + 1):
+        device_s += timed_steps(step, state, batches[i % 2:], 1)
+        crit_mod.hungarian_assign = host_assign
+        try:
+            host_s += timed_steps(step, state, batches[i % 2:], 1)
+        finally:
+            crit_mod.hungarian_assign = real_assign
+    device_s, host_s = device_s[1:], host_s[1:]
+    step_counts = read_counts()
+    n_device = 2 + DEVICE_STEP_TIMED + 1
+    want = {k: v * (n_device + DEVICE_STEP_TIMED + 1)
+            for k, v in train_launches_per_step({}, bf16=True).items()}
+    want["lsap"] = n_device
+    if step_counts != want:
+        raise AssertionError(f"phase 35's steps launched {step_counts}, expected {want}")
+    medians = {"device": statistics.median(device_s), "callback": statistics.median(host_s)}
+    log("device-step", f"step s with the device matcher {[round(x, 4) for x in device_s]} "
+                       f"(median {medians['device']:.4f}), with scipy on the host "
+                       f"{[round(x, 4) for x in host_s]} (median {medians['callback']:.4f}); "
+                       f"launches {({k: v for k, v in step_counts.items() if v})}")
+    del state
+    gc.collect()
+
+    # (d) steps_per_call = 2 against two single steps
+    single = harness.state()
+    p0 = [p.detach().clone() for p in single.optimizer.params]
+    ref = [host_metrics(step(single, b)) for b in batches[:2]]
+    multi_step = ts.make_multi_train_step(harness.criterion, 2, compute_dtype="bfloat16")
+    from open_groundingdino_tpu_torch.engine import stack_batches
+
+    def multi(order):
+        st = harness.state()
+        got = host_metrics(multi_step(st, stack_batches([batches[i] for i in order])))
+        return st, got
+
+    def loss_gap(got):
+        return max(abs(g["loss"] - r["loss"]) / abs(r["loss"]) for g, r in zip(got, ref))
+
+    chunk_state, got = multi((0, 1))
+    num = sum(float((a - b).double().pow(2).sum()) for a, b in
+              zip(chunk_state.optimizer.params, single.optimizer.params))
+    den = sum(float((b - a).double().pow(2).sum()) for a, b in zip(p0, single.optimizer.params))
+    update_rel = (num / max(den, 1e-300)) ** 0.5
+    counts_equal = (int(chunk_state.optimizer.count) == int(single.optimizer.count) == 2
+                    and int(chunk_state.nonfinite_count) == int(single.nonfinite_count) == 0)
+    del chunk_state
+    swapped = loss_gap(multi((1, 0))[1])
+    log("multi-step", f"steps_per_call=2 call against 2 single steps (bf16, B=4): losses "
+                      f"{[round(g['loss'], 5) for g in got]} against "
+                      f"{[round(r['loss'], 5) for r in ref]} (worst relative "
+                      f"{loss_gap(got):.1e}, limit {PARITY_LOSS_RTOL}); update relative "
+                      f"{update_rel:.2e} (limit {DIST_UPDATE_RTOL}); counts equal {counts_equal}; "
+                      f"the call on the swapped batches: {swapped:.2e}")
+    if not (loss_gap(got) <= PARITY_LOSS_RTOL and update_rel <= DIST_UPDATE_RTOL
+            and counts_equal):
+        raise AssertionError("the steps_per_call=2 call left two single steps")
+    if swapped <= PARITY_LOSS_RTOL:
+        raise AssertionError("the call on swapped batches stayed within the loss limit")
+    del single, p0, harness
+    gc.collect()
+
+    # (e) main with steps_per_call = 2
+    calls = []
+    real_multi = ts.make_multi_train_step
+
+    def counted(*a, **k):
+        fn = real_multi(*a, **k)
+
+        def wrapped(*b, **kw):
+            calls.append(1)
+            return fn(*b, **kw)
+        return wrapped
+
+    ts.make_multi_train_step = counted
+    try:
+        run = train(cfg, work, files, "cuda", MULTI_STEP_KEYS, epochs=1, tag="multi-train",
+                    compute_dtype=None)
+    finally:
+        ts.make_multi_train_step = real_multi
+    if len(calls) != 1:
+        raise AssertionError(f"main with steps_per_call=2 made {len(calls)} multi-step calls")
+    log("multi-train", f"main with steps_per_call=2: {len(calls)} multi-step call of its "
+                       f"{len(run['losses'])} steps; phase 35 in "
+                       f"{time.perf_counter() - t_phase:.1f} s")
+    return {"lsap": lsap_row, "step_counts": step_counts, "medians": medians,
+            "multi_train_counts": run["counts"], "sync_sites": len(sites)}
 
 
 def main() -> int:
@@ -5698,6 +6143,8 @@ def main() -> int:
         compiled = check_compiled_gather("cuda")
         tools = run_tools(cfg, work)
         clock("34")
+        device_step = check_device_step(cfg, work, train_files)       # 35
+        clock("35")
     finally:
         cpu_jobs.shutdown(cancel_futures=True)
         shutil.rmtree(work, ignore_errors=True)
@@ -5945,6 +6392,27 @@ def main() -> int:
                         **row})
         if kernels[-1]["launches"] <= 0:
             raise AssertionError(f"{kname}'s bf16 entry was not launched on its path")
+    # the LSAP kernel (phase 35, on a flagship bf16 step's costs); launches
+    # from the gather training run (phase 10), one a step; every training
+    # run's under launches_by_path, phase 35's own steps under "device-step"
+    row = device_step["lsap"]
+    kernels.append({
+        "name": "lsap", "route": "cuda", "source": src + "lsap.cu",
+        "replaces": tpu + "hungarian.py:215", "launches": train_counts["lsap"],
+        "launches_by_path": {
+            "train": train_counts["lsap"], "bf16-train": bf16_counts["lsap"],
+            **{tag: c["lsap"] for tag, c in train_counts_sweep.items()},
+            **{tag: c["lsap"] for tag, c in sweep_counts.items()},
+            "bf16-banded-train": bf16_banded_train["counts"]["lsap"],
+            **bb_launches("lsap"), **roberta_launches("lsap"), **dist_launches("lsap"),
+            **{f"tools {name}": c["lsap"] for name, c in tools["launches"].items()
+               if c.get("lsap")},
+            "device-step": device_step["step_counts"]["lsap"],
+            "multi-train": device_step["multi_train_counts"]["lsap"]},
+        **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "device_ms", "callback_ms", "cost_rel", "shape")}})
+    if kernels[-1]["launches"] <= 0:
+        raise AssertionError("the LSAP kernel was not launched on its path")
     print(json.dumps({"kernels": json_safe(kernels)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

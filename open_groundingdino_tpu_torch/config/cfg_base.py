@@ -85,6 +85,9 @@ multi_step_lr = False
 lr_drop_list = [33, 45]
 freeze_keywords = None
 batch_size = 4
+steps_per_call = 1          # optimizer steps a call: N > 1 runs chunks of N same-shape
+                            # batches through make_multi_train_step, with no host
+                            # read between their steps (the JAX package's key)
 
 # ---- data augmentation (reference datasets/transforms.py semantics) -------
 data_aug_scales = [480, 512, 544, 576, 608, 640, 672, 704, 736, 768, 800]

@@ -37,7 +37,11 @@ says otherwise.  VOCAB is a bert-base-uncased vocab.txt, or a roberta-base
 directory (vocab.json + merges.txt) for a config with text_encoder_type
 "roberta-base" and its geometry (data/tokenization.build_tokenizer).
 --debug stops each epoch and each evaluation after 15 batches (the JAX
-package's), --max_steps after N (the smaller of the two when both are given).
+package's), --max_steps after N optimizer steps (the smaller of the two when
+both are given).  A training step reads nothing back to the host; the loop
+reads its metrics every --print_freq steps (engine.train_one_epoch), and the
+config's steps_per_call = N > 1 runs chunks of N same-shape batches a call
+(the JAX package's main.py:353-375).
 --stage_dir copies the manifest's datasets there first (data/staging.py; zips
 are extracted), runs on the copies and removes them when main returns.
 """
@@ -130,8 +134,9 @@ def build_datasets(manifest: Dict, split: str, args, tokenizer=None):
 def main(cli) -> Dict:
     """Evaluate (--eval) or train.  Returns, after --eval, {"stats", "model",
     "run_eval"} (run_eval(params, max_steps, use_native) evaluates again);
-    after training {"state", "train_step", "loader", "records" (the per-step
-    metrics and host seconds), "eval" (each epoch's eval stats), "best",
+    after training {"state", "train_step", "multi_step" (None unless
+    steps_per_call > 1), "loader", "records" (the per-step metrics and host
+    seconds, engine.train_one_epoch's step_records), "eval" (each epoch's eval stats), "best",
     "run_eval" (None without a val split)}.  On N processes it joins the
     group the environment describes, or the one its caller already joined.
     With --stage_dir the staged copies are gone when it returns."""
@@ -188,7 +193,8 @@ def _run(cli, info, args, compute_dtype, manifest: Dict, logger: logging.Logger)
     from .models.resnet import frozen_param_keys as resnet_frozen_keys
     from .parallel import dist
     from .parallel.optim import make_lr_schedule, make_optimizer
-    from .parallel.train_state import TrainState, make_eval_step, make_train_step
+    from .parallel.train_state import (TrainState, make_eval_step, make_multi_train_step,
+                                       make_train_step)
     from .utils import checkpoint as ckpt
     from .utils.ema import BestMetricHolder
 
@@ -259,8 +265,15 @@ def _run(cli, info, args, compute_dtype, manifest: Dict, logger: logging.Logger)
         return {"stats": stats, "model": model, "run_eval": run_eval}
 
     # ---- train ---------------------------------------------------------------
-    train_step = make_train_step(build_criterion(args), compute_dtype=compute_dtype,
-                                 ema_decay=float(args.get("ema_decay", 0.9997)) if use_ema else 0.0)
+    step_kwargs = dict(compute_dtype=compute_dtype,
+                       ema_decay=float(args.get("ema_decay", 0.9997)) if use_ema else 0.0)
+    criterion = build_criterion(args)
+    train_step = make_train_step(criterion, **step_kwargs)
+    # steps_per_call > 1: chunks of that many same-shape batches a call,
+    # with no host read between their steps (the JAX package's main.py:353-375)
+    steps_per_call = int(args.get("steps_per_call", 1))
+    multi_step = (make_multi_train_step(criterion, steps_per_call, **step_kwargs)
+                  if steps_per_call > 1 else None)
     dataset = build_datasets(manifest, "train", args, tokenizer)
     loader = DataLoader(dataset, collator, batch_size=batch_size, shuffle=True,
                         seed=cli.seed, num_threads=cli.num_workers, **shard)
@@ -314,7 +327,8 @@ def _run(cli, info, args, compute_dtype, manifest: Dict, logger: logging.Logger)
         t0 = time.time()
         state, stats = train_one_epoch(train_step, state, loader, epoch, logger,
                                        print_freq=cli.print_freq, max_steps=max_steps,
-                                       step_records=records)
+                                       step_records=records, multi_step=multi_step,
+                                       steps_per_call=steps_per_call)
         logger.info(f"epoch {epoch} train stats: {stats} ({time.time() - t0:.1f}s)")
         if (epoch + 1) % int(args.save_checkpoint_interval) == 0 or epoch == epochs - 1:
             save(cli.output_dir, epoch, epoch)
@@ -339,7 +353,8 @@ def _run(cli, info, args, compute_dtype, manifest: Dict, logger: logging.Logger)
         if main_process:
             with open(os.path.join(cli.output_dir, "log.txt"), "a") as f:
                 f.write(json.dumps(line) + "\n")
-    return {"state": state, "train_step": train_step, "loader": loader, "records": records,
+    return {"state": state, "train_step": train_step, "multi_step": multi_step,
+            "loader": loader, "records": records,
             "eval": evals, "best": best.summary(), "run_eval": run_eval}
 
 

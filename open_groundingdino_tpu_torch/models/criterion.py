@@ -4,7 +4,8 @@ encoder's interm outputs (the port of the JAX package's models/criterion.py;
 reference groundingdino.py:407-639).
 
 GT arrive padded to max_gt with a validity mask.  The costs of every output
-set are stacked and assigned in one host round trip (models/matcher.py).
+set are stacked and assigned in one call on their device (models/matcher.py:
+the LSAP kernel on a card), so the criterion reads nothing back to the host.
 Normalizers follow the reference: boxes by the total GT count, the focal
 loss by the number of matched pairs of each set, both counted over the
 global batch (summed over the ranks, reference groundingdino.py:570-576; the

@@ -32,6 +32,7 @@ from torch import nn
 from ..ops.msda import level_starts, ms_deform_attn
 from ..ops.msda_banded import ms_deform_attn_banded
 from ..ops.msda_sweep import SWEEP_BWD, ms_deform_attn_sweep
+from ..utils.device import device_constant
 from .precision import Linear
 
 KERNELS = ("gather", "sweep", "banded_point")
@@ -103,8 +104,9 @@ class MSDeformAttn(nn.Module):
 
         rp = reference_points.float()
         if rp.shape[-1] == 2:
-            wh = torch.tensor([[w, h] for h, w in spatial_shapes],
-                              dtype=torch.float32, device=query.device)
+            shapes = tuple(tuple(hw) for hw in spatial_shapes)
+            wh = device_constant(("msda_wh", shapes), lambda: torch.tensor(
+                [[w, h] for h, w in shapes], dtype=torch.float32), query.device)
             locs = rp[:, :, None, :, None, :] + offsets / wh[None, None, None, :, None, :]
         elif rp.shape[-1] == 4:
             locs = (

@@ -20,6 +20,7 @@ from torch import nn
 
 from ..ops.fusion import fused_bi_attention
 from ..parallel import dist
+from ..utils.device import to_device_async
 from .position_encoding import get_sine_pos_embed
 from .precision import LayerNorm, Linear, einsum, promote
 
@@ -106,12 +107,12 @@ def drop_path_scale(batch: int, rate: float, generator: torch.Generator,
     """(batch,) per-sample stochastic-depth factors (the JAX package's
     models/layers.py:203-212 drop_path, reference fuse_modules.py DropPath):
     1/(1 - rate) with probability 1 - rate, else 0, drawn from `generator`
-    (on its own device) and moved to `device`.  Under a process group the
-    draw covers the global batch and this rank keeps its rows
-    (dist.rand_local_rows)."""
+    (on its own device) and moved to `device` without a host sync.  Under a
+    process group the draw covers the global batch and this rank keeps its
+    rows (dist.rand_local_rows)."""
     keep = 1.0 - rate
     u = dist.rand_local_rows((batch,), generator, generator.device)
-    return ((u < keep).float() / keep).to(device)
+    return to_device_async((u < keep).float() / keep, device)
 
 
 class BiAttentionBlock(nn.Module):

@@ -2,12 +2,15 @@
 reference matcher.py:25-217).
 
 The cost tensor is computed on the device with static shapes (GT padded to
-max_gt with a validity mask; padded columns get a large constant cost), then
-the assignment runs on the host with scipy's `linear_sum_assignment`: the
-JAX package's `method='callback'` path (`_host_lsa`), which is also the
-reference's.  The JAX package's default device solver (ops/hungarian.py)
-exists only because the TPU runtime has no host callbacks; a CUDA program
-copies the (S*B, Q, G) costs to the host once per step instead.
+max_gt with a validity mask; padded columns get a large constant cost), and
+the assignment runs on the device too, by default: `hungarian_assign(...,
+method="device")` is the JAX package's default Jonker-Volgenant solver
+(ops/hungarian.py::hungarian_device), here ops/lsap.py: the CUDA kernel for
+CUDA tensors, its plain version for CPU tensors.  No host round trip, so a
+training step runs with no host read inside it.  `method="callback"` keeps
+the reference's path, as the JAX package keeps it: the (S*B, Q, G) costs are
+copied to the host and scipy's `linear_sum_assignment` solves them
+(`host_lsa`).
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import numpy as np
 import torch
 from scipy.optimize import linear_sum_assignment
 
+from ..ops.lsap import lsap
 from ..utils import box_ops
 
 BIG_COST = 1e6
@@ -70,9 +74,19 @@ def host_lsa(cost: np.ndarray, valid: np.ndarray) -> np.ndarray:
     return out
 
 
-def hungarian_assign(cost: torch.Tensor, gt_valid: torch.Tensor) -> torch.Tensor:
+def hungarian_assign(cost: torch.Tensor, gt_valid: torch.Tensor,
+                     method: str = "device") -> torch.Tensor:
     """(N, Q, G) costs -> (N, G) matched query indices on the cost's device
-    (sentinel Q for padded GT), through one host round trip."""
+    (sentinel Q for padded GT).  method="device": the LSAP solver on the
+    cost's device (ops/lsap.py), the kernel on a card; "callback": scipy on
+    the host, through one copy of the costs there and back."""
+    if method == "device":
+        # the overflow flags stay on the device: costs of compute_cost_matrix
+        # are finite and below 1e6, and never reach the solver's bound while
+        # an image has no more valid GT than queries
+        return lsap(cost, gt_valid)[0]
+    if method != "callback":
+        raise ValueError(f"hungarian_assign: unknown method {method!r} (device or callback)")
     src = host_lsa(cost.detach().float().cpu().numpy(), gt_valid.cpu().numpy())
     return torch.from_numpy(src).to(cost.device)
 

@@ -16,7 +16,7 @@ package's `nn.remat(SwinBlock)`); eval and no-grad forwards run plainly.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..utils.device import device_constant
 from .precision import LayerNorm, Linear
 
 SWIN_VARIANTS = {
@@ -94,29 +95,6 @@ def shift_attn_mask(Hp: int, Wp: int, ws: int, shift: int) -> np.ndarray:
     return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
 
 
-_CONSTANTS: Dict[Tuple, torch.Tensor] = {}
-
-
-def _device_constant(kind: str, device: str, *key: int) -> torch.Tensor:
-    """The relative-position index or the shift mask as a tensor on `device`,
-    made once per static shape (a few buckets x stages).  Made outside
-    inference mode whatever the caller's mode, so that a training forward
-    after a serving one may save it for backward.  One made while a graph is
-    traced (torch.export: a fake tensor) is not kept; a kept one is read
-    there as a constant of the graph."""
-    t = _CONSTANTS.get((kind, device, *key))
-    if t is not None:
-        return t
-    with torch.inference_mode(False):
-        if kind == "rel_index":
-            t = torch.from_numpy(relative_position_index(*key).reshape(-1)).to(device)
-        else:
-            t = torch.from_numpy(shift_attn_mask(*key)).to(device)
-    if not torch.compiler.is_compiling():
-        _CONSTANTS[(kind, device, *key)] = t
-    return t
-
-
 def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
     """(B, H, W, C) -> (B*nW, ws*ws, C); H, W divisible by ws."""
     B, H, W, C = x.shape
@@ -152,7 +130,9 @@ class WindowAttention(nn.Module):
         qkv = self.qkv(x).view(B_, N, 3, H, D).permute(2, 0, 3, 1, 4)  # (3, B_, H, N, D)
         q, k, v = qkv[0], qkv[1], qkv[2]
         attn = (q * D ** -0.5) @ k.transpose(-2, -1)                    # (B_, H, N, N)
-        rel_index = _device_constant("rel_index", str(x.device), self.window_size)
+        ws = self.window_size
+        rel_index = device_constant(("swin_rel_index", ws), lambda: torch.from_numpy(
+            relative_position_index(ws).reshape(-1)), x.device)
         bias = self.relative_position_bias_table[rel_index]
         attn = attn + bias.view(N, N, H).permute(2, 0, 1)[None]
         if attn_mask is not None:
@@ -198,7 +178,8 @@ class SwinBlock(nn.Module):
         mask = None
         if shift > 0:
             x = torch.roll(x, (-shift, -shift), dims=(1, 2))
-            mask = _device_constant("shift_mask", str(x.device), Hp, Wp, ws, shift).to(x.dtype)
+            mask = device_constant(("swin_shift_mask", Hp, Wp, ws, shift), lambda: torch.from_numpy(
+                shift_attn_mask(Hp, Wp, ws, shift)), x.device).to(x.dtype)
         wins = self.attn(window_partition(x, ws), mask)
         x = window_reverse(wins, ws, B, Hp, Wp)
         if shift > 0:

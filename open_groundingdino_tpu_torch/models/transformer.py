@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..utils.device import device_constant
 from ..utils.misc import inverse_sigmoid
 from .deformable import MSDeformAttn
 from .layers import (
@@ -49,17 +50,22 @@ from .precision import LayerNorm, Linear
 Shapes = Sequence[Tuple[int, int]]
 
 
+def _lattice(H: int, W: int, offset: float) -> torch.Tensor:
+    """(H, W, 2) f32 (x, y) of each token of an H x W level, plus offset."""
+    gy, gx = np.meshgrid(np.arange(H, dtype=np.float32) + offset,
+                         np.arange(W, dtype=np.float32) + offset, indexing="ij")
+    return torch.from_numpy(np.stack([gx, gy], -1))
+
+
 def encoder_reference_points(spatial_shapes: Shapes, valid_ratios: torch.Tensor) -> torch.Tensor:
     """(B, sum(HW), NL, 2) reference points for encoder self-attention
     (reference transformer.py:470-485)."""
     ref_list = []
     for lvl, (H, W) in enumerate(spatial_shapes):
-        gy, gx = np.meshgrid(np.arange(H, dtype=np.float32) + 0.5,
-                             np.arange(W, dtype=np.float32) + 0.5, indexing="ij")
-        grid = torch.from_numpy(np.stack([gx.reshape(-1), gy.reshape(-1)], -1))
-        grid = grid.to(valid_ratios.device)
-        denom = valid_ratios[:, None, lvl, :] * torch.tensor(
-            [W, H], dtype=torch.float32, device=valid_ratios.device)
+        grid = device_constant(("enc_ref_grid", H, W), lambda: _lattice(H, W, 0.5).view(-1, 2),
+                               valid_ratios.device)
+        denom = valid_ratios[:, None, lvl, :] * device_constant(
+            ("wh", H, W), lambda: torch.tensor([W, H], dtype=torch.float32), valid_ratios.device)
         ref_list.append(grid[None] / denom)
     ref = torch.cat(ref_list, dim=1)
     return ref[:, :, None, :] * valid_ratios[:, None, :, :]
@@ -102,9 +108,8 @@ def gen_encoder_output_proposals(memory: torch.Tensor, memory_padding_mask: torc
         mask_l = memory_padding_mask[:, cur : cur + H * W].view(B, H, W)
         valid_h = (~mask_l[:, :, 0]).sum(1).float()
         valid_w = (~mask_l[:, 0, :]).sum(1).float()
-        gy, gx = np.meshgrid(np.arange(H, dtype=np.float32),
-                             np.arange(W, dtype=np.float32), indexing="ij")
-        grid = torch.from_numpy(np.stack([gx, gy], -1)).to(memory.device)
+        grid = device_constant(("proposal_grid", H, W), lambda: _lattice(H, W, 0.0),
+                               memory.device)
         scale = torch.stack([valid_w, valid_h], -1).view(B, 1, 1, 2)
         grid = (grid[None] + 0.5) / scale
         wh = torch.ones_like(grid) * (0.05 * (2.0 ** lvl))

@@ -23,7 +23,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "torch_kernels")
 SOURCES = ("msda_fwd", "msda_bwd", "fusion_fwd", "fusion_bwd", "msda_rowtap_fwd", "msda_corner_fwd",
-           "msda_rowtap_bwd", "msda_banded_fwd", "msda_corner_bwd")
+           "msda_rowtap_bwd", "msda_banded_fwd", "msda_corner_bwd", "lsap")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

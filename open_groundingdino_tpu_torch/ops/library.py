@@ -16,6 +16,7 @@ it as one operator and not as the ctypes call inside it:
   ogd_torch::sweep_fwd_corner  K8, ops/msda_sweep.py   (fwd="corner", microbench)
   ogd_torch::sweep_bwd_corner  K9, ops/msda_sweep.py   (sweep, the default backward)
   ogd_torch::sweep_bwd_rowtap  K10, ops/msda_sweep.py  (sweep, msda_sweep_bwd="rowtap")
+  ogd_torch::lsap              LSAP, ops/lsap.py       (the Hungarian matcher; no gradient)
 
 Each op is defined beside its launcher.  Its CUDA implementation is the
 launcher, unchanged, on the current stream (which counts the launch); its
@@ -35,7 +36,7 @@ wraps a kernel.  Each op also has a FLOP formula
 work the kernel does on this data (`msda_flops`, `fusion_flops`), the count
 the smoke's bounds take.
 
-`custom_ops()` imports the four modules, which registers every op, and
+`custom_ops()` imports the five modules, which registers every op, and
 returns them by name; a program saved by torch.export resolves its ops only
 once they are registered.
 """
@@ -148,7 +149,7 @@ def fusion_flops(q: torch.Tensor, k: torch.Tensor, mask_v: torch.Tensor, mask_l:
 
 def custom_ops() -> Dict[str, object]:
     """{op name: the op}, every op of the namespace registered."""
-    from . import fusion, msda, msda_banded, msda_sweep
+    from . import fusion, lsap, msda, msda_banded, msda_sweep
 
     return {"msda_fwd": msda.msda_fwd, "msda_bwd": msda.msda_bwd,
             "fusion_fwd": fusion.fusion_fwd, "fusion_bwd": fusion.fusion_bwd_op,
@@ -156,4 +157,4 @@ def custom_ops() -> Dict[str, object]:
             "sweep_fwd_allq": msda_sweep.sweep_fwd_allq_op,
             "sweep_fwd_corner": msda_sweep.sweep_fwd_corner_op,
             "sweep_bwd_corner": msda_sweep.sweep_bwd_corner_op,
-            "sweep_bwd_rowtap": msda_sweep.sweep_bwd_rowtap_op}
+            "sweep_bwd_rowtap": msda_sweep.sweep_bwd_rowtap_op, "lsap": lsap.lsap_op}

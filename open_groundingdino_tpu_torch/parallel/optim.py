@@ -10,6 +10,14 @@ package's order: `optax.chain(safe_clip_by_global_norm, multi_transform(
 {group: adamw}))`, so the clip norm runs over every gradient, frozen ones
 included, and each group's AdamW is optax.adamw (b1 0.9, b2 0.999, eps 1e-8,
 decoupled weight decay scaled by the group's learning rate).
+
+The update runs on the device with no host read, as the JAX package's does
+inside its jitted step: the update count is a device tensor, the clip
+scale, the bias corrections and the learning rate (a device lookup of the
+schedule's f32 values, `Schedule.table`) are computed from it there, and a
+step whose gradients are not finite keeps the parameters, both moments and
+the count, as the JAX package masks the optax state
+(parallel/train_state.py:119-151).
 """
 from __future__ import annotations
 
@@ -45,7 +53,8 @@ def safe_global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 def clip_scale(norm: float, max_norm: float) -> float:
     """min(1, max_norm / max(norm, 1e-30)): the JAX package's
     safe_clip_by_global_norm (no 1e-6 in the denominator, unlike
-    torch.nn.utils.clip_grad_norm_)."""
+    torch.nn.utils.clip_grad_norm_).  GroupedAdamW.step computes the same on
+    the device, in f32."""
     return min(1.0, max_norm / max(norm, 1e-30))
 
 
@@ -68,16 +77,21 @@ def label_params(named_params: Iterable[Tuple[str, torch.Tensor]],
 
 
 class GroupedAdamW:
-    """AdamW over the parameter groups above.  `step(grads, norm)` clips by
-    the given global norm, then updates every non-frozen parameter in place;
-    its moments live in `m` and `v`, its update count in `count` (optax's
-    ScaleByAdamState.count; the schedule reads the count before the step)."""
+    """AdamW over the parameter groups above.  `step(grads, norm, finite)`
+    clips by the given global norm, then updates every non-frozen parameter
+    in place, on the device, where `finite` holds.  Its moments live in `m` and `v`, its update
+    count in `count` (optax's ScaleByAdamState.count, a device int64 tensor;
+    the schedule reads the count before the step).  `lr` is a Schedule of
+    this module (make_optimizer wraps a float)."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
-                 lr: Callable[[int], float], base_lr: float, lr_backbone: float,
+                 lr: "Schedule", base_lr: float, lr_backbone: float,
                  lr_linear_proj_mult: float = 0.1, weight_decay: float = 1e-4,
                  clip_max_norm: float = 0.1, frozen_keys: Sequence[str] = (),
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        if not isinstance(lr, Schedule):
+            raise TypeError("GroupedAdamW's lr is a Schedule of parallel/optim.py "
+                            "(make_optimizer takes a float too)")
         named = list(named_params)
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
@@ -92,14 +106,16 @@ class GroupedAdamW:
                 self.groups[self.labels[n]].append(i)
         self.m = [torch.zeros_like(p) for p in self.params]
         self.v = [torch.zeros_like(p) for p in self.params]
-        self.count = 0
+        self.count = torch.zeros((), dtype=torch.int64,
+                                 device=self.params[0].device if self.params else "cpu")
+        self._lr_table = None   # (starts, f32 values) of `lr` on the parameters' device
 
     def state_dict(self) -> Dict:
         """{"m": {name: first moment}, "v": {name: second moment}, "count"}:
-        host copies by parameter name."""
+        host copies by parameter name, the count an int."""
         return {"m": {n: host_copy(t) for n, t in zip(self.names, self.m)},
                 "v": {n: host_copy(t) for n, t in zip(self.names, self.v)},
-                "count": self.count}
+                "count": int(self.count)}
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict) -> None:
@@ -110,25 +126,49 @@ class GroupedAdamW:
                 raise KeyError(f"optimizer state {key!r} names other parameters than the model's")
             for n, t in zip(self.names, moments):
                 t.copy_(state[key][n])
-        self.count = int(state["count"])
+        self.count = torch.tensor(int(state["count"]), dtype=torch.int64,
+                                  device=self.params[0].device if self.params else "cpu")
+
+    def lr_at(self, count: torch.Tensor) -> torch.Tensor:
+        """The schedule's f32 value at a device count, looked up there."""
+        if self._lr_table is None or self._lr_table[0].device != count.device:
+            starts, values = self.lr.table()
+            self._lr_table = (torch.from_numpy(starts).to(count.device),
+                              torch.from_numpy(values).to(count.device))
+        starts, values = self._lr_table
+        idx = torch.searchsorted(starts, count.reshape(1), right=True) - 1
+        return values.index_select(0, idx.clamp(min=0)).reshape(())
 
     @torch.no_grad()
-    def step(self, grads: Sequence[torch.Tensor], norm: float) -> None:
-        scale = clip_scale(norm, self.clip_max_norm)
-        lr = float(self.lr(self.count))
-        self.count += 1
-        bc1 = 1.0 - self.b1 ** self.count
-        bc2 = 1.0 - self.b2 ** self.count
+    def step(self, grads: Sequence[torch.Tensor], norm, finite) -> None:
+        """One update with no host read.  `norm`: the gradients' global norm;
+        `finite`: whether the step is taken (the train step's guard: the loss
+        and the norm finite); each a device tensor, or a host number.  Where
+        `finite` is False the gradients are taken as zero (by torch.where:
+        NaN * 0 is NaN), the moments and the count keep their values and the
+        parameters do not move: the decays act as 1, the step size as 0."""
+        dev = self.params[0].device
+        norm = torch.as_tensor(norm, dtype=torch.float32, device=dev)
+        finite = torch.as_tensor(finite, dtype=torch.bool, device=dev)
+        count = torch.as_tensor(self.count, dtype=torch.int64, device=dev)
+        lr = self.lr_at(count)
+        t = (count + 1).to(torch.float32)
+        bc1 = 1.0 - torch.pow(self.b1, t)
+        bc2 = 1.0 - torch.pow(self.b2, t)
+        scale = torch.where(finite, (self.clip_max_norm / norm.clamp(min=1e-30)).clamp(max=1.0), 1.0)
+        b1 = torch.where(finite, self.b1, 1.0)
+        b2 = torch.where(finite, self.b2, 1.0)
         for group, idx in self.groups.items():
             if not idx:
                 continue
-            g = torch._foreach_mul([grads[i] for i in idx], scale)
+            g = [torch.where(finite, grads[i], 0.0) for i in idx]
+            torch._foreach_mul_(g, scale)
             p = [self.params[i] for i in idx]
             m = [self.m[i] for i in idx]
             v = [self.v[i] for i in idx]
-            torch._foreach_mul_(m, self.b1)
+            torch._foreach_mul_(m, b1)
             torch._foreach_add_(m, g, alpha=1.0 - self.b1)
-            torch._foreach_mul_(v, self.b2)
+            torch._foreach_mul_(v, b2)
             torch._foreach_add_(v, torch._foreach_mul(g, g), alpha=1.0 - self.b2)
             upd = torch._foreach_div(m, bc1)
             den = torch._foreach_div(v, bc2)
@@ -136,64 +176,93 @@ class GroupedAdamW:
             torch._foreach_add_(den, self.eps)
             torch._foreach_div_(upd, den)
             torch._foreach_add_(upd, p, alpha=self.weight_decay)
-            torch._foreach_add_(p, upd, alpha=-lr * self.mults[group])
+            torch._foreach_mul_(upd, torch.where(finite, -(lr * self.mults[group]), 0.0))
+            torch._foreach_add_(p, upd)
+        self.count = torch.where(finite, count + 1, count)
 
 
 def make_optimizer(model: torch.nn.Module, lr, base_lr: float, lr_backbone: float,
                    lr_linear_proj_mult: float = 0.1, weight_decay: float = 1e-4,
                    clip_max_norm: float = 0.1, frozen_keys: Sequence[str] = ()) -> GroupedAdamW:
-    """`lr` is a float or a schedule (count -> lr); the backbone multiplier is
+    """`lr` is a float or a Schedule (count -> lr); the backbone multiplier is
     lr_backbone / base_lr, base_lr being the schedule's nominal peak
     (reference get_param_dicts.py:34-53)."""
-    schedule = lr if callable(lr) else (lambda count, v=float(lr): v)
+    schedule = lr if isinstance(lr, Schedule) else constant_schedule(float(lr))
     return GroupedAdamW(model.named_parameters(), schedule, base_lr, lr_backbone,
                         lr_linear_proj_mult, weight_decay, clip_max_norm, frozen_keys)
 
 
+class Schedule:
+    """A learning-rate schedule of the update count.  `values(counts)` gives
+    the rate at an array of counts (numpy), `schedule(count)` at one, and
+    `table()` the (starts, f32 values) it takes on the device: the rate is
+    values[k] from starts[k] until starts[k + 1] (and after the last start),
+    the f32 of `values` at each start, so the device reads the host's values
+    to the last bit (GroupedAdamW.lr_at)."""
+
+    def __init__(self, values: Callable[[np.ndarray], np.ndarray], starts: Sequence[int]):
+        self.values = values
+        self.starts = np.asarray(starts, np.int64)
+
+    def __call__(self, count: int) -> float:
+        return float(self.values(np.asarray([count], np.int64))[0])
+
+    def table(self) -> Tuple[np.ndarray, np.ndarray]:
+        return self.starts, self.values(self.starts).astype(np.float32)
+
+
+def constant_schedule(value: float) -> Schedule:
+    return Schedule(lambda counts: np.full(np.shape(counts), float(value)), [0])
+
+
 def cosine_onecycle_schedule(transition_steps: int, peak_value: float, pct_start: float = 0.3,
                              div_factor: float = 25.0,
-                             final_div_factor: float = 1e4) -> Callable[[int], float]:
+                             final_div_factor: float = 1e4) -> Schedule:
     """optax.cosine_onecycle_schedule: piecewise cosine interpolation from
     peak/div_factor up to peak at int(pct_start * transition_steps), down to
     peak/(div_factor * final_div_factor) at transition_steps, constant after.
     The interpolation runs in float32 in optax's order, so the values are
-    optax's to the last bits (the f32 cancellation near the ends included)."""
+    optax's to the last bits (the f32 cancellation near the ends included).
+    Its device table holds every count up to transition_steps."""
     if transition_steps <= 0:
         raise ValueError("a onecycle schedule needs transition_steps > 0")
     bounds = [0, int(pct_start * transition_steps), int(transition_steps)]
     values = np.cumprod([peak_value / div_factor, div_factor,
                          1.0 / (div_factor * final_div_factor)])
 
-    def schedule(count: int) -> float:
-        if count >= bounds[-1]:
-            return float(np.float32(values[-1]))
+    def rates(counts: np.ndarray) -> np.ndarray:
+        counts = np.asarray(counts, np.int64)
+        out = np.full(counts.shape, float(np.float32(values[-1])))
         for i in range(len(bounds) - 1):
-            if bounds[i] <= count < bounds[i + 1]:
-                pct = (count - bounds[i]) / (bounds[i + 1] - bounds[i])
-                cos = np.cos(np.float32(math.pi * pct), dtype=np.float32)
-                half = np.float32((values[i] - values[i + 1]) / 2.0)
-                return float(np.float32(values[i + 1]) + half * (cos + np.float32(1.0)))
-        return 0.0
+            sel = (counts >= bounds[i]) & (counts < bounds[i + 1])
+            if not sel.any():
+                continue
+            pct = (counts[sel] - bounds[i]) / (bounds[i + 1] - bounds[i])
+            cos = np.cos((math.pi * pct).astype(np.float32), dtype=np.float32)
+            half = np.float32((values[i] - values[i + 1]) / 2.0)
+            out[sel] = np.float32(values[i + 1]) + half * (cos + np.float32(1.0))
+        return out
 
-    return schedule
+    return Schedule(rates, np.arange(bounds[-1] + 1))
 
 
 def piecewise_constant_schedule(init_value: float,
-                                boundaries_and_scales: Dict[int, float]) -> Callable[[int], float]:
+                                boundaries_and_scales: Dict[int, float]) -> Schedule:
     """optax.piecewise_constant_schedule: init_value times every scale whose
     boundary the count has reached."""
+    steps = sorted(boundaries_and_scales.items())
 
-    def schedule(count: int) -> float:
-        v = init_value
-        for threshold, scale in sorted(boundaries_and_scales.items()):
-            if count >= threshold:
-                v *= scale
+    def rates(counts: np.ndarray) -> np.ndarray:
+        counts = np.asarray(counts, np.int64)
+        v = np.full(counts.shape, float(init_value))
+        for threshold, scale in steps:
+            v = np.where(counts >= threshold, v * scale, v)
         return v
 
-    return schedule
+    return Schedule(rates, sorted({0, *(max(int(t), 0) for t, _ in steps)}))
 
 
-def make_lr_schedule(args, steps_per_epoch: int) -> Callable[[int], float]:
+def make_lr_schedule(args, steps_per_epoch: int) -> Schedule:
     """Reference main.py:334-339 as the JAX package builds it: OneCycle
     (pct_start 0.2) / MultiStep / StepLR, in optimizer steps."""
     base = float(args.lr)

@@ -1,12 +1,17 @@
 """Train state, train step and eval step (the port of the JAX package's
-parallel/train_state.py::make_train_step and make_eval_step).
+parallel/train_state.py::make_train_step, make_multi_train_step and
+make_eval_step).
 
-One step = forward in training mode, criterion (host Hungarian matching),
-backward, overflow-safe global-norm clip, grouped AdamW, optional EMA.  A
-step whose loss or gradient norm is not finite changes nothing (parameters,
-AdamW moments and count, EMA) and adds one to `nonfinite_count`; the JAX
-package masks the update on the device, the port decides on the host, which
-the matcher synchronises with every step anyway.
+One step = forward in training mode, criterion (Hungarian matching on the
+device, models/matcher.py), backward, overflow-safe global-norm clip,
+grouped AdamW, optional EMA, with no host read inside it, as the JAX
+package's jitted step: once the batch is on the device the host only
+queues work.  A step whose loss or gradient norm is not finite changes
+nothing (parameters, AdamW moments and count, EMA) and adds one to
+`nonfinite_count`, all masked on the device (the JAX package's
+train_state.py:119-151); the metrics it returns are device tensors, which
+the training loop reads at its logging cadence (engine.py).
+`make_multi_train_step` runs n such steps on a batch stacked n deep.
 
 Mixed precision (`compute_dtype="bfloat16"`, the configs' default, as the
 JAX package's): the forward runs on every floating parameter cast to bf16 by
@@ -21,7 +26,7 @@ shard of the global batch: the criterion normalises by the global counts,
 and the gradients and losses are summed over the ranks (bucketed
 all_reduce) before the global norm, so the clip, AdamW, the EMA, the finite
 check and the logged metrics see the global batch's values on every rank,
-and the ranks' parameters stay equal.  No DistributedDataParallel: the bf16
+and the ranks' parameters, counts and `nonfinite_count` stay equal.  No DistributedDataParallel: the bf16
 step runs the model on swapped-in cast parameters, which DDP's hooks do not
 see.
 """
@@ -29,12 +34,13 @@ from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional, Union
 
 import numpy as np
 import torch
 
 from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD
+from ..utils.device import device_constant
 from ..utils.ema import ema_update
 from . import dist
 from .optim import GroupedAdamW, host_copy, safe_global_norm
@@ -50,9 +56,11 @@ TARGET_KEYS = ("gt_boxes", "gt_pos_maps", "gt_valid")
 class TrainState:
     model: torch.nn.Module
     optimizer: GroupedAdamW
-    generator: torch.Generator          # the fusion blocks' stochastic depth
+    generator: torch.Generator          # the fusion blocks' stochastic depth, text dropout
     step: int = 0
-    nonfinite_count: int = 0
+    # the steps whose loss or gradients were not finite: a device int64
+    # tensor the step updates with no host read (an int where set by hand)
+    nonfinite_count: Union[int, torch.Tensor] = 0
     ema: Optional[List[torch.Tensor]] = None   # EMA of model.parameters(), or None
 
     @classmethod
@@ -60,21 +68,23 @@ class TrainState:
                use_ema: bool = False) -> "TrainState":
         ema = [p.detach().clone() for p in optimizer.params] if use_ema else None
         return cls(model=model, optimizer=optimizer,
-                   generator=torch.Generator().manual_seed(seed), ema=ema)
+                   generator=torch.Generator().manual_seed(seed), ema=ema,
+                   nonfinite_count=torch.zeros((), dtype=torch.int64,
+                                               device=optimizer.params[0].device))
 
     def state_dict(self) -> Dict:
         """Host copies of everything a resumed run needs: "model" (the
         model's reference-keyed state dict, so the dict reads as a reference
         .pth), "optimizer", "ema" (by parameter name, or None), "step",
-        "nonfinite_count" and "generator" (the stochastic-depth generator's
-        state)."""
+        "nonfinite_count" (an int) and "generator" (the stochastic-depth
+        generator's state)."""
         names = self.optimizer.names
         return {
             "model": {k: host_copy(v) for k, v in self.model.state_dict().items()},
             "optimizer": self.optimizer.state_dict(),
             "ema": None if self.ema is None else {n: host_copy(e) for n, e in zip(names, self.ema)},
             "step": self.step,
-            "nonfinite_count": self.nonfinite_count,
+            "nonfinite_count": int(self.nonfinite_count),
             "generator": self.generator.get_state(),
         }
 
@@ -90,7 +100,8 @@ class TrainState:
             for n, e in zip(self.optimizer.names, self.ema):
                 e.copy_(state["ema"][n])
         self.step = int(state["step"])
-        self.nonfinite_count = int(state["nonfinite_count"])
+        self.nonfinite_count = torch.tensor(int(state["nonfinite_count"]), dtype=torch.int64,
+                                            device=self.optimizer.params[0].device)
         self.generator.set_state(state["generator"])
 
 
@@ -123,8 +134,8 @@ def maybe_device_normalize(images: torch.Tensor, image_sizes: torch.Tensor) -> t
     _maybe_device_normalize).  Float batches pass through."""
     if images.dtype != torch.uint8:
         return images
-    mean = torch.as_tensor(IMAGENET_MEAN, device=images.device)
-    std = torch.as_tensor(IMAGENET_STD, device=images.device)
+    mean = device_constant("imagenet_mean", lambda: torch.tensor(IMAGENET_MEAN), images.device)
+    std = device_constant("imagenet_std", lambda: torch.tensor(IMAGENET_STD), images.device)
     x = (images.float() / 255.0 - mean) / std
     _, H, W, _ = x.shape
     rows = torch.arange(H, device=x.device)[None, :, None, None] < image_sizes[:, 0, None, None, None]
@@ -176,13 +187,16 @@ def swapped_parameters(model: torch.nn.Module, values: Dict[str, torch.Tensor]) 
 
 
 def make_train_step(criterion, compute_dtype=None, ema_decay: float = 0.0
-                    ) -> Callable[[TrainState, Dict], Dict[str, float]]:
-    """Returns train_step(state, batch) -> metrics (host floats); it updates
-    `state` in place.  `batch` is a Collator batch (numpy).  compute_dtype:
-    None / "float32" (f32) or "bfloat16" (mixed precision, see above)."""
+                    ) -> Callable[[TrainState, Dict], Dict[str, torch.Tensor]]:
+    """Returns train_step(state, batch) -> metrics, 0-dim device tensors (each
+    loss, "loss", "grad_norm", "nonfinite_count" after the step); it updates
+    `state` in place and reads nothing back to the host.  `batch` is a
+    Collator batch (numpy, or tensors already on the device).
+    compute_dtype: None / "float32" (f32) or "bfloat16" (mixed precision,
+    see above)."""
     dtype = resolve_compute_dtype(compute_dtype)
 
-    def train_step(state: TrainState, batch: Dict) -> Dict[str, float]:
+    def train_step(state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:
         model, opt = state.model, state.optimizer
         device = opt.params[0].device
         t = to_device(batch, device)
@@ -208,23 +222,47 @@ def make_train_step(criterion, compute_dtype=None, ema_decay: float = 0.0
         # the global batch's gradients and losses: the ranks' shares summed
         dist.all_reduce_sum_(grads + [reduced])
         norm = safe_global_norm(grads)
-        host = torch.cat([reduced, norm[None]]).tolist()
-        metrics = dict(zip(names, host[:-2]))
-        metrics["loss"], metrics["grad_norm"] = host[-2], host[-1]
-        if np.isfinite(metrics["loss"]) and np.isfinite(metrics["grad_norm"]):
-            opt.step(grads, metrics["grad_norm"])
-            if state.ema is not None and ema_decay > 0.0:
-                ema_update(state.ema, opt.params, ema_decay)
-        else:
-            state.nonfinite_count += 1
+        # the JAX package's guard, on the device and the same on every rank
+        # (both terms are all-reduced): a non-finite loss or norm skips the
+        # whole update
+        finite = torch.isfinite(reduced[-1]) & torch.isfinite(norm)
+        opt.step(grads, norm, finite)
+        if state.ema is not None and ema_decay > 0.0:
+            ema_update(state.ema, opt.params, ema_decay, finite)
         for p in opt.params:
             p.grad = None
         state.step += 1
+        count = torch.as_tensor(state.nonfinite_count, dtype=torch.int64, device=device)
+        state.nonfinite_count = count + (~finite).to(torch.int64)
+        metrics = dict(zip(names, reduced[:-1]))
+        metrics["loss"], metrics["grad_norm"] = reduced[-1], norm
         metrics["nonfinite_count"] = state.nonfinite_count
         return metrics
 
     train_step.compute_dtype = "float32" if dtype is None else "bfloat16"
     return train_step
+
+
+def make_multi_train_step(criterion, n_steps: int, **step_kwargs
+                          ) -> Callable[[TrainState, Dict], Dict[str, torch.Tensor]]:
+    """Returns multi_step(state, batches) -> metrics stacked to (n_steps,):
+    n_steps optimizer steps on a batch whose model inputs and targets are
+    stacked n_steps deep (the JAX package's make_multi_train_step, a
+    lax.scan there; a loop of the same step here).  The stack goes to the
+    device in one copy a key, then the steps run with no host read between
+    them: each draws its stochastic depth and text dropout from the state's
+    generator as n single steps would, and the non-finite guard acts on each
+    step."""
+    step = make_train_step(criterion, **step_kwargs)
+
+    def multi_step(state: TrainState, batches: Dict) -> Dict[str, torch.Tensor]:
+        device = state.optimizer.params[0].device
+        stacked = to_device(batches, device)
+        per_step = [step(state, {k: v[i] for k, v in stacked.items()}) for i in range(n_steps)]
+        return {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+
+    multi_step.compute_dtype = step.compute_dtype
+    return multi_step
 
 
 def make_eval_step(model: torch.nn.Module, criterion=None, compute_dtype=None) -> Callable:

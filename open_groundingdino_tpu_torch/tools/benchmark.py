@@ -2,14 +2,15 @@
 training step (the JAX package's tools/benchmark.py, plus --device).
 
     python -m open_groundingdino_tpu_torch.tools.benchmark -c CONFIG -o out \\
-        [--height 800 --width 1216] [--batch 1] [--train [--compute_dtype bfloat16]] \\
-        [--device cuda]
+        [--height 800 --width 1216] [--batch 1] [--train [--compute_dtype bfloat16] \\
+        [--steps_per_call N]] [--device cuda]
 
 FLOPs come from `torch.utils.flop_counter.FlopCounterMode` over one call on
 the timed inputs (the JAX tool reads XLA's cost analysis of the compiled
 program): PyTorch's formulas for its own operators and the ogd_torch ops'
 registered formulas (ops/library.py) for the hand-written kernels, K1 and K2
-in a forward, K3 and K4 too in a training step.  Times are the host clock
+in a forward, K3 and K4 too in a training step (a multi-step call's count
+over its steps).  Times are the host clock
 over `--iters` calls after `--warmup`, closed by a CUDA sync.  Writes the
 JSON result to OUTPUT_DIR/flops/log.txt and prints it.  The weights are a
 seeded random init; the inputs are the JAX tool's (seeded random image and
@@ -137,16 +138,20 @@ def bench_forward(args, cfg, model, inputs, nparam: int) -> Dict:
 
 
 def bench_train(args, cfg, model, inputs, nparam: int) -> Dict:
-    """The port's training step (parallel/train_state.py: forward, host
-    Hungarian matching, criterion, backward, clip, grouped AdamW) on one
-    batch, timed over --iters steps after --warmup."""
+    """The port's training step (parallel/train_state.py: forward, Hungarian
+    matching on the device, criterion, backward, clip, grouped AdamW) on one
+    batch, or with --steps_per_call N > 1 its N-step call
+    (make_multi_train_step) on the batch stacked N deep, as the JAX tool
+    times it: --iters calls after --warmup, closed by a CUDA sync, the time
+    a step the calls' over their steps.  The steps read nothing back, so the
+    calls queue behind each other (--loss_curve reads each call's losses)."""
+    import torch
+
     from ..models.criterion import build_criterion
     from ..parallel.optim import make_optimizer
-    from ..parallel.train_state import TrainState, make_train_step
+    from ..parallel.train_state import TrainState, make_multi_train_step, make_train_step
 
-    if args.steps_per_call != 1:
-        raise SystemExit("--steps_per_call is not ported: it scans optimizer steps inside one "
-                         "TPU program; the port dispatches one step a call")
+    spc = max(args.steps_per_call, 1)
     batch = dict(inputs, **synthetic_targets(args.batch, int(getattr(cfg, "max_gt_boxes", 128)),
                                              int(cfg.max_text_len)))
     optimizer = make_optimizer(
@@ -155,16 +160,20 @@ def bench_train(args, cfg, model, inputs, nparam: int) -> Dict:
         weight_decay=float(cfg.weight_decay), clip_max_norm=float(cfg.clip_max_norm))
     state = TrainState.create(model, optimizer, seed=0)
     dtype = args.compute_dtype or str(getattr(cfg, "compute_dtype", "float32"))
-    step = make_train_step(build_criterion(cfg), compute_dtype=dtype)
+    if spc > 1:
+        step = make_multi_train_step(build_criterion(cfg), spc, compute_dtype=dtype)
+        batch = {k: np.broadcast_to(v, (spc,) + v.shape) for k, v in batch.items()}
+    else:
+        step = make_train_step(build_criterion(cfg), compute_dtype=dtype)
 
     curve = []
     metrics = {}
 
     def run():
         nonlocal metrics
-        metrics = step(state, batch)   # host floats: the step is finished
+        metrics = step(state, batch)
         if args.loss_curve:
-            curve.append(metrics["loss"])
+            curve.extend(torch.as_tensor(metrics["loss"]).reshape(-1).tolist())
 
     flops = count_flops(run)
     for _ in range(max(args.warmup, 1)):
@@ -174,18 +183,18 @@ def bench_train(args, cfg, model, inputs, nparam: int) -> Dict:
     for _ in range(args.iters):
         run()
     sync(args.device)
-    dt = (time.perf_counter() - t0) / max(args.iters, 1)
+    dt = (time.perf_counter() - t0) / (max(args.iters, 1) * spc)
     result = {
         "mode": "train",
         "nparam": nparam,
         "compute_dtype": step.compute_dtype,
         "step_time_s": dt,
-        "steps_per_call": 1,
+        "steps_per_call": spc,
         "imgs_per_sec": args.batch / dt,
-        "loss": float(metrics["loss"]),
-        "flops_per_step": flops["flops"],
-        "gflops": flops["flops"] / 1e9 if flops["flops"] > 0 else -1,
-        "kernel_flops": kernel_flops(flops["by_op"]),
+        "loss": float(metrics["loss"].reshape(-1)[-1]),
+        "flops_per_step": flops["flops"] // spc,
+        "gflops": flops["flops"] / spc / 1e9 if flops["flops"] > 0 else -1,
+        "kernel_flops": {op: n // spc for op, n in kernel_flops(flops["by_op"]).items()},
         "shape": [args.batch, args.height, args.width],
         "platform": platform(args.device),
     }
@@ -206,12 +215,13 @@ def get_args_parser() -> argparse.ArgumentParser:
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=10)
     ap.add_argument("--steps_per_call", type=int, default=1,
-                    help="not ported (a scan of optimizer steps in one TPU program): only 1")
+                    help="(train) optimizer steps a call on the batch stacked that deep "
+                         "(make_multi_train_step)")
     ap.add_argument("--loss_curve", action="store_true",
                     help="(train) report the per-step losses at fixed inputs")
     ap.add_argument("--train", action="store_true",
-                    help="time the training step (forward, host Hungarian matching, backward, "
-                         "clip, AdamW) instead of the forward")
+                    help="time the training step (forward, Hungarian matching on the device, "
+                         "backward, clip, AdamW) instead of the forward")
     ap.add_argument("--compute_dtype", default=None, choices=[None, "bfloat16", "float32"],
                     help="(train) override the config's compute dtype")
     ap.add_argument("--device", default="cuda")

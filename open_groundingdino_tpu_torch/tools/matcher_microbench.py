@@ -1,18 +1,20 @@
 """Matcher microbenchmark (the JAX package's tools/matcher_microbench.py,
-plus --device): the stacked cost-matrix build on the card against the
-assignment, at the flagship's training shapes (S = 7 output sets, B = 4,
-Q = 900, G = max_gt, T = 256), apart from the rest of the training step.
+plus --device): the stacked cost-matrix build against the assignment, at the
+flagship's training shapes (S = 7 output sets, B = 4, Q = 900, G = max_gt,
+T = 256), apart from the rest of the training step.
 
 The port builds the costs on the card (models/matcher.compute_cost_matrix)
-and assigns on the host with scipy (models/matcher.hungarian_assign: one
-copy of the (S*B, Q, G) costs to the host), as the reference does; the JAX
-package's device JV solver (ops/hungarian.py) is not ported.
+and assigns them there too (models/matcher.hungarian_assign, method
+"device": the LSAP kernel, ops/lsap.py, the JAX package's default device
+solver).  Beside it the tool times the reference's host path, method
+"callback": one copy of the (S*B, Q, G) costs to the host and scipy's
+linear_sum_assignment on each problem.
 
     python -m open_groundingdino_tpu_torch.tools.matcher_microbench [--iters 20] \\
         [--costs_only | --assign_only] [--profile DIR] [--device cuda]
 
 Each time is the host clock's mean over --iters calls, closed by a CUDA
-sync (the assignment's host fetch closes its own), the least of --repeats.
+sync (the host assignment's fetch closes its own), the least of --repeats.
 """
 from __future__ import annotations
 
@@ -76,7 +78,9 @@ def get_args_parser() -> argparse.ArgumentParser:
 
 
 def run(args) -> Dict:
-    """The benchmark of parsed `args`; returns {"label", "ms", "summary"}."""
+    """The benchmark of parsed `args`; returns {"label", "ms" (the device
+    assignment's), "host_ms" (scipy's, None with --costs_only), "summary"
+    (the device path's profile)}."""
     import torch
 
     from ..models.matcher import hungarian_assign
@@ -88,37 +92,43 @@ def run(args) -> Dict:
     lg, bx, gtb, gpm, gv = (torch.from_numpy(a).to(device) for a in seeded_inputs(
         S, B, Q, G, T, args.n_real_gt))
     valid = gv.repeat(S, 1)
+    costs = build_costs(lg, bx, gtb, gpm, gv).reshape(S * B, Q, G)
 
-    if args.costs_only:
-        label = "cost build"
-        call = lambda: build_costs(lg, bx, gtb, gpm, gv).sum()   # noqa: E731
-    elif args.assign_only:
-        label = "assign"
-        costs = build_costs(lg, bx, gtb, gpm, gv).reshape(S * B, Q, G)
-        call = lambda: hungarian_assign(costs, valid).sum()   # noqa: E731
-    else:
-        label = "cost build + assign"
-        call = lambda: hungarian_assign(                       # noqa: E731
-            build_costs(lg, bx, gtb, gpm, gv).reshape(S * B, Q, G), valid).sum()
-    float(call())   # warm-up, and a fence
+    def calls(method):
+        if args.costs_only:
+            return "cost build", lambda: build_costs(lg, bx, gtb, gpm, gv).sum()
+        if args.assign_only:
+            return "assign", lambda: hungarian_assign(costs, valid, method).sum()
+        return "cost build + assign", lambda: hungarian_assign(
+            build_costs(lg, bx, gtb, gpm, gv).reshape(S * B, Q, G), valid, method).sum()
 
-    best = float("inf")
-    for _ in range(args.repeats):
-        t0 = time.perf_counter()
-        for _ in range(args.iters):
-            out = call()
-        sync(device)
-        float(out)
-        best = min(best, (time.perf_counter() - t0) / args.iters)
+    def timed(call) -> float:
+        float(call())   # warm-up, and a fence
+        best = float("inf")
+        for _ in range(args.repeats):
+            t0 = time.perf_counter()
+            for _ in range(args.iters):
+                out = call()
+            sync(device)
+            float(out)
+            best = min(best, (time.perf_counter() - t0) / args.iters)
+        return best
+
+    label, call = calls("device")
+    ms = timed(call) * 1e3
+    host_ms = None if args.costs_only else timed(calls("callback")[1]) * 1e3
     summary = None
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)
         prof, _ = profiling.profile_calls(call, args.iters,
                                           trace_path=os.path.join(args.profile, "trace.json"))
         summary = profiling.summarize(prof, args.iters, top=15)
-    print(f"{label} (S={S} B={B} Q={Q} G={G} T={T}): {best * 1e3:.2f} ms "
-          f"(min of {args.repeats})", flush=True)
-    return {"label": label, "ms": best * 1e3, "summary": summary}
+    shape = f"(S={S} B={B} Q={Q} G={G} T={T})"
+    print(f"{label} {shape}: {ms:.2f} ms (min of {args.repeats})", flush=True)
+    if host_ms is not None:
+        print(f"{label}, host assignment (scipy) {shape}: {host_ms:.2f} ms "
+              f"(min of {args.repeats})", flush=True)
+    return {"label": label, "ms": ms, "host_ms": host_ms, "summary": summary}
 
 
 def main(argv: Optional[list] = None) -> Dict:

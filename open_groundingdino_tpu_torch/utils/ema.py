@@ -2,19 +2,27 @@
 utils/ema.py; reference util/utils.py:373-470 ModelEma, BestMetricHolder)."""
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
 
 @torch.no_grad()
 def ema_update(ema: Sequence[torch.Tensor], params: Sequence[torch.Tensor],
-               decay: float = 0.9997) -> None:
+               decay: float = 0.9997, finite: Optional[torch.Tensor] = None) -> None:
     """In place: ema = ema * decay + params * (1 - decay), tensor by tensor
-    (the JAX package returns the new tree; the port updates its buffers)."""
+    (the JAX package returns the new tree; the port updates its buffers).
+    `finite` (a device bool, True when None) masks the update on the device,
+    as the JAX package's train step does (parallel/train_state.py:160-168):
+    where it is False the factors are 1 and 0 and the EMA keeps its values
+    exactly.  The weighted parameters are one foreach pass into a temporary
+    of the parameters' size: foreach ops take a device factor only in a
+    product (`_foreach_mul`), not as the weight of an in-place add."""
     ema = list(ema)
-    torch._foreach_mul_(ema, decay)
-    torch._foreach_add_(ema, [p.to(e.dtype) for e, p in zip(ema, params)], alpha=1.0 - decay)
+    params = [p.to(e.dtype) for e, p in zip(ema, params)]
+    finite = torch.as_tensor(True if finite is None else finite, device=ema[0].device)
+    torch._foreach_mul_(ema, torch.where(finite, decay, 1.0))
+    torch._foreach_add_(ema, torch._foreach_mul(params, torch.where(finite, 1.0 - decay, 0.0)))
 
 
 class BestMetricHolder:

@@ -54,7 +54,8 @@ KERNEL_GROUPS = (("K1 msda_fwd bf16", K1_BF16_NAMES),
                  ("K1 msda_fwd", ("msda_fwd_kernel",)),
                  ("K2 fusion_fwd", ("attend_kernel", "combine_kernel")),
                  ("K3 msda_bwd", ("msda_bwd_kernel",)),
-                 ("K4 fusion_bwd", ("bwd_kernel", "sum_splits_kernel")))
+                 ("K4 fusion_bwd", ("bwd_kernel", "sum_splits_kernel")),
+                 ("LSAP lsap", ("lsap_kernel",)))
 MATMUL_NAMES = ("gemm", "xmma", "cutlass", "matmul")
 
 

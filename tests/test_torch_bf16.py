@@ -317,7 +317,7 @@ def test_bf16_train_step_matches_jax(tmp_path):
                         use_checkpoint=True, use_transformer_ckpt=True)
     state = _port_state(model)
     captured = []
-    state.optimizer.step = lambda grads, norm: captured.append(grads)
+    state.optimizer.step = lambda grads, norm, finite: captured.append(grads)
     from open_groundingdino_tpu_torch.parallel.train_state import make_train_step
 
     loss = make_train_step(SetCriterion(num_queries=QN), compute_dtype="bfloat16")(

@@ -31,8 +31,9 @@ def _imported_roots(path):
 
 
 # every module of the serving, training, sweep, banded, eval, backbone, PAVE,
-# serving-export, RoBERTa / zero-shot and multi-process slices and the tools
-# (the JAX package's last tools among them), plot_utils and the profile reader:
+# serving-export, RoBERTa / zero-shot, multi-process and device-step slices and
+# the tools (the JAX package's last tools among them), plot_utils and the
+# profile reader:
 # the walk below
 # must find them all,
 # and importing them must load nothing of JAX
@@ -52,7 +53,7 @@ EXPECTED = (
     "parallel.dist", "utils.logger", "utils.slio", "utils.time_counter",
     "tools.benchmark", "tools.profile", "tools.serving_bench", "tools.eval_pipeline_bench",
     "tools.matcher_microbench", "tools.opt_microbench", "utils.plot_utils", "utils.profiling",
-    "utils.graph_check",
+    "utils.graph_check", "ops.lsap", "utils.device", "tools.step_ab",
 )
 
 

@@ -99,6 +99,7 @@ def _op_args():
         "sweep_fwd_corner": (grad(value), flat, idx, grad(cw)),
         "sweep_bwd_corner": (value, flat, idx, cw, g_taps),
         "sweep_bwd_rowtap": (value, flat, row, tpx, w, g_taps),
+        "lsap": (t(3, 12, 5), torch.from_numpy(rng.rand(3, 5) > 0.3)),
     }
 
 

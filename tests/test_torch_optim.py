@@ -101,7 +101,7 @@ def test_adamw_clip_schedule_frozen_match_optax():
         tgrads = [torch.from_numpy(grads[n]) for n in NAMES]
         norm = float(optim.safe_global_norm(tgrads))
         np.testing.assert_allclose(norm, float(joptim.safe_global_norm(grads)), rtol=1e-6)
-        opt.step(tgrads, norm)
+        opt.step(tgrads, norm, True)
         for n, p in zip(NAMES, tparams):
             np.testing.assert_allclose(p.detach().numpy(), np.asarray(jparams[n]), **TOL,
                                        err_msg=f"step {step} {n}")

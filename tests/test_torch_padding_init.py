@@ -112,7 +112,7 @@ def test_padding_blows_up_zero_bias_gradients_in_both_packages(tmp_path):
     norms = []
     for padded, ref in zip((False, True), jax_norms):
         state = _port_state(_port_model(sd, JAX_TOP, swin=SWIN_T))
-        state.optimizer.step = lambda grads, norm: None
+        state.optimizer.step = lambda grads, norm, finite: None
         got = make_train_step(SetCriterion(num_queries=QN))(state, _batch_at(padded))
         norms.append(got["grad_norm"])
         np.testing.assert_allclose(got["grad_norm"], ref, rtol=1e-4, err_msg=f"padded={padded}")

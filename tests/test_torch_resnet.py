@@ -150,7 +150,7 @@ def test_freeze_policy_matches_jax(params, train_backbone):
     before = {n: t.clone() for n, t in model.state_dict().items()}
     opt = make_optimizer(model, lr=1e-4, base_lr=1e-4, lr_backbone=1e-5,
                          frozen_keys=frozen_param_keys(train_backbone))
-    opt.step([torch.ones_like(p) for p in opt.params], norm=1.0)
+    opt.step([torch.ones_like(p) for p in opt.params], norm=1.0, finite=True)
     after = model.state_dict()
     moved = {n[len("backbone.0."):]: not torch.equal(before[n], after[n]) for n in before}
     buffers = {n[len("backbone.0."):] for n, _ in model.named_buffers()}

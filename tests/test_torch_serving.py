@@ -122,10 +122,10 @@ def _served(sm):
 def test_artifact_matches_eager_and_jax(artifacts):
     tim, sm, jsm = artifacts
     # the gather path's forward ops, none of the other kernels' (the
-    # backward ops and K8 included)
+    # backward ops, K8 and the training matcher's LSAP included)
     assert _op_counts(sm) == {**dict.fromkeys(_op_counts(sm), 0), "msda_fwd": ENC + DEC,
                               "fusion_fwd": ENC}
-    assert len(_op_counts(sm)) == 10
+    assert len(_op_counts(sm)) == 11
     lg_t, bx_t = _served(sm)
     lg_e, bx_e = _eager(tim)
     np.testing.assert_allclose(lg_t, lg_e, rtol=0, atol=1e-5)

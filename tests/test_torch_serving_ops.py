@@ -120,13 +120,18 @@ def _op_cases(dtype):
             "sweep_fwd_allq": (value, flat, row, tpx, w),
             "sweep_fwd_corner": (value, flat, idx, cw),
             "sweep_bwd_corner": (value, flat, idx, cw, g_taps),
-            "sweep_bwd_rowtap": (value, flat, row, tpx, w, g_taps)}
+            "sweep_bwd_rowtap": (value, flat, row, tpx, w, g_taps),
+            # the matcher's costs are f32 whatever the compute dtype
+            "lsap": (torch.from_numpy(rng.randn(3, 12, 5).astype(np.float32)),
+                     torch.from_numpy(rng.rand(3, 5) > 0.3))}
 
 
 # each op's outputs that are f32 whatever the operands' dtype: K2's
 # statistics, the location, weight and tap gradients
 F32_OUTPUTS = {"fusion_fwd": (2, 3), "msda_bwd": (1, 2), "sweep_bwd_corner": (1,),
                "sweep_bwd_rowtap": (1, 2)}
+# the matcher's assignment and its overflow flags
+OUTPUT_DTYPES = {"lsap": (torch.int64, torch.bool)}
 
 
 def _as_tuple(t):
@@ -144,8 +149,10 @@ def test_ops_opcheck(dtype):
         real = ops[name](*args)
         for f, r in zip(_as_tuple(fake), _as_tuple(real)):
             assert (f.shape, f.dtype) == (r.shape, r.dtype), name
-        assert all(r.dtype == (torch.float32 if i in F32_OUTPUTS.get(name, ()) else dtype)
-                   for i, r in enumerate(_as_tuple(real))), name
+        want = OUTPUT_DTYPES.get(name) or [
+            torch.float32 if i in F32_OUTPUTS.get(name, ()) else dtype
+            for i in range(len(_as_tuple(real)))]
+        assert [r.dtype for r in _as_tuple(real)] == list(want), name
 
 
 def test_fusion_op_statistics():

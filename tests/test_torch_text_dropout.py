@@ -183,7 +183,7 @@ def _step(dropout: float, ckpt: bool):
                                lr_linear_proj_mult=0.1, weight_decay=1e-4, clip_max_norm=0.1)
     state = TrainState.create(model, opt, seed=0)
     grads = []
-    state.optimizer.step = lambda g, n: grads.extend(x.clone() for x in g)
+    state.optimizer.step = lambda g, n, f: grads.extend(x.clone() for x in g)
     loss = make_train_step(SetCriterion(num_queries=12))(state, _batch())["loss"]
     return loss, grads
 

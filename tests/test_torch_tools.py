@@ -121,8 +121,14 @@ def test_benchmark_forward_and_train(cfg_path, tmp_path, capsys):
     assert all(n > 0 for n in train["kernel_flops"].values())
     printed = capsys.readouterr().out
     assert '"flops_per_forward"' in printed and '"step_time_s"' in printed
-    with pytest.raises(SystemExit, match="steps_per_call"):
-        benchmark.run(ap.parse_args(common + ["--train", "--steps_per_call", "2"]), _cfg(cfg_path))
+    # --steps_per_call 2: one call takes two optimizer steps on the batch stacked
+    # two deep (the JAX tool's), and the printed line says so
+    multi = benchmark.run(ap.parse_args(common + ["--warmup", "1", "--train", "--batch", "2",
+                                                  "--compute_dtype", "float32",
+                                                  "--steps_per_call", "2"]), _cfg(cfg_path))
+    assert TRAIN_KEYS <= set(multi) and multi["steps_per_call"] == 2
+    assert np.isfinite(multi["loss"]) and multi["flops_per_step"] > fwd["flops_per_forward"]
+    assert '"steps_per_call": 2' in capsys.readouterr().out
 
 
 def test_profile_forward(cfg_path, tmp_path, capsys):
@@ -201,10 +207,11 @@ def test_matcher_and_opt_microbench(cfg_path, capsys):
     out = capsys.readouterr().out
     assert "cost build + assign (S=2 B=2 Q=30 G=8 T=16): " in out and "(min of 1)" in out
     r = opt_microbench.run(opt_microbench.get_args_parser().parse_args(
-        ["--iters", "1", "--repeats", "1", "--device", "cpu"]), _cfg(cfg_path))
+        ["--iters", "1", "--repeats", "1", "--device", "cpu", "--ema"]), _cfg(cfg_path))
     out = capsys.readouterr().out
     assert out.startswith("params: ") and f"in {r['leaves']} leaves" in out
     assert "optimizer update: " in out and "ms/step (min of 1)" in out
+    assert "EMA update: masked " in out and r["ema_ms"] > 0 and r["ema_inplace_ms"] > 0
 
 
 # ---------------------------------------------------------------- FLOP formulas

@@ -158,9 +158,9 @@ def test_two_steps_match_jax(jax_run):
     captured = []
     step_fn = state.optimizer.step
 
-    def spy(grads, norm):
+    def spy(grads, norm, finite):
         captured.append([g.clone() for g in grads])
-        step_fn(grads, norm)
+        step_fn(grads, norm, finite)
 
     state.optimizer.step = spy
     train_step = make_train_step(SetCriterion(num_queries=QN))
@@ -180,7 +180,7 @@ def test_first_step_gradients_match_jax(jax_run):
     jgrads = state_dict_from_jax_params(jax_run["grads"])
     state = _port_state(model)
     captured = []
-    state.optimizer.step = lambda grads, norm: captured.append(grads)
+    state.optimizer.step = lambda grads, norm, finite: captured.append(grads)
     make_train_step(SetCriterion(num_queries=QN))(state, jax_run["batch"])
     floor = 1e-6 * max(float(jgrads[n].abs().max()) for n in state.optimizer.names)
     bad = []
@@ -266,7 +266,7 @@ def test_checkpointing_gives_the_same_gradients_with_droppath():
     for ckpt in (False, True):
         model = _port_model(fusion_droppath=0.5, use_checkpoint=ckpt, use_transformer_ckpt=ckpt)
         state = _port_state(model)
-        state.optimizer.step = lambda g, n, ckpt=ckpt: grads.__setitem__(ckpt, [x.clone() for x in g])
+        state.optimizer.step = lambda g, n, f, ckpt=ckpt: grads.__setitem__(ckpt, [x.clone() for x in g])
         outs[ckpt] = make_train_step(SetCriterion(num_queries=QN))(state, batch)["loss"]
     assert outs[False] == outs[True]
     for a, b in zip(grads[False], grads[True]):
@@ -274,7 +274,7 @@ def test_checkpointing_gives_the_same_gradients_with_droppath():
     # stochastic depth was active: without it the loss differs
     model = _port_model(use_checkpoint=True, use_transformer_ckpt=True)
     state = _port_state(model)
-    state.optimizer.step = lambda g, n: None
+    state.optimizer.step = lambda g, n, f: None
     assert make_train_step(SetCriterion(num_queries=QN))(state, batch)["loss"] != outs[True]
 
 

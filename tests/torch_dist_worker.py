@@ -123,10 +123,10 @@ def two_steps(inp, droppath, steps, rows=slice(None), reduce=True):
     state = train_state.TrainState.create(model, opt, seed=0)
     grads, step_fn = [], opt.step
 
-    def spy(g, norm):
+    def spy(g, norm, finite):
         if not grads:
             grads.append([t.clone().numpy() for t in g])
-        step_fn(g, norm)
+        step_fn(g, norm, finite)
 
     opt.step = spy
     step = train_state.make_train_step(SetCriterion(num_queries=inp["top"]["num_queries"]))
