@@ -25,7 +25,7 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                of the smoke; here also held against key_averages())
   8. K3      - the MSDA backward kernel against autograd of K1's plain
                version (grad_value, grad_locs, grad_attn), and K1 against its
-               plain version on the same operands (and timed: 18 of its
+               plain version on the same operands (and timed: 12 of its
                launches a step run at these shapes), at the encoder and
                decoder shapes of a B = 4 training batch of the 800x1216
                bucket whose images each have their own valid region, with a
@@ -47,8 +47,9 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                5 timed steps, each loss finite; median step time, peak device
                memory beside the allocation when the run began (after a
                garbage collection; each training phase reads it), and the
-               launches of K1-K4 (18 / 12 / 12 / 6 a step with
-               checkpointing); then torch.profiler over one more step
+               launches of K1-K4 (12 / 6 / 12 / 6 a step: the checkpointed
+               blocks keep the kernels' outputs, remat_save_kernels); then
+               torch.profiler over one more step
  11. train parity - one training step on the card and the same step on the
                CPU (plain versions): B = 1, the 800x1216 bucket, droppath 0;
                loss within 5e-3, each top-level module's gradient norm within
@@ -85,7 +86,7 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                (K5: 12 a request, no K1) on phase 5's requests; one forward
                against phase 6's CPU forward, flip-aware; a profiled request
  18. banded train - main with --options msda_kernel=banded_point: 2 B = 4
-               steps (18 K5 and 12 K3 a step) and a profiled one; then phase
+               steps (12 K5 and 12 K3 a step) and a profiled one; then phase
                11's step through K5 against the gather's step on the card:
                loss within 5e-3, each MSDA-fed gradient within 1e-2
  19. microbench - open_groundingdino_tpu_torch.tools.msda_microbench with
@@ -105,7 +106,7 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                reductions
  21. bf16 train - main with the config's default compute_dtype (bf16) at
                B = 4, full width and depth: 1 warm-up + 5 timed steps, each
-               loss finite, 18 K1 + 12 K3 + 12 K2 + 6 K4 bf16 launches a step
+               loss finite, 12 K1 + 12 K3 + 6 K2 + 6 K4 bf16 launches a step
                and no f32 one; a profiled step; then phase 11's step in bf16
                on the card against phase 11's f32 step on the card: loss
                within 2e-2 and each K3/K4-fed gradient within 0.75, relative
@@ -148,10 +149,10 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                reductions and no bf16x2 one
  25. bf16 sweep train - main --options msda_kernel=sweep in the config's
                default bf16 at B = 4, full width and depth: 1 warm-up + 1
-               timed step, each loss finite, 18 K6 + 12 K9 + 12 K2 + 6 K4
+               timed step, each loss finite, 12 K6 + 12 K9 + 6 K2 + 6 K4
                bf16 launches a step and no other; 1 step with
                msda_sweep_bwd=rowtap (12 K10 bf16), and 1 with
-               msda_dec_fused=True (12 K6 + 6 K7 bf16); phase 15's
+               msda_dec_fused=True (6 K6 + 6 K7 bf16); phase 15's
                step in
                bf16 through the sweep (corner and row-tap backward) against
                phase 15's f32 sweep steps on the card: loss within 2e-2 and
@@ -170,7 +171,7 @@ Phases, one line of output each (any failure exits nonzero, with no result):
  27. bf16 banded train - main --options msda_kernel=banded_point in the
                config's default bf16 at B = 4, full width and depth: one
                epoch of 2 steps with its eval of the 8 images as a COCO val
-               split, 18 K5 + 12 K3 + 12 K2 + 6 K4 bf16 launches a step and
+               split, 12 K5 + 12 K3 + 6 K2 + 6 K4 bf16 launches a step and
                12 K5 + 6 K2 bf16 an eval batch, no other; a profiled step;
                phase 18's step in bf16 against phase 18's f32 banded_point
                step on the card (phase 21's limits), beside its distance from
@@ -198,11 +199,11 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                against their plain versions on its encoder operands; annotate
                draws one Swin-B request's boxes into an image
  29. backbones train - main with cfg_swinl in the default bf16 at B = 4:
-               2 steps (18 K1 + 12 K3 + 12 K2 + 6 K4 bf16 a step, no other),
+               2 steps (12 K1 + 12 K3 + 6 K2 + 6 K4 bf16 a step, no other),
                then 1 more step of that model with
-               use_checkpoint off (no per-block recompute and no fusion
-               replays: 6 K2 a step) for the peak memory the recompute
-               saves; phase 11's f32 B = 1 step on ResNet-50 on the card
+               use_checkpoint off (no per-block recompute; the same
+               launches, the kernels' outputs being saved either way) for
+               the peak memory the recompute saves; phase 11's f32 B = 1 step on ResNet-50 on the card
                against the CPU with main's freeze policy (phase 11's limits,
                on the CPU's two-stage selection as in phase 28; the stem,
                layer1 and every FrozenBN buffer bit-exact after it, every
@@ -264,7 +265,7 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                K2 bf16 launches a batch, the C++ matcher built and used, its
                numbers within 1e-6 of main --eval --debug in this process with
                the numpy matcher; (b) main with text_dropout=0.1 in bf16 at
-               B = 4, 2 steps (18 K1 + 12 K2 + 12 K3 + 6 K4 bf16 a step), then
+               B = 4, 2 steps (12 K1 + 6 K2 + 12 K3 + 6 K4 bf16 a step), then
                the served model's training-mode loss on the run's first batch
                with the step generator seeded 0 (twice: each within 1e-6 of
                main's first step's loss) and 1 (another loss), and the
@@ -283,7 +284,7 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                step's loss within 5e-3 of (b)'s, the update within 5e-2 and
                each stat within 0.05; rank 0 alone wrote the checkpoint (best/
                a hard link to it) and log.txt; the merged eval saw the 8 ids
-               once; 18 K1 + 12 K2 + 12 K3 + 6 K4 f32 launches a step and 12
+               once; 12 K1 + 6 K2 + 12 K3 + 6 K4 f32 launches a step and 12
                K1 + 6 K2 an eval batch on each rank and in (b); (c) planted
                faults: each step's loss from its criterion inputs with
                per-rank num_boxes / num_pos leaves the 5e-3 limit, a step
@@ -324,6 +325,30 @@ Phases, one line of output each (any failure exits nonzero, with no result):
                device matcher and with scipy on the host; a steps_per_call
                = 2 call against two single steps; main with steps_per_call
                = 2 (one multi-step call)
+ 36. saved kernels, flat AdamW - on phase 35's weights and batches: (a) the
+               bf16 B = 4 step with the checkpointed blocks keeping the
+               kernels' outputs (remat_save_kernels, the default: 12 K1 + 6
+               K2 bf16) against the step that replays them (18 + 12), three
+               of each from the same weights and draws, in turns: the
+               launches exact, the losses bit-equal, the whole gradient
+               within 1.5x and each gradient K3 or K4 computes within 3x
+               (+ 1e-5 of its norm) the largest distance between two runs
+               of one arm (K3's bf16 atomics); a cache that hands back
+               fusion_fwd's out_v x 1.01, and one that hands back another
+               image's MSDA output, must fail that; each arm's
+               peak memory, host ms to issue a step and step median over
+               full steps in turns, device busy of a profiled step, and the
+               host and device ms of one checkpointed fusion block and one
+               encoder layer, the outputs kept, replayed, and kept through
+               torch's selective checkpoint.  (b) the port's AdamW (one
+               f32 buffer a group) against a plain per-tensor AdamW on the
+               858 flagship tensors and (a)'s gradients: three updates, the
+               second non-finite (a no-op in both), parameters and moments
+               within 1e-6 of their max after each; an AdamW with the
+               next count's bias correction must fail; one update's device
+               launches of each (torch.profiler) and its host-clock time,
+               in turns; every number beside the card's name and
+               power limit
 The CPU references of phases 11, 22, 28 and 29 (a B = 1 training step, a
 B = 4 eval forward, one forward of each backbone, the ResNet-50 step) run
 one after the other on a thread beside the card's phases, which join each
@@ -332,8 +357,10 @@ checkpoint, after its last epoch, and with a val split best/ (and
 best_ema/) as hard links to it when the epoch scores best; train()'s runs
 do not write theirs (no phase reads them), phase 23's and 33's do (the
 card's machine takes at most 45 GiB of disk writes a run).
-Every training phase runs with the config's use_checkpoint (True): Swin
-recomputes each block in the backward, as the JAX package
+Every training phase runs with the config's use_checkpoint,
+use_transformer_ckpt and remat_save_kernels (all True): Swin recomputes
+each block in the backward and the encoder's fusion blocks and deformable
+layers recompute all but their kernels' outputs, as the JAX package
 does.  A [time] line after each phase gives its seconds.
 then the {"kernels": [...]} line (K1-K10, then the bf16 entries of all ten;
 K1's and K2's rows hold phase 30 under launches_by_path "pave" and per_shape
@@ -342,7 +369,9 @@ launches_by_path "export", K1's-K4's rows, f32 and bf16, phase 32 under
 "roberta" (its requests and training steps) and "zero_shot", and K1's-K4's
 f32 rows phase 33 under "dist" (rank 0 of the gloo pair) and "dist-nccl",
 and phase 34's compiled layers ("compiled", K1-K4 f32) and tools ("tools
-<name>"); last the LSAP kernel's row, phase 35's) and, last,
+<name>"), and the bf16 K1-K4 rows phase 36's step launches with the
+kernels' outputs saved and replayed ("save-kernels-step",
+"replay-kernels-step"); last the LSAP kernel's row, phase 35's) and, last,
 {"ok": true, "device": {...}}.
 
 Exits nonzero when no CUDA device is present.  Scratch files (checkpoint,
@@ -354,6 +383,7 @@ from __future__ import annotations
 import contextlib
 import gc
 from concurrent import futures
+import itertools
 import json
 import math
 import os
@@ -865,7 +895,7 @@ def check_msda_bwd(device):
                          - msda.ms_deform_attn_plain(value, shapes, starts, locs, attn)).abs().max())
         if not fwd_err <= K1_TOL:
             raise AssertionError(f"K1 {name} at B={B}: max abs error {fwd_err} > {K1_TOL}")
-        # K1 at the training shapes too: 18 of its launches a step run here
+        # K1 at the training shapes too: 12 of its launches a step run here
         k1_call = lambda: msda.ms_deform_attn(value, shapes, starts, locs, attn)   # noqa: E731
         k1_bound = msda_bound_ms(value, shapes, locs, attn)
         k1 = dict(max_abs_err=fwd_err, ms=event_ms(k1_call, 50),
@@ -1638,10 +1668,10 @@ TRAIN_IMAGE_SIZES = ((480, 640), (720, 1280), (600, 800), (1024, 768), (500, 700
                      (640, 480), (800, 1200), (900, 1350))   # (h, w)
 TRAIN_STEPS = 6            # 1 warm-up + 5 timed
 TRAIN_EPOCHS = 3           # 8 images, B = 4: 2 steps an epoch
-# K1 per step: 6 encoder + 6 decoder forward + 6 encoder replays under
-# checkpointing; K2: 6 forward + 6 replays; K3: one per MSDA layer; K4: one
-# per fusion layer
-TRAIN_LAUNCHES_PER_STEP = {"msda_fwd": 18, "fusion_fwd": 12, "msda_bwd": 12, "fusion_bwd": 6,
+# K1 per step: 6 encoder + 6 decoder forward; K2: 6 forward (the checkpointed
+# encoder blocks keep both kernels' outputs, remat_save_kernels, so the
+# backward replays neither); K3: one per MSDA layer; K4: one per fusion layer
+TRAIN_LAUNCHES_PER_STEP = {"msda_fwd": 12, "fusion_fwd": 6, "msda_bwd": 12, "fusion_bwd": 6,
                            "lsap": 1}
 PARITY_LOSS_RTOL = 5e-3    # the JAX package's kernel-vs-reference train-step bound
 PARITY_GRAD_RTOL = 1e-2    # per top-level module gradient norm
@@ -1782,13 +1812,18 @@ def train_launches_per_step(msda_keys: dict, bf16: bool = False) -> dict:
     sweep runs K6 where the gather runs K1 (under msda_dec_fused the
     decoder's DEC_LAYERS sorted query sets on K7, the encoder's forwards and
     replays on K6), and K9 or K10 where it runs K3; banded_point runs K5
-    where the gather runs K1, and K3.  With use_checkpoint False the fusion
-    blocks are not replayed: ENC_LAYERS fewer K2.  In bf16 the same
-    launches go to the bf16 entries, the LSAP kernel's (one a step, the
-    matcher on the device) to its one entry."""
+    where the gather runs K1, and K3.  With remat_save_kernels False the
+    checkpointed blocks replay their kernels in the backward: ENC_LAYERS
+    more forward MSDA launches under use_transformer_ckpt, ENC_LAYERS more
+    K2 under use_checkpoint (both on unless the keys say False).  In bf16
+    the same launches go to the bf16 entries, the LSAP kernel's (one a
+    step, the matcher on the device) to its one entry."""
     per = dict(TRAIN_LAUNCHES_PER_STEP)
-    if msda_keys.get("use_checkpoint") is False:
-        per["fusion_fwd"] -= ENC_LAYERS
+    if msda_keys.get("remat_save_kernels") is False:
+        if msda_keys.get("use_transformer_ckpt") is not False:
+            per["msda_fwd"] += ENC_LAYERS
+        if msda_keys.get("use_checkpoint") is not False:
+            per["fusion_fwd"] += ENC_LAYERS
     if msda_keys.get("msda_kernel") == "banded_point":
         per["banded_fwd"] = per.pop("msda_fwd")
     elif msda_keys.get("msda_kernel") == "sweep":
@@ -2409,8 +2444,8 @@ def check_bf16_kernels(device) -> dict:
 
 def train_bf16(cfg, work, train_files, harness, f32_card) -> dict:
     """Phase 21: main with the config's default compute_dtype (bf16) at
-    B = 4, full width and depth, 1 warm-up + 5 timed steps (18 K1 + 12 K3 +
-    12 K2 + 6 K4 bf16 launches a step, no f32 ones) and a profiled step;
+    B = 4, full width and depth, 1 warm-up + 5 timed steps (12 K1 + 12 K3 +
+    6 K2 + 6 K4 bf16 launches a step, no f32 ones) and a profiled step;
     then phase 11's step in bf16 on the card against phase 11's f32 step on
     the card (loss within BF16_LOSS_RTOL, each K3/K4-fed gradient within
     BF16_LEAF_RTOL), and with a negated bf16 K3 grad_locs, and apart a
@@ -2617,10 +2652,10 @@ def train_bf16_sweep(cfg, work, train_files, eval_files, harness, sweep_f32_card
                      gather_bf16_card) -> dict:
     """Phase 25: main --options msda_kernel=sweep in the config's default
     bf16 at B = 4, full width and depth: 1 warm-up + 1 timed step (each a
-    18 K6 + 12 K9 + 12 K2 + 6 K4 bf16 launches, no f32 entry and no K1, K3);
+    12 K6 + 12 K9 + 6 K2 + 6 K4 bf16 launches, no f32 entry and no K1, K3);
     1 step with msda_sweep_bwd=rowtap (12 K10 bf16, no
     K9), and 1 with msda_dec_fused=True (the decoder's 6
-    on K7 bf16, the encoder's 12 on K6 bf16).  Then phase 15's B = 1 step in bf16 through the
+    on K7 bf16, the encoder's 6 on K6 bf16).  Then phase 15's B = 1 step in bf16 through the
     sweep, with the corner and the row-tap backward, against phase 15's f32
     sweep steps on the card (loss within BF16_LOSS_RTOL, each MSDA-fed
     gradient within BF16_LEAF_RTOL), its distance from phase 21's bf16
@@ -3126,7 +3161,7 @@ def train_bf16_banded(cfg, work, train_files, harness, banded_f32_card,
                       gather_bf16_card) -> dict:
     """Phase 27: main --options msda_kernel=banded_point in the config's
     default bf16 at B = 4, full width and depth, one epoch of 2 steps with
-    its eval of the 8 images as a COCO val split (18 K5 + 12 K3 + 12 K2 +
+    its eval of the 8 images as a COCO val split (12 K5 + 12 K3 + 6 K2 +
     6 K4 bf16 launches a step, 12 K5 + 6 K2 bf16 an eval batch, no f32
     entry) and a profiled step; then phase 18's B = 1 step in bf16 through
     banded_point against phase 18's f32 banded_point step on the card (loss
@@ -3573,8 +3608,9 @@ def check_resnet_train_parity(files, device: str = "cuda", cpu_ref=None) -> dict
 def step_without_recompute(run, device: str = "cuda") -> dict:
     """Phase 29 (b): one more step of a main run's model and state with
     use_checkpoint off, as the build sets it from use_checkpoint=False: the
-    Swin blocks keep their activations and the fusion blocks are not
-    replayed (ENC_LAYERS fewer K2).  On the batch the profiled step took
+    Swin blocks and the fusion blocks keep their activations (the same
+    launches: with remat_save_kernels the checkpointed fusion blocks replay
+    no K2 either).  On the batch the profiled step took
     (main would save another checkpoint); peak memory over the step,
     launches."""
     import dataclasses
@@ -3613,7 +3649,7 @@ def step_without_recompute(run, device: str = "cuda") -> dict:
 
 def train_backbones(work: str, files: dict, device: str = "cuda", resnet_ref=None) -> dict:
     """Phase 29: main with cfg_swinl at B = 4 in the default bf16, 2 steps
-    (18 K1 + 12 K3 + 12 K2 + 6 K4 bf16 launches a step), then one step with
+    (12 K1 + 12 K3 + 6 K2 + 6 K4 bf16 launches a step), then one step with
     use_checkpoint off (step_without_recompute); phase
     11's f32 step on ResNet-50 against the CPU's with its frozen tensors;
     and phase 11's f32 step on the dilated ResNet-50 on the card (its
@@ -4771,7 +4807,7 @@ def dropout_losses(model, run, cfg: str, seeds) -> dict:
 def train_roberta(files, work: str, model, device: str = "cuda") -> dict:
     """Phase 32 (b): main with the RoBERTa checkpoint and BPE vocabulary,
     text_dropout TEXT_DROPOUT, in the default bf16 at B = 4: one epoch of 2
-    steps (train(): 18 K1 + 12 K2 + 12 K3 + 6 K4 bf16 a step and no other,
+    steps (train(): 12 K1 + 6 K2 + 12 K3 + 6 K4 bf16 a step and no other,
     each loss finite); then `model`, the served model on the same
     checkpoint, gives the first step's loss on the run's first batch with
     the step generator seeded SEED as main's is (within DROPOUT_LOSS_RTOL),
@@ -5637,14 +5673,14 @@ class DeviceStepHarness:
         load_reference_state_dict(self.base, ckpt)
         self.criterion = build_criterion(self.args)
 
-    def state(self):
+    def state(self, device: str = "cuda"):
         import copy
 
         from open_groundingdino_tpu_torch.parallel.optim import make_optimizer
         from open_groundingdino_tpu_torch.parallel.train_state import TrainState
 
         a = self.args
-        model = copy.deepcopy(self.base).to("cuda")
+        model = copy.deepcopy(self.base).to(device)
         opt = make_optimizer(model, lr=float(a.lr), base_lr=float(a.lr),
                              lr_backbone=float(a.lr_backbone),
                              lr_linear_proj_mult=float(a.lr_linear_proj_mult),
@@ -5954,7 +5990,7 @@ def check_device_step(cfg: str, work: str, files) -> dict:
         raise AssertionError("the steps_per_call=2 call left two single steps")
     if swapped <= PARITY_LOSS_RTOL:
         raise AssertionError("the call on swapped batches stayed within the loss limit")
-    del single, p0, harness
+    del single, p0
     gc.collect()
 
     # (e) main with steps_per_call = 2
@@ -5981,7 +6017,468 @@ def check_device_step(cfg: str, work: str, files) -> dict:
                        f"{len(run['losses'])} steps; phase 35 in "
                        f"{time.perf_counter() - t_phase:.1f} s")
     return {"lsap": lsap_row, "step_counts": step_counts, "medians": medians,
-            "multi_train_counts": run["counts"], "sync_sites": len(sites)}
+            "multi_train_counts": run["counts"], "sync_sites": len(sites),
+            "harness": harness, "batches": batches}
+
+
+# ------------------------------------------------------ saved kernel outputs, flat AdamW (phase 36)
+REMAT_RUNS = 3             # parity steps an arm, in turns, from the same weights and draws
+REMAT_TIMED = 7            # steps timed an arm, in turns, after a warm-up of each
+REMAT_BLOCK_RUNS = 15      # timed calls of one checkpointed block an arm, in turns
+# (a) the saving step's gradients against the replaying step's.  Both arms
+# run the same forward and the same backward kernels on the same values, so
+# they part only where a sum's order changes from run to run (K3's bf16
+# atomics; K4's and cuBLAS's sums), and such a gradient takes one of a few
+# values from run to run, not a spread around one: two runs of one arm may
+# agree bit for bit on a tensor where a third does not.  Held: the whole
+# gradient's largest distance between a saving and a replaying run within
+# REMAT_WHOLE_FACTOR x its largest between two runs of one arm; and each
+# gradient K3 or K4 computes (KERNEL_FED), its largest distance between the
+# arms within REMAT_LEAF_FACTOR x its own largest between two runs of one
+# arm plus REMAT_LEAF_FLOOR of its norm.  The same per-tensor reading over
+# every gradient is printed, not held: a BERT bias far from the kernels read
+# 2.89 of that limit in one run and 0.41 in another (PERF.md §6).
+REMAT_WHOLE_FACTOR = 1.5
+REMAT_LEAF_FACTOR = 3.0
+REMAT_LEAF_FLOOR = 1e-5
+# (b) the port's AdamW (one f32 buffer a group) against a plain per-tensor
+# AdamW in optax's order on the same gradients: each parameter and moment
+# within OPT_RTOL of its largest |value| (their elements' arithmetic is the
+# same; only the norms' f32 sums run in another order)
+OPT_RTOL = 1e-6
+OPT_TIMED = 5              # updates an optimizer, timed in turns, twice each
+
+
+def faulty_cache(op: str, fault):
+    """A context_fn like library.saving_checkpoint_contexts whose recompute
+    hands back fault(the kept outputs) for the forward op `op`: a planted
+    fault of phase 36."""
+    from open_groundingdino_tpu_torch.ops import library
+
+    class Faulty(library.KernelOutputs):
+        def run(self, name, impl, args):
+            out = super().run(name, impl, args)
+            return fault(out) if self.at is not None and name == op else out
+
+    return lambda: Faulty().contexts()
+
+
+def leaf_distances(a, b=None) -> list:
+    """||a_i - b_i|| of each pair of tensors (||a_i|| without b), in one read."""
+    import torch
+
+    with torch.no_grad():
+        return torch.stack([(x - y if b is not None else x).float().norm()
+                            for x, y in zip(a, b if b is not None else a)]).tolist()
+
+
+def rel_gaps(got, ref) -> float:
+    """The worst max|got - ref| / max|ref| over pairs of tensors, in one read."""
+    import torch
+
+    with torch.no_grad():
+        return max(torch.stack([(x - y).abs().max() / y.abs().max().clamp(min=1e-30)
+                                for x, y in zip(got, ref)]).tolist())
+
+
+def plain_global_norm(tensors):
+    """The overflow-safe global norm a leaf at a time (two reductions a
+    leaf): phase 36's plain version of optim.safe_global_norm."""
+    import torch
+
+    tensors = [t.float() for t in tensors]
+    gmax = torch.stack([t.abs().max() for t in tensors]).max().clamp(min=1e-30)
+    return gmax * torch.sqrt(torch.stack([((t / gmax) ** 2).sum() for t in tensors]).sum())
+
+
+def plain_adamw(base):
+    """A subclass of the port's GroupedAdamW (`base`) whose step is the plain
+    per-tensor AdamW in optax's order (a `_foreach_*` pass a group over the
+    parameters' own tensors): phase 36's plain version of the flat update."""
+    import torch
+
+    class PlainAdamW(base):
+        @torch.no_grad()
+        def step(self, grads, norm, finite):
+            finite, lr, bc1, bc2, b1, b2, scale = self._schedule(norm, finite)
+            for group, idx in self.groups.items():
+                g = [torch.where(finite, grads[i].float(), 0.0) for i in idx]
+                torch._foreach_mul_(g, scale)
+                p = [self.params[i] for i in idx]
+                m = [self.m[i] for i in idx]
+                v = [self.v[i] for i in idx]
+                torch._foreach_mul_(m, b1)
+                torch._foreach_add_(m, g, alpha=1.0 - self.b1)
+                torch._foreach_mul_(v, b2)
+                torch._foreach_add_(v, torch._foreach_mul(g, g), alpha=1.0 - self.b2)
+                upd = torch._foreach_div(m, bc1)
+                den = torch._foreach_div(v, bc2)
+                torch._foreach_sqrt_(den)
+                torch._foreach_add_(den, self.eps)
+                torch._foreach_div_(upd, den)
+                torch._foreach_add_(upd, p, alpha=self.weight_decay)
+                torch._foreach_mul_(upd, torch.where(finite, -(lr * self.mults[group]), 0.0))
+                torch._foreach_add_(p, upd)
+            self.count = torch.where(finite, self.count + 1, self.count)
+
+    return PlainAdamW
+
+
+def dispatch_mode_contexts():
+    """torch.utils.checkpoint's selective contexts keeping the outputs of
+    library.SAVED_OPS (MUST_SAVE; PREFER_RECOMPUTE for every other op): the
+    library's way to what library.saving_checkpoint_contexts does, through
+    a dispatch mode that sees every op of the block (phase 36 times it)."""
+    from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+
+    from open_groundingdino_tpu_torch.ops import library
+
+    saved = {f"{library.NAMESPACE}::{name}" for name in library.SAVED_OPS}
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op.name() in saved else \
+            CheckpointPolicy.PREFER_RECOMPUTE
+
+    return create_selective_checkpoint_contexts(policy)
+
+
+def block_host_ms(state, encoder, step, batch, runs: int) -> dict:
+    """The host's cost of each way to checkpoint one block: the first
+    fusion block and the first deformable encoder layer, called by the
+    encoder's own checkpoint on the inputs a step gives them and the step's
+    bf16 weights, forward and backward, `runs` calls of each block an arm,
+    in turns: "save" (the kernels' outputs kept, the port's), "replay"
+    (remat_save_kernels off) and "dispatch" (dispatch_mode_contexts in the
+    port's place).  {block: {arm: (host ms to issue the forward and the
+    backward, median; device busy ms of one profiled call)}}."""
+    import torch
+
+    from open_groundingdino_tpu_torch.ops import library
+    from open_groundingdino_tpu_torch.parallel import train_state as ts
+
+    blocks = {"fusion block": encoder.fusion_layers[0], "encoder layer": encoder.layers[0]}
+    inputs = {}
+    hooks = [m.register_forward_pre_hook(
+        lambda _m, args, tag=tag: inputs.setdefault(tag, args) and None)
+        for tag, m in blocks.items()]
+    real = state.optimizer.step
+    state.optimizer.step = lambda grads, norm, finite: None
+    try:
+        host_metrics(step(state, batch))
+    finally:
+        state.optimizer.step = real
+        for h in hooks:
+            h.remove()
+    model = state.model
+    bf16 = {k: v.detach() for k, v in
+            ts.cast_floating(dict(model.named_parameters()), torch.bfloat16).items()}
+    for v in bf16.values():
+        v.requires_grad_(True)
+
+    real_contexts = library.saving_checkpoint_contexts
+
+    def call(tag, arm: str) -> float:
+        """One forward and backward of the block; host ms to issue it."""
+        encoder.remat_save_kernels = arm != "replay"
+        library.saving_checkpoint_contexts = \
+            dispatch_mode_contexts if arm == "dispatch" else real_contexts
+        args = [a.detach().requires_grad_(a.requires_grad) if torch.is_tensor(a) else a
+                for a in inputs[tag]]
+        torch.cuda.synchronize()
+        try:
+            t0 = time.perf_counter()
+            with ts.swapped_parameters(model, bf16):
+                out = encoder._checkpoint(blocks[tag], *args)
+                outs = [o for o in (out if isinstance(out, tuple) else (out,)) if o.requires_grad]
+                torch.autograd.backward(outs, [torch.ones_like(o) for o in outs])
+            host = (time.perf_counter() - t0) * 1e3
+        finally:
+            library.saving_checkpoint_contexts = real_contexts
+        torch.cuda.synchronize()
+        return host
+
+    arms = ("save", "replay", "dispatch")
+    result = {}
+    for tag in blocks:
+        host = {arm: [] for arm in arms}
+        for i in range(runs + 1):   # the arms' order rotates
+            for arm in arms[i % 3:] + arms[:i % 3]:
+                host[arm].append(call(tag, arm))
+        result[tag] = {}
+        for arm in arms:
+            prof, _ = profiling.profile_calls(lambda: call(tag, arm))
+            result[tag][arm] = (statistics.median(host[arm][1:]),
+                                sum(device_time_by_group(prof)[1].values()))
+    for v in bf16.values():
+        v.grad = None
+    for p in model.parameters():
+        p.grad = None
+    encoder.remat_save_kernels = True
+    return result
+
+
+def check_saved_kernels(files, smi: str, harness, batches, device: str = "cuda") -> dict:
+    """Phase 36, on phase 35's flagship weights and bf16 B = 4 batches.  (a)
+    The step with the checkpointed blocks keeping the kernels' outputs
+    (remat_save_kernels, the default) against the step that replays them
+    (remat_save_kernels=False): REMAT_RUNS steps of each from the same
+    weights and stochastic-depth draws, in turns, with no update; the
+    launches exact (12 K1 + 6 K2 bf16 against 18 + 12), the losses
+    bit-equal, the gradients within the run-to-run distance of one arm (the
+    whole gradient and each kernel-fed one, see REMAT_WHOLE_FACTOR); a cache
+    that hands back fusion_fwd's out_v scaled by 1.01, and one that hands
+    back another image's MSDA output, must each fail that; each arm's peak
+    memory, host ms to issue a step and host-clock median over REMAT_TIMED
+    full steps in turns, device busy of a profiled step, and the host and
+    device ms of one checkpointed block of each kind under each policy
+    (block_host_ms).  (b) The port's AdamW (one f32 buffer a group) against
+    the plain per-tensor one (plain_adamw, plain_global_norm) on the
+    flagship parameters (858 tensors) and (a)'s gradients: three updates,
+    the second non-finite; parameters and moments within OPT_RTOL after
+    each, the non-finite one a no-op in both; an AdamW with the next count's
+    bias correction must fail; one update's device launches of each
+    (torch.profiler) and its host-clock time, in turns."""
+    import torch
+
+    from open_groundingdino_tpu_torch.ops import library
+    from open_groundingdino_tpu_torch.parallel import optim
+    from open_groundingdino_tpu_torch.parallel import train_state as ts
+
+    t_phase = time.perf_counter()
+    state = harness.state(device)
+    encoder = state.model.transformer.encoder
+    step = ts.make_train_step(harness.criterion, compute_dtype="bfloat16")
+    batch = ts.to_device(batches[0], device)
+    draws = state.generator.get_state()
+
+    def parity_step(save: bool):
+        """(loss, the gradients, the launches) of a step from the state's
+        weights and stochastic-depth draws, with no update."""
+        encoder.remat_save_kernels = save
+        state.generator.set_state(draws)
+        got = []
+        state.optimizer.step = lambda grads, norm, finite: got.append(
+            [g.detach().clone() for g in grads])
+        reset_counts()
+        try:
+            loss = host_metrics(step(state, batch))["loss"]
+        finally:
+            del state.optimizer.step
+        return loss, got[0], read_counts()
+
+    runs = {"save": [], "replay": []}
+    for i in range(REMAT_RUNS):   # save, replay, replay, save, ...
+        for arm in (("save", "replay") if i % 2 == 0 else ("replay", "save")):
+            runs[arm].append(parity_step(arm == "save"))
+    want = {"save": train_launches_per_step({}, bf16=True),
+            "replay": train_launches_per_step({"remat_save_kernels": False}, bf16=True)}
+    for arm, rs in runs.items():
+        for r in rs:
+            if r[2] != want[arm]:
+                raise AssertionError(f"the {arm} step launched {r[2]}, expected {want[arm]}")
+    counts = {arm: rs[0][2] for arm, rs in runs.items()}   # as measured
+    grads = {arm: [r[1] for r in rs] for arm, rs in runs.items()}
+    losses = [r[0] for arm in ("save", "replay") for r in runs[arm]]
+    del runs
+    names = state.optimizer.names
+    fed = [i for i, n in enumerate(names) if any(k in n for k in KERNEL_FED)]
+    norms = leaf_distances(grads["save"][0])
+
+    def pair_max(pairs) -> list:
+        """Each parameter's largest gradient distance over pairs of runs."""
+        return [max(ds) for ds in zip(*(leaf_distances(a, b) for a, b in pairs))]
+
+    def whole(dists) -> float:
+        return math.sqrt(sum(d * d for d in dists))
+
+    same = pair_max([p for arm in grads.values() for p in itertools.combinations(arm, 2)])
+
+    def share(d: float, limit: float) -> float:
+        return d / limit if limit > 0 else (math.inf if d > 0 else 0.0)
+
+    def verdict(dists) -> tuple:
+        """(the whole gradient's distance / its limit, the worst kernel-fed
+        gradient's distance / its limit, that parameter's name, the worst
+        over every gradient by the same per-tensor limit, its name)."""
+        leaf = [(share(dists[i], REMAT_LEAF_FACTOR * same[i] + REMAT_LEAF_FLOOR * norms[i]),
+                 names[i]) for i in range(len(names))]
+        return (share(whole(dists), REMAT_WHOLE_FACTOR * whole(same)),
+                *max(leaf[i] for i in fed), *max(leaf))
+
+    cross = verdict(pair_max([(a, b) for a in grads["save"] for b in grads["replay"]]))
+    real_contexts = library.saving_checkpoint_contexts
+    faults = {}
+    for tag, op, fault in (
+            ("fusion out_v x 1.01", "fusion_fwd", lambda out: (out[0] * 1.01, *out[1:])),
+            ("another image's MSDA output", "msda_fwd", lambda out: out.roll(1, 0))):
+        library.saving_checkpoint_contexts = faulty_cache(op, fault)
+        try:
+            loss, got, _ = parity_step(True)
+        finally:
+            library.saving_checkpoint_contexts = real_contexts
+        faults[tag] = (loss, verdict(pair_max([(got, a) for a in grads["save"]])))
+        del got
+    rel_same = max(d / n for d, n in zip(same, norms) if n > 0)
+    log("saved-kernels", f"{smi}: bf16 B=4 step, the kernels' outputs saved against replayed "
+                         f"({REMAT_RUNS} steps each, in turns, same weights and draws): launches "
+                         f"{ {k: v for k, v in counts['save'].items() if v} } against "
+                         f"{ {k: v for k, v in counts['replay'].items() if v} }; losses {losses}; "
+                         f"gradients: {sum(d > 0 for d in same)} of {len(names)} parameters part "
+                         f"between runs of one arm, by at most {rel_same:.2e} of their norm, the "
+                         f"whole gradient by {whole(same) / whole(norms):.2e}; the arms' distance: "
+                         f"whole {cross[0]:.3f} of its limit ({REMAT_WHOLE_FACTOR} x one arm's), "
+                         f"the worst of the {len(fed)} kernel-fed gradients {cross[1]:.3f} of its "
+                         f"limit ({REMAT_LEAF_FACTOR} x one arm's + {REMAT_LEAF_FLOOR} of its "
+                         f"norm; {cross[2]}), of all {len(names)} by that limit (not held) "
+                         f"{cross[3]:.3f} ({cross[4]}); planted: " + "; ".join(
+                             f"{t}: whole {v[0]:.3g}, kernel-fed {v[1]:.3g} ({v[2]}), all "
+                             f"{v[3]:.3g}, loss {l}" for t, (l, v) in faults.items()))
+    failed = []   # raised at the phase's end, after every part has run and logged
+    if len(set(losses)) != 1:
+        failed.append(f"the saving and the replaying steps' losses part: {losses}")
+    if max(cross[:2]) > 1.0:
+        failed.append(f"the saving step's gradients left the replaying step's: {cross}")
+    failed += [f"a cache with {tag} kept the gradients within the limits"
+               for tag, (_, v) in faults.items() if max(v[:2]) <= 1.0]
+    s1, r1 = grads["save"][0], grads["replay"][0]
+    del grads
+    gc.collect()
+
+    # each arm's peak memory, host ms to issue a step and step median over
+    # full steps, in turns
+    seconds, issue = {"save": [], "replay": []}, {"save": [], "replay": []}
+    peaks = {"save": [], "replay": []}
+    base = torch.cuda.memory_allocated()
+    for i in range(REMAT_TIMED + 1):
+        for arm in (("save", "replay") if i % 2 == 0 else ("replay", "save")):
+            encoder.remat_save_kernels = arm == "save"
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(state, batches[i % 2])
+            t1 = time.perf_counter()
+            if not math.isfinite(host_metrics(metrics)["loss"]):
+                raise AssertionError("a timed step's loss is not finite")
+            seconds[arm].append(time.perf_counter() - t0)
+            issue[arm].append((t1 - t0) * 1e3)
+            peaks[arm].append(torch.cuda.max_memory_allocated())
+    medians = {arm: statistics.median(v[1:]) for arm, v in seconds.items()}
+    issue_ms = {arm: statistics.median(v[1:]) for arm, v in issue.items()}
+    peak = {arm: max(v) for arm, v in peaks.items()}
+    log("saved-kernels", f"{smi}: full bf16 B=4 steps in turns (a warm-up each, then "
+                         f"{REMAT_TIMED}): saved {[round(x, 4) for x in seconds['save']]} s "
+                         f"(median {medians['save']:.4f}), replayed "
+                         f"{[round(x, 4) for x in seconds['replay']]} s (median "
+                         f"{medians['replay']:.4f}); host ms to issue a step (no read inside "
+                         f"it) median saved {issue_ms['save']:.1f}, replayed "
+                         f"{issue_ms['replay']:.1f}; max_memory_allocated saved "
+                         f"{peak['save'] / 2**30:.2f} GiB, replayed {peak['replay'] / 2**30:.2f} "
+                         f"GiB, of it {base / 2**30:.2f} GiB allocated before the steps "
+                         f"(the model, AdamW's moments, (a)'s gradients)")
+    busy = {}
+    for arm, label in (("save", "saved"), ("replay", "replayed")):   # a profiled step of each
+        encoder.remat_save_kernels = arm == "save"
+        prof, wall_ms = profiling.profile_calls(lambda: step(state, batch))
+        _, groups, launches = device_time_by_group(prof)
+        busy[arm] = sum(groups.values())
+        kernel_groups = {k: (round(v, 2), launches[k]) for k, v in groups.items()
+                         if launches[k] and k[:2] in ("K1", "K2", "K3", "K4")}
+        log("saved-kernels", f"{smi}: a profiled step, the kernels' outputs {label}: {wall_ms:.1f} ms "
+                             f"wall (profiler on), device busy {busy[arm]:.1f} ms; K1-K4 ms and "
+                             f"launches {kernel_groups}; matmul {groups['matmul']:.2f}, other "
+                             f"{groups['other']:.2f} ms")
+    blocks = block_host_ms(state, encoder, step, batch, REMAT_BLOCK_RUNS)
+    log("saved-kernels", f"{smi}: one checkpointed block, forward and backward on a step's inputs "
+                         f"and bf16 weights ({REMAT_BLOCK_RUNS} calls an arm in turns), host ms "
+                         f"to issue (median) and device busy ms: " +
+        "; ".join(f"{tag}: outputs kept {v['save'][0]:.2f} / {v['save'][1]:.2f}, replayed "
+                  f"{v['replay'][0]:.2f} / {v['replay'][1]:.2f}, kept through torch's selective "
+                  f"checkpoint (a dispatch mode) {v['dispatch'][0]:.2f} / {v['dispatch'][1]:.2f}"
+                  for tag, v in blocks.items()))
+    del state, encoder
+    gc.collect()
+
+    # (b) the port's AdamW against the plain per-tensor one on (a)'s gradients
+    a = harness.args
+    params = [(n, p) for n, p in harness.base.named_parameters()]
+    kw = dict(base_lr=float(a.lr), lr_backbone=float(a.lr_backbone),
+              lr_linear_proj_mult=float(a.lr_linear_proj_mult),
+              weight_decay=float(a.weight_decay), clip_max_norm=float(a.clip_max_norm))
+
+    class NextBiasCorrection(optim.GroupedAdamW):
+        """A planted fault: bc1 of the next count."""
+
+        def _schedule(self, norm, finite):
+            finite, lr, bc1, bc2, b1, b2, scale = super()._schedule(norm, finite)
+            return finite, lr, 1.0 - (1.0 - bc1) * self.b1, bc2, b1, b2, scale
+
+    opts, norm_of = {}, {"port": optim.safe_global_norm, "plain": plain_global_norm,
+                         "planted": optim.safe_global_norm}
+    for tag, cls in (("plain", plain_adamw(optim.GroupedAdamW)), ("port", optim.GroupedAdamW),
+                     ("planted", NextBiasCorrection)):
+        named = [(n, torch.nn.Parameter(p.detach().to(device, copy=True))) for n, p in params]
+        opts[tag] = cls(named, optim.constant_schedule(float(a.lr)), **kw)
+    bad = list(s1)
+    bad[len(bad) // 2] = bad[len(bad) // 2].clone()
+    bad[len(bad) // 2].view(-1)[0] = float("nan")
+
+    def update(tag, grads):
+        norm = norm_of[tag](grads)
+        opts[tag].step(grads, norm, torch.isfinite(norm))
+
+    def held(opt):
+        return list(opt.params) + opt.m + opt.v
+
+    gaps = []
+    for k, grads in enumerate((s1, bad, r1)):
+        before = [t.detach().clone() for tag in ("plain", "port") for t in held(opts[tag])] \
+            if k == 1 else None
+        for tag in opts:
+            update(tag, grads)
+        if k == 0:
+            planted = rel_gaps(opts["planted"].params, opts["plain"].params)
+            del opts["planted"]
+        if before is not None:
+            after = [t.detach() for tag in ("plain", "port") for t in held(opts[tag])]
+            if not all(torch.equal(x, y) for x, y in zip(after, before)):
+                failed.append("a non-finite update moved a parameter or a moment")
+            del before, after
+        gaps.append(rel_gaps(held(opts["port"]), held(opts["plain"])))
+    opt_counts = [int(o.count) for o in opts.values()]
+    launches, update_ms = {}, {"port": [], "plain": []}
+    for tag in opts:
+        prof, _ = profiling.profile_calls(lambda: update(tag, r1), 1)
+        launches[tag] = sum(n for _, n in profiling.device_kernels(prof).values())
+    for tag in ("port", "plain", "plain", "port"):   # host-clock ms of an update, in turns
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(OPT_TIMED):
+            update(tag, r1)
+        torch.cuda.synchronize()
+        update_ms[tag].append((time.perf_counter() - t0) * 1e3 / OPT_TIMED)
+    del opts, s1, r1, bad
+    gc.collect()
+    log("flat-adamw", f"{smi}: the port's AdamW (one f32 buffer a group) against the plain "
+                      f"per-tensor one on the flagship's {len(params)} parameter tensors and "
+                      f"(a)'s gradients, three updates (the second non-finite, a no-op in both): "
+                      f"worst parameter or moment {max(gaps):.2e} of its max|value| after each "
+                      f"({[f'{g:.1e}' for g in gaps]}, limit {OPT_RTOL}); counts {opt_counts}; "
+                      f"the next count's bias correction planted: {planted:.2e}; one update's "
+                      f"device launches, the guard's norm included {launches} (torch.profiler); "
+                      f"host-clock ms an update ({OPT_TIMED} a time, in turns) "
+                      f"{ {k: [round(x, 2) for x in v] for k, v in update_ms.items()} }; "
+                      f"phase 36 in {time.perf_counter() - t_phase:.1f} s")
+    if max(gaps) > OPT_RTOL or opt_counts != [2, 2]:
+        failed.append("the port's AdamW left the plain per-tensor one")
+    if planted <= OPT_RTOL:
+        failed.append("an AdamW with the next count's bias correction stayed within the limit")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return {"counts": counts, "medians": medians, "issue_ms": issue_ms, "peak_bytes": peak,
+            "base_bytes": base, "device_busy_ms": busy, "blocks": blocks,
+            "grad_cross": cross, "grad_same_rel": rel_same,
+            "faults": {t: v for t, (_, v) in faults.items()}, "opt_gaps": gaps,
+            "opt_planted": planted, "opt_launches": launches, "opt_update_ms": update_ms}
 
 
 def main() -> int:
@@ -6145,6 +6642,9 @@ def main() -> int:
         clock("34")
         device_step = check_device_step(cfg, work, train_files)       # 35
         clock("35")
+        saved = check_saved_kernels(train_files, smi, device_step.pop("harness"),   # 36
+                                    device_step.pop("batches"))
+        clock("36")
     finally:
         cpu_jobs.shutdown(cancel_futures=True)
         shutil.rmtree(work, ignore_errors=True)
@@ -6321,7 +6821,9 @@ def main() -> int:
         row["device_ms"] = sum(r["device_ms"] for r in shapes.values()) / len(shapes)
         row["sass"] = bf16["sass"].get({"K2": "fusion_fwd", "K3": "msda_bwd_atomics",
                                         "K4": "fusion_bwd"}.get(kname))
-        by_path = {"bf16-train": bf16_counts[f"{counter}_bf16"]}
+        by_path = {"bf16-train": bf16_counts[f"{counter}_bf16"],
+                   **{f"{arm}-kernels-step": c[f"{counter}_bf16"]   # phase 36
+                      for arm, c in saved["counts"].items()}}
         if kname in ("K1", "K2"):   # and the bf16 eval (phase 22), the PAVE crop eval (30)
             by_path["eval-bf16"] = evals["bfloat16"]["counts"][f"{counter}_bf16"]
             by_path["pave"] = pave["eval"]["counts"][f"{counter}_bf16"]

@@ -46,6 +46,8 @@ use_fusion_layer = True
 use_text_cross_attention = True
 use_checkpoint = True            # checkpoint the fusion blocks
 use_transformer_ckpt = True      # checkpoint the deformable encoder layers
+remat_save_kernels = True        # the checkpointed blocks keep the kernels' outputs (the
+                                 # JAX package's REMAT_SAVE_KERNELS): no kernel replays
 text_dropout = 0.0
 fusion_dropout = 0.0
 fusion_droppath = 0.1

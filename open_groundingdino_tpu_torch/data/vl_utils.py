@@ -1,16 +1,35 @@
 """Vision-language span utilities (reference groundingdino/util/vl_utils.py);
-the port's own copy of the JAX package's data/vl_utils.py span map.
+the port's own copy of the JAX package's data/vl_utils.py: the caption and
+character spans of a category list, and the span map.
 
 Used by the token_spans inference mode (tools/inference_on_a_image.py:116-142)
 where the user supplies character spans per phrase instead of thresholding.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
 from .tokenization import TokenizedBatch
+
+
+def build_captions_and_token_span(
+    cat_list: Sequence[str], force_lowercase: bool = True
+) -> Tuple[str, Dict[str, List[Tuple[int, int]]]]:
+    """caption 'a . b . c .' + char span (beg, end) per category name
+    (reference vl_utils.py:50-87)."""
+    cat2tokenspan: Dict[str, List[Tuple[int, int]]] = {}
+    caption = ""
+    for name in cat_list:
+        part = name.lower() if force_lowercase else name
+        if caption:
+            caption += " . "
+        start = len(caption)
+        caption += part
+        cat2tokenspan[part] = [(start, len(caption))]
+    caption += " ."
+    return caption, cat2tokenspan
 
 
 def create_positive_map_from_span(

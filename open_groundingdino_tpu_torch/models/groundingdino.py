@@ -49,7 +49,7 @@ class GroundingDINO(nn.Module):
                  use_fusion_layer: bool = True, use_text_cross_attention: bool = True,
                  aux_loss: bool = True, fusion_droppath: float = 0.0,
                  use_checkpoint: bool = False, use_transformer_ckpt: bool = False,
-                 msda: Optional[Dict] = None):
+                 msda: Optional[Dict] = None, remat_save_kernels: bool = True):
         """`backbone_cfg`: a SwinConfig or a ResNetConfig, which picks the
         image backbone.  `msda`: the deformable attentions' core-op keywords
         (MSDeformAttn's kernel, sweep_bwd, dec_fused); None keeps the gather
@@ -89,6 +89,7 @@ class GroundingDINO(nn.Module):
             use_text_cross_attention=use_text_cross_attention, max_text_len=max_text_len,
             fusion_droppath=fusion_droppath, use_checkpoint=use_checkpoint,
             use_transformer_ckpt=use_transformer_ckpt, msda=msda,
+            remat_save_kernels=remat_save_kernels,
         )
         self.transformer.decoder.bbox_embed = self.bbox_embed
 
@@ -230,4 +231,5 @@ def build_groundingdino(args, device="cuda") -> GroundingDINO:
             use_checkpoint=use_checkpoint,
             use_transformer_ckpt=bool(getattr(args, "use_transformer_ckpt", False)),
             msda=msda_options(args),
+            remat_save_kernels=bool(getattr(args, "remat_save_kernels", True)),
         ).eval()

@@ -18,11 +18,15 @@ are exact reorderings and are not ported.
 Training: with `use_checkpoint` the fusion blocks, and with
 `use_transformer_ckpt` the deformable encoder layers, run under
 torch.utils.checkpoint (non-reentrant), as the JAX package's nn.remat wraps
-the same blocks (models/transformer.py:520-529).  The fusion blocks'
-stochastic-depth factors are drawn before the checkpointed call and passed
-in, so the replay in the backward applies the same ones.  Plain
-checkpointing replays the kernels (K1 in each encoder layer, K2 in each
-fusion block) where the JAX policy saves their outputs.
+the same blocks (models/transformer.py:505-530).  With `remat_save_kernels`
+(the default, as the JAX package's REMAT_SAVE_KERNELS=1) the checkpoint
+keeps the forward kernels' outputs (ops/library.py
+saving_checkpoint_contexts, the JAX policy `save_only_these_names(
+"msda_out", "fusion_attn_out")`) and recomputes the rest of each block in
+the backward, which replays no kernel; without it every op is recomputed, the
+kernels too (K1 in each encoder layer, K2 in each fusion block).  The fusion
+blocks' stochastic-depth factors are drawn before the checkpointed call and
+passed in, so the recompute applies the same ones.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops import library
 from ..utils.device import device_constant
 from ..utils.misc import inverse_sigmoid
 from .deformable import MSDeformAttn
@@ -199,9 +204,11 @@ class DeformableDecoderLayer(nn.Module):
 class TransformerEncoder(nn.Module):
     def __init__(self, d_model, nhead, num_layers, dim_feedforward, n_levels, n_points,
                  use_fusion_layer, use_text_enhancer, fusion_droppath=0.0,
-                 use_checkpoint=False, use_transformer_ckpt=False, msda=None):
+                 use_checkpoint=False, use_transformer_ckpt=False, msda=None,
+                 remat_save_kernels=True):
         super().__init__()
         self.use_checkpoint, self.use_transformer_ckpt = use_checkpoint, use_transformer_ckpt
+        self.remat_save_kernels = remat_save_kernels
         self.layers = nn.ModuleList(
             DeformableEncoderLayer(d_model, dim_feedforward, n_levels, nhead, n_points, msda)
             for _ in range(num_layers)
@@ -229,7 +236,7 @@ class TransformerEncoder(nn.Module):
                 scales = fusion.draw_drop_scales(src.shape[0], generator, src.device)
                 args = (output, memory_text, key_padding_mask, text_pad, scales)
                 if remat and self.use_checkpoint:
-                    output, memory_text = checkpoint(fusion, *args, use_reentrant=False)
+                    output, memory_text = self._checkpoint(fusion, *args)
                 else:
                     output, memory_text = fusion(*args)
             if len(self.text_layers):
@@ -238,10 +245,18 @@ class TransformerEncoder(nn.Module):
                     text_dict["position_ids"])
             args = (output, pos, reference_points, spatial_shapes, key_padding_mask)
             if remat and self.use_transformer_ckpt:
-                output = checkpoint(layer, *args, use_reentrant=False)
+                output = self._checkpoint(layer, *args)
             else:
                 output = layer(*args)
         return output, memory_text
+
+    def _checkpoint(self, block, *args):
+        """block(*args) under non-reentrant checkpointing, with
+        remat_save_kernels keeping the kernels' outputs."""
+        if self.remat_save_kernels:
+            return checkpoint(block, *args, use_reentrant=False,
+                              context_fn=library.saving_checkpoint_contexts)
+        return checkpoint(block, *args, use_reentrant=False)
 
 
 class TransformerDecoder(nn.Module):
@@ -298,9 +313,11 @@ class Transformer(nn.Module):
                  enc_n_points=4, dec_n_points=4, use_text_enhancer=True,
                  use_fusion_layer=True, use_text_cross_attention=True, max_text_len=256,
                  fusion_droppath=0.0, use_checkpoint=False, use_transformer_ckpt=False,
-                 msda: Optional[Dict] = None):
+                 msda: Optional[Dict] = None, remat_save_kernels: bool = True):
         """`msda`: MSDeformAttn's core-op keywords (kernel, sweep_bwd,
-        dec_fused) for every deformable attention of the encoder and decoder."""
+        dec_fused) for every deformable attention of the encoder and decoder.
+        `remat_save_kernels`: the checkpointed encoder blocks keep the
+        kernels' outputs (see the module docstring)."""
         super().__init__()
         self.d_model, self.num_queries, self.max_text_len = d_model, num_queries, max_text_len
         self.num_feature_levels = num_feature_levels
@@ -308,7 +325,7 @@ class Transformer(nn.Module):
         self.encoder = TransformerEncoder(
             d_model, nhead, num_encoder_layers, dim_feedforward, num_feature_levels,
             enc_n_points, use_fusion_layer, use_text_enhancer, fusion_droppath,
-            use_checkpoint, use_transformer_ckpt, msda)
+            use_checkpoint, use_transformer_ckpt, msda, remat_save_kernels)
         self.decoder = TransformerDecoder(
             d_model, nhead, num_decoder_layers, dim_feedforward, num_feature_levels,
             dec_n_points, use_text_cross_attention, msda)

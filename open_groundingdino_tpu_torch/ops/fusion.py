@@ -40,7 +40,7 @@ from typing import Tuple
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
-from . import build
+from . import build, library
 from .library import fusion_flops, kernel_rows, vjp_on_fresh_thread
 
 HEAD_DIM = 256  # the kernels' one head dim: fusion E = 1024, H = 4
@@ -271,12 +271,14 @@ def fusion_fwd(q: torch.Tensor, k: torch.Tensor, val_v: torch.Tensor, val_l: tor
     f32); on CUDA tensors the kernel, counted on
     fused_bi_attention.launches(_bf16).  Its split partials stay inside.
     Its gradient is K4's op (`fusion_bwd_op`); the statistics carry none."""
-    return _fusion_fwd_cuda(q, k, val_v, val_l, mask_v, mask_l, num_heads)
+    return library.kernel_output("fusion_fwd", _fusion_fwd_cuda, q, k, val_v, val_l, mask_v,
+                                 mask_l, num_heads)
 
 
 @fusion_fwd.register_kernel("cpu")
 def _fusion_fwd_cpu(q, k, val_v, val_l, mask_v, mask_l, num_heads):
-    return fusion_fwd_plain(q, k, val_v, val_l, mask_v, mask_l, num_heads)
+    return library.kernel_output("fusion_fwd", fusion_fwd_plain, q, k, val_v, val_l, mask_v,
+                                 mask_l, num_heads)
 
 
 @fusion_fwd.register_fake

@@ -39,6 +39,20 @@ the smoke's bounds take.
 `custom_ops()` imports the five modules, which registers every op, and
 returns them by name; a program saved by torch.export resolves its ops only
 once they are registered.
+
+`saving_checkpoint_contexts` is the `context_fn` of training's
+checkpointed encoder blocks (models/transformer.py): the forward kernels'
+outputs are kept and everything else is recomputed in the backward, so the
+backward replays no forward kernel (the JAX package's remat policy
+`save_only_these_names("msda_out", "fusion_attn_out")`, its default
+REMAT_SAVE_KERNELS=1).  The forward ops' implementations keep and hand back
+their own outputs (`kernel_output`, `KernelOutputs`), below their
+registered autograd: the recompute rebuilds what each op's autograd saves
+(the value projection, the locations, the softmax) and takes the kernel's
+output from the forward.  torch.utils.checkpoint's selective contexts
+would do the same through a dispatch mode, whose Python call on every op of
+the block cost more host time than the replays cost device time (PERF.md
+§6).
 """
 from __future__ import annotations
 
@@ -145,6 +159,86 @@ def fusion_flops(q: torch.Tensor, k: torch.Tensor, mask_v: torch.Tensor, mask_l:
         products += (3 * union + 2 * nv * ll + 2 * lv * nl) if backward else \
             (union + nv * ll + nl * lv)
     return 2 * E * products
+
+
+# the forward kernels' ops whose outputs the checkpointed blocks keep: every
+# MSDA forward (the JAX package names the banded and the sweep outputs
+# "msda_out") and fusion_fwd's four outputs (out_v, out_l and both softmax
+# statistics are "fusion_attn_out").  The decoder's ops are listed too; the
+# decoder is checkpointed in neither package.
+SAVED_OPS = ("msda_fwd", "fusion_fwd", "banded_fwd", "sweep_fwd", "sweep_fwd_allq",
+             "sweep_fwd_corner")
+_kept = threading.local()   # .stack: the KernelOutputs entered on this thread, innermost last
+
+
+def _tensors(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
+
+
+class KernelOutputs:
+    """The outputs of the forward kernels (SAVED_OPS) of one checkpointed
+    call: kept, in order, while its forward runs (`contexts()[0]`), and
+    handed back in that order while the backward recomputes the call
+    (`contexts()[1]`), so that the recompute launches no forward kernel and
+    rebuilds everything else.  Each op's implementation reaches its kernel
+    through `kernel_output`.  A recompute that reaches another op than the
+    forward did at that place, or a kept output changed in place since,
+    raises."""
+
+    def __init__(self):
+        self.outs: List[tuple] = []   # (op name, its output, the output's tensor versions)
+        self.at: Optional[int] = None   # the next output handed back while replaying
+
+    def contexts(self):
+        """(the forward's context, the recompute's): torch.utils.checkpoint's
+        `context_fn` result."""
+        return _Entered(self, replay=False), _Entered(self, replay=True)
+
+    def run(self, name: str, impl, args):
+        if self.at is None:
+            out = impl(*args)
+            self.outs.append((name, out, tuple(t._version for t in _tensors(out))))
+            return out
+        if self.at >= len(self.outs) or self.outs[self.at][0] != name:
+            raise RuntimeError(f"a checkpointed recompute reached {name} where its forward ran "
+                               f"{self.outs[self.at][0] if self.at < len(self.outs) else 'none'}")
+        _, out, versions = self.outs[self.at]
+        self.at += 1
+        if tuple(t._version for t in _tensors(out)) != versions:
+            raise RuntimeError(f"{name}'s kept output was changed in place before its recompute")
+        return tuple(t.detach() for t in out) if isinstance(out, tuple) else out.detach()
+
+
+class _Entered:
+    """KernelOutputs in force on the thread that enters this (the forward's
+    on the caller's, the recompute's on the backward's)."""
+
+    def __init__(self, kept: KernelOutputs, replay: bool):
+        self.kept, self.replay = kept, replay
+
+    def __enter__(self):
+        self.kept.at = 0 if self.replay else None
+        _kept.__dict__.setdefault("stack", []).append(self.kept)
+
+    def __exit__(self, *exc):
+        _kept.stack.pop()
+        self.kept.at = None
+
+
+def kernel_output(name: str, impl, *args):
+    """impl(*args), the implementation of the forward op `name` (of
+    SAVED_OPS); inside a call checkpointed under saving_checkpoint_contexts
+    its output is kept in the forward and handed back in the recompute."""
+    stack = getattr(_kept, "stack", None)
+    if stack:
+        return stack[-1].run(name, impl, args)
+    return impl(*args)
+
+
+def saving_checkpoint_contexts():
+    """`context_fn` of torch.utils.checkpoint (non-reentrant) that keeps the
+    forward kernels' outputs of the call (a KernelOutputs of its own)."""
+    return KernelOutputs().contexts()
 
 
 def custom_ops() -> Dict[str, object]:

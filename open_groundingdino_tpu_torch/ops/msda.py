@@ -46,7 +46,7 @@ from typing import List, NamedTuple, Sequence, Tuple
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
-from . import build
+from . import build, library
 from .library import (flat_shapes, in_map_corners, is_real, kernel_rows, msda_flops,
                       shape_pairs, vjp_on_fresh_thread)
 
@@ -340,12 +340,14 @@ def msda_fwd(value: torch.Tensor, spatial_shapes: List[int], level_start: List[i
     """K1 as an op (`spatial_shapes` flat, library.flat_shapes): on CUDA
     tensors the kernel, counted on ms_deform_attn.launches(_bf16).  Its
     gradient is K3's op (`msda_bwd`)."""
-    return _msda_fwd_cuda(value, shape_pairs(spatial_shapes), level_start, locs, attn)
+    return library.kernel_output("msda_fwd", _msda_fwd_cuda, value, shape_pairs(spatial_shapes),
+                                 level_start, locs, attn)
 
 
 @msda_fwd.register_kernel("cpu")
 def _msda_fwd_cpu(value, spatial_shapes, level_start, locs, attn):
-    return ms_deform_attn_plain(value, shape_pairs(spatial_shapes), level_start, locs, attn)
+    return library.kernel_output("msda_fwd", ms_deform_attn_plain, value,
+                                 shape_pairs(spatial_shapes), level_start, locs, attn)
 
 
 @msda_fwd.register_fake

@@ -55,7 +55,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
-from . import build, msda
+from . import build, library, msda
 from .library import flat_shapes, is_real, kernel_rows, msda_flops, shape_pairs
 from .msda import level_starts
 from .msda_sweep import (HEAD_DIM, QBLOCK, _count, _cuda_only, _entry, _gather_rows, _to_reference,
@@ -284,14 +284,18 @@ def banded_fwd_op(value: torch.Tensor, spatial_shapes: List[int], px: torch.Tens
     None for raster) are its gradient's: K3's op on (value, locs, attn),
     the JAX custom VJP's native banded backward (`_banded_bwd`).  The
     forward reads only px, py, wa."""
-    return _banded_fwd_cuda(value, shape_pairs(spatial_shapes), px, py, wa)
+    return library.kernel_output("banded_fwd", _banded_fwd_cuda, value,
+                                 shape_pairs(spatial_shapes), px, py, wa)
 
 
 @banded_fwd_op.register_kernel("cpu")
 def _banded_fwd_cpu(value, spatial_shapes, px, py, wa, locs=None, attn=None, order=None):
-    shapes = shape_pairs(spatial_shapes)
-    ranges = tap_band_ranges(py, wa, shapes, level_bands(shapes, BAND))
-    return banded_fwd_plain(value, shapes, px, py, wa, ranges).to(value.dtype)
+    def plain(value, shapes, px, py, wa):
+        ranges = tap_band_ranges(py, wa, shapes, level_bands(shapes, BAND))
+        return banded_fwd_plain(value, shapes, px, py, wa, ranges).to(value.dtype)
+
+    return library.kernel_output("banded_fwd", plain, value, shape_pairs(spatial_shapes), px, py,
+                                 wa)
 
 
 @banded_fwd_op.register_fake

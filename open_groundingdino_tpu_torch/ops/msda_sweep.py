@@ -77,7 +77,7 @@ from typing import List, Sequence, Tuple
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
-from . import build, msda
+from . import build, library, msda
 from .library import flat_shapes, is_real, kernel_rows, msda_flops, shape_pairs
 from .msda import level_starts
 
@@ -353,11 +353,13 @@ def _count(wrapper, value: torch.Tensor) -> None:
         wrapper.launches += 1
 
 
-def _rowtap_fwd(entry, what, value, spatial_shapes, row, px, w):
+def _rowtap_fwd(entry, wrapper, value, spatial_shapes, row, px, w):
     """Launch K6 or K7 (the C entry `entry` of csrc/msda_rowtap_fwd.cu, its
-    f32 or bf16 one by value's dtype) on the row taps: one kernel block per
-    (b*h, tile of queries), the tile chosen as K1's (msda.msda_fwd_tile).
-    The output is in value's dtype."""
+    f32 or bf16 one by value's dtype) on the row taps, counted on
+    `wrapper` (sweep_fwd or sweep_fwd_allq): one kernel block per (b*h,
+    tile of queries), the tile chosen as K1's (msda.msda_fwd_tile).  The
+    output is in value's dtype."""
+    what = wrapper.__name__
     B, L, H, R, Q_pad = _check(value, px, w, what, row=row)
     NL, P = _check_gather(value, None, spatial_shapes, R, 2, what)
     out = torch.empty(B * H, Q_pad, HEAD_DIM, dtype=value.dtype, device=value.device)
@@ -369,6 +371,7 @@ def _rowtap_fwd(entry, what, value, spatial_shapes, row, px, w):
              B, L, H, Q_pad, NL, P, msda.msda_fwd_tile(B, Q_pad, H),
              torch.cuda.current_stream(value.device).cuda_stream)
     build.check(err, entry)
+    _count(wrapper, value)
     return out
 
 
@@ -387,10 +390,8 @@ def sweep_fwd_op(value: torch.Tensor, spatial_shapes: List[int], row: torch.Tens
     counted on sweep_fwd.launches(_bf16).  `bwd` names its gradient's
     kernel: K9 on the corner taps of these row taps ("corner") or K10 on
     them ("rowtap"); the forward does not read it."""
-    out = _rowtap_fwd("msda_rowtap_fwd", "sweep_fwd", value, shape_pairs(spatial_shapes),
-                      row, px, w)
-    _count(sweep_fwd, value)
-    return out
+    return library.kernel_output("sweep_fwd", _rowtap_fwd, "msda_rowtap_fwd", sweep_fwd, value,
+                                 shape_pairs(spatial_shapes), row, px, w)
 
 
 @torch.library.custom_op("ogd_torch::sweep_fwd_allq", mutates_args=(), device_types="cuda")
@@ -398,14 +399,20 @@ def sweep_fwd_allq_op(value: torch.Tensor, spatial_shapes: List[int], row: torch
                       px: torch.Tensor, w: torch.Tensor, bwd: str = "corner") -> torch.Tensor:
     """K7 as an op: on CUDA tensors the kernel, counted on
     sweep_fwd_allq.launches(_bf16); its gradient is sweep_fwd_op's."""
-    out = _rowtap_fwd("msda_sweep_fwd_allq", "sweep_fwd_allq", value,
-                      shape_pairs(spatial_shapes), row, px, w)
-    _count(sweep_fwd_allq, value)
-    return out
+    return library.kernel_output("sweep_fwd_allq", _rowtap_fwd, "msda_sweep_fwd_allq",
+                                 sweep_fwd_allq, value, shape_pairs(spatial_shapes), row, px, w)
 
 
-def _rowtap_fwd_cpu(value, spatial_shapes, row, px, w, bwd="corner"):
+def _rowtap_fwd_plain(value, row, px, w):
     return sweep_fwd_plain(value, row, px, w).to(value.dtype)
+
+
+def _sweep_fwd_cpu(value, spatial_shapes, row, px, w, bwd="corner"):
+    return library.kernel_output("sweep_fwd", _rowtap_fwd_plain, value, row, px, w)
+
+
+def _sweep_fwd_allq_cpu(value, spatial_shapes, row, px, w, bwd="corner"):
+    return library.kernel_output("sweep_fwd_allq", _rowtap_fwd_plain, value, row, px, w)
 
 
 def _rowtap_fwd_fake(value, spatial_shapes, row, px, w, bwd="corner"):
@@ -458,12 +465,17 @@ def sweep_fwd_corner_op(value: torch.Tensor, spatial_shapes: List[int], idx: tor
     """K8 as an op: on CUDA tensors the kernel, counted on
     sweep_fwd_corner.launches(_bf16).  Its gradient is K9's op on the same
     corner taps."""
-    return _sweep_fwd_corner_cuda(value, shape_pairs(spatial_shapes), idx, w)
+    return library.kernel_output("sweep_fwd_corner", _sweep_fwd_corner_cuda, value,
+                                 shape_pairs(spatial_shapes), idx, w)
+
+
+def _corner_fwd_plain(value, idx, w):
+    return sweep_fwd_corner_plain(value, idx, w).to(value.dtype)
 
 
 @sweep_fwd_corner_op.register_kernel("cpu")
 def _sweep_fwd_corner_cpu(value, spatial_shapes, idx, w):
-    return sweep_fwd_corner_plain(value, idx, w).to(value.dtype)
+    return library.kernel_output("sweep_fwd_corner", _corner_fwd_plain, value, idx, w)
 
 
 @sweep_fwd_corner_op.register_fake
@@ -684,8 +696,8 @@ def _corner_fwd_backward(ctx, grad_out):
     return gv, None, None, gw
 
 
-for _op in (sweep_fwd_op, sweep_fwd_allq_op):
-    _op.register_kernel("cpu")(_rowtap_fwd_cpu)
+for _op, _cpu in ((sweep_fwd_op, _sweep_fwd_cpu), (sweep_fwd_allq_op, _sweep_fwd_allq_cpu)):
+    _op.register_kernel("cpu")(_cpu)
     _op.register_fake(_rowtap_fwd_fake)
     _op.register_autograd(_rowtap_backward, setup_context=_rowtap_setup)
 sweep_fwd_corner_op.register_autograd(_corner_fwd_backward, setup_context=_corner_fwd_setup)

@@ -18,6 +18,13 @@ schedule's f32 values, `Schedule.table`) are computed from it there, and a
 step whose gradients are not finite keeps the parameters, both moments and
 the count, as the JAX package masks the optax state
 (parallel/train_state.py:119-151).
+
+Each group's gradients and moments are one f32 buffer (the JAX package's
+OPT_FLAT=1 layout, without its clip over the non-frozen groups only), so an
+update is a number of device operations that does not grow with the number
+of parameter tensors but for the batched copies into and out of the
+buffers; the guard's norm (`safe_global_norm`) is a few multi-tensor
+operations over the whole list.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ from typing import Callable, Dict, Iterable, List, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 BACKBONE_KEYS = ("backbone", "bert")
 LINEAR_PROJ_KEYS = ("ref_point_head", "sampling_offsets")
@@ -41,13 +49,14 @@ def host_copy(t: torch.Tensor) -> torch.Tensor:
 def safe_global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """Overflow-safe global L2 norm: rescale by the global max |x| before the
     sum of squares (at a fresh random init single gradients can reach ~1e19,
-    whose f32 squares overflow)."""
+    whose f32 squares overflow).  Each pass is one multi-tensor operation
+    over the list, so its launches do not grow with the number of tensors."""
     tensors = [t.float() for t in tensors]
     if not tensors:
         return torch.zeros(())
-    gmax = torch.stack([t.abs().max() for t in tensors]).max().clamp(min=1e-30)
-    ssq = torch.stack([((t / gmax) ** 2).sum() for t in tensors]).sum()
-    return gmax * torch.sqrt(ssq)
+    gmax = torch.stack(torch._foreach_norm(tensors, float("inf"))).max().clamp(min=1e-30)
+    norms = torch.stack(torch._foreach_norm(torch._foreach_div(tensors, gmax), 2.0))
+    return gmax * torch.sqrt((norms * norms).sum())
 
 
 def clip_scale(norm: float, max_norm: float) -> float:
@@ -77,12 +86,24 @@ def label_params(named_params: Iterable[Tuple[str, torch.Tensor]],
 
 
 class GroupedAdamW:
-    """AdamW over the parameter groups above.  `step(grads, norm, finite)`
-    clips by the given global norm, then updates every non-frozen parameter
-    in place, on the device, where `finite` holds.  Its moments live in `m` and `v`, its update
-    count in `count` (optax's ScaleByAdamState.count, a device int64 tensor;
-    the schedule reads the count before the step).  `lr` is a Schedule of
-    this module (make_optimizer wraps a float)."""
+    """AdamW over the parameter groups above, on one f32 buffer a group (the
+    layout of the JAX package's OPT_FLAT=1 `_flat_grouped_adamw`,
+    parallel/optim.py:152-275, with optax's clip).  `step(grads, norm,
+    finite)` clips by the given global norm, then updates every non-frozen
+    parameter in place, on the device, where `finite` holds: each group's
+    gradients are copied into one buffer (one `torch.cat`), the clip, the
+    moments and the update are a fixed number of operations on the group's
+    buffers, and the update reaches the parameters through one
+    `_foreach_add_` over the buffer's split, so the number of operations of
+    an update does not grow with the number of parameter tensors.  The
+    parameters stay tensors of their own.
+
+    `m` and `v` (the moments, by parameter) are views of the group buffers
+    in each parameter's shape, frozen parameters' zeros of their own that
+    never change; `count` is the update count (optax's
+    ScaleByAdamState.count, a device int64 tensor; the schedule reads the
+    count before the step).  `lr` is a Schedule of this module
+    (make_optimizer wraps a float)."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
                  lr: "Schedule", base_lr: float, lr_backbone: float,
@@ -104,11 +125,26 @@ class GroupedAdamW:
         for i, n in enumerate(self.names):
             if self.labels[n] != "frozen":
                 self.groups[self.labels[n]].append(i)
-        self.m = [torch.zeros_like(p) for p in self.params]
-        self.v = [torch.zeros_like(p) for p in self.params]
+        self.groups = {g: idx for g, idx in self.groups.items() if idx}
+        # {group: (its first moment's buffer, its second's)}, f32
+        self.buffers = {g: tuple(torch.zeros(sum(self.params[i].numel() for i in idx),
+                                             dtype=torch.float32, device=self.params[idx[0]].device)
+                                 for _ in range(2))
+                        for g, idx in self.groups.items()}
+        self.m, self.v = self._moment_views(0), self._moment_views(1)
         self.count = torch.zeros((), dtype=torch.int64,
                                  device=self.params[0].device if self.params else "cpu")
         self._lr_table = None   # (starts, f32 values) of `lr` on the parameters' device
+
+    def _moment_views(self, k: int) -> List[torch.Tensor]:
+        """Moment k of each parameter: a view of its group's buffer, or for a
+        frozen parameter zeros of its own."""
+        views = {}
+        for g, idx in self.groups.items():
+            views.update(zip(idx, _unflatten_dense_tensors(
+                self.buffers[g][k], [self.params[i] for i in idx])))
+        return [views[i] if i in views else torch.zeros_like(p)
+                for i, p in enumerate(self.params)]
 
     def state_dict(self) -> Dict:
         """{"m": {name: first moment}, "v": {name: second moment}, "count"}:
@@ -129,6 +165,22 @@ class GroupedAdamW:
         self.count = torch.tensor(int(state["count"]), dtype=torch.int64,
                                   device=self.params[0].device if self.params else "cpu")
 
+    def _schedule(self, norm, finite):
+        """The device scalars of one update: (finite, lr, bias corrections
+        bc1 and bc2, the first and second moments' decays, the clip scale
+        by `norm`), the decays 1 and the clip scale 1 where not finite;
+        `count` becomes a device tensor if it was a host number."""
+        dev = self.params[0].device
+        norm = torch.as_tensor(norm, dtype=torch.float32, device=dev)
+        finite = torch.as_tensor(finite, dtype=torch.bool, device=dev)
+        count = torch.as_tensor(self.count, dtype=torch.int64, device=dev)
+        self.count = count
+        t = (count + 1).to(torch.float32)
+        scale = torch.where(finite, (self.clip_max_norm / norm.clamp(min=1e-30)).clamp(max=1.0), 1.0)
+        return (finite, self.lr_at(count), 1.0 - torch.pow(self.b1, t),
+                1.0 - torch.pow(self.b2, t), torch.where(finite, self.b1, 1.0),
+                torch.where(finite, self.b2, 1.0), scale)
+
     def lr_at(self, count: torch.Tensor) -> torch.Tensor:
         """The schedule's f32 value at a device count, looked up there."""
         if self._lr_table is None or self._lr_table[0].device != count.device:
@@ -141,44 +193,32 @@ class GroupedAdamW:
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor], norm, finite) -> None:
-        """One update with no host read.  `norm`: the gradients' global norm;
-        `finite`: whether the step is taken (the train step's guard: the loss
-        and the norm finite); each a device tensor, or a host number.  Where
-        `finite` is False the gradients are taken as zero (by torch.where:
-        NaN * 0 is NaN), the moments and the count keep their values and the
-        parameters do not move: the decays act as 1, the step size as 0."""
-        dev = self.params[0].device
-        norm = torch.as_tensor(norm, dtype=torch.float32, device=dev)
-        finite = torch.as_tensor(finite, dtype=torch.bool, device=dev)
-        count = torch.as_tensor(self.count, dtype=torch.int64, device=dev)
-        lr = self.lr_at(count)
-        t = (count + 1).to(torch.float32)
-        bc1 = 1.0 - torch.pow(self.b1, t)
-        bc2 = 1.0 - torch.pow(self.b2, t)
-        scale = torch.where(finite, (self.clip_max_norm / norm.clamp(min=1e-30)).clamp(max=1.0), 1.0)
-        b1 = torch.where(finite, self.b1, 1.0)
-        b2 = torch.where(finite, self.b2, 1.0)
+        """One update with no host read.  `grads`: a gradient of each
+        parameter; `norm`: their global norm, frozen ones included (the clip
+        norm, optax's); `finite`: whether the step is taken (the train
+        step's guard: the loss and the norm finite); each a device tensor,
+        or a host number.  Where `finite` is False the gradients are taken
+        as zero (by torch.where: NaN * 0 is NaN), the moments and the count
+        keep their values and the parameters do not move: the decays act as
+        1, the step size as 0."""
+        finite, lr, bc1, bc2, b1, b2, scale = self._schedule(norm, finite)
         for group, idx in self.groups.items():
-            if not idx:
-                continue
-            g = [torch.where(finite, grads[i], 0.0) for i in idx]
-            torch._foreach_mul_(g, scale)
-            p = [self.params[i] for i in idx]
-            m = [self.m[i] for i in idx]
-            v = [self.v[i] for i in idx]
-            torch._foreach_mul_(m, b1)
-            torch._foreach_add_(m, g, alpha=1.0 - self.b1)
-            torch._foreach_mul_(v, b2)
-            torch._foreach_add_(v, torch._foreach_mul(g, g), alpha=1.0 - self.b2)
-            upd = torch._foreach_div(m, bc1)
-            den = torch._foreach_div(v, bc2)
-            torch._foreach_sqrt_(den)
-            torch._foreach_add_(den, self.eps)
-            torch._foreach_div_(upd, den)
-            torch._foreach_add_(upd, p, alpha=self.weight_decay)
-            torch._foreach_mul_(upd, torch.where(finite, -(lr * self.mults[group]), 0.0))
-            torch._foreach_add_(p, upd)
-        self.count = torch.where(finite, count + 1, count)
+            params = [self.params[i] for i in idx]
+            m, v = self.buffers[group]
+            g = torch.where(finite, _flatten_dense_tensors([grads[i] for i in idx]).float(), 0.0)
+            g.mul_(scale)
+            m.mul_(b1)
+            m.add_(g, alpha=1.0 - self.b1)
+            v.mul_(b2)
+            v.add_(g * g, alpha=1.0 - self.b2)
+            upd = m / bc1
+            den = (v / bc2).sqrt_()
+            den.add_(self.eps)
+            upd.div_(den)
+            upd.add_(_flatten_dense_tensors(params), alpha=self.weight_decay)
+            upd.mul_(torch.where(finite, -(lr * self.mults[group]), 0.0))
+            torch._foreach_add_(params, _unflatten_dense_tensors(upd, params))
+        self.count = torch.where(finite, self.count + 1, self.count)
 
 
 def make_optimizer(model: torch.nn.Module, lr, base_lr: float, lr_backbone: float,

@@ -68,6 +68,7 @@ def run(args) -> Dict:
     if args.pairs < 2:
         raise SystemExit("step_ab needs --pairs 2 or more")
     roots = {"change": ROOT, "parent": os.path.abspath(args.other)}
+    args.out = os.path.abspath(args.out)   # each run's working directory is its checkout
     runs = {"change": [], "parent": []}
     for i in range(args.pairs):
         order = ("parent", "change") if i % 2 == 0 else ("change", "parent")

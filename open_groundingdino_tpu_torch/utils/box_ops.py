@@ -1,7 +1,10 @@
 """Box utilities (reference util/box_ops.py; the port's counterpart of the
 JAX package's utils/box_ops.py): cxcywh<->xyxy conversions, pairwise and
-elementwise IoU and generalized IoU, broadcast over leading dims."""
+elementwise IoU and generalized IoU, broadcast over leading dims; the
+reference's CIoU and DIoU losses."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -66,3 +69,45 @@ def generalized_box_iou_elementwise(boxes1: torch.Tensor, boxes2: torch.Tensor) 
     wh = (rb - lt).clamp(min=0)
     area = wh[..., 0] * wh[..., 1]
     return iou - (area - union) / area
+
+
+def _sigmoid_boxes(bboxes1: torch.Tensor, bboxes2: torch.Tensor):
+    """The CIoU/DIoU terms of raw (N, 4) box parameters under the
+    reference's parameterization (sigmoid, then widths and heights exp'd
+    from the sigmoided values): (iou, inter_diag / c_diag, w1, h1, w2, h2)."""
+    b1, b2 = bboxes1.float().sigmoid(), bboxes2.float().sigmoid()
+    w1, h1 = torch.exp(b1[:, 2]), torch.exp(b1[:, 3])
+    w2, h2 = torch.exp(b2[:, 2]), torch.exp(b2[:, 3])
+    cx1, cy1, cx2, cy2 = b1[:, 0], b1[:, 1], b2[:, 0], b2[:, 1]
+    inter_w = (torch.minimum(cx1 + w1 / 2, cx2 + w2 / 2)
+               - torch.maximum(cx1 - w1 / 2, cx2 - w2 / 2)).clamp(min=0)
+    inter_h = (torch.minimum(cy1 + h1 / 2, cy2 + h2 / 2)
+               - torch.maximum(cy1 - h1 / 2, cy2 - h2 / 2)).clamp(min=0)
+    inter = inter_w * inter_h
+    c_w = (torch.maximum(cx1 + w1 / 2, cx2 + w2 / 2)
+           - torch.minimum(cx1 - w1 / 2, cx2 - w2 / 2)).clamp(min=0)
+    c_h = (torch.maximum(cy1 + h1 / 2, cy2 + h2 / 2)
+           - torch.minimum(cy1 - h1 / 2, cy2 - h2 / 2)).clamp(min=0)
+    inter_diag = (cx2 - cx1) ** 2 + (cy2 - cy1) ** 2
+    c_diag = c_w ** 2 + c_h ** 2
+    union = w1 * h1 + w2 * h2 - inter
+    return inter / union, inter_diag / c_diag, w1, h1, w2, h2
+
+
+def ciou_loss(bboxes1: torch.Tensor, bboxes2: torch.Tensor) -> torch.Tensor:
+    """Complete-IoU loss, 1 - CIoU, elementwise over matched pairs (N, 4) ->
+    (N,) (reference util/box_loss.py:7-57, the JAX package's ciou_loss): raw
+    box parameters through the reference's sigmoid/exp parameterization; the
+    trade-off weight alpha carries no gradient, as the JAX package's
+    stop_gradient.  No shipped config uses it (the box loss is L1 + GIoU)."""
+    iou, u, w1, h1, w2, h2 = _sigmoid_boxes(bboxes1, bboxes2)
+    v = (4 / math.pi ** 2) * (torch.atan(w2 / h2) - torch.atan(w1 / h1)) ** 2
+    alpha = torch.where(iou > 0.5, v / (1 - iou + v), 0.0).detach()
+    return 1 - (iou - u - alpha * v).clamp(-1.0, 1.0)
+
+
+def diou_loss(bboxes1: torch.Tensor, bboxes2: torch.Tensor) -> torch.Tensor:
+    """Distance-IoU loss, 1 - DIoU (reference util/box_loss.py:59-111, the
+    JAX package's diou_loss); the parameterization of ciou_loss."""
+    iou, u, *_ = _sigmoid_boxes(bboxes1, bboxes2)
+    return 1 - (iou - u).clamp(-1.0, 1.0)
